@@ -10,27 +10,45 @@ Phases, one line each (or a few):
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with one nvcc
    per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card at the main path's shapes (M in {decode batch, admission
-   prompt, batch x prompt}, (K, N) the projections of qwen3-0.6b), plus
-   a sweep over (n, t); results must be bit-equal.  Prints the kernel's
-   time, the plain version's, the bound (the larger of the bytes at
-   3.35 TB/s and the operations at their rate: table lookups at the
-   shared-memory rate, the least integer operations of the recurrence at
-   the SMs' int32 issue rate, lane products on the int8 tensor cores) and
-   one torch.matmul on the dequantized f32 operands, a yardstick the port
-   never calls;
+   the card at the main path's shapes.  GEMMs: M in {decode batch,
+   admission prompt, batch x prompt}, (K, N) the projections of
+   qwen3-0.6b, plus a sweep over (n, t); the integer GEMMs must be
+   bit-equal, lowrank_matmul within 2e-6 * max|want|.  Attention: the
+   serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
+   prefill q (4, 32) over a 48-slot cache with a masked tail, key block
+   16; decode batch 4 over 48 slots), a window + softcap case each, and
+   one long shape each; flash_attention and flash_decode within 2e-5,
+   approx_attention within one probability quantum (max|v| / 255) and
+   1e-5 for 99% of the outputs, with the bit-equal share printed.
+   Timed rows print the kernel's time, the plain version's, the bound
+   (the larger of the bytes at 3.35 TB/s and the operations at their
+   rate: table lookups at the shared-memory rate, the least integer
+   operations of the recurrence at the SMs' int32 issue rate, int8
+   tensor-core products, float32 FLOPs on the CUDA cores; for attention
+   counted over the query-slot pairs and the K/V slots this run's
+   positions need, masked pairs adding nothing) and one PyTorch
+   call that computes the same function, a yardstick the port never calls
+   (torch.matmul for the GEMMs, scaled_dot_product_attention for
+   flash_attention and flash_decode; none exists for approx_attention);
 4. reference: ``engine.matmul`` on the card against the CPU reference
-   bodies at a small shape (bit-equal), and reduced qwen3-0.6b prefill
-   logits, exact and bitexact, on the card against the CPU (float32,
-   rtol/atol 1e-4: sums run in another order);
+   bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
+   and reduced qwen3-0.6b prefill logits on the card against the CPU
+   (float32, rtol/atol 1e-4: sums run in another order): exact and
+   bitexact, each with ``attn_impl`` "xla" and "pallas" (bitexact under
+   pallas with the attention contractions approximated too);
 5. serve: the continuous scheduler on full-width qwen3-0.6b (28 layers,
    d_model 1024, vocab 151936, bf16, weights from a seed) at tier
    ``exact`` (no kernel: the yardstick), tier ``balanced`` (lut_matmul),
    tier ``draft`` (packed_matmul) and ``--approx-mode seqmul``
-   (seqmul_matmul).  Every launch count is set to 0 just before each run
-   and read just after.  After each run, one pool prefill and one decode
-   step give the launches and host time per step, and a profiler pass
-   over three decode steps the device's busy share;
+   (seqmul_matmul); then with ``attn_impl="pallas"`` at tier ``exact``
+   (flash_attention, flash_decode), tier ``balanced`` (adds
+   approx_attention_bitexact and lut_matmul) and ``lowrank`` on mlp and
+   attn (lowrank_matmul, approx_attention_lowrank, flash_decode); four
+   batches of requests per run (two for seqmul).  Every launch count is
+   set to 0 just before each run and read just after.
+   After each run, one pool prefill and one decode step give the
+   launches and host time per step, and a profiler pass over three
+   decode steps the device's busy share;
 6. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
@@ -40,6 +58,7 @@ a machine without CUDA, or a directory without the repository's ``src``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -53,11 +72,33 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 SMEM_LOOKUPS_PER_CLK_PER_SM = 32  # 32 banks, one 4-byte word each per clock
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (NVIDIA data sheet)
+F32_LANES_PER_CLK_PER_SM = 128  # Hopper SM: 4 partitions x 32 FP32 lanes, one FMA each
 
 # qwen3-0.6b projections (K, N): q, k/v, o, mlp up/gate, mlp down
 PROJECTIONS = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
-SERVE = dict(requests=8, batch=4, prompt=32, gen=16)
+SERVE = dict(requests=16, batch=4, prompt=32, gen=16)  # four batches per run
 MAIN_SHAPE = (SERVE["batch"] * SERVE["prompt"], 1024, 3072)  # reported in the JSON
+# qwen3-0.6b attention: query heads, KV heads, head width; the serve cache length
+HEADS, KV_HEADS, HEAD_DIM = 16, 8, 128
+CACHE = SERVE["prompt"] + SERVE["gen"]
+GEMM_KERNELS = ("lut_matmul", "seqmul_matmul", "packed_matmul", "lowrank_matmul")
+ATTN_KERNELS = ("flash_attention", "flash_decode", "approx_attention_bitexact",
+                "approx_attention_lowrank")
+REPLACES = {
+    "lut_matmul": "src/repro/kernels/lut_matmul.py:30",
+    "seqmul_matmul": "src/repro/kernels/seqmul_matmul.py:53",
+    "packed_matmul": "src/repro/kernels/packed_matmul.py:64",
+    "lowrank_matmul": "src/repro/kernels/lowrank_matmul.py:33",
+    "flash_attention": "src/repro/kernels/flash_attention.py:57",
+    "flash_decode": "src/repro/kernels/flash_attention.py:296",
+    "approx_attention_bitexact": "src/repro/kernels/approx_attention.py:184",
+    "approx_attention_lowrank": "src/repro/kernels/approx_attention.py:171",
+}
+SOURCES = {
+    "flash_decode": "flash_attention",
+    "approx_attention_bitexact": "approx_attention",
+    "approx_attention_lowrank": "approx_attention",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -105,10 +146,15 @@ class Card:
         self.clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
         self.int32_ops_per_s = INT32_OPS_PER_CLK_PER_SM * self.sms * self.clock_hz
         self.lookups_per_s = SMEM_LOOKUPS_PER_CLK_PER_SM * self.sms * self.clock_hz
+        self.f32_flops_per_s = 2 * F32_LANES_PER_CLK_PER_SM * self.sms * self.clock_hz
 
     def bound(self, nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-        return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+        return self.bound_s(nbytes, ops / ops_per_s)
+
+    def bound_s(self, nbytes: float, ops_s: float) -> tuple[float, str]:
+        """The larger of the bytes' time and ``ops_s``, the operations' time."""
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return (max(t_bytes, ops_s) * 1e3, "bytes" if t_bytes >= ops_s else "operations")
 
 
 def seqmul_ops_per_product(n: int) -> int:
@@ -148,6 +194,9 @@ def kernel_cases():
         cases.append(("seqmul_matmul", m, 3072, 1024, 12, 5))
     cases.append(("packed_matmul", SERVE["batch"], 3072, 1024, 15, 1))
     cases.append(("packed_matmul", SERVE["batch"] * SERVE["prompt"], 1024, 3072, 12, 1))
+    for m in ms:
+        for k, n in PROJECTIONS:
+            cases.append(("lowrank_matmul", m, k, n, 8, 4))
     return cases
 
 
@@ -155,12 +204,32 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
     import torch
 
     from repro_torch.engine import artifacts
+    from repro_torch.kernels import lowrank_matmul as lr
     from repro_torch.kernels import lut_matmul as lm
     from repro_torch.kernels import packed_matmul as pm
     from repro_torch.kernels import seqmul_matmul as sm
 
     _, _, mx, sx, mw, sw, scale = operands(m, k, n, bits, seed)
-    if name == "lut_matmul":
+    library = None
+    if name == "lowrank_matmul":
+        u, v, _ = artifacts.svd_factors(bits, t, 8, True, mx.device)
+        a, b = mx.to(torch.uint8), mw.to(torch.uint8)
+        kern = lambda: lr.lowrank_matmul(u, v, a, sx, b, sw, n=bits)
+        plain = lambda: lr.lowrank_matmul_plain(u, v, a, sx, b, sw, n=bits)
+        rank = u.shape[1]
+        nbytes = 2 * u.numel() * 4 + 2 * m * k + 2 * k * n + 4 * m * n
+        # the least time: the integer part on the int8 tensor cores (a
+        # multiply and an add per product), the correction in float32
+        ops_s = 2 * m * k * n / INT8_TENSOR_OPS_PER_S + 2 * m * k * n * rank / card.f32_flops_per_s
+        bound = card.bound_s(nbytes, ops_s)
+        # one torch.matmul of [A | Ue'] @ [B ; Ve'], concatenated outside the timing
+        sxf, swf = sx.to(torch.float32), sw.to(torch.float32)
+        lhs = torch.cat([mx.to(torch.float32) * sxf,
+                         (u[mx.long()] * sxf[..., None]).reshape(m, k * rank)], dim=1)
+        rhs = torch.cat([mw.to(torch.float32) * swf,
+                         (v[mw.long()] * swf[..., None]).permute(0, 2, 1).reshape(k * rank, n)])
+        library = lambda: torch.matmul(lhs, rhs)
+    elif name == "lut_matmul":
         lut = artifacts.product_lut_u16(bits, t, True, mx.device)
         a, b = mx.to(torch.uint8), mw.to(torch.uint8)
         kern = lambda: lm.lut_matmul(lut, a, sx, b, sw, n=bits)
@@ -187,16 +256,23 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
     want = plain()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    check(torch.equal(got, want),
-          f"{name} M={m} K={k} N={n} n={bits} t={t}: kernel != plain (max |err| {err})")
+    where = f"{name} M={m} K={k} N={n} n={bits} t={t}"
+    if name == "lowrank_matmul":
+        # the float32 correction is summed in another order
+        limit = 2e-6 * want.abs().max().item()
+        check(err <= limit, f"{where}: kernel vs plain max |err| {err} over {limit}")
+    else:
+        check(torch.equal(got, want), f"{where}: kernel != plain (max |err| {err})")
     row = dict(name=name, shape=[m, k, n], n=bits, t=t, max_abs_err=err,
                bound_ms=bound[0], bound_by=bound[1])
     if timed:
-        # the dequantized operands (the joint scale folded into the left one)
-        xq, wq = (mx * sx).to(torch.float32) * scale, (mw * sw).to(torch.float32)
+        if library is None:
+            # the dequantized operands (the joint scale folded into the left one)
+            xq, wq = (mx * sx).to(torch.float32) * scale, (mw * sw).to(torch.float32)
+            library = lambda: torch.matmul(xq, wq)
         row["ms"] = cuda_ms(kern, reps=20, warmup=2)
         row["plain_ms"] = cuda_ms(plain, reps=2)
-        row["library_ms"] = cuda_ms(lambda: torch.matmul(xq, wq), reps=20, warmup=2)
+        row["library_ms"] = cuda_ms(library, reps=20, warmup=2)
     return row
 
 
@@ -210,9 +286,169 @@ def phase_kernels(card: Card) -> list:
             f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} "
             f"library_ms {row['library_ms']:.4f}" if "ms" in row else ""
         )
-        print(f"kernel {name} M={m} K={k} N={n} n={bits} t={t}: bit-equal{times} "
+        agree = "bit-equal" if row["max_abs_err"] == 0 else f"max |err| {row['max_abs_err']:.3e}"
+        print(f"kernel {name} M={m} K={k} N={n} n={bits} t={t}: {agree}{times} "
               f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
     return rows
+
+
+# ----------------------------------------------------------- attention
+def attention_cases():
+    """(kernel, label, B, S, T, bk, window, softcap, timed): the serve shapes
+    (prefill q (B, 32) over the 48-slot cache, decode over it), a window +
+    softcap variant of each, and one long shape each."""
+    b, p = SERVE["batch"], SERVE["prompt"]
+    cases = []
+    for name in ATTN_KERNELS:
+        s = 1 if name == "flash_decode" else p
+        bk = {"flash_decode": None, "flash_attention": None}.get(name, 16)
+        cases.append((name, "serve", b, s, CACHE, bk, None, None, True))
+        cases.append((name, "window+softcap", b, s, CACHE, bk, 16, 30.0, False))
+    cases.append(("flash_attention", "long", 1, 1024, 1024, None, None, None, True))
+    cases.append(("flash_decode", "long", 4, 1, 4096, None, None, None, True))
+    cases.append(("approx_attention_bitexact", "long", 1, 1024, 1024, 64, None, None, True))
+    cases.append(("approx_attention_lowrank", "long", 1, 1024, 1024, 128, None, None, True))
+    return cases
+
+
+def attention_inputs(b, s, t, seed):
+    """bf16 q/k/v and positions.  Prefill over a cache (t > s): row 1 is
+    left-padded by 5, every row's slots past its prompt are an unwritten
+    (masked) tail.  Decode: row i has written t - 16 + 4i slots (32-44 of
+    the 48 at the serve shape, a nearly full cache at the long one).
+    Long prefill: no cache, positions 0..t-1."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, t, KV_HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, t, KV_HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
+    q_pos, k_pos = positions(b, s, t)
+    return q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32)
+
+
+def positions(b, s, t):
+    import torch
+
+    jj = torch.arange(t, device="cuda").expand(b, t)
+    if s == t:
+        return jj[:, :s].clone(), jj.clone()
+    if s == 1:
+        written = t - 16 + 4 * torch.arange(b, device="cuda")[:, None]
+        return written[:, 0] - 1, torch.where(jj < written, jj, -1)
+    pad = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+    pad[1] = 5
+    q_pos = torch.arange(s, device="cuda").expand(b, s) - pad
+    return q_pos, torch.where((jj >= pad) & (jj < s), jj - pad, -1)
+
+
+def run_attention_case(card: Card, case, seed):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import approx_attention as aa
+    from repro_torch.kernels import flash_attention as fa
+
+    name, label, b, s, t, bk, window, softcap, timed = case
+    q, k, v, q_pos, k_pos = attention_inputs(b, s, t, seed)
+    scale = HEAD_DIM**-0.5
+    hd, h, kv = HEAD_DIM, HEADS, KV_HEADS
+    # The work this run's data needs: a query row reads the slots it may
+    # attend (a masked slot adds exactly 0); a row with none, a left pad,
+    # averages every slot.  pairs: (query head, slot) pairs; slots: the
+    # (row, slot) pairs whose K and V some query reads.
+    allow = fa.allow_mask(q_pos.reshape(b, s), k_pos, causal=True, window=window)
+    needed = allow | ~allow.any(-1, keepdim=True)
+    pairs = h * needed.sum().item()
+    slots = needed.any(1).sum().item()
+    # per needed slot, K and V of every KV head: bf16, or a magnitude and a
+    # sign byte each for bitexact (2 bytes per element either way)
+    kv_bytes = 2 * 2 * kv * hd * slots
+    # positions read once, the f32 output written once
+    io_bytes = 4 * (q_pos.numel() + k_pos.numel()) + 4 * q.numel()
+    library = None
+    if name == "flash_decode":
+        kw = dict(window=window, softcap=softcap, scale=scale)
+        kern = lambda: fa.flash_decode(q[:, 0], k, v, q_pos, k_pos, **kw)
+        plain = lambda: fa.flash_decode_plain(q[:, 0], k, v, q_pos, k_pos, **kw)
+        bound = card.bound(2 * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
+                           card.f32_flops_per_s)
+    elif name == "flash_attention":
+        kw = dict(causal=True, window=window, softcap=softcap, scale=scale)
+        kern = lambda: fa.flash_attention(q, k, v, q_pos, k_pos, **kw)
+        plain = lambda: fa.flash_attention_plain(q, k, v, q_pos, k_pos, **kw)
+        bound = card.bound(2 * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
+                           card.f32_flops_per_s)
+    else:
+        mode = name.rsplit("_", 1)[1]
+        kw = dict(mode=mode, n=8, t=4, rank=8, causal=True, window=window, softcap=softcap,
+                  scale=scale, bk=bk)
+        wrapper = lambda: aa.approx_flash_attention(q, k, v, q_pos, k_pos, **kw)
+        plain = lambda: aa.approx_attention_plain(q, k, v, q_pos, k_pos, **kw)
+        # the kernel alone, on operands quantized once outside the timing
+        ops = aa.kernel_operands(q, k, v, mode=mode, n=8, t=4, fix_to_1=True, rank=8)
+        kern = lambda: aa.launch_kernel(ops, q_pos, k_pos, bk=bk, causal=True, window=window,
+                                        softcap=softcap, scale=scale)
+        if mode == "bitexact":
+            # magnitudes and signs of q, k, v (a byte each), the uint16 table
+            nbytes = 2 * q.numel() + kv_bytes + 2 * 2**16 + io_bytes
+            bound = card.bound(nbytes, 2 * pairs * hd, card.lookups_per_s)
+        else:
+            # qi, ki, vi and their r-wide embeddings in float32 (1 + r = 9
+            # floats per element, twice kv_bytes' 2 bytes), the U table
+            nbytes = 4 * 9 * q.numel() + 2 * 9 * kv_bytes + 4 * 2**8 * 8 + io_bytes
+            ops_s = 4 * pairs * hd * 9 / card.f32_flops_per_s + pairs * 8 / card.lookups_per_s
+            bound = card.bound_s(nbytes, ops_s)
+    if name in ("flash_attention", "flash_decode") and softcap is None:
+        # the same q/k/v and boolean mask; SDPA takes heads before the sequence
+        qt = (q[:, :1] if name == "flash_decode" else q).transpose(1, 2).contiguous()
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = allow[:, None]
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         scale=scale, enable_gqa=True)
+    got = (wrapper if name.startswith("approx") else kern)()
+    want = plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
+    if name.startswith("approx"):
+        check(torch.equal(kern(), got), f"{name} {label}: the kernel alone != the wrapper")
+    diff = (got - want).abs()
+    err = diff.max().item()
+    where = f"{name} {label} B={b} S={s} T={t} bk={bk} window={window} softcap={softcap}"
+    row = dict(name=name, label=label, shape=[b, s, t, h, kv, hd], bk=bk, max_abs_err=err,
+               bound_ms=bound[0], bound_by=bound[1])
+    if name.startswith("approx"):
+        quantum = v.float().abs().max().item() / 255
+        row["bit_equal_share"] = (diff == 0).float().mean().item()
+        row["within_1e-5_share"] = (diff <= 1e-5).float().mean().item()
+        check(err <= quantum and row["within_1e-5_share"] >= 0.99,
+              f"{where}: max |err| {err} (quantum {quantum}), within 1e-5: "
+              f"{row['within_1e-5_share']}")
+        agree = (f"max |err| {err:.3e} (quantum {quantum:.3e}), bit-equal "
+                 f"{row['bit_equal_share']:.4f}, within 1e-5 {row['within_1e-5_share']:.4f}")
+    else:
+        check(bool((diff <= 2e-5 + 2e-5 * want.abs()).all()), f"{where}: max |err| {err}")
+        agree = f"max |err| {err:.3e} (rtol/atol 2e-5)"
+    if timed:
+        reps = 20 if label == "serve" else 5
+        row["ms"] = cuda_ms(kern, reps=reps, warmup=2)
+        row["plain_ms"] = cuda_ms(plain, reps=2)
+        row["library_ms"] = cuda_ms(library, reps=reps, warmup=2) if library else None
+        if name.startswith("approx"):
+            row["wrapper_ms"] = cuda_ms(wrapper, reps=reps, warmup=2)
+    times = (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} library_ms "
+             + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "none")
+             + (f" wrapper_ms (with quantization) {row['wrapper_ms']:.4f}"
+                if "wrapper_ms" in row else "")
+             if timed else "")
+    print(f"kernel {where}: {agree}{times} bound_ms {row['bound_ms']:.5f} ({row['bound_by']})",
+          flush=True)
+    return row
+
+
+def phase_attention(card: Card) -> list:
+    return [run_attention_case(card, case, seed=300 + i)
+            for i, case in enumerate(attention_cases())]
 
 
 # ------------------------------------------------------------ reference
@@ -227,6 +463,13 @@ def phase_reference() -> None:
     g = torch.Generator().manual_seed(7)
     x = torch.randn((16, 128), generator=g)
     w = torch.randn((128, 64), generator=g)
+    want = engine.matmul(x, w, mode="lowrank", n=8, t=4, backend="reference")
+    got = engine.matmul(x.cuda(), w.cuda(), mode="lowrank", n=8, t=4, backend="cuda").cpu()
+    err = (got - want).abs().max().item()
+    check(err <= 2e-6 * want.abs().max().item(),
+          f"engine.matmul lowrank: card vs CPU reference max |err| {err}")
+    print(f"reference: engine.matmul lowrank on the card vs the CPU reference body at "
+          f"(16,128)x(128,64): max |err| {err:.3e} (2e-6 * max|want|)", flush=True)
     for mode, n, t in (("bitexact", 8, 4), ("seqmul", 8, 4), ("seqmul", 12, 6), ("inject", 8, 4)):
         kw = dict(mode=mode, n=n, t=t)
         if mode == "inject":
@@ -242,9 +485,13 @@ def phase_reference() -> None:
     print("reference: engine.matmul bitexact/seqmul(n=8,12)/inject on the card bit-equal "
           "to the CPU reference bodies at (16,128)x(128,64)", flush=True)
 
-    for label, cfg in (("exact", get_config("qwen3-0.6b").reduced()),
-                       ("bitexact", apply_approx(get_config("qwen3-0.6b").reduced(),
-                                                 mode="bitexact", n=8, t=4))):
+    reduced = get_config("qwen3-0.6b").reduced()
+    pallas = get_config("qwen3-0.6b").reduced(attn_impl="pallas")
+    for label, cfg in (("exact", reduced),
+                       ("bitexact", apply_approx(reduced, mode="bitexact", n=8, t=4)),
+                       ("pallas exact", pallas),
+                       ("pallas bitexact mlp+attn", apply_approx(
+                           pallas, mode="bitexact", n=8, t=4, targets=("mlp", "attn")))):
         model = build_model(cfg)
         cpu_params = model.init_params(0, device="cpu")
         gpu_params = model.init_params(0, device="cpu").cuda()
@@ -255,11 +502,13 @@ def phase_reference() -> None:
         got = got.cpu()
         err = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"reduced {label} prefill: non-finite logits")
-        # Both within rtol/atol 1e-4: the float sums (norms, attention, the
+        # All within rtol/atol 1e-4: the float sums (norms, attention, the
         # exact projections) run in another order on the card.  The bitexact
         # GEMMs are integer-exact on both sides, so they add nothing unless an
         # input lands on the other side of a quantizer rounding boundary,
-        # which moves a logit by far more than 1e-4 and fails here.
+        # which moves a logit by far more than 1e-4 and fails here; so does
+        # a probability of the approximate attention that the card's expf
+        # moves across a boundary of p_int.
         check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
               f"reduced {label} prefill: card vs CPU max |err| {err}")
         print(f"reference: reduced qwen3-0.6b {label} prefill logits card vs CPU "
@@ -267,9 +516,10 @@ def phase_reference() -> None:
 
 
 # ---------------------------------------------------------------- serve
-def phase_serve(label: str, params, model, *, quality=None, mode=None, expect, requests: int):
-    """One closed-loop run of the scheduler; ``expect`` names the kernel
-    the run must launch (None: the exact pool, which must launch none)."""
+def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=("mlp",),
+                expect=(), forbid=(), requests: int):
+    """One closed-loop run of the scheduler; every kernel in ``expect`` must
+    launch and none in ``forbid``."""
     import torch
 
     from repro_torch import kernels
@@ -278,7 +528,7 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, expect, r
     from repro_torch.serve import ContinuousScheduler, synth_requests
 
     if mode is not None:
-        model = build_model(apply_approx(model.cfg, mode=mode))
+        model = build_model(apply_approx(model.cfg, mode=mode, targets=targets))
     cfg = model.cfg
     queue = synth_requests(requests, prompt_len=SERVE["prompt"], gen=SERVE["gen"],
                            vocab_size=cfg.vocab_size, seed=0, vary_budget=False,
@@ -306,10 +556,10 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, expect, r
     finally:
         del params.lm_head
     st, acc = result.stats, result.accounting
-    if expect is None:
-        check(not any(counts.values()), f"{label}: a kernel ran in the exact pool ({counts})")
-    else:
-        check(counts[expect] > 0, f"{label}: {expect} was never launched ({counts})")
+    for name in expect:
+        check(counts[name] > 0, f"{label}: {name} was never launched ({counts})")
+    for name in forbid:
+        check(counts[name] == 0, f"{label}: {name} ran in this pool ({counts})")
     check(st.requests == requests, f"{label}: served {st.requests} of {requests}")
     for r in queue:
         got = len(result.outputs[r.id])
@@ -423,7 +673,8 @@ def main() -> int:
     card = Card()
     print(f"env: {card.sms} SMs at max {card.clock_hz / 1e9:.3f} GHz: int32 "
           f"{card.int32_ops_per_s / 1e12:.2f} Tops/s, shared-memory lookups "
-          f"{card.lookups_per_s / 1e12:.2f} T/s", flush=True)
+          f"{card.lookups_per_s / 1e12:.2f} T/s, float32 "
+          f"{card.f32_flops_per_s / 1e12:.2f} TFLOP/s", flush=True)
 
     # 2. build
     from repro_torch import kernels
@@ -438,7 +689,7 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
     # 3. kernels
-    rows = phase_kernels(card)
+    rows = phase_kernels(card) + phase_attention(card)
     kernels.reset_launch_counts()
 
     # 4. reference
@@ -458,32 +709,44 @@ def main() -> int:
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
           f"{model.param_count(params) / 1e6:.1f}M params from seed 0 in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    phase_serve("exact", params, model, quality="exact", expect=None,
-                requests=SERVE["requests"])
+    every = tuple(kernels.ALL)
+    n_req = SERVE["requests"]
+    phase_serve("exact", params, model, quality="exact", forbid=every, requests=n_req)
     runs = {
         "lut_matmul": phase_serve("balanced", params, model, quality="balanced",
-                                  expect="lut_matmul", requests=SERVE["requests"]),
+                                  expect=("lut_matmul",), forbid=ATTN_KERNELS,
+                                  requests=n_req),
         "packed_matmul": phase_serve("draft", params, model, quality="draft",
-                                     expect="packed_matmul", requests=SERVE["requests"]),
+                                     expect=("packed_matmul",), requests=n_req),
         "seqmul_matmul": phase_serve("seqmul", params, model, mode="seqmul",
-                                     expect="seqmul_matmul", requests=SERVE["requests"] // 2),
+                                     expect=("seqmul_matmul",), requests=n_req // 2),
     }
+    # attn_impl="pallas": the attention kernels on the same weights
+    pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    runs["flash_attention"] = runs["flash_decode"] = phase_serve(
+        "pallas exact", params, pallas, quality="exact",
+        expect=("flash_attention", "flash_decode"), forbid=GEMM_KERNELS, requests=n_req)
+    runs["approx_attention_bitexact"] = phase_serve(
+        "pallas balanced", params, pallas, quality="balanced",
+        expect=("approx_attention_bitexact", "flash_decode", "lut_matmul"), requests=n_req)
+    runs["lowrank_matmul"] = runs["approx_attention_lowrank"] = phase_serve(
+        "pallas lowrank mlp+attn", params, pallas, mode="lowrank", targets=("mlp", "attn"),
+        expect=("lowrank_matmul", "approx_attention_lowrank", "flash_decode"),
+        requests=n_req)
 
     # 6. report
-    replaces = {
-        "lut_matmul": "src/repro/kernels/lut_matmul.py:30",
-        "seqmul_matmul": "src/repro/kernels/seqmul_matmul.py:53",
-        "packed_matmul": "src/repro/kernels/packed_matmul.py:64",
-    }
     table = []
-    for name in ("lut_matmul", "seqmul_matmul", "packed_matmul"):
+    for name in GEMM_KERNELS + ATTN_KERNELS:
         mine = [r for r in rows if r["name"] == name]
-        main_row = next(r for r in mine if tuple(r["shape"]) == MAIN_SHAPE and r["n"] == 8)
+        if name in GEMM_KERNELS:
+            main_row = next(r for r in mine if tuple(r["shape"]) == MAIN_SHAPE and r["n"] == 8)
+        else:
+            main_row = next(r for r in mine if r["label"] == "serve")
         table.append({
             "name": name,
             "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name],
+            "source": f"src/repro_torch/kernels/csrc/{SOURCES.get(name, name)}.cu",
+            "replaces": REPLACES[name],
             "launches": runs[name]["counts"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],

@@ -126,9 +126,10 @@ class ModelConfig:
     scan_layers: bool = True
     # "xla": direct / blockwise online-softmax attention in plain torch
     #        (the JAX package's name for its plain path, kept so configs
-    #        compare like with like); "pallas": the flash-attention
-    #        kernels, which the port does not have yet (models/attention.py
-    #        raises and names the slice that ports them).
+    #        compare like with like); "pallas": the attention kernels of
+    #        repro_torch.kernels (flash_attention / approx_flash_attention
+    #        at prefill, flash_decode at every decode step), as
+    #        models/attention.py routes them.
     attn_impl: str = "xla"
     # Megatron-style sequence parallelism on the inter-block residual
     # stream: the remat-saved (B, S, D) activations are sharded over the

@@ -48,6 +48,9 @@ def calibrate_absmax(x: torch.Tensor, *, bits: int, dim=None) -> QuantParams:
 def quantize(x: torch.Tensor, qp: QuantParams) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (magnitude int32 in [0, 2^bits), sign int8 in {-1, 0, 1})."""
     qmax = (1 << qp.bits) - 1
+    # jnp promotes a bf16 tensor against the float32 scale; torch would
+    # divide in bf16, since a 0-d tensor does not take part in promotion
+    x = x.to(torch.promote_types(x.dtype, qp.scale.dtype))
     q = torch.clamp(torch.round(x / qp.scale), -qmax, qmax)
     return q.abs().to(torch.int32), torch.sign(q).to(torch.int8)
 

@@ -1,8 +1,9 @@
 """Device-side artifact cache for the approximate-multiply stack.
 
-Counterpart of ``repro/engine/artifacts.py``: product tables and error
-moments are built once per ``(n, t, fix_to_1)`` and, for tables, once per
-device, so a decode step never rebuilds or re-uploads them.
+Counterpart of ``repro/engine/artifacts.py``: product tables, SVD error
+factors and error moments are built once per ``(n, t, fix_to_1)`` and, for
+tensors, once per device, so a decode step never rebuilds or re-uploads
+them.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.core import luts
 
-__all__ = ["product_lut_u16", "error_moments"]
+__all__ = ["product_lut_u16", "svd_factors", "error_moments"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -27,6 +28,16 @@ def product_lut_u16(n: int, t: int, fix_to_1: bool, device: torch.device) -> tor
     if int(table.max()) >= 1 << 16:
         raise ValueError(f"product table for n={n}, t={t} does not fit uint16")
     return torch.from_numpy(table.astype(np.uint16).reshape(-1)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def svd_factors(n: int, t: int, rank: int, fix_to_1: bool, device: torch.device):
+    """Rank-``rank`` SVD factors ``(u, v, energy)`` of the error table:
+    ``u``, ``v`` (2^n, rank) float32 on ``device`` (``core.luts``)."""
+    u, v, energy = luts.svd_error_factors(n, t, rank, fix_to_1=fix_to_1)
+    # v comes out of the SVD transposed (column-major); the kernels take rows
+    return (torch.from_numpy(u).to(device).contiguous(),
+            torch.from_numpy(v).to(device).contiguous(), energy)
 
 
 @functools.lru_cache(maxsize=32)

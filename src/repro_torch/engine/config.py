@@ -35,6 +35,7 @@ from typing import Optional, Union
 
 from repro_torch.configs.base import ApproxConfig, LayerQuality, ModelConfig
 from repro_torch.core import error_model
+from repro_torch.kernels.build import SMEM_PER_BLOCK
 
 __all__ = [
     "T_FA",
@@ -202,9 +203,6 @@ DEFAULT_N = 8  # LUT-backed modes require n <= 8; the engine-wide default
 
 
 # ------------------------------------------------- CUDA kernel parameters
-SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use on Hopper
-
-
 def _lut_smem_bytes(n: int, bm: int) -> int:
     """``csrc/lut_matmul.cu``'s dynamic shared memory at row tile ``bm``:
     int32 index and magnitude tiles, int8 sign tiles and the uint16 table."""
@@ -213,24 +211,43 @@ def _lut_smem_bytes(n: int, bm: int) -> int:
     return 5 * (bm * BLOCK_K + BLOCK_K * BLOCK_COLS) + 2 * (1 << (2 * n))
 
 
+def _lowrank_smem_bytes(n: int, bm: int, rank: int) -> int:
+    """``csrc/lowrank_matmul.cu``'s dynamic shared memory at row tile ``bm``:
+    the two (2^n, r) float32 tables, the int32 operand tiles and the
+    gathered float32 embedding tiles of both sides."""
+    from repro_torch.kernels.build import BLOCK_COLS, LOWRANK_BLOCK_K as bk
+
+    return 4 * (2 * (1 << n) * rank + bm * bk + bk * BLOCK_COLS
+                + bm * bk * rank + bk * rank * BLOCK_COLS)
+
+
+_SMEM_BYTES = {
+    "bitexact": lambda n, bm, rank: _lut_smem_bytes(n, bm),
+    "lowrank": _lowrank_smem_bytes,
+}
+
+
 @functools.lru_cache(maxsize=1024)
-def kernel_tiles(mode: str, n: int, t: int, m: int) -> int:
+def kernel_tiles(mode: str, n: int, t: int, m: int, rank: int = 8) -> int:
     """The CUDA kernels' row tile for one GEMM call of ``m`` rows, checked.
 
     The column and K tiles are fixed in ``csrc/*.cu``; the row tile is
     picked from M by each kernel's wrapper (``kernels.build.block_rows``),
-    and this returns that pick.  For ``bitexact`` the shared-memory
-    footprint (tiles plus the uint16 table) is checked against the 227 KiB
-    a block may use, at dispatch rather than at launch.  ``t`` shapes the
-    table contents or the recurrence, not the footprint.
+    and this returns that pick.  For the modes that hold tables in shared
+    memory (``bitexact``: the uint16 product table; ``lowrank``: the two
+    SVD factors and the gathered embedding tiles, which grow with
+    ``rank``) the footprint is checked against the 227 KiB a block may
+    use, at dispatch rather than at launch.  ``t`` shapes the table
+    contents or the recurrence, not the footprint.
     """
     from repro_torch.kernels.build import block_rows
 
     bm = block_rows(m)
-    if mode == "bitexact" and _lut_smem_bytes(n, bm) > SMEM_PER_BLOCK:
+    footprint = _SMEM_BYTES.get(mode)
+    if footprint is not None and footprint(n, bm, rank) > SMEM_PER_BLOCK:
         raise ValueError(
-            f"bitexact at n={n}, t={t}: {_lut_smem_bytes(n, bm)} bytes of shared "
-            f"memory per block, over the {SMEM_PER_BLOCK} a Hopper block may use"
+            f"{mode} at n={n}, t={t}, rank={rank}: {footprint(n, bm, rank)} bytes of "
+            f"shared memory per block, over the {SMEM_PER_BLOCK} a Hopper block may use"
         )
     return bm
 

@@ -125,7 +125,7 @@ def matmul(
     if resolved == "cuda":
         from repro_torch.engine import config as _config
 
-        _config.kernel_tiles(mode, n, t, x.shape[0])
+        _config.kernel_tiles(mode, n, t, x.shape[0], rank)
     p = _modes.GemmParams(n=n, t=t, fix_to_1=fix_to_1, rank=rank)
     extra = spec.prepare(x, w, p, generator) if spec.prepare is not None else ()
     impl = spec.cuda if resolved == "cuda" else spec.reference

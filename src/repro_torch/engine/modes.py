@@ -16,10 +16,9 @@ Registered modes
 ``inject``     quantized exact GEMM + moment-matched Gaussian error;
                CUDA body: ``kernels.packed_matmul`` (two int16 lanes per
                word), noise added outside the kernel.
+``lowrank``    exact quantized GEMM + the rank-r SVD correction of the
+               error table (n <= 8); CUDA body: ``kernels.lowrank_matmul``.
 ``fakequant``  straight-through fake quantization of both operands.
-
-``lowrank`` is not registered in this slice: asking for it raises and
-names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ import torch
 
 from repro_torch.core import quantization
 from repro_torch.engine import artifacts
+from repro_torch.kernels.lowrank_matmul import lowrank_matmul, lowrank_matmul_plain
 from repro_torch.kernels.lut_matmul import lut_matmul, lut_matmul_plain
 from repro_torch.kernels.packed_matmul import pack_i16_pairs, packed_matmul
 from repro_torch.kernels.seqmul_matmul import seqmul_matmul, seqmul_matmul_plain
@@ -45,12 +45,6 @@ __all__ = [
     "default_generator",
     "quantize_operands",
 ]
-
-# modes of the JAX package that a later slice of the port brings over
-NOT_PORTED = {
-    "lowrank": "ROADMAP.md, 'TPU kernels to port' item 4 (lowrank_matmul)",
-}
-
 
 class GemmParams(NamedTuple):
     """Static configuration threaded to every mode body."""
@@ -96,11 +90,6 @@ def get_mode(name: str) -> ModeSpec:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise ValueError(
-                f"mode {name!r} is not ported to PyTorch yet; {NOT_PORTED[name]} "
-                f"brings it over"
-            ) from None
         raise ValueError(f"unknown mode {name!r}; registered modes: {list_modes()}") from None
 
 
@@ -167,6 +156,19 @@ def _seqmul_cuda(x, w, p):
     return out * scale
 
 
+def _lowrank_ref(x, w, p):
+    (mx, sx), (mw, sw), scale = quantize_operands(x, w, p.n)
+    u, v, _ = artifacts.svd_factors(p.n, p.t, p.rank, p.fix_to_1, x.device)
+    return lowrank_matmul_plain(u, v, mx, sx, mw, sw, n=p.n) * scale
+
+
+def _lowrank_cuda(x, w, p):
+    (mx, sx), (mw, sw), scale = quantize_operands(x, w, p.n)
+    u, v, _ = artifacts.svd_factors(p.n, p.t, p.rank, p.fix_to_1, x.device)
+    out = lowrank_matmul(u, v, mx.to(torch.uint8), sx, mw.to(torch.uint8), sw, n=p.n)
+    return out * scale
+
+
 def _inject_prepare(x, w, p, generator):
     """Draw the moment-matched noise, shape (M, N)."""
     mean, std = artifacts.error_moments(p.n, p.t, p.fix_to_1)
@@ -210,6 +212,13 @@ register_mode(ModeSpec(
     cuda=_bitexact_cuda,
     differentiable=False,
     description="faithful paper semantics via the (2^n, 2^n) product LUT",
+))
+register_mode(ModeSpec(
+    name="lowrank",
+    reference=_lowrank_ref,
+    cuda=_lowrank_cuda,
+    differentiable=False,
+    description="exact GEMM + rank-r SVD error correction (two GEMMs, one accumulator)",
 ))
 register_mode(ModeSpec(
     name="seqmul",

@@ -4,16 +4,28 @@ Each module holds one kernel's wrapper (device, dtype, shape and
 contiguity checks; launch on the current stream; launch count) and its
 plain PyTorch version, which the wrapper takes only for CPU tensors.
 
-==================  ==============================================  ==========
-kernel              replaces (JAX package)                          mode
-==================  ==============================================  ==========
-``lut_matmul``      ``repro/kernels/lut_matmul.py`` ``_kernel``      bitexact
-``seqmul_matmul``   ``repro/kernels/seqmul_matmul.py`` ``_kernel``   seqmul
-``packed_matmul``   ``repro/kernels/packed_matmul.py`` ``_kernel``   inject
-==================  ==============================================  ==========
+=============================  ====================================================  ==================
+kernel                         replaces (JAX package)                                path
+=============================  ====================================================  ==================
+``lut_matmul``                 ``repro/kernels/lut_matmul.py`` ``_kernel``           GEMM, bitexact
+``seqmul_matmul``              ``repro/kernels/seqmul_matmul.py`` ``_kernel``        GEMM, seqmul
+``packed_matmul``              ``repro/kernels/packed_matmul.py`` ``_kernel``        GEMM, inject
+``lowrank_matmul``             ``repro/kernels/lowrank_matmul.py`` ``_kernel``       GEMM, lowrank
+``flash_attention``            ``repro/kernels/flash_attention.py`` ``_fwd_kernel``  prefill, exact
+``flash_decode``               ``repro/kernels/flash_attention.py``                  every decode step
+                               ``_decode_kernel``
+``approx_attention_bitexact``  ``repro/kernels/approx_attention.py``                 prefill, bitexact
+                               ``_bitexact_kernel``
+``approx_attention_lowrank``   ``repro/kernels/approx_attention.py``                 prefill, lowrank
+                               ``_lowrank_kernel``
+=============================  ====================================================  ==================
+
+The attention kernels run under ``attn_impl="pallas"`` (``models/attention.py``).
 """
 
-from repro_torch.kernels import lut_matmul, packed_matmul, seqmul_matmul
+from repro_torch.kernels import (
+    approx_attention, flash_attention, lowrank_matmul, lut_matmul, packed_matmul, seqmul_matmul,
+)
 
 __all__ = ["ALL", "launch_counts", "reset_launch_counts"]
 
@@ -21,6 +33,11 @@ ALL = {
     "lut_matmul": lut_matmul.KERNEL,
     "seqmul_matmul": seqmul_matmul.KERNEL,
     "packed_matmul": packed_matmul.KERNEL,
+    "lowrank_matmul": lowrank_matmul.KERNEL,
+    "flash_attention": flash_attention.FORWARD_KERNEL,
+    "flash_decode": flash_attention.DECODE_KERNEL,
+    "approx_attention_bitexact": approx_attention.BITEXACT_KERNEL,
+    "approx_attention_lowrank": approx_attention.LOWRANK_KERNEL,
 }
 
 

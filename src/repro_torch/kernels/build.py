@@ -15,6 +15,8 @@ module of the port, and this machine may have no ``nvcc`` at all.
 
 A :class:`CudaKernel` is a kernel's binding: it checks the C function's
 return code (the launch's ``cudaGetLastError()``) and counts launches.
+Several kernels may share one source (``flash_attention.cu`` holds the
+prefill and decode kernels); each has its own binding and count.
 """
 
 from __future__ import annotations
@@ -30,14 +32,18 @@ import threading
 import torch
 
 __all__ = [
-    "BLOCK_COLS", "BLOCK_K", "BLOCK_ROWS", "BUILD_DIR", "CSRC", "KERNELS", "CudaKernel",
-    "block_rows", "build_all", "check_operand", "nvcc_path",
+    "BLOCK_COLS", "BLOCK_K", "BLOCK_ROWS", "BUILD_DIR", "CSRC", "KERNELS", "LOWRANK_BLOCK_K",
+    "SMEM_PER_BLOCK", "CudaKernel", "block_rows", "build_all", "check_operand", "nvcc_path",
     "wide_accumulator",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("lut_matmul", "seqmul_matmul", "packed_matmul")
+# one entry per source under csrc/ (a source may hold several kernels)
+KERNELS = (
+    "lut_matmul", "seqmul_matmul", "packed_matmul", "lowrank_matmul",
+    "flash_attention", "approx_attention",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -108,14 +114,15 @@ class CudaKernel:
     nowhere else, so a run can show that it went through the kernel.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, source: str | None = None):
         self.name, self.symbol, self.argtypes = name, symbol, argtypes
+        self.source = source or name  # csrc/<source>.cu
         self.launches = 0
         self._fn = None
 
     def _bind(self):
         if self._fn is None:
-            lib = _library(self.name)
+            lib = _library(self.source)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -154,6 +161,8 @@ def check_operand(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 BLOCK_ROWS = (4, 16, 64)
 BLOCK_COLS = 64
 BLOCK_K = 32
+LOWRANK_BLOCK_K = 16  # csrc/lowrank_matmul.cu stages K 16 at a time
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use on Hopper
 
 
 def block_rows(m: int) -> int:

@@ -1,11 +1,21 @@
 """Multi-head attention: GQA, RoPE, qk-norm, softcap, sliding window, KV cache.
 
-Counterpart of ``repro/models/attention.py`` on its plain path
-(``attn_impl="xla"``): heads are repeated from KV to H at use (the cache
-stays unrepeated), prefill uses the direct softmax or, for long
-sequences, the blockwise online softmax, and decode reads the cache with
-per-row positions.  ``attn_impl="pallas"`` names the flash-attention
-kernels, which a later slice ports; it raises here.
+Counterpart of ``repro/models/attention.py``.  ``attn_impl`` picks the
+path, as in the reference:
+
+``"xla"``     the plain path: the direct softmax or, for long sequences,
+              the blockwise online softmax, with query head h reading KV
+              head h // g (the reference repeats k/v to H heads at use;
+              the sums are the same).
+``"pallas"``  the kernels of ``repro_torch.kernels``, k/v unrepeated:
+              prefill through ``flash_attention``, or through
+              ``approx_flash_attention`` when the ``attn`` target is
+              approximated in ``bitexact``/``lowrank`` with a backend other
+              than ``reference``; every decode step through
+              ``flash_decode``.  On CPU tensors each kernel wrapper runs its
+              plain version.
+
+Decode reads the cache with per-row positions on both paths.
 
 The cache is written in place (an indexed write into the row's slots)
 where the reference returns an updated copy: JAX arrays are immutable,
@@ -20,14 +30,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.approx_attention import (
+    approx_flash_attention, attn_tiles, validate_attn_mode,
+)
+from repro_torch.kernels.flash_attention import attend, flash_attention, flash_decode
 from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
 
 __all__ = ["KVCache", "init_attn", "attention", "init_kv_cache"]
-
-NEG_INF = -2.3819763e38  # bf16-safe large negative (the reference's value)
-Q_CHUNK = 1024
-K_CHUNK = 1024
 
 
 class KVCache(NamedTuple):
@@ -67,59 +77,30 @@ def _write_rows(cache: torch.Tensor, update: torch.Tensor, starts: torch.Tensor)
     cache[rows, idx] = update.to(cache.dtype)
 
 
-def _allow(q_pos, k_pos, *, causal: bool, window: Optional[int]):
-    """(B, Sq, Sk) boolean allow-mask from position ids."""
-    m = k_pos[:, None, :] >= 0  # -1 marks unwritten cache slots
-    if causal:
-        m = m & (q_pos[:, :, None] >= k_pos[:, None, :])
-    if window is not None:
-        m = m & (q_pos[:, :, None] - k_pos[:, None, :] < window)
-    return m
+def _block(dim: int) -> int:
+    """The largest power-of-two divisor of ``dim`` up to 512: the
+    reference's kernel tile (``repro/models/attention.py:272-276``)."""
+    b_ = 512
+    while b_ > 1 and dim % b_:
+        b_ //= 2
+    return b_
 
 
-def _scores(q, k, softcap, scale):
-    s = torch.einsum("bqhd,bthd->bhqt", q.to(torch.float32), k.to(torch.float32)) * scale
-    if softcap:
-        s = torch.tanh(s / softcap) * softcap
-    return s
-
-
-def _attend_direct(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale):
-    logits = _scores(q, k, softcap, scale)
-    allow = _allow(q_pos, k_pos, causal=causal, window=window)
-    logits = torch.where(allow[:, None, :, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqt,bthd->bqhd", probs, v.to(torch.float32))
-
-
-def _attend_flash(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale,
-                  q_chunk=Q_CHUNK, k_chunk=K_CHUNK):
-    """Blockwise online softmax; q (B,S,H,hd), k/v (B,T,H,hd)."""
-    b, s, h, hd = q.shape
-    t = k.shape[1]
-    q_chunk, k_chunk = min(q_chunk, s), min(k_chunk, t)
-    if s % q_chunk or t % k_chunk:
-        raise ValueError(f"sequence lengths ({s}, {t}) must divide the chunks")
-    outs = []
-    for q0 in range(0, s, q_chunk):
-        qb, qpb = q[:, q0:q0 + q_chunk], q_pos[:, q0:q0 + q_chunk]
-        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32, device=q.device)
-        for k0 in range(0, t, k_chunk):
-            kb, vb = k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk]
-            logits = _scores(qb, kb, softcap, scale)
-            allow = _allow(qpb, k_pos[:, k0:k0 + k_chunk], causal=causal, window=window)
-            logits = torch.where(allow[:, None, :, :], logits, NEG_INF)
-            m_new = torch.maximum(m, logits.amax(dim=-1))
-            p = torch.exp(logits - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bhqt,bthd->bhqd", p, vb.to(torch.float32))
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.transpose(1, 2))  # (B, qc, H, hd)
-    return torch.cat(outs, dim=1)
+def _pallas(q, k, v, q_pos, k_pos, *, decode, cfg, **kw):
+    """The ``attn_impl="pallas"`` branches of the reference: k/v unrepeated."""
+    if decode:
+        return flash_decode(q[:, 0], k, v, q_pos[:, -1], k_pos, window=kw["window"],
+                            softcap=kw["softcap"], scale=kw["scale"])[:, None]
+    ap = cfg.approx.for_target("attn") if (
+        cfg.approx.enabled and "attn" in cfg.approx.targets) else None
+    if ap is not None and ap.mode in ("bitexact", "lowrank") and ap.backend != "reference":
+        # the QK and AV contractions themselves through the multiplier; the
+        # projections went through the engine already
+        validate_attn_mode(ap.mode, ap.n)
+        return approx_flash_attention(
+            q, k, v, q_pos, k_pos, ap.mode, ap.n, ap.t, ap.fix_to_1, ap.rank,
+            bk=min(_block(k.shape[1]), attn_tiles(ap.mode)[1]), **kw)
+    return flash_attention(q, k, v, q_pos, k_pos, **kw)
 
 
 def attention(
@@ -143,14 +124,8 @@ def attention(
     S - 1]`` are masked.  Returns ``(out, cache)``.
     """
     cfg = ctx.cfg
-    if cfg.attn_impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' runs the flash-attention kernels, which are not "
-            "ported yet (ROADMAP.md, 'TPU kernels to port' items 6-9)"
-        )
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = h // kvh
 
     q = layers.dense(x, params["wq"], ctx, "attn").reshape(b, s, h, hd)
     k = layers.dense(x, params["wk"], ctx, "attn").reshape(b, s, kvh, hd)
@@ -186,15 +161,10 @@ def attention(
     q_pos = positions
 
     window = cfg.local_window if local else None
-    scale = hd**-0.5
-    softcap = cfg.attn_logit_softcap
-    if g > 1:  # GQA: repeat kv to the flat head axis (the cache stays unrepeated)
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if not decode and (s > Q_CHUNK or k.shape[1] > 4 * K_CHUNK):
-        out = _attend_flash(q, k, v, q_pos, k_pos, **kw)
+    kw = dict(causal=causal, window=window, softcap=cfg.attn_logit_softcap, scale=hd**-0.5)
+    if cfg.attn_impl == "pallas":
+        out = _pallas(q, k, v, q_pos, k_pos, decode=decode, cfg=cfg, **kw)
     else:
-        out = _attend_direct(q, k, v, q_pos, k_pos, **kw)
+        out = attend(q, k, v, q_pos, k_pos, decode=decode, **kw)
     out = out.reshape(b, s, h * hd).to(x.dtype)
     return layers.dense(out, params["wo"], ctx, "attn"), cache

@@ -7,7 +7,7 @@ held bit-equal to both the JAX reference body and the JAX Pallas body
 runs its plain version, so the port's ``cuda`` bodies (packing, casts,
 scales) are checked here too; the kernels themselves are held against
 the plain versions on the card by ``chip_smoke.py`` and by the
-``gpu``-marked test at the end.
+``gpu``-marked tests of ``tests/test_torch_gpu.py``.
 
 Bit-equality with the JAX package holds while its float32 sums are exact
 (|partial sum| < 2^24): the port sums exact integers and converts once,
@@ -130,7 +130,26 @@ def test_lut_gather_clamps_out_of_range_magnitudes():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("mode", ["bitexact", "seqmul", "inject", "fakequant"])
+@pytest.mark.parametrize("shape", SHAPES + [(3, 256, 40)])
+@pytest.mark.parametrize("n,t", [(4, 2), (8, 4), (8, 6)])
+def test_lowrank_gemm_matches_reference_and_pallas(n, t, shape):
+    """``lowrank``: the JAX reference body and its Pallas body (interpret)
+    against the port's reference body and its CUDA body (the kernel's
+    plain version on the CPU), at ``rtol=2e-6``, the reference's own rule
+    (``tests/test_fused_kernels.py``): the SVD correction is a float32 sum
+    in another order.  K <= 256 keeps the exact part exact in float32."""
+    x, w = _operands(*shape, seed=n * 10 + t + shape[1])
+    want_ref, want_pallas = _jax_bodies("lowrank", x, w, n, t)
+    np.testing.assert_allclose(want_pallas, want_ref, rtol=2e-6, atol=2e-6)
+    got_ref, got_cuda_body = _port_bodies("lowrank", x, w, n, t)
+    for got in (got_ref, got_cuda_body):
+        np.testing.assert_allclose(got, want_ref, rtol=2e-6, atol=2e-6)
+        np.testing.assert_allclose(got, want_pallas, rtol=2e-6, atol=2e-6)
+    got_engine = engine.matmul(torch.from_numpy(x), torch.from_numpy(w), mode="lowrank", n=n, t=t)
+    np.testing.assert_array_equal(got_engine.numpy(), got_ref)
+
+
+@pytest.mark.parametrize("mode", ["bitexact", "seqmul", "inject", "fakequant", "lowrank"])
 def test_straight_through_gradients_are_exact_matmul_gradients(mode):
     x, w = _operands(9, 32, 7, seed=3)
     g = np.random.default_rng(4).standard_normal((9, 7)).astype(np.float32)
@@ -163,8 +182,8 @@ def test_dispatch_checks_eagerly():
         engine.matmul(x, w, mode="seqmul", n=13, t=4)
     with pytest.raises(ValueError, match="registered modes"):
         engine.matmul(x, w, mode="nope")
-    with pytest.raises(ValueError, match="not ported to PyTorch yet.*ROADMAP"):
-        engine.matmul(x, w, mode="lowrank")
+    with pytest.raises(ValueError, match="supports bit-widths n <= 8"):
+        engine.matmul(x, w, mode="lowrank", n=9, t=4)
     with pytest.raises(ValueError, match="needs a torch.Generator"):
         engine.matmul(x, w, mode="inject", n=8, t=4)
     with pytest.raises(ValueError, match="valid backends"):
@@ -242,35 +261,6 @@ def test_apply_quality_deploys_the_tier():
     assert not config.apply_quality(cfg, "exact").approx.enabled
 
 
-# ------------------------------------------------------------- on the card
-@pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["lut_matmul", "seqmul_matmul", "packed_matmul"])
-def test_kernel_bitmatches_plain_version_on_the_card(kernel):
-    """Runs only on an sm_90 card (``python -m pytest -m gpu tests``)."""
-    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
-        pytest.skip("needs an NVIDIA Hopper (sm_90) card")
-    from repro_torch.engine import artifacts
-    from repro_torch.kernels import lut_matmul as lm
-    from repro_torch.kernels import packed_matmul as pm
-    from repro_torch.kernels import seqmul_matmul as sm
-
-    x, w = (torch.from_numpy(a).cuda() for a in _operands(33, 300, 70, seed=1))
-    (mx, sx), (mw, sw), _ = modes.quantize_operands(x, w, 8)
-    if kernel == "lut_matmul":
-        lut = artifacts.product_lut_u16(8, 4, True, x.device)
-        args = (lut, mx.to(torch.uint8), sx, mw.to(torch.uint8), sw)
-        got, want = lm.lut_matmul(*args, n=8), lm.lut_matmul_plain(*args, n=8)
-    elif kernel == "seqmul_matmul":
-        args = (mx.to(torch.int16), sx, mw.to(torch.int16), sw)
-        got, want = sm.seqmul_matmul(*args, n=8, t=4), sm.seqmul_matmul_plain(*args, n=8, t=4)
-    else:
-        pa = pm.pack_i16_pairs(mx * sx.to(torch.int32), dim=1)
-        pb = pm.pack_i16_pairs(mw * sw.to(torch.int32), dim=0)
-        got, want = pm.packed_matmul(pa, pb, n=8), pm.packed_matmul_plain(pa, pb)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-
-
 # -------------------------------------------------- wrapper checks (host)
 def test_wrapper_operand_checks_and_launch_parameters():
     """What the wrappers check before a launch, and how they size it; the
@@ -303,3 +293,8 @@ def test_kernel_tiles_hold_the_table_in_shared_memory():
     assert config._lut_smem_bytes(8, 64) <= config.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):  # a 512 KiB table at n=9
         config.kernel_tiles("bitexact", 9, 4, 4)
+    # lowrank: the two (2^n, r) tables and the embedding tiles grow with r
+    assert config.kernel_tiles("lowrank", 8, 4, 128, rank=8) == 64
+    assert config._lowrank_smem_bytes(8, 64, 8) == 90112
+    with pytest.raises(ValueError, match="rank=32"):
+        config.kernel_tiles("lowrank", 8, 4, 128, rank=32)

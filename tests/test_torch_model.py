@@ -11,7 +11,9 @@ frameworks.
 
 With ``bitexact`` at an explicit (n=8, t=4), each approximate GEMM of the
 port is checked to receive the reference's input within that tolerance
-and is then fed the reference's input itself.  The reason: an input that
+and is then fed the reference's input itself; under ``attn_impl="pallas"``
+with ``attn`` targeted, so is each approximate attention call (its q, k
+and v).  The reason: an input that
 differs in the last bit can sit on the other side of a rounding boundary
 of the 8-bit quantizer, which moves its integer by one and the layer's
 output by far more than 1e-5.  That is a property of quantization, met
@@ -44,12 +46,13 @@ B, S, T, STEPS = 2, 8, 16, 4
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _pair(approx, **over):
-    jcfg, tcfg = jax_get_config("qwen3-0.6b").reduced(**over), get_config("qwen3-0.6b").reduced()
+def _pair(approx, attn_impl="xla", targets=("mlp",), **over):
+    jcfg = jax_get_config("qwen3-0.6b").reduced(attn_impl=attn_impl, **over)
+    tcfg = get_config("qwen3-0.6b").reduced(attn_impl=attn_impl)
     if approx is not None:
         mode, n, t = approx
-        jcfg = jax_apply_approx(jcfg, mode=mode, n=n, t=t)
-        tcfg = apply_approx(tcfg, mode=mode, n=n, t=t)
+        jcfg = jax_apply_approx(jcfg, mode=mode, n=n, t=t, targets=targets)
+        tcfg = apply_approx(tcfg, mode=mode, n=n, t=t, targets=targets)
     jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
     tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
@@ -57,13 +60,18 @@ def _pair(approx, **over):
 
 
 def _force_reference_inputs(monkeypatch):
-    """Record each approximate GEMM input of the JAX model and hand it to
-    the port's matching call, after checking the port's own input."""
+    """Record each approximate GEMM input, and the q, k and v of each
+    approximate attention call, of the JAX model, and hand them to the
+    port's matching call, after checking the port's own inputs."""
+    import repro.kernels.approx_attention as jax_approx_attention
     import repro.models.layers as jax_layers
+    import repro_torch.models.attention as port_attention
     import repro_torch.models.layers as port_layers
 
     recorded = []
     jax_approx_2d, port_approx_2d = jax_layers._approx_2d, port_layers._approx_2d
+    jax_attn = jax_approx_attention.approx_flash_attention
+    port_attn = port_attention.approx_flash_attention
 
     def record(x2, w, ap, key):
         recorded.append(np.array(x2))  # a writable copy
@@ -74,17 +82,43 @@ def _force_reference_inputs(monkeypatch):
         np.testing.assert_allclose(x2.numpy(), want, **TOL)
         return port_approx_2d(torch.from_numpy(want), w, ap, generator)
 
+    def record_attn(q, k, v, *args):
+        recorded.append(tuple(np.array(a) for a in (q, k, v)))
+        return jax_attn(q, k, v, *args)
+
+    def forced_attn(q, k, v, *args, **kw):
+        want = recorded.pop(0)
+        for got, w in zip((q, k, v), want):
+            np.testing.assert_allclose(got.numpy(), w, **TOL)
+        return port_attn(*(torch.from_numpy(w) for w in want), *args, **kw)
+
     monkeypatch.setattr(jax_layers, "_approx_2d", record)
     monkeypatch.setattr(port_layers, "_approx_2d", forced)
+    monkeypatch.setattr(jax_approx_attention, "approx_flash_attention", record_attn)
+    monkeypatch.setattr(port_attention, "approx_flash_attention", forced_attn)
     return recorded
 
 
 @pytest.mark.parametrize("approx", [None, ("bitexact", 8, 4)], ids=["exact", "bitexact-8-4"])
 def test_prefill_and_decode_logits_match_reference(approx, monkeypatch):
+    _check_prefill_and_decode(approx, monkeypatch)
+
+
+@pytest.mark.parametrize("approx", [None, ("bitexact", 8, 4), ("lowrank", 8, 4)],
+                         ids=["exact", "bitexact-8-4", "lowrank-8-4"])
+def test_pallas_attention_logits_match_reference(approx, monkeypatch):
+    """``attn_impl="pallas"``: prefill through flash_attention (exact) or
+    approx_flash_attention (``targets=("mlp", "attn")``), every decode step
+    through flash_decode, against the JAX kernels in interpret mode."""
+    _check_prefill_and_decode(approx, monkeypatch, attn_impl="pallas",
+                              targets=("mlp", "attn"))
+
+
+def _check_prefill_and_decode(approx, monkeypatch, **kw):
     # the recorder reads concrete inputs, so the approximate case runs the
     # reference unscanned (lax.scan would hand it tracers)
     over = {} if approx is None else {"scan_layers": False}
-    jmodel, jparams, tmodel, tparams = _pair(approx, **over)
+    jmodel, jparams, tmodel, tparams = _pair(approx, **kw, **over)
     recorded = _force_reference_inputs(monkeypatch) if approx is not None else []
     rng = np.random.default_rng(1)
     toks = rng.integers(0, 256, (B, S)).astype(np.int32)

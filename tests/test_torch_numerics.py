@@ -131,6 +131,35 @@ def test_product_and_error_luts_bitmatch(n, t, fix_to_1):
     )
 
 
+@pytest.mark.parametrize("n,t,rank", [(4, 2, 4), (6, 3, 8), (8, 2, 8), (8, 4, 8), (8, 4, 4),
+                                      (8, 7, 16)])
+def test_svd_error_factors_bitmatch(n, t, rank):
+    """The ``lowrank`` mode's SVD factors: the same float64 SVD, split and
+    cast, so U and V are bit-equal and the energy equal."""
+    u, v, energy = luts.svd_error_factors(n, t, rank)
+    ju, jv, jenergy = jax_luts.svd_error_factors(n, t, rank)
+    assert u.dtype == v.dtype == np.float32 and u.shape == (1 << n, rank)
+    np.testing.assert_array_equal(u, ju)
+    np.testing.assert_array_equal(v, jv)
+    assert energy == jenergy
+
+
+def test_quantize_divides_a_bf16_input_in_float32():
+    """jnp promotes a bf16 tensor against the float32 scale and divides in
+    float32; torch keeps bf16 for a 0-d scale unless told (a value at 95.43
+    quanta rounds to 95.5 in bf16 and then to 96)."""
+    x = np.random.default_rng(2).standard_normal((3, 5, 4, 16)).astype(np.float32) * 1.7
+    xb = jnp.asarray(x, jnp.bfloat16)
+    tb = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
+    qp_j = jax_quant.calibrate_absmax(xb, bits=8)
+    qp_t = quantization.calibrate_absmax(tb, bits=8)
+    np.testing.assert_array_equal(np.asarray(qp_j.scale), qp_t.scale.numpy())
+    mag_j, sign_j = jax_quant.quantize(xb, qp_j)
+    mag_t, sign_t = quantization.quantize(tb, qp_t)
+    np.testing.assert_array_equal(np.asarray(mag_j, np.int64), mag_t.numpy())
+    np.testing.assert_array_equal(np.asarray(sign_j), sign_t.numpy())
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8, 12, 15])
 def test_quantize_and_calibrate_bitmatch(bits):
     rng = np.random.default_rng(bits)
