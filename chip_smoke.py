@@ -20,6 +20,11 @@ Phases, one line each (or a few):
    one long shape each; flash_attention and flash_decode within 2e-5,
    approx_attention within one probability quantum (max|v| / 255) and
    1e-5 for 99% of the outputs, with the bit-equal share printed.
+   Backward: the dq and dk/dv kernels against ``flash_attention_bwd_plain``
+   on the forward kernel's (o, lse), float32, within 1e-4 * max|want| per
+   output, at the train shape (B 8, S = T = 128, bf16), at S = T = 1024, with
+   window + softcap, and over the serve cache with masked slots and one
+   left-padded row.
    Timed rows print the kernel's time, the plain version's, the bound
    (the larger of the bytes at 3.35 TB/s and the operations at their
    rate: table lookups at the shared-memory rate, the least integer
@@ -29,13 +34,16 @@ Phases, one line each (or a few):
    positions need, masked pairs adding nothing) and one PyTorch
    call that computes the same function, a yardstick the port never calls
    (torch.matmul for the GEMMs, scaled_dot_product_attention for
-   flash_attention and flash_decode; none exists for approx_attention);
+   flash_attention and flash_decode, its backward alone for the backward
+   kernels; none exists for approx_attention);
 4. reference: ``engine.matmul`` on the card against the CPU reference
    bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
    and reduced qwen3-0.6b prefill logits on the card against the CPU
    (float32, rtol/atol 1e-4: sums run in another order): exact and
    bitexact, each with ``attn_impl`` "xla" and "pallas" (bitexact under
-   pallas with the attention contractions approximated too);
+   pallas with the attention contractions approximated too); one train
+   step's loss and gradients of reduced qwen3-0.6b (bitexact on mlp and
+   attn, pallas) on the card against the CPU (rtol 1e-5; 1e-4 * max|want|);
 5. serve: the continuous scheduler on full-width qwen3-0.6b (28 layers,
    d_model 1024, vocab 151936, bf16, weights from a seed) at tier
    ``exact`` (no kernel: the yardstick), tier ``balanced`` (lut_matmul),
@@ -49,7 +57,17 @@ Phases, one line each (or a few):
    After each run, one pool prefill and one decode step give the
    launches and host time per step, and a profiler pass over three
    decode steps the device's busy share;
-6. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
+6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
+   weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
+   reference driver's schedule) for ``paper-multiplier`` with
+   ``attn_impl="pallas"`` (lut_matmul on the MLPs, flash_attention with
+   lse, the dq and dk/dv kernels) and qwen3-0.6b bitexact on mlp and attn
+   with ``attn_impl="pallas"`` (adds approx_attention_bitexact): the loss
+   must be finite and fall; each prints step ms, train tokens/s, launches
+   per step and the busy share of one profiled step.  Then the train CLI
+   on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
+   injected at step 5, which it must recover from;
+7. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 Any failed check exits non-zero before the last line is printed; so does
@@ -60,6 +78,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -84,6 +104,9 @@ CACHE = SERVE["prompt"] + SERVE["gen"]
 GEMM_KERNELS = ("lut_matmul", "seqmul_matmul", "packed_matmul", "lowrank_matmul")
 ATTN_KERNELS = ("flash_attention", "flash_decode", "approx_attention_bitexact",
                 "approx_attention_lowrank")
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the train runs: the reference driver's batch and sequence defaults
+TRAIN = dict(batch=8, seq=128, steps=16)
 REPLACES = {
     "lut_matmul": "src/repro/kernels/lut_matmul.py:30",
     "seqmul_matmul": "src/repro/kernels/seqmul_matmul.py:53",
@@ -93,11 +116,15 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_attention.py:296",
     "approx_attention_bitexact": "src/repro/kernels/approx_attention.py:184",
     "approx_attention_lowrank": "src/repro/kernels/approx_attention.py:171",
+    "flash_attention_bwd_dq": "src/repro/kernels/flash_attention.py:126",
+    "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention.py:158",
 }
 SOURCES = {
     "flash_decode": "flash_attention",
     "approx_attention_bitexact": "approx_attention",
     "approx_attention_lowrank": "approx_attention",
+    "flash_attention_bwd_dq": "flash_attention_bwd",
+    "flash_attention_bwd_dkv": "flash_attention_bwd",
 }
 
 
@@ -451,6 +478,102 @@ def phase_attention(card: Card) -> list:
             for i, case in enumerate(attention_cases())]
 
 
+# ------------------------------------------------------------ backward
+def backward_cases():
+    """(label, B, S, T, window, softcap): the train shape, one long shape, a
+    window + softcap variant, and the serve shape's cache with masked slots
+    and one left-padded row (its pad queries see no slot)."""
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    return [("train", b, s, s, None, None),
+            ("long", 1, 1024, 1024, None, None),
+            ("window+softcap", b, s, s, 64, 30.0),
+            ("masked+pad", SERVE["batch"], SERVE["prompt"], CACHE, None, None)]
+
+
+def run_backward_case(card: Card, case, seed):
+    """dq and dk/dv kernels against flash_attention_bwd_plain on the forward
+    kernel's (o, lse), float32 before the cast."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    label, b, s, t, window, softcap = case
+    q, k, v, q_pos, k_pos = attention_inputs(b, s, t, seed)
+    do = torch.randn((b, s, HEADS, HEAD_DIM), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    hd, h, kv = HEAD_DIM, HEADS, KV_HEADS
+    kw = dict(causal=True, window=window, softcap=softcap, scale=hd**-0.5)
+    o, lse = fa.flash_attention_fwd(q, k, v, q_pos, k_pos, **kw, with_lse=True)
+    dd = torch.einsum("bshd,bshd->bhs", do, o)
+    dq_fn = lambda: fa.flash_attention_bwd_dq(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
+    dkv_fn = lambda: fa.flash_attention_bwd_dkv(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
+    plain = lambda: fa.flash_attention_bwd_plain(q, k, v, q_pos, k_pos, o, lse, do, **kw)
+    got = (dq_fn(), *dkv_fn())
+    want = plain()
+    torch.cuda.synchronize()
+    where = f"backward {label} B={b} S={s} T={t} window={window} softcap={softcap}"
+    errs = []
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(a).all()), f"{where}: non-finite {name}")
+        err = (a - w).abs().max().item()
+        limit = 1e-4 * w.abs().max().item()
+        check(err <= limit, f"{where}: {name} max |err| {err} over {limit}")
+        errs.append(err)
+    # The work this run's data needs: per allowed (query head, slot) pair 3*hd
+    # FMAs in dq (the two recomputed dots, ds.k) and 4*hd in dk/dv (the same
+    # dots, p.do, ds.q); a query with no allowed slot (a pad) adds p.do at
+    # every slot to dv.  Bytes: q, k, v (bf16), do, lse, dd read once; dq or
+    # dk and dv (float32) written once.
+    allow = fa.allow_mask(q_pos, k_pos, causal=True, window=window)
+    pairs = h * allow.sum().item()
+    pad_pairs = h * t * (~allow.any(-1)).sum().item()
+    inputs = 2 * (q.numel() + k.numel() + v.numel()) + 4 * (do.numel() + lse.numel() + dd.numel())
+    inputs += 4 * (q_pos.numel() + k_pos.numel())
+    bounds = {
+        "flash_attention_bwd_dq": card.bound(inputs + 4 * q.numel(), 2 * 3 * hd * pairs,
+                                             card.f32_flops_per_s),
+        "flash_attention_bwd_dkv": card.bound(inputs + 8 * k.numel(),
+                                              2 * hd * (4 * pairs + pad_pairs),
+                                              card.f32_flops_per_s),
+    }
+    total = card.bound(inputs + 4 * q.numel() + 8 * k.numel(),
+                       2 * hd * (7 * pairs + pad_pairs), card.f32_flops_per_s)
+    rows = []
+    for name, err in (("flash_attention_bwd_dq", errs[0]),
+                      ("flash_attention_bwd_dkv", max(errs[1:]))):
+        rows.append(dict(name=name, label=label, shape=[b, s, t, h, kv, hd], max_abs_err=err,
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1]))
+    reps = 5 if label == "long" else 20
+    plain_ms = cuda_ms(plain, reps=2)
+    library_ms = None
+    if softcap is None:  # SDPA has no softcap
+        # the backward alone of SDPA on the same bf16 q/k/v and boolean mask,
+        # its forward outside the timing; heads before the sequence
+        leaves = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=allow[:, None],
+                                             scale=kw["scale"], enable_gqa=True)
+        g_out = do.transpose(1, 2).to(out.dtype)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g_out, retain_graph=True),
+                             reps=reps, warmup=2)
+    for row, fn in zip(rows, (dq_fn, dkv_fn)):
+        row.update(ms=cuda_ms(fn, reps=reps, warmup=2), plain_ms=plain_ms,
+                   library_ms=library_ms)
+    times = (f" dq ms {rows[0]['ms']:.4f} dkv ms {rows[1]['ms']:.4f} plain_ms (whole "
+             f"backward) {plain_ms:.3f} library_ms (SDPA backward) "
+             + (f"{library_ms:.4f}" if library_ms is not None else "none"))
+    print(f"kernel {where}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+          f"(1e-4 * max|want|){times} bound_ms dq {rows[0]['bound_ms']:.5f} "
+          f"({rows[0]['bound_by']}) dkv {rows[1]['bound_ms']:.5f} ({rows[1]['bound_by']}) "
+          f"whole backward {total[0]:.5f} ({total[1]})", flush=True)
+    return rows
+
+
+def phase_backward(card: Card) -> list:
+    return [row for i, case in enumerate(backward_cases())
+            for row in run_backward_case(card, case, seed=500 + i)]
+
+
 # ------------------------------------------------------------ reference
 def phase_reference() -> None:
     import torch
@@ -615,9 +738,14 @@ def step_breakdown(label: str, sched, params) -> dict:
 
 
 def profile_decode(eng, params, caches, tok, at, reps: int = 3):
-    """Device time over ``reps`` decode steps: (busy ms, ms in the port's
-    kernels, host-clock ms, reps).  Busy is the sum of kernel times on the
-    one stream the steps use."""
+    return profile_fn(lambda: eng.decode(params, caches, tok, at, at)[0].cpu(), reps,
+                      "decode step")
+
+
+def profile_fn(fn, reps: int, what: str):
+    """Device time over ``reps`` calls of ``fn``, which ends in a sync: (busy
+    ms, ms in the port's kernels, host-clock ms, reps).  Busy is the sum of
+    kernel times on the one stream the calls use."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -628,7 +756,7 @@ def profile_decode(eng, params, caches, tok, at, reps: int = 3):
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            eng.decode(params, caches, tok, at, at)[0].cpu()
+            fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us = kernel_us = 0.0
     host = []
@@ -645,9 +773,144 @@ def profile_decode(eng, params, caches, tok, at, reps: int = 3):
     launches = sum(c for _, c, k in host if k.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     top = ", ".join(f"{k} {us / 1e3 / reps:.2f} ms x{c // reps}"
                     for us, c, k in sorted(host, reverse=True)[:6])
-    print(f"profile: per decode step {launches / reps:.0f} launches through the CUDA runtime "
+    print(f"profile: per {what} {launches / reps:.0f} launches through the CUDA runtime "
           f"seen; host self time by op: {top}", flush=True)
     return busy_us / 1e3, kernel_us / 1e3, wall_ms, reps
+
+
+# ---------------------------------------------------------------- train
+def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
+    """``TRAIN["steps"]`` steps of ``make_train_step`` through ``run_loop`` at
+    full width from seed-0 weights and ``SyntheticLM`` data: the loss must
+    be finite and fall, every kernel in ``expect`` must launch.  Then one
+    more step under the profiler for the device's busy share."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.runtime.fault import run_loop
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = model.cfg
+    b, seq, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    # the reference driver's TrainConfig for --steps n
+    tcfg = TrainConfig(learning_rate=3e-4, total_steps=n, warmup_steps=max(10, n // 20),
+                       seed=seed)
+    t0 = time.perf_counter()
+    state = init_train_state(model, tcfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=b,
+                                  seed=seed))
+
+    def batch_fn(step: int) -> dict:
+        return {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(step).items()}
+
+    step_fn = make_train_step(model, tcfg)
+    times = []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    kernels.reset_launch_counts()
+    result = run_loop(state, timed, batch_fn, total_steps=n)
+    counts = kernels.launch_counts()
+    losses = [h["loss"] for h in result.metrics_history]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(len(losses) == n and all(np.isfinite(losses)), f"train {label}: losses {losses}")
+    check(last < first, f"train {label}: loss did not fall ({first} -> {last}): {losses}")
+    for name in expect:
+        check(counts[name] > 0, f"train {label}: {name} was never launched ({counts})")
+    step_ms = float(np.median(times[1:])) * 1e3
+    per_step = {k: v / n for k, v in counts.items() if v}
+    busy_ms, kernel_ms, wall_ms, _ = profile_fn(lambda: timed(result.state, batch_fn(n)), 1,
+                                                "train step")
+    share = (f"device busy {busy_ms / wall_ms:.3f} of {wall_ms:.1f} ms, own kernels "
+             f"{kernel_ms / max(busy_ms, 1e-9):.3f} of busy" if busy_ms else
+             "device busy share not measured (the profiler saw no device time)")
+    print(f"train {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}, batch {b} x seq {seq}, {n} steps "
+          f"(init {init_s:.1f}s): loss {first:.4f} -> {last:.4f}; step {step_ms:.1f} ms "
+          f"(first {times[0] * 1e3:.1f} ms), {b * seq / step_ms * 1e3:.0f} train tokens/s; "
+          f"launches per step {per_step}; {share}", flush=True)
+    return dict(counts=counts, per_step=per_step, step_ms=step_ms, first=first, last=last,
+                busy_share=busy_ms / wall_ms if busy_ms else None)
+
+
+def phase_train_reference() -> None:
+    """One train step's loss and gradients of reduced qwen3-0.6b, bitexact on
+    mlp and attn with attn_impl="pallas", on the card against the CPU, from
+    the same seeded weights and batch: loss within rtol 1e-5 and every
+    gradient within 1e-4 * max|want| (the CPU tests' tolerances against the
+    JAX package; float32 sums run in another order on the card)."""
+    import torch
+
+    from repro_torch.configs.registry import apply_approx, get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import loss_fn
+
+    cfg = apply_approx(get_config("qwen3-0.6b").reduced(attn_impl="pallas"), mode="bitexact",
+                       n=8, t=4, targets=("mlp", "attn"))
+    model = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(5))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    results = []
+    for device in ("cpu", "cuda"):
+        params = model.init_params(0, device="cpu").to(device)
+        loss, _ = loss_fn(params, {k: v.to(device) for k, v in batch.items()}, 0, model)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in params.named_parameters()}))
+    (want_loss, want), (got_loss, got) = results
+    check(abs(got_loss - want_loss) <= 1e-5 * abs(want_loss),
+          f"reduced train step: card loss {got_loss} vs CPU {want_loss}")
+    worst = 0.0
+    for name, w in want.items():
+        err = (got[name] - w).abs().max().item()
+        limit = 1e-4 * w.abs().max().item()
+        check(err <= limit, f"reduced train step: {name} gradient max |err| {err} over {limit}")
+        worst = max(worst, err / max(w.abs().max().item(), 1e-30))
+    print(f"reference: reduced qwen3-0.6b train step (bitexact mlp+attn, pallas) card vs CPU: "
+          f"loss {got_loss:.6f} vs {want_loss:.6f}, worst gradient max |err| / max|want| "
+          f"{worst:.3e} over {len(want)} tensors (limits rtol 1e-5, 1e-4)", flush=True)
+
+
+def phase_train_cli() -> None:
+    """The train CLI on the card: full-width paper-multiplier, a checkpoint
+    every 4 steps and a failure injected at step 5; it must recover from the
+    step-4 checkpoint and print its loss line."""
+    import re
+    import shutil
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "paper-multiplier",
+           "--steps", "8", "--batch", "8", "--seq", "128", "--ckpt-dir", str(ckpt),
+           "--ckpt-every", "4", "--inject-failures", "5", "--log-every", "2"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    check(proc.returncode == 0, f"train CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    m = re.search(r"loss ([-\d.naif]+) -> ([-\d.naif]+)\s+failures=(\d+) restarts=(\d+)", out)
+    check(m is not None, f"train CLI printed no loss line: {out[-2000:]}")
+    a, b = float(m.group(1)), float(m.group(2))
+    failures, restarts = int(m.group(3)), int(m.group(4))
+    check("recovered from step 4" in out, f"train CLI did not recover from step 4: {out[-2000:]}")
+    check(failures == 1 and restarts == 1 and all(map(math.isfinite, (a, b))),
+          f"train CLI: {m.group(0)}")
+    lines = [ln for ln in out.splitlines() if ln.startswith(("arch=", "recovered", "loss"))]
+    print(f"train CLI ({wall:.1f}s): " + " | ".join(lines), flush=True)
 
 
 def main() -> int:
@@ -689,11 +952,12 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
     # 3. kernels
-    rows = phase_kernels(card) + phase_attention(card)
+    rows = phase_kernels(card) + phase_attention(card) + phase_backward(card)
     kernels.reset_launch_counts()
 
     # 4. reference
     phase_reference()
+    phase_train_reference()
     kernels.reset_launch_counts()
 
     # 5. serve
@@ -733,15 +997,41 @@ def main() -> int:
         "pallas lowrank mlp+attn", params, pallas, mode="lowrank", targets=("mlp", "attn"),
         expect=("lowrank_matmul", "approx_attention_lowrank", "flash_decode"),
         requests=n_req)
+    del params
+    torch.cuda.empty_cache()
 
-    # 6. report
+    # 6. train, full width, attn_impl="pallas" (set on the config; the CLI has no flag)
+    from repro_torch.configs.registry import apply_approx
+
+    paper = build_model(dataclasses.replace(get_config("paper-multiplier"), attn_impl="pallas"))
+    train_runs = {"paper-multiplier": phase_train(
+        "paper-multiplier pallas", paper,
+        expect=("lut_matmul", "flash_attention", *BWD_KERNELS))}
+    bitexact = build_model(apply_approx(dataclasses.replace(cfg, attn_impl="pallas"),
+                                        mode="bitexact", n=8, t=4, targets=("mlp", "attn")))
+    train_runs["bitexact"] = phase_train(
+        "qwen3-0.6b bitexact mlp+attn pallas", bitexact,
+        expect=("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS))
+    for name in BWD_KERNELS:
+        runs[name] = dict(counts=train_runs["paper-multiplier"]["counts"],
+                          per_step=train_runs["paper-multiplier"]["per_step"])
+    torch.cuda.empty_cache()
+    phase_train_cli()
+
+    # 7. report
     table = []
-    for name in GEMM_KERNELS + ATTN_KERNELS:
+    for name in GEMM_KERNELS + ATTN_KERNELS + BWD_KERNELS:
         mine = [r for r in rows if r["name"] == name]
         if name in GEMM_KERNELS:
             main_row = next(r for r in mine if tuple(r["shape"]) == MAIN_SHAPE and r["n"] == 8)
+        elif name in BWD_KERNELS:
+            main_row = next(r for r in mine if r["label"] == "train")
         else:
             main_row = next(r for r in mine if r["label"] == "serve")
+        per_step = (dict(launches_per_train_step=runs[name]["per_step"][name])
+                    if name in BWD_KERNELS else
+                    dict(launches_per_prefill=runs[name]["per_prefill"][name],
+                         launches_per_decode_step=runs[name]["per_decode"][name]))
         table.append({
             "name": name,
             "route": "cuda",
@@ -755,8 +1045,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "shape": main_row["shape"],
-            "launches_per_prefill": runs[name]["per_prefill"][name],
-            "launches_per_decode_step": runs[name]["per_decode"][name],
+            **per_step,
         })
     print("kernels: " + json.dumps([[k["name"], k["launches"]] for k in table]), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -18,6 +18,7 @@ __all__ = ["ARCHS", "get_config", "apply_approx", "apply_quality"]
 # arch-id -> module name under repro_torch.configs
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "paper-multiplier": "paper_multiplier",
 }
 
 

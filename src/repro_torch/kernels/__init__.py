@@ -12,6 +12,8 @@ kernel                         replaces (JAX package)                           
 ``packed_matmul``              ``repro/kernels/packed_matmul.py`` ``_kernel``        GEMM, inject
 ``lowrank_matmul``             ``repro/kernels/lowrank_matmul.py`` ``_kernel``       GEMM, lowrank
 ``flash_attention``            ``repro/kernels/flash_attention.py`` ``_fwd_kernel``  prefill, exact
+``flash_attention_bwd_dq``     ``repro/kernels/flash_attention.py`` ``_dq_kernel``   training backward
+``flash_attention_bwd_dkv``    ``repro/kernels/flash_attention.py`` ``_dkv_kernel``  training backward
 ``flash_decode``               ``repro/kernels/flash_attention.py``                  every decode step
                                ``_decode_kernel``
 ``approx_attention_bitexact``  ``repro/kernels/approx_attention.py``                 prefill, bitexact
@@ -20,7 +22,8 @@ kernel                         replaces (JAX package)                           
                                ``_lowrank_kernel``
 =============================  ====================================================  ==================
 
-The attention kernels run under ``attn_impl="pallas"`` (``models/attention.py``).
+The attention kernels run under ``attn_impl="pallas"`` (``models/attention.py``);
+the backward pair runs for both the exact and the approximate forward.
 """
 
 from repro_torch.kernels import (
@@ -35,6 +38,8 @@ ALL = {
     "packed_matmul": packed_matmul.KERNEL,
     "lowrank_matmul": lowrank_matmul.KERNEL,
     "flash_attention": flash_attention.FORWARD_KERNEL,
+    "flash_attention_bwd_dq": flash_attention.DQ_KERNEL,
+    "flash_attention_bwd_dkv": flash_attention.DKV_KERNEL,
     "flash_decode": flash_attention.DECODE_KERNEL,
     "approx_attention_bitexact": approx_attention.BITEXACT_KERNEL,
     "approx_attention_lowrank": approx_attention.LOWRANK_KERNEL,

@@ -24,8 +24,15 @@ tensors and :func:`approx_attention_plain` for CPU tensors; there is no
 other fallback.  The plain version ports ``approx_attention_reference``:
 the same key-block partition and padding, the same update order, and
 :func:`online_update` / :func:`bitexact_tile` / :func:`lowrank_tile` as
-functions on tensors (batched over batch, head and query rows).  On the
-card there is no backward: asking for a gradient raises.
+functions on tensors (batched over batch, head and query rows).
+
+Gradients are straight-through, as the reference's ``custom_vjp``: the
+forward (kernel or plain version) also returns lse = m + log(max(l,
+1e-30)), and the exact flash-attention backward
+(``flash_attention.flash_attention_bwd``: the dq and dk/dv kernels on the
+card) runs on the approximate forward's ``(o, lse)``.  Its probabilities
+are recomputed exactly against the approximate lse, so they need not sum
+to 1; that is the reference's function and is not renormalised.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ import torch
 from repro_torch.core import quantization
 from repro_torch.engine import artifacts
 from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand
-from repro_torch.kernels.flash_attention import HEAD_DIMS, NEG_INF, allow_mask, refuse_gradient
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, NEG_INF, FlashBackward, allow_mask, needs_grad,
+)
 
 __all__ = [
     "ATTN_MODES", "BITEXACT_KERNEL", "LOWRANK_KERNEL", "MAX_ATTN_N", "KernelOperands",
@@ -57,15 +66,15 @@ _ROWS = 16  # csrc/approx_attention.cu kBQ
 _KEY_CHUNK = 16  # csrc/approx_attention.cu kKC (lowrank)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (6 operands, table, q_pos, k_pos, scales, out, B, S, T, H, KV, hd, n, bk, causal,
+# (6 operands, table, q_pos, k_pos, scales, out, lse, B, S, T, H, KV, hd, n, bk, causal,
 #  window, softcap, scale, [rank,] device, stream)
 BITEXACT_KERNEL = CudaKernel(
     "approx_attention_bitexact", "approx_attention_bitexact_launch",
-    [_P] * 11 + [_I] * 10 + [_F, _F, _I, _P], source="approx_attention",
+    [_P] * 12 + [_I] * 10 + [_F, _F, _I, _P], source="approx_attention",
 )
 LOWRANK_KERNEL = CudaKernel(
     "approx_attention_lowrank", "approx_attention_lowrank_launch",
-    [_P] * 11 + [_I] * 10 + [_F, _F, _I, _I, _P], source="approx_attention",
+    [_P] * 12 + [_I] * 10 + [_F, _F, _I, _I, _P], source="approx_attention",
 )
 
 
@@ -203,11 +212,12 @@ def _k_side(x):
 # ---------------------------------------------------------------- plain
 def approx_attention_plain(q, k, v, q_pos, k_pos, *, mode="lowrank", n=8, t=4,
                            fix_to_1=True, rank=8, causal=True, window=None, softcap=None,
-                           scale=1.0, bk=None) -> torch.Tensor:
+                           scale=1.0, bk=None, with_lse=False):
     """The reference's ``approx_attention_reference`` on tensors: query
     tiles of ``DEFAULT_BQ`` rows (all heads at once; rows are independent),
     key blocks of ``bk`` in order, the key side zero-padded to a block
-    multiple with ``k_pos = -1``."""
+    multiple with ``k_pos = -1``.  With ``with_lse`` it returns ``(o,
+    lse)``, lse (B, H, S) = m + log(max(l, 1e-30)) as the kernel writes it."""
     validate_attn_mode(mode, n)
     b, s, h, hd = q.shape
     tt, kv = k.shape[1], k.shape[2]
@@ -228,6 +238,7 @@ def approx_attention_plain(q, k, v, q_pos, k_pos, *, mode="lowrank", n=8, t=4,
         k_ops = [_k_side(_pad_keys(x, tp)) for x in (mk.to(torch.int64), sk,
                                                      mv.to(torch.int64), sv)]
     out = torch.empty((b, kv, h // kv, s, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, kv, h // kv, s), dtype=torch.float32, device=q.device)
     for q0 in range(0, s, bq_):
         rows = slice(q0, q0 + bq_)
         nr = min(bq_, s - q0)
@@ -248,8 +259,11 @@ def approx_attention_plain(q, k, v, q_pos, k_pos, *, mode="lowrank", n=8, t=4,
             m, l, acc = online_update(
                 m, l, acc, s_int, allow[:, None, None], av_int, qk_scale=qk_scale,
                 pv_scale=pv_scale, scale=scale, softcap=softcap, n=n)
-        out[..., rows, :] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, h, s, hd).transpose(1, 2)
+        l = torch.clamp(l, min=1e-30)
+        out[..., rows, :] = acc / l[..., None]
+        lse[..., rows] = m + torch.log(l)
+    out = out.reshape(b, h, s, hd).transpose(1, 2)
+    return (out, lse.reshape(b, h, s)) if with_lse else out
 
 
 # ---------------------------------------------------------------- kernel
@@ -310,8 +324,9 @@ def kernel_operands(q, k, v, *, mode, n, t, fix_to_1, rank) -> KernelOperands:
 
 
 def launch_kernel(ops: KernelOperands, q_pos, k_pos, *, bk, causal, window, softcap,
-                  scale) -> torch.Tensor:
-    """One launch of the mode's kernel on prepared operands -> (B, S, H, hd) f32."""
+                  scale, with_lse=False):
+    """One launch of the mode's kernel on prepared operands -> (B, S, H, hd)
+    f32, or ``(o, lse)`` with ``with_lse`` (lse (B, H, S) f32)."""
     b, s, h, hd = ops.q_shape
     tt, kv = ops.k_shape[1], ops.k_shape[2]
     if not 1 <= bk <= MAX_BK:
@@ -323,13 +338,15 @@ def launch_kernel(ops: KernelOperands, q_pos, k_pos, *, bk, causal, window, soft
     lowrank = ops.mode == "lowrank"
     kernel, tail = (LOWRANK_KERNEL, [ops.rank]) if lowrank else (BITEXACT_KERNEL, [])
     out = torch.empty((b, s, h, hd), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if with_lse else None
     kernel.launch(
         dev, *(x.data_ptr() for x in ops.args), ops.table.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), ops.scales.data_ptr(), out.data_ptr(), b, s, tt, h, kv, hd, ops.n,
-        bk, int(bool(causal)), -1 if window is None else int(window),
-        float(softcap or 0.0), float(scale), *tail,
+        k_pos.data_ptr(), ops.scales.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, tt, h, kv, hd, ops.n, bk,
+        int(bool(causal)), -1 if window is None else int(window), float(softcap or 0.0),
+        float(scale), *tail,
     )
-    return out
+    return (out, lse) if with_lse else out
 
 
 def approx_flash_attention(q, k, v, q_pos, k_pos, mode="lowrank", n=8, t=4, fix_to_1=True,
@@ -341,14 +358,21 @@ def approx_flash_attention(q, k, v, q_pos, k_pos, mode="lowrank", n=8, t=4, fix_
     q (B, S, H, hd), k/v (B, T, KV, hd), positions (B, S)/(B, T); returns
     (B, S, H, hd) f32.  ``bk`` (default: the mode's ``attn_tiles``) is the
     key block of the online softmax and changes the result.  The query
-    tile does not: each version picks its own.
+    tile does not: each version picks its own.  Differentiable in q, k and
+    v, straight-through (see the module's note).
     """
     validate_attn_mode(mode, n)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if q.device.type == "cpu":
-        return approx_attention_plain(q, k, v, q_pos, k_pos, mode=mode, n=n, t=t,
-                                      fix_to_1=fix_to_1, rank=rank, bk=bk, **kw)
-    refuse_gradient(f"approx_flash_attention({mode})", q, k, v)
-    ops = kernel_operands(q, k, v, mode=mode, n=n, t=t, fix_to_1=fix_to_1, rank=rank)
-    return launch_kernel(ops, q_pos, k_pos, bk=min(bk or attn_tiles(mode)[1], k.shape[1]),
-                         **kw)
+
+    def forward(q, k, v, q_pos, k_pos, with_lse=True):
+        if q.device.type == "cpu":
+            return approx_attention_plain(q, k, v, q_pos, k_pos, mode=mode, n=n, t=t,
+                                          fix_to_1=fix_to_1, rank=rank, bk=bk,
+                                          with_lse=with_lse, **kw)
+        ops = kernel_operands(q, k, v, mode=mode, n=n, t=t, fix_to_1=fix_to_1, rank=rank)
+        return launch_kernel(ops, q_pos, k_pos, bk=min(bk or attn_tiles(mode)[1], k.shape[1]),
+                             with_lse=with_lse, **kw)
+
+    if not needs_grad(q, k, v):
+        return forward(q, k, v, q_pos, k_pos, with_lse=False)
+    return FlashBackward.apply(q, k, v, q_pos, k_pos, forward, kw)

@@ -11,7 +11,9 @@
 //   m'   = max(m, max_j s);  p = exp(s - m');  corr = exp(m - m')
 //   l'   = l * corr + sum_j p;  p_int = rint(p * (2^n - 1))
 //   acc' = acc * corr + av_int(p_int) * pv_scale
-// and at the end o = acc / max(l, 1e-30).  bitexact: s_int = sum_d
+// and at the end o = acc / max(l, 1e-30) and, when the caller asks for it
+// (training), lse = m + log(max(l, 1e-30)), the residual on which the
+// exact backward of csrc/flash_attention_bwd.cu runs.  bitexact: s_int = sum_d
 // LUT[|q|, |k|] sq sk and av_int = sum_j LUT[p_int, |v|] sv, both integers
 // (products < 2^16, at most 128 terms: exact in int32 and in the
 // reference's float32).  lowrank: s_int = qi . ki + ueq . vek and av_int =
@@ -136,6 +138,15 @@ __device__ __forceinline__ int slot_pos(const int* k_pos, int b, int T, int key)
   return key < T ? k_pos[size_t(b) * T + key] : -1;
 }
 
+// lse = m + log(max(l, 1e-30)) (B, H, S), the exact flash backward's
+// residual, when the caller passes a buffer for it; serving passes none.
+__device__ void write_lse(Stats st, float* lse, int b, int h, int H, int S, int q0) {
+  if (lse == nullptr) return;
+  for (int r = threadIdx.x; r < kBQ; r += kThreads)
+    if (q0 + r < S)
+      lse[(size_t(b) * H + h) * S + q0 + r] = __fadd_rn(st.m[r], logf(fmaxf(st.l[r], 1e-30f)));
+}
+
 // ------------------------------------------------------------- bitexact
 template <int HD>
 constexpr size_t bitexact_tiles_bytes() {
@@ -150,7 +161,8 @@ approx_attention_bitexact_kernel(const uint8_t* __restrict__ mq, const int8_t* _
                                  const uint16_t* __restrict__ lut,
                                  const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                                  const float* __restrict__ scales, float* __restrict__ out,
-                                 int S, int T, int H, int KV, int n, int bk, int causal,
+                                 float* __restrict__ lse, int S, int T, int H, int KV, int n,
+                                 int bk, int causal,
                                  int window, float softcap, float scale) {
   constexpr int LD = HD + 4;  // byte rows, padded: slot j starts in bank j * (HD/4 + 1)
   constexpr int NO = kBQ * HD / kThreads;  // outputs per thread
@@ -236,6 +248,7 @@ approx_attention_bitexact_kernel(const uint8_t* __restrict__ mq, const int8_t* _
     if (qr < S)
       out[((size_t(b) * S + qr) * H + h) * HD + c] = __fdiv_rn(acc[o], fmaxf(st.l[r], 1e-30f));
   }
+  write_lse(st, lse, b, h, H, S, q0);
 }
 
 // -------------------------------------------------------------- lowrank
@@ -251,9 +264,9 @@ approx_attention_lowrank_kernel(const float* __restrict__ qi, const float* __res
                                 const float* __restrict__ vek, const float* __restrict__ vev,
                                 const float* __restrict__ ut, const int* __restrict__ q_pos,
                                 const int* __restrict__ k_pos, const float* __restrict__ scales,
-                                float* __restrict__ out, int S, int T, int H, int KV, int n,
-                                int bk, int causal, int window, float softcap, float scale,
-                                int rank) {
+                                float* __restrict__ out, float* __restrict__ lse, int S, int T,
+                                int H, int KV, int n, int bk, int causal, int window,
+                                float softcap, float scale, int rank) {
   constexpr int LD = HD + 1;
   constexpr int NO = kBQ * HD / kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -349,6 +362,7 @@ approx_attention_lowrank_kernel(const float* __restrict__ qi, const float* __res
     if (qr < S)
       out[((size_t(b) * S + qr) * H + h) * HD + c] = __fdiv_rn(acc[o], fmaxf(st.l[r], 1e-30f));
   }
+  write_lse(st, lse, b, h, H, S, q0);
 }
 
 template <typename Kernel>
@@ -359,7 +373,8 @@ cudaError_t prepare_launch(Kernel kernel, size_t smem) {
 
 template <int HD>
 cudaError_t launch_bitexact(const void* const* ops, const void* lut, const void* qp,
-                            const void* kp, const void* scales, void* out, int B, int S, int T,
+                            const void* kp, const void* scales, void* out, void* lse, int B,
+                            int S, int T,
                             int H, int KV, int n, int bk, int causal, int window, float softcap,
                             float scale, cudaStream_t stream) {
   const size_t smem = size_t(2) * (size_t(1) << (2 * n)) + bitexact_tiles_bytes<HD>() + stats_bytes();
@@ -373,13 +388,14 @@ cudaError_t launch_bitexact(const void* const* ops, const void* lut, const void*
       static_cast<const uint8_t*>(ops[4]), static_cast<const int8_t*>(ops[5]),
       static_cast<const uint16_t*>(lut), static_cast<const int*>(qp),
       static_cast<const int*>(kp), static_cast<const float*>(scales), static_cast<float*>(out),
-      S, T, H, KV, n, bk, causal, window, softcap, scale);
+      static_cast<float*>(lse), S, T, H, KV, n, bk, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_lowrank(const void* const* ops, const void* ut, const void* qp,
-                           const void* kp, const void* scales, void* out, int B, int S, int T,
+                           const void* kp, const void* scales, void* out, void* lse, int B,
+                           int S, int T,
                            int H, int KV, int n, int bk, int causal, int window, float softcap,
                            float scale, int rank, cudaStream_t stream) {
   const size_t smem = lowrank_tiles_bytes(HD, 1 << n, rank) + stats_bytes();
@@ -392,8 +408,8 @@ cudaError_t launch_lowrank(const void* const* ops, const void* ut, const void* q
       static_cast<const float*>(ops[2]), static_cast<const float*>(ops[3]),
       static_cast<const float*>(ops[4]), static_cast<const float*>(ops[5]),
       static_cast<const float*>(ut), static_cast<const int*>(qp), static_cast<const int*>(kp),
-      static_cast<const float*>(scales), static_cast<float*>(out), S, T, H, KV, n, bk, causal,
-      window, softcap, scale, rank);
+      static_cast<const float*>(scales), static_cast<float*>(out), static_cast<float*>(lse), S,
+      T, H, KV, n, bk, causal, window, softcap, scale, rank);
   return cudaGetLastError();
 }
 
@@ -416,29 +432,29 @@ bool bad_shape(int B, int S, int T, int H, int KV, int n, int bk) {
 extern "C" int approx_attention_bitexact_launch(
     const void* mq, const void* sq, const void* mk, const void* sk, const void* mv,
     const void* sv, const void* lut, const void* q_pos, const void* k_pos, const void* scales,
-    void* out, int B, int S, int T, int H, int KV, int hd, int n, int bk, int causal, int window,
-    float softcap, float scale, int device, void* stream) {
+    void* out, void* lse, int B, int S, int T, int H, int KV, int hd, int n, int bk, int causal,
+    int window, float softcap, float scale, int device, void* stream) {
   if (bad_shape(B, S, T, H, KV, n, bk)) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   const void* ops[6] = {mq, sq, mk, sk, mv, sv};
   const auto s = static_cast<cudaStream_t>(stream);
-  DISPATCH_HD(launch_bitexact, ops, lut, q_pos, k_pos, scales, out, B, S, T, H, KV, n, bk,
+  DISPATCH_HD(launch_bitexact, ops, lut, q_pos, k_pos, scales, out, lse, B, S, T, H, KV, n, bk,
               causal, window, softcap, scale, s)
 }
 
 extern "C" int approx_attention_lowrank_launch(
     const void* qi, const void* ki, const void* vi, const void* ueq, const void* vek,
     const void* vev, const void* ut, const void* q_pos, const void* k_pos, const void* scales,
-    void* out, int B, int S, int T, int H, int KV, int hd, int n, int bk, int causal, int window,
-    float softcap, float scale, int rank, int device, void* stream) {
+    void* out, void* lse, int B, int S, int T, int H, int KV, int hd, int n, int bk, int causal,
+    int window, float softcap, float scale, int rank, int device, void* stream) {
   if (bad_shape(B, S, T, H, KV, n, bk) || rank < 1) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   const void* ops[6] = {qi, ki, vi, ueq, vek, vev};
   const auto s = static_cast<cudaStream_t>(stream);
-  DISPATCH_HD(launch_lowrank, ops, ut, q_pos, k_pos, scales, out, B, S, T, H, KV, n, bk, causal,
-              window, softcap, scale, rank, s)
+  DISPATCH_HD(launch_lowrank, ops, ut, q_pos, k_pos, scales, out, lse, B, S, T, H, KV, n, bk,
+              causal, window, softcap, scale, rank, s)
 }
 
 extern "C" const char* kernel_error_string(int err) {

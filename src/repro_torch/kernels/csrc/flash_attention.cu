@@ -4,7 +4,9 @@
 // Replaces: src/repro/kernels/flash_attention.py `_fwd_kernel` (pallas_call
 // at :100, entry flash_attention at :261) and `_decode_kernel` (pallas_call
 // at :360, entry flash_decode at :334).  The backward kernels of that file
-// (`_dq_kernel`, `_dkv_kernel`) are not ported here.
+// (`_dq_kernel`, `_dkv_kernel`) are in flash_attention_bwd.cu; the prefill
+// kernel writes their residual lse = m + log(max(l, 1e-30)) (B, H, S) when
+// the caller passes a buffer for it (training), as `_fwd` does.
 //
 // Both compute, per query row with position qp and key slot j with
 // position kp[j]:  s = (q . k_j) * scale, s = tanh(s / softcap) * softcap
@@ -82,8 +84,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
-                       const int* __restrict__ k_pos, float* __restrict__ out, int S, int T_len,
-                       int H, int KV, int causal, int window, float softcap, float scale) {
+                       const int* __restrict__ k_pos, float* __restrict__ out,
+                       float* __restrict__ lse, int S, int T_len, int H, int KV, int causal,
+                       int window, float softcap, float scale) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 4;  // output columns per thread
   extern __shared__ __align__(16) float fsmem[];
@@ -169,6 +172,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* o = out + ((size_t(b) * S + qrow) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) o[lane + 4 * c] = acc[c] / l_fin;
+    // the backward's residual, when asked for: a row with no allowed slot
+    // has m = NEG_INF and l = T, so lse = NEG_INF + log T rounds to NEG_INF
+    if (lse != nullptr && lane == 0) lse[(size_t(b) * H + h) * S + qrow] = m + logf(l_fin);
   }
 }
 
@@ -281,7 +287,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 template <typename T, int HD>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v, const void* qp,
-                           const void* kp, void* out, int B, int S, int T_len, int H, int KV,
+                           const void* kp, void* out, void* lse, int B, int S, int T_len, int H,
+                           int KV,
                            int causal, int window, float softcap, float scale,
                            cudaStream_t stream) {
   const size_t smem = prefill_smem(HD);
@@ -292,8 +299,8 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v, const vo
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(qp), static_cast<const int*>(kp), static_cast<float*>(out), S,
-      T_len, H, KV, causal, window, softcap, scale);
+      static_cast<const int*>(qp), static_cast<const int*>(kp), static_cast<float*>(out),
+      static_cast<float*>(lse), S, T_len, H, KV, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -325,15 +332,15 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   }
 
 cudaError_t prefill(int dtype, int hd, const void* q, const void* k, const void* v,
-                    const void* qp, const void* kp, void* out, int B, int S, int T_len, int H,
-                    int KV, int causal, int window, float softcap, float scale,
+                    const void* qp, const void* kp, void* out, void* lse, int B, int S,
+                    int T_len, int H, int KV, int causal, int window, float softcap, float scale,
                     cudaStream_t s) {
   if (dtype == 0) {
-    DISPATCH_HD(launch_prefill, float, q, k, v, qp, kp, out, B, S, T_len, H, KV, causal, window,
-                softcap, scale, s)
+    DISPATCH_HD(launch_prefill, float, q, k, v, qp, kp, out, lse, B, S, T_len, H, KV, causal,
+                window, softcap, scale, s)
   }
-  DISPATCH_HD(launch_prefill, __nv_bfloat16, q, k, v, qp, kp, out, B, S, T_len, H, KV, causal,
-              window, softcap, scale, s)
+  DISPATCH_HD(launch_prefill, __nv_bfloat16, q, k, v, qp, kp, out, lse, B, S, T_len, H, KV,
+              causal, window, softcap, scale, s)
 }
 
 cudaError_t decode(int dtype, int hd, const void* q, const void* k, const void* v,
@@ -353,7 +360,8 @@ bool bad_heads(int H, int KV) { return KV < 1 || H < KV || H % KV != 0; }
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* k_pos, void* out,
-                                      int dtype, int B, int S, int T_len, int H, int KV, int hd,
+                                      void* lse, int dtype, int B, int S, int T_len, int H,
+                                      int KV, int hd,
                                       int causal, int window, float softcap, float scale,
                                       int device, void* stream) {
   if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || T_len < 1 || bad_heads(H, KV) ||
@@ -361,8 +369,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  return int(prefill(dtype, hd, q, k, v, q_pos, k_pos, out, B, S, T_len, H, KV, causal, window,
-                     softcap, scale, static_cast<cudaStream_t>(stream)));
+  return int(prefill(dtype, hd, q, k, v, q_pos, k_pos, out, lse, B, S, T_len, H, KV, causal,
+                     window, softcap, scale, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,

@@ -1,15 +1,19 @@
-"""Flash attention forward and flash decode, with GQA by head index.
+"""Flash attention (forward and backward) and flash decode, with GQA by head index.
 
-Counterpart of ``repro/kernels/flash_attention.py`` (forward and decode;
-the backward kernels are a later slice).  :func:`flash_attention` and
-:func:`flash_decode` run the CUDA kernels of ``csrc/flash_attention.cu``
+Counterpart of ``repro/kernels/flash_attention.py``.  :func:`flash_attention`
+and :func:`flash_decode` run the CUDA kernels of ``csrc/flash_attention.cu``
 for CUDA tensors and the plain versions for CPU tensors; there is no
-other fallback.  Layouts are the reference's: q (B, S, H, hd), k/v
-(B, T, KV, hd) unrepeated, positions (B, S) / (B, T) with ``-1`` marking
-an unwritten cache slot; decode takes q (B, H, hd) and q_pos (B,).  Both
-return float32.  The reference's ``bq``/``bk``/``interpret`` arguments
-have no counterpart: the tiles are the kernel's own, and they change only
-the order of float32 sums.
+other fallback.  :func:`flash_attention` is differentiable: as the
+reference's ``custom_vjp``, its forward also writes lse = m + log(l) and
+its backward (:func:`flash_attention_bwd`) runs the FlashAttention-2
+recompute, the dq and dk/dv kernels of ``csrc/flash_attention_bwd.cu`` on
+the card and :func:`flash_attention_bwd_plain` on the CPU.  Layouts are
+the reference's: q (B, S, H, hd), k/v (B, T, KV, hd) unrepeated,
+positions (B, S) / (B, T) with ``-1`` marking an unwritten cache slot;
+decode takes q (B, H, hd) and q_pos (B,).  Outputs are float32.  The
+reference's ``bq``/``bk``/``interpret`` arguments have no counterpart: the
+tiles are the kernel's own, and they change only the order of float32
+sums.
 
 The plain versions are the port's attention math, also used by
 ``models/attention.py`` on its plain path: the direct softmax, or the
@@ -28,8 +32,10 @@ import torch
 from repro_torch.kernels.build import CudaKernel, check_operand
 
 __all__ = [
-    "DECODE_KERNEL", "FORWARD_KERNEL", "NEG_INF", "allow_mask", "attend",
-    "flash_attention", "flash_attention_plain", "flash_decode", "flash_decode_plain",
+    "DECODE_KERNEL", "DKV_KERNEL", "DQ_KERNEL", "FORWARD_KERNEL", "FlashBackward", "NEG_INF",
+    "allow_mask", "attend", "flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq", "flash_attention_bwd_plain", "flash_attention_fwd",
+    "flash_attention_plain", "flash_decode", "flash_decode_plain", "needs_grad",
 ]
 
 NEG_INF = -2.3819763e38  # bf16-safe large negative (the reference's value)
@@ -41,12 +47,22 @@ MAX_GROUP = 16  # flash_decode: query heads per KV head
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FORWARD_KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
 )
 DECODE_KERNEL = CudaKernel(
     "flash_decode", "flash_decode_launch",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     source="flash_attention",
+)
+# (q, k, v, do, lse, dd, q_pos, k_pos, outputs..., dtype, B, S, T, H, KV, hd, causal,
+#  window, softcap, scale, device, stream)
+DQ_KERNEL = CudaKernel(
+    "flash_attention_bwd_dq", "flash_attention_bwd_dq_launch",
+    [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P], source="flash_attention_bwd",
+)
+DKV_KERNEL = CudaKernel(
+    "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_launch",
+    [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P], source="flash_attention_bwd",
 )
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,23 +98,33 @@ def _weighted_values(probs, v):
     return torch.einsum("bkgst,btkd->bkgsd", pg, v.to(torch.float32)).reshape(b, h, s, -1)
 
 
-def _attend_direct(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale):
+def _lse(logits):
+    """The forward's residual m + log(max(l, 1e-30)) of masked logits, as the
+    reference's forward writes it: a row with every slot masked has m =
+    NEG_INF and l = T, so its lse is NEG_INF + log T = NEG_INF in float32."""
+    m = logits.amax(dim=-1)
+    l = torch.exp(logits - m[..., None]).sum(dim=-1)
+    return m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def _attend_direct(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale, with_lse=False):
     logits = _scores(q, k, softcap, scale)
     allow = allow_mask(q_pos, k_pos, causal=causal, window=window)
     logits = torch.where(allow[:, None, :, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    return _weighted_values(probs, v).transpose(1, 2)  # (B, S, H, hd)
+    out = _weighted_values(probs, v).transpose(1, 2)  # (B, S, H, hd)
+    return (out, _lse(logits)) if with_lse else out
 
 
 def _attend_flash(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale,
-                  q_chunk=Q_CHUNK, k_chunk=K_CHUNK):
+                  q_chunk=Q_CHUNK, k_chunk=K_CHUNK, with_lse=False):
     """Blockwise online softmax over (q_chunk, k_chunk) tiles."""
     b, s, h, hd = q.shape
     t = k.shape[1]
     q_chunk, k_chunk = min(q_chunk, s), min(k_chunk, t)
     if s % q_chunk or t % k_chunk:
         raise ValueError(f"sequence lengths ({s}, {t}) must divide the chunks")
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, s, q_chunk):
         qb, qpb = q[:, q0:q0 + q_chunk], q_pos[:, q0:q0 + q_chunk]
         m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
@@ -115,15 +141,19 @@ def _attend_flash(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale,
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + _weighted_values(p, vb)
             m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.transpose(1, 2))  # (B, qc, H, hd)
-    return torch.cat(outs, dim=1)
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l[..., None]).transpose(1, 2))  # (B, qc, H, hd)
+        lses.append(m + torch.log(l))
+    out = torch.cat(outs, dim=1)
+    return (out, torch.cat(lses, dim=-1)) if with_lse else out
 
 
-def attend(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale, decode=False):
+def attend(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale, decode=False,
+           with_lse=False):
     """The plain attention: direct softmax, or blockwise past the chunk
-    sizes (never at decode, as the reference's plain path)."""
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    sizes (never at decode, as the reference's plain path).  With
+    ``with_lse`` it returns ``(out, lse)``, lse (B, H, S) float32."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, with_lse=with_lse)
     if not decode and (q.shape[1] > Q_CHUNK or k.shape[1] > 4 * K_CHUNK):
         return _attend_flash(q, k, v, q_pos, k_pos, **kw)
     return _attend_direct(q, k, v, q_pos, k_pos, **kw)
@@ -135,6 +165,45 @@ def flash_attention_plain(q, k, v, q_pos, k_pos, causal=True, window=None, softc
                   scale=scale)
 
 
+def flash_attention_bwd_plain(q, k, v, q_pos, k_pos, o, lse, do, causal=True, window=None,
+                              softcap=None, scale=1.0):
+    """The reference's ``_bwd`` in torch: the FlashAttention-2 recompute of
+    probabilities from the forward's ``lse``, not autograd through a
+    softmax.  Returns (dq (B,S,H,hd), dk, dv (B,T,KV,hd)) float32.
+
+    It differs from autograd of :func:`attend` in one place, on purpose: a
+    query row with no allowed slot has lse = NEG_INF, so p = exp(NEG_INF -
+    NEG_INF) = 1 on every slot, and ``dv`` (not masked, as in the
+    reference) takes that row's ``do`` at every slot with weight 1, not 1/T.
+    """
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    do = do.to(torch.float32)
+    dd = torch.einsum("bshd,bshd->bhs", do, o.to(torch.float32))
+    raw = _scores(q, k, None, scale)  # (B, H, S, T)
+    th = None
+    if softcap:
+        th = torch.tanh(raw / softcap)
+        sc = th * softcap
+    else:
+        sc = raw
+    allow = allow_mask(q_pos, k_pos, causal=causal, window=window)[:, None]
+    p = torch.exp(torch.where(allow, sc, NEG_INF) - lse[..., None])
+    dog = do.reshape(b, s, kv, g, hd)
+    pg = p.reshape(b, kv, g, s, t)
+    dv = torch.einsum("bkgst,bskgd->btkd", pg, dog)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.to(torch.float32)).reshape(b, h, s, t)
+    ds = p * (dp - dd[..., None])
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    ds = torch.where(allow, ds, 0.0).reshape(b, kv, g, s, t)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(torch.float32)).reshape(b, s, h, hd)
+    qg = q.to(torch.float32).reshape(b, s, kv, g, hd)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg)
+    return dq * scale, dk * scale, dv
+
+
 def flash_decode_plain(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
                        scale=1.0) -> torch.Tensor:
     out = attend(q[:, None], k, v, q_pos[:, None], k_pos, causal=True, window=window,
@@ -143,15 +212,6 @@ def flash_decode_plain(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
 
 
 # -------------------------------------------------------------- wrappers
-def refuse_gradient(name: str, *tensors) -> None:
-    """The card has no backward kernels yet: asking for a gradient raises."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the backward kernels (_dq_kernel, _dkv_kernel) are not ported to "
-            f"CUDA yet (ROADMAP.md, 'TPU kernels to port' item 7)"
-        )
-
-
 def _check_qkv(q, k, v, q_pos, k_pos, q_shape, k_shape, qp_shape):
     dev = q.device
     dtype = q.dtype
@@ -175,23 +235,123 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
-def flash_attention(q, k, v, q_pos, k_pos, causal=True, window=None, softcap=None,
-                    scale=1.0) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,T,KV,hd), positions (B,S)/(B,T) -> (B,S,H,hd) f32."""
+def _window(window) -> int:
+    return -1 if window is None else int(window)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will ask these inputs for a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def flash_attention_fwd(q, k, v, q_pos, k_pos, causal=True, window=None, softcap=None,
+                        scale=1.0, *, with_lse=False):
+    """The forward alone: ``(o, lse)``, o (B,S,H,hd) f32 and, with
+    ``with_lse``, lse (B,H,S) f32 (else ``None``).  The kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, q_pos, k_pos, causal, window, softcap, scale)
-    refuse_gradient("flash_attention", q, k, v)
+        got = attend(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap,
+                     scale=scale, with_lse=with_lse)
+        return got if with_lse else (got, None)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    q, q_pos, k_pos = q.contiguous(), _i32(q_pos), _i32(k_pos)
+    q, k, v, q_pos, k_pos = q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos), _i32(k_pos)
     dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s))
     out = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     FORWARD_KERNEL.launch(
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), out.data_ptr(), dtype, b, s, t, h, kv, hd, int(bool(causal)),
-        -1 if window is None else int(window), float(softcap or 0.0), float(scale),
+        k_pos.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), dtype, b, s, t,
+        h, kv, hd, int(bool(causal)), _window(window), float(softcap or 0.0), float(scale),
     )
-    return out
+    return out, lse
+
+
+def _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd):
+    """Checked, contiguous operands of the two backward kernels: their
+    pointers, the dtype code, the shape, and the tensors (held by the caller
+    across its launch)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    q, k, v, q_pos, k_pos = q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos), _i32(k_pos)
+    dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s))
+    do, lse, dd = (x.to(torch.float32).contiguous() for x in (do, lse, dd))
+    check_operand(do, "do", torch.float32, (b, s, h, hd), q.device)
+    check_operand(lse, "lse", torch.float32, (b, h, s), q.device)
+    check_operand(dd, "dd", torch.float32, (b, h, s), q.device)
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, dd, q_pos, k_pos)]
+    return ptrs, dtype, (b, s, t, h, kv, hd), (q, k, v, q_pos, k_pos, do, lse, dd)
+
+
+def flash_attention_bwd_dq(q, k, v, q_pos, k_pos, do, lse, dd, causal=True, window=None,
+                           softcap=None, scale=1.0) -> torch.Tensor:
+    """One launch of ``_dq_kernel``'s port on CUDA tensors -> dq (B,S,H,hd) f32."""
+    ptrs, dtype, (b, s, t, h, kv, hd), _keep = _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd)
+    dq = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
+    DQ_KERNEL.launch(q.device, *ptrs, dq.data_ptr(), dtype, b, s, t, h, kv, hd,
+                     int(bool(causal)), _window(window), float(softcap or 0.0), float(scale))
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, q_pos, k_pos, do, lse, dd, causal=True, window=None,
+                            softcap=None, scale=1.0):
+    """One launch of ``_dkv_kernel``'s port on CUDA tensors -> (dk, dv) (B,T,KV,hd) f32."""
+    ptrs, dtype, (b, s, t, h, kv, hd), _keep = _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd)
+    dk = torch.empty((b, t, kv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    DKV_KERNEL.launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), dtype, b, s, t, h, kv, hd,
+                      int(bool(causal)), _window(window), float(softcap or 0.0), float(scale))
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, causal=True, window=None,
+                        softcap=None, scale=1.0):
+    """The reference's ``_bwd``: (dq, dk, dv) float32 from the forward's
+    residuals.  CUDA tensors: ``dd = sum(do * o)`` here, then the dq and the
+    dk/dv kernels; CPU tensors: :func:`flash_attention_bwd_plain`."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, q_pos, k_pos, o, lse, do, **kw)
+    do = do.to(torch.float32)
+    dd = torch.einsum("bshd,bshd->bhs", do, o.to(torch.float32))
+    dq = flash_attention_bwd_dq(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
+    return dq, dk, dv
+
+
+class FlashBackward(torch.autograd.Function):
+    """``forward(q, k, v, q_pos, k_pos, fwd, bwd_kw)``: ``o, lse = fwd(q, k, v,
+    q_pos, k_pos)``, returns o and saves lse; the backward is
+    :func:`flash_attention_bwd` on ``(o, lse)``, cast to the input dtypes as
+    the reference's ``_bwd`` does.  The exact flash forward and the
+    approximate one (straight-through) share it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, fwd, bwd_kw):
+        o, lse = fwd(q, k, v, q_pos, k_pos)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, o, lse)
+        ctx.bwd_kw = bwd_kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_pos, k_pos, o, lse, do, **ctx.bwd_kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+
+
+def flash_attention(q, k, v, q_pos, k_pos, causal=True, window=None, softcap=None,
+                    scale=1.0) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,T,KV,hd), positions (B,S)/(B,T) -> (B,S,H,hd) f32.
+
+    Differentiable in q, k and v: when autograd will ask for a gradient the
+    forward also writes lse and the backward runs the dq and dk/dv kernels
+    (their plain version on the CPU); otherwise (serving) no lse is made."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if not needs_grad(q, k, v):
+        return flash_attention_fwd(q, k, v, q_pos, k_pos, **kw)[0]
+    fwd = lambda *a: flash_attention_fwd(*a, **kw, with_lse=True)
+    return FlashBackward.apply(q, k, v, q_pos, k_pos, fwd, kw)
 
 
 def flash_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
@@ -200,7 +360,6 @@ def flash_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, q_pos, k_pos, window=window, softcap=softcap,
                                   scale=scale)
-    refuse_gradient("flash_decode", q, k, v)
     b, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     q, q_pos, k_pos = q.contiguous(), _i32(q_pos), _i32(k_pos)

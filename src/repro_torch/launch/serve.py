@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from repro_torch.configs.registry import apply_approx, get_config
 from repro_torch.device import resolve_device
 from repro_torch.engine import config as engine_config
@@ -91,10 +93,11 @@ def main(argv=None) -> None:
         vocab_size=cfg.vocab_size, seed=args.seed, vary_budget=args.vary_budget,
         eos_id=args.eos_id, quality=args.quality_tier,
     )
-    result = continuous_serve_loop(
-        model, params, queue, batch_size=args.batch, prompt_len=args.prompt_len,
-        max_new=args.gen, quality=args.quality_tier,
-    )
+    with torch.inference_mode():  # the parameters are trainable: record no graph
+        result = continuous_serve_loop(
+            model, params, queue, batch_size=args.batch, prompt_len=args.prompt_len,
+            max_new=args.gen, quality=args.quality_tier,
+        )
     print(result.stats.summary())
     lat = result.stats.request_latencies_s
     if lat:

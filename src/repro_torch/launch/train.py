@@ -1,0 +1,133 @@
+"""End-to-end training driver on one device.
+
+Counterpart of ``repro/launch/train.py``, with the same flags and summary
+lines, plus ``--device``: it runs on ``cuda`` unless ``--device cpu`` is
+given, and without a GPU and without that flag it raises.  Weights and
+data are made from ``--seed``.
+
+  # paper technique on, bit-exact approximate MLPs, full width on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-multiplier \
+      --steps 100 --batch 8 --seq 128
+
+  # the reduced configuration on the CPU (the plain versions of the kernels)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-multiplier \
+      --reduced --device cpu --steps 16 --batch 2 --seq 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import apply_approx, apply_quality, get_config
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.engine import modes as engine_modes
+from repro_torch.models.registry import build_model
+from repro_torch.runtime.fault import FailureInjector, StragglerMonitor, run_loop
+from repro_torch.train.steps import init_train_state, make_train_step
+
+__all__ = ["main"]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--opt-bits", type=int, default=32, choices=[8, 32])
+    ap.add_argument("--compress", type=int, default=0, choices=[0, 8])
+    ap.add_argument("--approx-mode", default=None, choices=engine_modes.list_modes(),
+                    help="deploy the paper technique via a registered engine mode")
+    ap.add_argument("--approx-n", type=int, default=8)
+    ap.add_argument("--approx-t", type=int, default=None,
+                    help="splitting point; default: resolved by the "
+                         "engine.config controller for --approx-n "
+                         "(balanced-tier budget)")
+    ap.add_argument("--quality-tier", default=None,
+                    help="accuracy tier (engine.config): per-GEMM-class "
+                         "(n, t, mode) resolved against the tier's error "
+                         "budgets; mutually exclusive with --approx-mode")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--inject-failures", default="",
+                    help="comma-separated steps at which to raise (fault-tolerance demo)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--out", default=None, help="write metrics history JSON here")
+    ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                    help="default cuda; cpu runs the plain PyTorch versions")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.approx_mode and args.quality_tier:
+        ap.error("--approx-mode and --quality-tier are mutually exclusive "
+                 "(the tier owns the mode)")
+    if args.approx_mode:
+        cfg = apply_approx(cfg, n=args.approx_n, t=args.approx_t, mode=args.approx_mode)
+    elif args.quality_tier:
+        cfg = apply_quality(cfg, args.quality_tier, n=args.approx_n)
+    cfg = dataclasses.replace(cfg, scan_layers=True)
+
+    tcfg = TrainConfig(
+        learning_rate=args.lr,
+        total_steps=args.steps,
+        warmup_steps=max(10, args.steps // 20),
+        grad_accum=args.grad_accum,
+        opt_state_bits=args.opt_bits,
+        grad_compress_bits=args.compress,
+        seed=args.seed,
+    )
+    model = build_model(cfg)
+    state = init_train_state(model, tcfg, args.seed, device=device)
+    n_params = model.param_count(state.params)
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M devices=1")
+
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed,
+    ))
+
+    def batch_fn(step: int) -> dict:
+        return {k: torch.as_tensor(v, device=device) for k, v in data.batch(step).items()}
+
+    step_fn = make_train_step(model, tcfg)
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    injector = None
+    if args.inject_failures:
+        injector = FailureInjector(tuple(int(s) for s in args.inject_failures.split(",")))
+
+    result = run_loop(
+        state, step_fn, batch_fn,
+        total_steps=args.steps,
+        ckpt=ckpt,
+        checkpoint_every=args.ckpt_every if ckpt else 0,
+        injector=injector,
+        monitor=StragglerMonitor(),
+        log_every=args.log_every,
+    )
+    first = np.mean([h["loss"] for h in result.metrics_history[:10]])
+    last = np.mean([h["loss"] for h in result.metrics_history[-10:]])
+    print(f"loss {first:.4f} -> {last:.4f}  failures={result.failures} "
+          f"restarts={result.restarts} stragglers={len(result.slow_steps)}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result.metrics_history, f)
+
+
+if __name__ == "__main__":
+    main()

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ApproxConfig, ModelConfig
 from repro_torch.engine import dispatch as _engine, modes as _engine_modes
 
-__all__ = ["Ctx", "rms_norm", "rope", "dense", "mlp", "normal_init"]
+__all__ = ["Ctx", "fold_seed", "rms_norm", "rope", "dense", "mlp", "normal_init"]
 
 
 @dataclasses.dataclass
@@ -24,10 +24,32 @@ class Ctx:
     """Call context: the config and an optional generator for the
     stochastic modes.  The reference folds a call-site counter into its
     PRNG key; a generator advances by itself, so each dense call draws
-    fresh noise from it."""
+    fresh noise from it.
+
+    Training passes a ``seed`` (made from the run's seed and the step)
+    instead: each block then draws from a generator of its own, seeded
+    from (seed, layer) and made anew each time the block runs, so a block
+    recomputed under remat draws the noise its first pass drew.
+    ``torch.utils.checkpoint`` restores only the default generators, not
+    an explicit one."""
 
     cfg: ModelConfig
     generator: Optional[torch.Generator] = None
+    seed: Optional[int] = None
+
+    def for_block(self, index: int, device: torch.device) -> "Ctx":
+        if self.seed is None:
+            return self
+        gen = torch.Generator(device=device).manual_seed(fold_seed(self.seed, index))
+        return Ctx(cfg=self.cfg, generator=gen)
+
+
+def fold_seed(seed: int, value: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``value`` (splitmix64's finaliser)."""
+    z = (seed * 0x9E3779B97F4A7C15 + value + 1) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) >> 1
 
 
 # --------------------------------------------------------------------- init

@@ -11,6 +11,13 @@ to nested dicts of numpy arrays by the caller, into the port.  The
 reference stacks each layer group on a leading axis for ``lax.scan``
 (``params["scan"]["sub<i>"]``, remainder layers in ``params["rem"]``);
 the loader unstacks them into one block per layer.
+
+:func:`reference_leaves` names, for each leaf of that tree in
+``jax.tree_util.tree_leaves`` order, the port's parameters it holds (one
+per layer for a stacked leaf).  The optimizer keys its state and its
+weight-decay rule on it, and :func:`to_jax_layout` (the loader's inverse,
+for parameters and gradients) stacks the port's tensors back into the
+reference's tree.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from repro_torch.models import attention
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import Transformer, block_kinds
 
-__all__ = ["Model", "build_model", "from_jax_params"]
+__all__ = ["Leaf", "Model", "build_model", "from_jax_params", "reference_leaves", "to_jax_layout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +45,9 @@ class Model:
         """Seeded random weights on ``device`` (default ``cuda``)."""
         return Transformer.init(self.cfg, seed=seed, device=resolve_device(device))
 
-    def ctx(self, generator: Optional[torch.Generator] = None) -> Ctx:
-        return Ctx(cfg=self.cfg, generator=generator)
+    def ctx(self, generator: Optional[torch.Generator] = None, *,
+            seed: Optional[int] = None) -> Ctx:
+        return Ctx(cfg=self.cfg, generator=generator, seed=seed)
 
     def forward(self, params: Transformer, tokens, positions, ctx: Ctx, *, caches=None,
                 cache_pos=None):
@@ -102,3 +110,74 @@ def _unstack(tree, index: int):
     if isinstance(tree, dict):
         return {k: _unstack(v, index) for k, v in tree.items()}
     return np.asarray(tree)[index]
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One leaf of the reference's parameter tree and the port's tensors in it."""
+
+    path: tuple  # key path in the reference's tree, e.g. ("scan", "sub0", "attn", "wq")
+    names: tuple  # the port's parameter names, in layer order for a stacked leaf
+    ndim: int  # the leaf's rank in the reference's tree (stacking adds one)
+
+
+def reference_leaves(params: Transformer) -> list:
+    """The reference's parameter leaves in ``tree_leaves`` order (dict keys
+    sorted at every level), for the config's ``scan_layers``: with it, the
+    ``num_layers // len(layer_pattern)`` repeats of each pattern position
+    are stacked on a leading axis (``params["scan"]["sub<i>"]``) and the
+    remainder layers stay in ``params["rem"]``, as ``init_params`` does."""
+    cfg = params.cfg
+    named = dict(params.named_parameters())
+    period = len(cfg.layer_pattern)
+    repeats = cfg.num_layers // period if cfg.scan_layers else 0
+
+    def block_paths(i):
+        return sorted(tuple(n.split(".")) for n, _ in params.layers[i].named_parameters())
+
+    def dims(name):
+        return named[name].ndim
+
+    out = [Leaf(("embed",), ("embed",), dims("embed")),
+           Leaf(("final_norm",), ("final_norm",), dims("final_norm"))]
+    if params.lm_head_w is not None:
+        out.append(Leaf(("lm_head",), ("lm_head_w",), dims("lm_head_w")))
+    for j, i in enumerate(range(repeats * period, cfg.num_layers)):
+        for path in block_paths(i):
+            name = f"layers.{i}." + ".".join(path)
+            out.append(Leaf(("rem", j, *path), (name,), dims(name)))
+    for sub in sorted(range(period if repeats else 0), key=lambda i: f"sub{i}"):
+        for path in block_paths(sub):
+            names = tuple(f"layers.{r * period + sub}." + ".".join(path) for r in range(repeats))
+            out.append(Leaf(("scan", f"sub{sub}", *path), names, dims(names[0]) + 1))
+    return out
+
+
+def to_jax_layout(tensors: dict, params: Transformer) -> dict:
+    """The inverse of :func:`from_jax_params`: ``tensors`` (numpy arrays or
+    tensors by the port's parameter names, e.g. parameters or their
+    gradients) as the reference's nested tree of numpy arrays, stacked
+    layers and all."""
+
+    def host(x):
+        if torch.is_tensor(x):
+            x = x.detach().to("cpu")
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        return np.asarray(x)
+
+    tree: dict = {}
+    for leaf in reference_leaves(params):
+        arrs = [host(tensors[n]) for n in leaf.names]
+        value = np.stack(arrs) if leaf.path[0] == "scan" else arrs[0]
+        node = tree
+        for key in leaf.path[:-1]:
+            if key == "rem":
+                node = node.setdefault("rem", [])
+            elif isinstance(key, int):
+                while len(node) <= key:
+                    node.append({})
+                node = node[key]
+            else:
+                node = node.setdefault(key, {})
+        node[leaf.path[-1]] = value
+    return tree

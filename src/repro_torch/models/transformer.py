@@ -9,14 +9,28 @@ feed-forwards raise and name the slice that ports them.
 
 ``forward`` returns the final hidden states; ``lm_head`` turns them into
 logits.
+
+The parameters are trainable ``nn.Parameter`` s; serving runs under
+``torch.inference_mode()`` so that no step records a graph.  ``cfg.remat``
+maps the reference's remat policies (applied there to the scanned group
+body) onto ``torch.utils.checkpoint`` per block when gradients are on and
+no cache is written: ``"full"`` saves only the block's input and
+recomputes the block in the backward, ``"dots"`` saves the outputs of the
+2-D matrix products (the reference's ``checkpoint_dots_with_no_batch_dims``)
+and recomputes the rest, ``"none"`` saves everything.  A recomputed block
+draws the same noise as its first pass: under a training seed each block
+makes its generator anew from (seed, layer) whenever it runs
+(``Ctx.for_block``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers
@@ -52,27 +66,48 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+# the reference's checkpoint_dots_with_no_batch_dims: 2-D products, not batched ones
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    policy = _checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the config's remat policy (see the module's note)."""
+    if remat == "none":
+        return fn
+    if remat == "dots":
+        context = functools.partial(_checkpoint.create_selective_checkpoint_contexts,
+                                    _dots_policy)
+        return functools.partial(_checkpoint.checkpoint, fn, use_reentrant=False,
+                                 context_fn=context)
+    if remat == "full":
+        return functools.partial(_checkpoint.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat policy {remat!r}; expected none, dots or full")
 
 
 class Block(nn.Module):
     """One pre-norm decoder block: attention, then the gated MLP."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, tensors: dict):
+    def __init__(self, cfg: ModelConfig, kind: str, tensors: dict, index: int):
         super().__init__()
         self.kind = kind
-        self.ln1 = _frozen(tensors["ln1"])
-        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in tensors["attn"].items()})
+        self.index = index
+        self.ln1 = nn.Parameter(tensors["ln1"])
+        self.attn = nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors["attn"].items()})
         for name in ("post_ln1", "ln2", "post_ln2"):
             if name in tensors:
-                setattr(self, name, _frozen(tensors[name]))
+                setattr(self, name, nn.Parameter(tensors[name]))
         self.ffn = (
-            nn.ParameterDict({k: _frozen(v) for k, v in tensors["ffn"].items()})
+            nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors["ffn"].items()})
             if "ffn" in tensors else None
         )
 
     def forward(self, x, positions, ctx: Ctx, cache, cache_pos):
+        ctx = ctx.for_block(self.index, x.device)
         cfg = ctx.cfg
         h = layers.rms_norm(x, self.ln1, cfg.norm_eps)
         out, new_cache = attention.attention(
@@ -116,12 +151,12 @@ class Transformer(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = _frozen(tensors["embed"])
-        self.final_norm = _frozen(tensors["final_norm"])
-        self.lm_head_w = _frozen(tensors["lm_head"]) if "lm_head" in tensors else None
+        self.embed = nn.Parameter(tensors["embed"])
+        self.final_norm = nn.Parameter(tensors["final_norm"])
+        self.lm_head_w = nn.Parameter(tensors["lm_head"]) if "lm_head" in tensors else None
         kinds = block_kinds(cfg)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, tensors["blocks"][i]) for i, kind in enumerate(kinds)
+            Block(cfg, kind, tensors["blocks"][i], i) for i, kind in enumerate(kinds)
         )
 
     @classmethod
@@ -150,9 +185,10 @@ class Transformer(nn.Module):
         x = self.embed[tokens]
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+        remat = cfg.remat if caches is None and torch.is_grad_enabled() else "none"
         for i, block in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
-            x, nc = block(x, positions, ctx, cache, cache_pos)
+            x, nc = _remat(block, remat)(x, positions, ctx, cache, cache_pos)
             if caches is not None:
                 caches[i] = nc
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)

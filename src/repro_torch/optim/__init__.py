@@ -1,0 +1,1 @@
+"""AdamW and gradient compression (counterpart of ``repro/optim``)."""

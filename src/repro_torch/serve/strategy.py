@@ -47,19 +47,24 @@ class TierEngine:
 
 def build_tier_engine(model, capacity: int, *, name, key, scatter_row) -> TierEngine:
     """The (admit, pool-prefill, decode) bundle for one tier;
-    ``scatter_row(big, small, row)`` writes a single-row cache into the pool."""
+    ``scatter_row(big, small, row)`` writes a single-row cache into the pool.
+    Each step runs under ``torch.inference_mode()``: the parameters are
+    trainable, and a served step must record no autograd graph."""
     prefill = make_prefill_step(model, capacity)
     decode = make_decode_step(model)
 
+    @torch.inference_mode()
     def admit_step(params, caches, toks, pos, row):
         row_caches, logits = prefill(params, {"tokens": toks, "positions": pos})
         caches = scatter_row(caches, row_caches, row)
         return caches, torch.argmax(logits[0, -1], -1)
 
+    @torch.inference_mode()
     def prefill_pool(params, toks, pos):
         caches, logits = prefill(params, {"tokens": toks, "positions": pos})
         return caches, torch.argmax(logits[:, -1], -1)
 
+    @torch.inference_mode()
     def decode_greedy(params, caches, tok, pos, write):
         logits, caches = decode(params, caches, tok, pos, write)
         return torch.argmax(logits[:, -1], -1), caches

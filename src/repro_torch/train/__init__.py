@@ -1,1 +1,1 @@
-"""Serving step factories (counterpart of ``repro/train``)."""
+"""Train and serve step factories, losses (counterpart of ``repro/train``)."""

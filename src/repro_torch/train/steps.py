@@ -1,19 +1,141 @@
-"""Serving step factories: prefill and decode.
+"""Train and serve step factories.
 
-Counterpart of the serving pair in ``repro/train/steps.py``.  Prefill
+Counterpart of ``repro/train/steps.py``.  ``make_train_step`` builds the
+training step: gradient-accumulation microbatches (gradients summed in
+float32, then averaged), optional int8 error-feedback gradient
+compression, AdamW (float32 or 8-bit moments) and the vocab-chunked CE.
+Remat is applied per block by the model, per ``cfg.remat``.  The
+reference jits the step and returns a new state; here it runs eagerly and
+updates the parameters in place (they are the state's largest part, and
+an update in place saves a copy of them per step), returning the state
+with its new optimizer state and step.
+
+``make_prefill_step`` / ``make_decode_step`` are the serving pair: prefill
 builds fresh caches and writes positions [0, S) (or, given per-row true
 positions of left-padded prompts, masks the pads out of the cache);
-decode consumes one token per row at a scalar or per-row position.  The
-reference jits these; PyTorch runs them eagerly.
+decode consumes one token per row at a scalar or per-row position.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
-from repro_torch.models.registry import Model
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models.layers import fold_seed
+from repro_torch.models.registry import Model, reference_leaves
+from repro_torch.models.transformer import Transformer, check_supported
+from repro_torch.optim import adamw, compress
+from repro_torch.train.losses import chunked_cross_entropy
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = [
+    "AUX_COEF", "TrainState", "init_train_state", "loss_fn", "make_decode_step",
+    "make_prefill_step", "make_train_step",
+]
+
+AUX_COEF = 0.01
+
+
+class TrainState(NamedTuple):
+    params: Transformer  # updated in place by the step
+    opt: adamw.OptState
+    comp: Optional[compress.CompressState]
+    seed: int  # the run's seed: each step's noise seed is fold_seed(seed, step)
+    step: torch.Tensor  # int64 0-d, on the host
+
+
+def init_train_state(model: Model, tcfg: TrainConfig, seed: int, *, device=None) -> TrainState:
+    """Seeded parameters on ``device`` (default ``cuda``), zero moments and
+    residuals, step 0."""
+    params = model.init_params(seed, device=device)
+    leaves = reference_leaves(params)
+    named = dict(params.named_parameters())
+    comp = None
+    if tcfg.grad_compress_bits:
+        numels = [sum(named[n].numel() for n in leaf.names) for leaf in leaves]
+        comp = compress.init_state(numels, params.embed.device)
+    return TrainState(params, adamw.init(leaves, named, tcfg), comp, seed,
+                      torch.zeros((), dtype=torch.int64))
+
+
+def _positions(batch: dict) -> torch.Tensor:
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+
+
+def _head_matrix(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
+    return params.embed.T if cfg.tie_embeddings else params.lm_head_w
+
+
+def loss_fn(params: Transformer, batch: dict, seed: Optional[int], model: Model):
+    """(loss, {"loss": ce, "aux": aux}); ``seed`` seeds the stochastic modes'
+    noise (``Ctx.seed``).  Dense blocks have no aux loss; MoE feed-forwards
+    and encoder-decoder models raise in ``check_supported``."""
+    cfg = model.cfg
+    check_supported(cfg)
+    ctx = model.ctx(seed=seed)
+    hidden, _ = model.forward(params, batch["tokens"], _positions(batch), ctx)
+    ce = chunked_cross_entropy(hidden, _head_matrix(params, cfg), batch["labels"],
+                               softcap=cfg.final_logit_softcap)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + AUX_COEF * aux
+    return loss, {"loss": ce, "aux": aux}
+
+
+def _grads(params: Transformer, leaves) -> list:
+    """The parameters' gradients, one flat tensor per reference leaf."""
+    named = dict(params.named_parameters())
+    return adamw.flatten_leaves(leaves, {n: p.grad for n, p in named.items()})
+
+
+def make_train_step(model: Model, tcfg: TrainConfig):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
+    holds ``tokens`` and ``labels`` (B, S) on the parameters' device."""
+    check_supported(model.cfg)
+    accum = max(1, tcfg.grad_accum)
+
+    def step_fn(state: TrainState, batch: dict):
+        params = state.params
+        leaves = reference_leaves(params)
+        seed = fold_seed(state.seed, int(state.step))
+        if accum == 1:
+            params.zero_grad(set_to_none=True)
+            loss, parts = loss_fn(params, batch, seed, model)
+            loss.backward()
+            grads = _grads(params, leaves)
+            loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
+        else:
+            b = batch["tokens"].shape[0]
+            if b % accum:
+                raise ValueError(f"batch {b} does not split into {accum} microbatches")
+            grads = loss = None
+            for i in range(accum):
+                micro = {k: v.reshape(accum, b // accum, *v.shape[1:])[i]
+                         for k, v in batch.items()}
+                params.zero_grad(set_to_none=True)
+                l, _ = loss_fn(params, micro, seed, model)
+                l.backward()
+                g = _grads(params, leaves)
+                grads = ([x.to(torch.float32) for x in g] if grads is None
+                         else [a + x for a, x in zip(grads, g)])
+                loss = l.detach() if loss is None else loss + l.detach()
+            n = torch.full((), float(accum), dtype=torch.float32, device=loss.device)
+            grads = [g / n for g in grads]
+            loss = loss / n
+            parts = {"loss": loss, "aux": torch.zeros_like(loss)}
+        params.zero_grad(set_to_none=True)
+
+        comp, cmetrics = state.comp, {}
+        if comp is not None:
+            grads, comp, cmetrics = compress.compress_grads(grads, comp)
+        named = dict(params.named_parameters())
+        opt, ometrics = adamw.update(leaves, named, grads, state.opt, tcfg)
+        metrics = {"loss": loss, **parts, **ometrics, **cmetrics}
+        return TrainState(params, opt, comp, state.seed, state.step + 1), metrics
+
+    return step_fn
 
 
 def make_prefill_step(model: Model, max_seq: int):

@@ -92,6 +92,25 @@ def test_exact_pool_streams_match_the_jax_scheduler(pools):
     assert got.stats.tokens_out == want.stats.tokens_out == sum(r.max_new for r in queue)
 
 
+def test_served_steps_record_no_autograd_graph(pools):
+    """The parameters are trainable (``requires_grad``); serving runs under
+    ``torch.inference_mode()``, so no served step builds a graph."""
+    _, _, tmodel, tparams = pools
+    assert all(p.requires_grad for p in tparams.parameters())
+    sched = ContinuousScheduler(tmodel, tparams, batch_size=BATCH, prompt_len=PROMPT,
+                                max_new=GEN)
+    eng = sched.engine_for(None)
+    toks = torch.zeros((BATCH, PROMPT), dtype=torch.int64)
+    pos = torch.arange(PROMPT).expand(BATCH, PROMPT)
+    caches, tok = eng.prefill_pool(tparams, toks, pos)
+    at = torch.full((BATCH,), PROMPT, dtype=torch.int64)
+    nxt, caches = eng.decode(tparams, caches, tok[:, None], at, at)
+    for t in (tok, nxt, *(x for c in caches for x in c)):
+        assert t.grad_fn is None and not t.requires_grad and t.is_inference()
+    result = sched.run(synth_requests(3, prompt_len=PROMPT, gen=GEN, vocab_size=256, seed=1))
+    assert result.stats.requests == 3
+
+
 def test_tier_pool_serves_its_tier_and_refuses_another(pools):
     _, _, tmodel, tparams = pools
     queue = synth_requests(3, prompt_len=PROMPT, gen=GEN, vocab_size=256, seed=1,
@@ -158,6 +177,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "or m == 'repro')\n"
         "assert not bad, bad\n"
