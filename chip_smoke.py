@@ -24,7 +24,12 @@ Phases, one line each (or a few):
    on the forward kernel's (o, lse), float32, within 1e-4 * max|want| per
    output, at the train shape (B 8, S = T = 128, bf16), at S = T = 1024, with
    window + softcap, and over the serve cache with masked slots and one
-   left-padded row.
+   left-padded row.  Elementwise multiplier: ``seqmul_packed`` at n in
+   {4, 8, 12, 15} and ``seqmul_words`` at n in {8, 15, 16}, t in {1, n/2,
+   n-1}, approx and fix_to_1 both ways, on every (a, b) pair (n <= 8, 12)
+   or numpy draws (2^20 + 3 at n = 15, 2^24 at n = 16), then sizes 1, 127,
+   129 and 2^20 + 3, a 0-d and an empty tensor, and unaligned views: all
+   bit-equal.
    Timed rows print the kernel's time, the plain version's, the bound
    (the larger of the bytes at 3.35 TB/s and the operations at their
    rate: table lookups at the shared-memory rate, the least integer
@@ -33,9 +38,12 @@ Phases, one line each (or a few):
    counted over the query-slot pairs and the K/V slots this run's
    positions need, masked pairs adding nothing) and one PyTorch
    call that computes the same function, a yardstick the port never calls
-   (torch.matmul for the GEMMs, scaled_dot_product_attention for
-   flash_attention and flash_decode, its backward alone for the backward
-   kernels; none exists for approx_attention);
+   (torch.matmul for packed_matmul and lowrank_matmul,
+   scaled_dot_product_attention for flash_attention and flash_decode, its
+   backward alone for the backward kernels; none exists for the
+   approximate products of lut_matmul, seqmul_matmul, approx_attention
+   and the elementwise pair, and the exact torch.matmul beside the first
+   two is printed as a yardstick only);
 4. reference: ``engine.matmul`` on the card against the CPU reference
    bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
    and reduced qwen3-0.6b prefill logits on the card against the CPU
@@ -67,7 +75,21 @@ Phases, one line each (or a few):
    per step and the busy share of one profiled step.  Then the train CLI
    on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
    injected at step 5, which it must recover from;
-7. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
+7. error analysis: ``engine.multiply`` (auto) and
+   ``kernels.ops.approx_multiply`` on CUDA tensors (``seqmul_packed``, its
+   launch count seen to rise), ``exhaustive_eval(12, 6)`` with fix_to_1
+   both ways and ``mc_eval(16, 8)`` at 2^24 samples (their products from
+   ``seqmul_words``) and ``mc_eval(32, 16)`` at 2^22 (``core.seqmul`` on
+   the card), each with its wall time and the device's busy share, printed
+   as a JSON line of its own; the launch counts are those of these calls.
+   Then the checks: ``exhaustive_eval(12, 6)`` equal field for field to
+   the CPU's (without fix_to_1 its worst overshoot is the closed-form
+   MAE), so are ``exhaustive_eval`` at n = 1 and 4 and both ``mc_eval`` at
+   2^16 samples; ``seqmul_words``' low + (high << 16) equal to
+   ``core.seqmul``'s products on mc_eval(16, 8)'s draws; then ``python -m
+   repro_torch.examples.quickstart`` and ``accuracy_sweep --steps 80`` on
+   the card, which must exit 0;
+8. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 Any failed check exits non-zero before the last line is printed; so does
@@ -105,6 +127,11 @@ GEMM_KERNELS = ("lut_matmul", "seqmul_matmul", "packed_matmul", "lowrank_matmul"
 ATTN_KERNELS = ("flash_attention", "flash_decode", "approx_attention_bitexact",
                 "approx_attention_lowrank")
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+ELEMENTWISE_KERNELS = ("seqmul_packed", "seqmul_words")
+# the elementwise kernels' main rows: every (a, b) pair at n = 12 (packed)
+# and as many numpy draws at the paper's n = 16 (words), 2^24 elements each
+ELEMENTWISE_MAIN = {"seqmul_packed": (12, 6), "seqmul_words": (16, 8)}
+ELEMENTWISE_RAGGED = [(), (0,), (1,), (127,), (129,), ((1 << 20) + 3,)]
 # the train runs: the reference driver's batch and sequence defaults
 TRAIN = dict(batch=8, seq=128, steps=16)
 REPLACES = {
@@ -118,6 +145,8 @@ REPLACES = {
     "approx_attention_lowrank": "src/repro/kernels/approx_attention.py:171",
     "flash_attention_bwd_dq": "src/repro/kernels/flash_attention.py:126",
     "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention.py:158",
+    "seqmul_packed": "src/repro/kernels/seqmul_kernel.py:33",
+    "seqmul_words": "src/repro/kernels/seqmul_kernel.py:54",
 }
 SOURCES = {
     "flash_decode": "flash_attention",
@@ -125,6 +154,8 @@ SOURCES = {
     "approx_attention_lowrank": "approx_attention",
     "flash_attention_bwd_dq": "flash_attention_bwd",
     "flash_attention_bwd_dkv": "flash_attention_bwd",
+    "seqmul_packed": "seqmul_kernel",
+    "seqmul_words": "seqmul_kernel",
 }
 
 
@@ -293,13 +324,19 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
     row = dict(name=name, shape=[m, k, n], n=bits, t=t, max_abs_err=err,
                bound_ms=bound[0], bound_by=bound[1])
     if timed:
-        if library is None:
-            # the dequantized operands (the joint scale folded into the left one)
-            xq, wq = (mx * sx).to(torch.float32) * scale, (mw * sw).to(torch.float32)
-            library = lambda: torch.matmul(xq, wq)
+        # the dequantized operands (the joint scale folded into the left one)
+        xq, wq = (mx * sx).to(torch.float32) * scale, (mw * sw).to(torch.float32)
         row["ms"] = cuda_ms(kern, reps=20, warmup=2)
         row["plain_ms"] = cuda_ms(plain, reps=2)
-        row["library_ms"] = cuda_ms(library, reps=20, warmup=2)
+        if name in ("lut_matmul", "seqmul_matmul"):
+            # no PyTorch call computes the approximate products; the exact
+            # GEMM on the same operands is kept as a yardstick, not a library time
+            row["library_ms"] = None
+            row["exact_matmul_ms"] = cuda_ms(lambda: torch.matmul(xq, wq), reps=20, warmup=2)
+        else:
+            if library is None:
+                library = lambda: torch.matmul(xq, wq)
+            row["library_ms"] = cuda_ms(library, reps=20, warmup=2)
     return row
 
 
@@ -310,8 +347,9 @@ def phase_kernels(card: Card) -> list:
         row = run_kernel_case(card, name, m, k, n, bits, t, seed=100 + i, timed=timed)
         rows.append(row)
         times = (
-            f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} "
-            f"library_ms {row['library_ms']:.4f}" if "ms" in row else ""
+            f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} library_ms "
+            + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None else
+               f"none (exact matmul {row['exact_matmul_ms']:.4f})") if "ms" in row else ""
         )
         agree = "bit-equal" if row["max_abs_err"] == 0 else f"max |err| {row['max_abs_err']:.3e}"
         print(f"kernel {name} M={m} K={k} N={n} n={bits} t={t}: {agree}{times} "
@@ -572,6 +610,236 @@ def run_backward_case(card: Card, case, seed):
 def phase_backward(card: Card) -> list:
     return [row for i, case in enumerate(backward_cases())
             for row in run_backward_case(card, case, seed=500 + i)]
+
+
+# ---------------------------------------------------------- elementwise
+def u32_operands(shape, n: int, seed: int):
+    """uint32 operands in [0, 2^n) on the card: every (a, b) pair for a 1-d
+    shape of 2^(2n) elements, else numpy draws from ``seed``."""
+    import numpy as np
+    import torch
+
+    size = math.prod(shape)
+    if len(shape) == 1 and size == 1 << (2 * n):
+        v = np.arange(1 << n, dtype=np.uint32)
+        a, b = np.repeat(v, 1 << n), np.tile(v, 1 << n)
+    else:
+        rng = np.random.default_rng(seed)
+        a, b = (rng.integers(0, 1 << n, size, dtype=np.uint64).astype(np.uint32)
+                for _ in range(2))
+    return tuple(torch.from_numpy(x.reshape(shape)).to("cuda") for x in (a, b))
+
+
+def u32_err(got, want) -> int:
+    """max |got - want| of uint32 tensors; -1 if the shapes or dtypes differ."""
+    import torch
+
+    if got.dtype != torch.uint32 or want.dtype != torch.uint32 or got.shape != want.shape:
+        return -1
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max().item())
+
+
+def elementwise_cases():
+    """(kernel, n, t, approx, fix_to_1, shape): the (n, t) sweeps (every pair
+    at n <= 8 and n = 12, 2^20 + 3 draws at n = 15, 2^24 draws at n = 16),
+    then the ragged, 0-d and empty sizes at the main (n, t)."""
+    cases = []
+    variants = [(approx, fix) for approx in (True, False) for fix in (True, False)]
+    for name, widths in (("seqmul_packed", (4, 8, 12, 15)), ("seqmul_words", (8, 15, 16))):
+        for n in widths:
+            shape = ((1 << 24,) if n in (12, 16) else ((1 << 20) + 3,) if n == 15
+                     else (1 << (2 * n),))
+            for t in sorted({1, n // 2, n - 1}):
+                cases += [(name, n, t, approx, fix, shape) for approx, fix in variants]
+        n, t = ELEMENTWISE_MAIN[name]
+        cases += [(name, n, t, True, True, shape) for shape in ELEMENTWISE_RAGGED]
+    return cases
+
+
+def run_elementwise_case(card: Card, case, seed: int, timed: bool):
+    import torch
+
+    from repro_torch.kernels import seqmul_kernel as sk
+
+    name, n, t, approx, fix, shape = case
+    a, b = u32_operands(shape, n, seed)
+    kw = dict(n=n, t=t, approx=approx, fix_to_1=fix)
+    if name == "seqmul_packed":
+        kern = lambda: (sk.seqmul_packed(a, b, **kw),)
+        plain = lambda: (sk.seqmul_packed_plain(a, b, **kw),)
+        nbytes = 12 * a.numel()  # two uint32 reads, one write
+    else:
+        kern = lambda: sk.seqmul_words(a, b, **kw)
+        plain = lambda: sk.seqmul_words_plain(a, b, **kw)
+        nbytes = 16 * a.numel()  # two uint32 reads, two writes
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(u32_err(g, w) for g, w in zip(got, want))
+    where = f"{name} n={n} t={t} approx={approx} fix_to_1={fix} shape={shape}"
+    check(err == 0, f"{where}: kernel != plain (max |err| {err})")
+    if len(shape) == 1 and shape[0] > 4:
+        # an operand that does not start on a 16-byte boundary takes the
+        # kernel's element-at-a-time path
+        a1, b1 = a[1:], b[1:]
+        fn = sk.seqmul_packed if name == "seqmul_packed" else sk.seqmul_words
+        pl = sk.seqmul_packed_plain if name == "seqmul_packed" else sk.seqmul_words_plain
+        g1, w1 = fn(a1, b1, **kw), pl(a1, b1, **kw)
+        g1, w1 = (g1, w1) if name == "seqmul_words" else ((g1,), (w1,))
+        err1 = max(u32_err(g, w) for g, w in zip(g1, w1))
+        check(err1 == 0, f"{where}, unaligned view: kernel != plain (max |err| {err1})")
+    bound = card.bound(nbytes, a.numel() * seqmul_ops_per_product(n), card.int32_ops_per_s)
+    row = dict(name=name, shape=list(shape), n=n, t=t, approx=approx, fix_to_1=fix,
+               max_abs_err=err, bound_ms=bound[0], bound_by=bound[1])
+    if timed:
+        row["ms"] = cuda_ms(kern, reps=20, warmup=2)
+        row["plain_ms"] = cuda_ms(plain, reps=2)
+        row["library_ms"] = None  # no PyTorch call computes the approximate products
+    return row
+
+
+def phase_elementwise(card: Card) -> list:
+    rows = []
+    for i, case in enumerate(elementwise_cases()):
+        name, n, t, approx, fix, shape = case
+        timed = (n, t) == ELEMENTWISE_MAIN[name] and approx and fix and shape == (1 << 24,)
+        rows.append(run_elementwise_case(card, case, seed=700 + i, timed=timed))
+        if timed:
+            row = rows[-1]
+            print(f"kernel {name} n={n} t={t} approx fix_to_1 elements {shape[0]}: bit-equal "
+                  f"ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} library_ms none "
+                  f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
+    for name in ELEMENTWISE_KERNELS:
+        mine = [r for r in rows if r["name"] == name]
+        print(f"kernel {name}: bit-equal to its plain version in all {len(mine)} cases "
+              f"(n in {sorted({r['n'] for r in mine})}, t in {{1, n/2, n-1}}, approx and "
+              f"fix_to_1 both ways; sizes {sorted({str(r['shape']) for r in mine})}; "
+              f"unaligned views of the 1-d ones)", flush=True)
+    return rows
+
+
+# ------------------------------------------------------- error analysis
+def phase_error_analysis() -> dict:
+    """The paper's simulated error analysis on the card: ``engine.multiply``
+    and ``kernels.ops.approx_multiply`` through ``seqmul_packed``, then
+    ``exhaustive_eval(12, 6)`` and ``mc_eval(16, 8)``, whose products come
+    from ``seqmul_words``, and ``mc_eval(32, 16)`` (``core.seqmul`` on the
+    card).  Every launch count is set to 0 just before these calls and read
+    just after; the comparisons with the CPU and with ``core.seqmul``
+    follow, then the two example twins (in processes of their own)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import engine, kernels
+    from repro_torch.core import error_metrics, error_model, seqmul
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import seqmul_kernel as sk
+
+    # the elementwise product, every (a, b) pair at n = 8, through the engine
+    a, b = u32_operands((1 << 16,), 8, 0)
+    kernels.reset_launch_counts()
+    got = engine.multiply(a, b, n=8, t=4)  # backend "auto": the kernel
+    check(kernels.launch_counts()["seqmul_packed"] == 1,
+          "engine.multiply(backend='auto') on CUDA tensors did not launch seqmul_packed")
+    shim = ops.approx_multiply(a, b, n=8, t=4)
+
+    runs, reports = {}, {}
+
+    def timed(label, fn):
+        out = []
+        busy_ms, _, wall_ms, _ = profile_fn(lambda: out.append(fn()), 1, label)
+        runs[label] = dict(wall_s=wall_ms / 1e3, busy_share=busy_ms / wall_ms if busy_ms else None)
+        reports[label] = out[0]
+
+    for fix in (False, True):
+        timed(f"exhaustive_eval(12, 6, fix_to_1={fix})",
+              lambda: error_metrics.exhaustive_eval(12, 6, fix_to_1=fix, device="cuda"))
+    mc_runs = ((16, 8, 1 << 24), (32, 16, 1 << 22))
+    for n, t, samples in mc_runs:
+        timed(f"mc_eval({n}, {t}, samples=2**{samples.bit_length() - 1})",
+              lambda: error_metrics.mc_eval(n, t, samples=samples, device="cuda"))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in ELEMENTWISE_KERNELS:
+        check(counts[name] > 0, f"error analysis: {name} was never launched ({counts})")
+    print(f"error analysis: launches {({k: counts[k] for k in ELEMENTWISE_KERNELS})}",
+          flush=True)
+
+    def share(label):
+        busy = runs[label]["busy_share"]
+        return "not measured" if busy is None else f"{busy:.4f}"
+
+    want = engine.multiply(a, b, n=8, t=4, backend="reference")
+    cpu = engine.multiply(a.cpu(), b.cpu(), n=8, t=4)
+    check(u32_err(got, want) == 0 and u32_err(shim, want) == 0 and u32_err(want.cpu(), cpu) == 0,
+          "engine.multiply / approx_multiply on the card != the reference body")
+    print("error analysis: engine.multiply (auto) and ops.approx_multiply on the card "
+          "bit-equal to the reference body on the card and on the CPU (n=8, t=4, all "
+          "65536 pairs)", flush=True)
+
+    for fix in (False, True):
+        label = f"exhaustive_eval(12, 6, fix_to_1={fix})"
+        rep = reports[label]
+        t0 = time.perf_counter()
+        ref = error_metrics.exhaustive_eval(12, 6, fix_to_1=fix, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(rep == ref, f"{label}: card {rep} != CPU {ref}")
+        if not fix:
+            mae = error_model.mae_closed_form(12, 6)
+            check(-rep.max_ed_neg == mae,
+                  f"{label}: worst overshoot {-rep.max_ed_neg} != closed-form MAE {mae}")
+        print(f"error analysis: {label} on the card equal to the CPU's field for field: "
+              f"{rep.summary()}; worst overshoot {-rep.max_ed_neg} (closed-form MAE "
+              f"{error_model.mae_closed_form(12, 6)}); wall {runs[label]['wall_s']:.2f}s on "
+              f"the card (device busy share {share(label)}), {cpu_s:.2f}s on the CPU",
+              flush=True)
+    for n, t in ((1, 1), (4, 2)):
+        check(error_metrics.exhaustive_eval(n, t, device="cuda")
+              == error_metrics.exhaustive_eval(n, t, device="cpu"),
+              f"exhaustive_eval({n}, {t}): card != CPU")
+
+    for n, t, samples in mc_runs:
+        label = f"mc_eval({n}, {t}, samples=2**{samples.bit_length() - 1})"
+        rep = reports[label]
+        small = dict(samples=1 << 16, seed=1)
+        check(error_metrics.mc_eval(n, t, device="cuda", **small)
+              == error_metrics.mc_eval(n, t, device="cpu", **small),
+              f"mc_eval({n}, {t}) at 2^16 samples: card != CPU")
+        check(rep.samples == samples and all(map(math.isfinite, (rep.er, rep.nmed, rep.mred))),
+              f"{label}: {rep}")
+        print(f"error analysis: {label} on the card: {rep.summary()}; wall "
+              f"{runs[label]['wall_s']:.2f}s (device busy share {share(label)}); at 2^16 "
+              f"samples equal to the CPU's field for field", flush=True)
+
+    # the two-word kernel against core.seqmul on mc_eval(16, 8)'s draws
+    rng = np.random.default_rng(0)
+    chunk = 1 << 22
+    for _ in range((1 << 24) // chunk):
+        a_np = rng.integers(0, 1 << 16, size=chunk, dtype=np.uint64)
+        b_np = rng.integers(0, 1 << 16, size=chunk, dtype=np.uint64)
+        a16, b16 = (torch.from_numpy(x.astype(np.uint32)).to("cuda") for x in (a_np, b_np))
+        low, high = sk.seqmul_words(a16, b16, n=16, t=8)
+        prod = (low.cpu().numpy().astype(np.uint64)
+                + (high.cpu().numpy().astype(np.uint64) << np.uint64(16)))
+        words = seqmul.seq_mul_words(a16, b16, n=16, t=8, approx=True)
+        check(np.array_equal(prod, seqmul.assemble_product_u64(words, n=16, t=8)),
+              "seqmul_words low + (high << 16) != core.seqmul's product at n=16")
+    print("error analysis: seqmul_words on mc_eval(16, 8)'s 2^24 draws: low + (high << 16) "
+          "equal to core.seqmul's products on the card", flush=True)
+    print("error analysis runs: " + json.dumps(runs), flush=True)
+
+    for module, args in (("repro_torch.examples.quickstart", []),
+                         ("repro_torch.examples.accuracy_sweep", ["--steps", "80"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                              text=True, cwd=ROOT, timeout=300,
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+        check(proc.returncode == 0, f"{module} exit {proc.returncode}: {proc.stderr[-2000:]}")
+        print(f"error analysis: python -m {module} {' '.join(args)} on the card "
+              f"({time.perf_counter() - t0:.1f}s): " + " | ".join(proc.stdout.splitlines()),
+              flush=True)
+    return dict(counts=counts, runs=runs)
 
 
 # ------------------------------------------------------------ reference
@@ -952,7 +1220,8 @@ def main() -> int:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
     # 3. kernels
-    rows = phase_kernels(card) + phase_attention(card) + phase_backward(card)
+    rows = (phase_kernels(card) + phase_attention(card) + phase_backward(card)
+            + phase_elementwise(card))
     kernels.reset_launch_counts()
 
     # 4. reference
@@ -1018,20 +1287,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_cli()
 
-    # 7. report
+    # 7. the paper's simulated error analysis: engine.multiply through
+    # seqmul_packed, the error reports up to n = 16 through seqmul_words
+    analysis = phase_error_analysis()
+    for name in ELEMENTWISE_KERNELS:
+        runs[name] = analysis
+
+    # 8. report
     table = []
-    for name in GEMM_KERNELS + ATTN_KERNELS + BWD_KERNELS:
+    for name in GEMM_KERNELS + ATTN_KERNELS + BWD_KERNELS + ELEMENTWISE_KERNELS:
         mine = [r for r in rows if r["name"] == name]
         if name in GEMM_KERNELS:
             main_row = next(r for r in mine if tuple(r["shape"]) == MAIN_SHAPE and r["n"] == 8)
         elif name in BWD_KERNELS:
             main_row = next(r for r in mine if r["label"] == "train")
+        elif name in ELEMENTWISE_KERNELS:
+            main_row = next(r for r in mine if "ms" in r)
         else:
             main_row = next(r for r in mine if r["label"] == "serve")
-        per_step = (dict(launches_per_train_step=runs[name]["per_step"][name])
-                    if name in BWD_KERNELS else
-                    dict(launches_per_prefill=runs[name]["per_prefill"][name],
-                         launches_per_decode_step=runs[name]["per_decode"][name]))
+        if name in BWD_KERNELS:
+            per_step = dict(launches_per_train_step=runs[name]["per_step"][name])
+        elif name in ELEMENTWISE_KERNELS:
+            per_step = dict(n=main_row["n"], t=main_row["t"])
+        else:
+            per_step = dict(launches_per_prefill=runs[name]["per_prefill"][name],
+                            launches_per_decode_step=runs[name]["per_decode"][name])
+        if "exact_matmul_ms" in main_row:
+            per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
         table.append({
             "name": name,
             "route": "cuda",

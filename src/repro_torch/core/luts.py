@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.engine import recurrence
 
-__all__ = ["product_lut", "error_lut", "svd_error_factors"]
+__all__ = ["product_lut", "error_lut", "svd_error_factors", "lut_stats"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -67,3 +67,15 @@ def svd_error_factors(
         (vt[:rank].T * scale).astype(np.float32),
         kept / total,
     )
+
+
+def lut_stats(n: int, t: int, *, fix_to_1: bool = True) -> dict:
+    """Summary of the error table; the keys are the reference's (its
+    ``vmem_bytes_product_lut`` is the int32 table's size in bytes)."""
+    e = _tables(n, t, fix_to_1)[1]
+    return {
+        "nonzero_frac": float(np.count_nonzero(e) / e.size),
+        "mean_abs": float(np.abs(e).mean()),
+        "max_abs": int(np.abs(e).max()),
+        "vmem_bytes_product_lut": int(4 * (1 << (2 * n))),
+    }

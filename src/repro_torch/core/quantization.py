@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["QuantParams", "calibrate_absmax", "quantize", "fake_quant"]
+__all__ = ["QuantParams", "calibrate_absmax", "quantize", "dequantize", "fake_quant"]
 
 
 class QuantParams(NamedTuple):
@@ -53,6 +53,10 @@ def quantize(x: torch.Tensor, qp: QuantParams) -> tuple[torch.Tensor, torch.Tens
     x = x.to(torch.promote_types(x.dtype, qp.scale.dtype))
     q = torch.clamp(torch.round(x / qp.scale), -qmax, qmax)
     return q.abs().to(torch.int32), torch.sign(q).to(torch.int8)
+
+
+def dequantize(mag: torch.Tensor, sign: torch.Tensor, qp: QuantParams) -> torch.Tensor:
+    return mag.to(torch.float32) * sign.to(torch.float32) * qp.scale
 
 
 class _SteRound(torch.autograd.Function):

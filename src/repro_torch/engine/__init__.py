@@ -7,6 +7,7 @@ accuracy-configuration controller (``config``)::
 
     from repro_torch import engine
     y = engine.matmul(x, w, n=8, t=4, mode="bitexact")   # (M,K)@(K,N) f32
+    p = engine.multiply(a, b, n=8, t=4)                  # elementwise, uint32
 
 Submodules load lazily so that leaf modules (``recurrence``, ``policy``)
 import without cycles.
@@ -18,6 +19,7 @@ import importlib
 
 _LAZY = {
     "matmul": "dispatch",
+    "multiply": "dispatch",
     "BACKENDS": "dispatch",
     "resolve_backend": "dispatch",
     "list_modes": "modes",

@@ -41,19 +41,28 @@ def svd_factors(n: int, t: int, rank: int, fix_to_1: bool, device: torch.device)
 
 
 @functools.lru_cache(maxsize=32)
-def error_moments(n: int, t: int, fix_to_1: bool = True) -> tuple[float, float]:
-    """(mean, std) of the signed error table, weighted by the magnitude
+def error_moments(n: int, t: int, fix_to_1: bool = True,
+                  dist: str = "gaussian") -> tuple[float, float]:
+    """(mean, std) of the signed error table under an operand distribution.
+
+    ``dist="uniform"`` is the paper's Fig. 2 setting; ``dist="gaussian"``
+    (the one the ``inject`` body uses) weights the table by the magnitude
     PDF of absmax-quantized Gaussian activations (absmax ~ 4 sigma), as the
-    reference's ``dist="gaussian"`` (the one its ``inject`` body uses).
-    The signed per-product error rides ``sign_a * sign_b`` and so has zero
-    mean and second moment ``mean^2 + var``, which is what is returned.
+    reference does.  The signed per-product error rides ``sign_a *
+    sign_b`` and so has zero mean and second moment ``mean^2 + var``,
+    which is what is returned.
     """
     e = luts.error_lut(n, t, fix_to_1=fix_to_1).astype(np.float64)
-    mags = np.arange(1 << n, dtype=np.float64)
-    sigma = (2**n - 1) / 4.0
-    p = np.exp(-0.5 * (mags / sigma) ** 2)
-    p /= p.sum()
-    w = np.outer(p, p)
-    mean = float((w * e).sum())
-    var = float((w * e * e).sum()) - mean * mean
+    if dist == "uniform":
+        mean, var = float(e.mean()), float(e.var())
+    elif dist == "gaussian":
+        mags = np.arange(1 << n, dtype=np.float64)
+        sigma = (2**n - 1) / 4.0
+        p = np.exp(-0.5 * (mags / sigma) ** 2)
+        p /= p.sum()
+        w = np.outer(p, p)
+        mean = float((w * e).sum())
+        var = float((w * e * e).sum()) - mean * mean
+    else:
+        raise ValueError(f"dist must be 'uniform' or 'gaussian', got {dist!r}")
     return 0.0, float(np.sqrt(max(var + mean * mean, 0.0)))

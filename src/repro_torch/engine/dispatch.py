@@ -9,8 +9,11 @@ is the exact matmul gradient.
 Backends: ``reference`` (plain PyTorch bodies), ``cuda`` (the Hopper
 kernels; an explicit request for a mode without one raises), ``auto``
 (``cuda`` for CUDA tensors on sm_90 where the mode has a kernel, else
-``reference``).  ``multiply``, the elementwise product, waits for the
-``seqmul_kernel`` slice.
+``reference``).
+
+:func:`multiply` is the elementwise counterpart on integer magnitudes: the
+``seqmul_packed`` kernel (``kernels.seqmul_kernel``) for ``cuda``,
+``core.seqmul`` for ``reference``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from repro_torch.engine import modes as _modes
 from repro_torch.engine import policy as _policy
 
-__all__ = ["BACKENDS", "PACKED_U32_MAX_2N", "matmul", "resolve_backend"]
+__all__ = ["BACKENDS", "PACKED_U32_MAX_2N", "matmul", "multiply", "resolve_backend"]
 
 BACKENDS = _policy.BACKENDS
 
@@ -59,7 +62,8 @@ def _validate_mode_nt(mode: str, n: int, t: int) -> None:
     if max_n is not None and n > max_n:
         raise ValueError(
             f"mode {mode!r} supports bit-widths n <= {max_n}, got n={n} "
-            f"(use mode='seqmul' up to n=12)"
+            f"(use mode='seqmul' up to n=12; wider operands go through "
+            f"kernels.seqmul_kernel.seqmul_words)"
         )
 
 
@@ -132,3 +136,54 @@ def matmul(
     if spec.differentiable:
         return impl(x, w, p, *extra)
     return _StraightThrough.apply(x, w, impl, p, *extra)
+
+
+def _check_multiply(n: int, t: int, approx: bool) -> None:
+    """The eager checks of :func:`multiply`, with its mode named in the error."""
+    mode_name = "seqmul_approx" if approx else "seqmul_exact"
+    _validate_mode_nt(mode_name, n, t)
+    if 2 * n > PACKED_U32_MAX_2N:
+        raise ValueError(
+            f"multiply (mode {mode_name!r}) packs the 2n-bit product into one "
+            f"uint32, which requires 2n <= {PACKED_U32_MAX_2N} (got n={n}, "
+            f"2n={2 * n}); use kernels.seqmul_kernel.seqmul_words for "
+            f"the two-word (low, high) output at n up to 16"
+        )
+
+
+def multiply(
+    a,
+    b,
+    *,
+    n: Optional[int] = None,
+    t: Optional[int] = None,
+    approx: bool = True,
+    fix_to_1: bool = True,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Elementwise (approximate) product of integer magnitudes in [0, 2^n),
+    any shape; returns the packed 2n-bit product as ``torch.uint32``
+    (requires 2n <= 31).
+
+    ``n``/``t`` default to the controller's resolution (see ``matmul``).
+    ``auto`` runs the ``seqmul_packed`` kernel for CUDA tensors on sm_90
+    and ``core.seqmul`` for CPU tensors; an explicit ``cuda`` on a CPU
+    tensor raises.  The reference's ``REPRO_STATIC_AUDIT`` gate has no
+    counterpart: the eager checks above are the whole integer envelope
+    (``engine.config.within_envelope``) of the elementwise modes.
+    """
+    from repro_torch.core import seqmul as _seqmul
+
+    n, t = _resolve_nt(n, t)
+    _check_multiply(n, t, approx)
+    a, b = _seqmul.operands(a, b)
+    resolved = _policy.resolve_backend(backend, a.device)
+    if resolved == "cuda":
+        from repro_torch.kernels.seqmul_kernel import packed_kernel
+
+        return packed_kernel(a, b, n=n, t=t, approx=approx, fix_to_1=fix_to_1)
+    if approx:
+        return _seqmul.packed_u32(a, b, n=n, t=t, approx=True, fix_to_1=fix_to_1)
+    # the reference's exact path splits at max(1, n // 2); the exact product
+    # does not depend on t
+    return _seqmul.packed_u32(a, b, n=n, t=max(1, n // 2), approx=False, fix_to_1=False)

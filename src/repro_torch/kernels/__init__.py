@@ -20,14 +20,21 @@ kernel                         replaces (JAX package)                           
                                ``_bitexact_kernel``
 ``approx_attention_lowrank``   ``repro/kernels/approx_attention.py``                 prefill, lowrank
                                ``_lowrank_kernel``
+``seqmul_packed``              ``repro/kernels/seqmul_kernel.py`` ``_kernel``        ``engine.multiply``
+``seqmul_words``               ``repro/kernels/seqmul_kernel.py`` ``_words_kernel``  error analysis,
+                                                                                     n <= 16
 =============================  ====================================================  ==================
 
 The attention kernels run under ``attn_impl="pallas"`` (``models/attention.py``);
-the backward pair runs for both the exact and the approximate forward.
+the backward pair runs for both the exact and the approximate forward.  The
+elementwise pair (``seqmul_kernel``) serves ``engine.multiply`` and
+``kernels.ops.approx_multiply`` (``seqmul_packed``) and the simulated error
+analysis of ``core.error_metrics`` up to n = 16 (``seqmul_words``).
 """
 
 from repro_torch.kernels import (
-    approx_attention, flash_attention, lowrank_matmul, lut_matmul, packed_matmul, seqmul_matmul,
+    approx_attention, flash_attention, lowrank_matmul, lut_matmul, packed_matmul, seqmul_kernel,
+    seqmul_matmul,
 )
 
 __all__ = ["ALL", "launch_counts", "reset_launch_counts"]
@@ -43,6 +50,8 @@ ALL = {
     "flash_decode": flash_attention.DECODE_KERNEL,
     "approx_attention_bitexact": approx_attention.BITEXACT_KERNEL,
     "approx_attention_lowrank": approx_attention.LOWRANK_KERNEL,
+    "seqmul_packed": seqmul_kernel.PACKED_KERNEL,
+    "seqmul_words": seqmul_kernel.WORDS_KERNEL,
 }
 
 

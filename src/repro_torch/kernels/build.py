@@ -42,7 +42,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 # one entry per source under csrc/ (a source may hold several kernels)
 KERNELS = (
     "lut_matmul", "seqmul_matmul", "packed_matmul", "lowrank_matmul",
-    "flash_attention", "flash_attention_bwd", "approx_attention",
+    "flash_attention", "flash_attention_bwd", "approx_attention", "seqmul_kernel",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,7 +17,9 @@ Tolerances (kernel against plain version, both on the card):
   (both modes) and of the lowrank scores run in another order, and an ulp
   there can move a ``p_int`` across a rounding boundary;
 - the flash backward (dq, dk/dv kernels): within 1e-4 * max|want| per
-  output, float32 before the cast (sums of up to T terms in another order).
+  output, float32 before the cast (sums of up to T terms in another order);
+- the elementwise multiplier (``seqmul_packed``, ``seqmul_words``):
+  bit-equal.
 """
 
 from __future__ import annotations
@@ -244,3 +246,109 @@ def test_full_width_train_step_is_finite(card):
         assert counts[name] > 0, counts
     assert all(bool(torch.isfinite(m).all()) for m in state.opt.mu)
     assert isinstance(state.opt, adamw.OptState)
+
+
+def _u32_operands(shape, n, seed, card):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(0, 1 << n, shape, dtype=np.uint64)
+                                  .astype(np.uint32)).to(card) for _ in range(2))
+
+
+def _same_bits(got, want) -> bool:
+    return got.dtype == want.dtype == torch.uint32 and bool(torch.equal(got, want))
+
+
+@pytest.mark.parametrize("shape", [(), (0,), (1,), (127,), (129,), ((1 << 20) + 3,),
+                                   (4096, 4096)], ids=str)
+def test_seqmul_kernels_bitmatch_plain_versions(shape, card):
+    """Both elementwise kernels at the smoke's sizes: ragged, 0-d, empty and
+    2^24 elements, packed at n = 12 and words at the paper's n = 16."""
+    from repro_torch.kernels import seqmul_kernel as sk
+
+    a, b = _u32_operands(shape, 12, 1, card)
+    got = sk.seqmul_packed(a, b, n=12, t=6)
+    want = sk.seqmul_packed_plain(a, b, n=12, t=6)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    a, b = _u32_operands(shape, 16, 2, card)
+    got = sk.seqmul_words(a, b, n=16, t=8)
+    want = sk.seqmul_words_plain(a, b, n=16, t=8)
+    torch.cuda.synchronize()
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1, 4, 8, 12, 15, 16])
+def test_seqmul_kernels_bitmatch_plain_versions_over_splits(n, card):
+    """Every kernel variant (exact, approximate with and without fix_to_1)
+    at three splits, on int64 operands and on an unaligned uint32 view."""
+    from repro_torch.kernels import seqmul_kernel as sk
+
+    a, b = _u32_operands((1 << 16) + 5, n, n, card)
+    wide = (a.long(), b.long())
+    for t in sorted({1, max(1, n // 2), max(1, n - 1)}):
+        for approx, fix in ((True, True), (True, False), (False, False)):
+            kw = dict(n=n, t=t, approx=approx, fix_to_1=fix)
+            for x, y in ((a, b), (a[1:], b[1:]), wide):
+                low, high = sk.seqmul_words(x, y, **kw)
+                want_low, want_high = sk.seqmul_words_plain(x, y, **kw)
+                assert _same_bits(low, want_low) and _same_bits(high, want_high), kw
+                if 2 * n <= 31:
+                    assert _same_bits(sk.seqmul_packed(x, y, **kw),
+                                      sk.seqmul_packed_plain(x, y, **kw)), kw
+
+
+def test_seqmul_launch_counts_and_engine_multiply(card):
+    """One launch per call that has elements, none for an empty one or a CPU
+    tensor; ``engine.multiply`` (auto) and ``ops.approx_multiply`` run the
+    packed kernel and agree with the reference body."""
+    from repro_torch import engine, kernels
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import seqmul_kernel as sk
+
+    a, b = _u32_operands((8, 128), 8, 3, card)
+    kernels.reset_launch_counts()
+    got = engine.multiply(a, b, n=8, t=4)
+    shim = ops.approx_multiply(a, b)
+    sk.seqmul_words(a, b, n=8, t=4)
+    sk.seqmul_packed(a[:0], b[:0], n=8, t=4)
+    sk.seqmul_words(a.cpu(), b.cpu(), n=8, t=4)
+    counts = kernels.launch_counts()
+    assert counts["seqmul_packed"] == 2 and counts["seqmul_words"] == 1, counts
+    want = engine.multiply(a, b, n=8, t=4, backend="reference")
+    assert _same_bits(got, want) and _same_bits(shim, want)
+    assert _same_bits(want.cpu(), engine.multiply(a.cpu(), b.cpu(), n=8, t=4))
+
+
+def test_engine_multiply_with_one_operand_on_the_card(card):
+    """An array-like beside a CUDA tensor joins it on the card and launches
+    the packed kernel; a CPU tensor beside a CUDA tensor raises."""
+    from repro_torch import engine, kernels
+
+    a, b = _u32_operands((1000,), 8, 4, card)
+    want = engine.multiply(a, b, n=8, t=4, backend="reference")
+    for x, y in ((a.cpu().numpy(), b), (a, b.cpu().numpy())):
+        kernels.reset_launch_counts()
+        got = engine.multiply(x, y, n=8, t=4)
+        assert kernels.launch_counts()["seqmul_packed"] == 1
+        assert got.device == a.device and _same_bits(got, want)
+    for x, y in ((a.cpu(), b), (a, b.cpu())):
+        with pytest.raises(ValueError, match="cpu"):
+            engine.multiply(x, y, n=8, t=4)
+
+
+def test_error_analysis_on_the_card_equals_the_cpu(card):
+    """``exhaustive_eval`` and ``mc_eval`` on the card report what the CPU
+    reports, field for field; up to n = 16 the card's products come from
+    the ``seqmul_words`` kernel."""
+    from repro_torch import kernels
+    from repro_torch.core import error_metrics
+
+    for kw in (dict(n=1, t=1), dict(n=8, t=4), dict(n=8, t=3, fix_to_1=False)):
+        kernels.reset_launch_counts()
+        assert (error_metrics.exhaustive_eval(**kw, device=card)
+                == error_metrics.exhaustive_eval(**kw, device="cpu"))
+        assert kernels.launch_counts()["seqmul_words"] == 1  # one chunk
+    for n, t in ((16, 8), (32, 16)):
+        kw = dict(samples=1 << 16, seed=n)
+        assert (error_metrics.mc_eval(n, t, device=card, **kw)
+                == error_metrics.mc_eval(n, t, device="cpu", **kw))

@@ -178,6 +178,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.core.error_metrics\n"
+        "import repro_torch.kernels.seqmul_kernel\n"
+        "import repro_torch.kernels.ops\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.accuracy_sweep\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "or m == 'repro')\n"
         "assert not bad, bad\n"
