@@ -13,7 +13,12 @@ Phases, one line each (or a few):
    the card at the main path's shapes.  GEMMs: M in {decode batch,
    admission prompt, batch x prompt}, (K, N) the projections of
    qwen3-0.6b, plus a sweep over (n, t); the integer GEMMs must be
-   bit-equal, lowrank_matmul within 2e-6 * max|want|.  Attention: the
+   bit-equal, lowrank_matmul within 2e-6 * max|want|, and the split-K
+   GEMMs (packed, lowrank) must give the same bits on two launches.  Then
+   their edge cases: packed lanes at +-(2^n - 1) at n = 8 and 15 with K =
+   3072, an odd K, M = 1 and (33, 300, 70); lowrank with every magnitude
+   255 and mixed signs, with zero SVD tables (then bit-equal), M = 1,
+   (33, 300, 70) and rank 24.  Attention: the
    serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
    prefill q (4, 32) over a 48-slot cache with a masked tail, key block
    16; decode batch 4 over 48 slots), a window + softcap case each, and
@@ -34,7 +39,9 @@ Phases, one line each (or a few):
    (the larger of the bytes at 3.35 TB/s and the operations at their
    rate: table lookups at the shared-memory rate, the least integer
    operations of the recurrence at the SMs' int32 issue rate, int8
-   tensor-core products, float32 FLOPs on the CUDA cores; for attention
+   tensor-core products (4 per product of 9- to 16-bit operands), TF32
+   tensor-core products (lowrank's correction, 3 per product), float32
+   FLOPs on the CUDA cores; for attention
    counted over the query-slot pairs and the K/V slots this run's
    positions need, masked pairs adding nothing) and one PyTorch
    call that computes the same function, a yardstick the port never calls
@@ -43,7 +50,10 @@ Phases, one line each (or a few):
    backward alone for the backward kernels; none exists for the
    approximate products of lut_matmul, seqmul_matmul, approx_attention
    and the elementwise pair, and the exact torch.matmul beside the first
-   two is printed as a yardstick only);
+   two is printed as a yardstick only).  Times are per call over a loop
+   of calls (the host's launch included); packed_matmul and
+   lowrank_matmul also print ``device_ms`` and ``library_device_ms``, the
+   device's time alone (calls replayed from one CUDA graph);
 4. reference: ``engine.matmul`` on the card against the CPU reference
    bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
    and reduced qwen3-0.6b prefill logits on the card against the CPU
@@ -114,6 +124,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 SMEM_LOOKUPS_PER_CLK_PER_SM = 32  # 32 banks, one 4-byte word each per clock
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (NVIDIA data sheet)
+TF32_TENSOR_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores (NVIDIA data sheet)
 F32_LANES_PER_CLK_PER_SM = 128  # Hopper SM: 4 partitions x 32 FP32 lanes, one FMA each
 
 # qwen3-0.6b projections (K, N): q, k/v, o, mlp up/gate, mlp down
@@ -177,6 +188,22 @@ def nvidia_smi(query: str) -> str:
 
 
 # --------------------------------------------------------------- timing
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed, so the host's time per call (Python, the launch) drops out."""
+    import torch
+
+    fn()  # warm: builds, caches, the split-K counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps=5) / reps
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     import torch
 
@@ -276,9 +303,11 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         plain = lambda: lr.lowrank_matmul_plain(u, v, a, sx, b, sw, n=bits)
         rank = u.shape[1]
         nbytes = 2 * u.numel() * 4 + 2 * m * k + 2 * k * n + 4 * m * n
-        # the least time: the integer part on the int8 tensor cores (a
-        # multiply and an add per product), the correction in float32
-        ops_s = 2 * m * k * n / INT8_TENSOR_OPS_PER_S + 2 * m * k * n * rank / card.f32_flops_per_s
+        # the least time of the kernel's design: the integer part on the int8
+        # tensor cores (9-bit signed operands: 4 int8 products of 2 ops each),
+        # the correction as 3 TF32 products on the tensor cores (split TF32)
+        ops_s = (8 * m * k * n / INT8_TENSOR_OPS_PER_S
+                 + 3 * 2 * m * k * n * rank / TF32_TENSOR_FLOPS_PER_S)
         bound = card.bound_s(nbytes, ops_s)
         # one torch.matmul of [A | Ue'] @ [B ; Ve'], concatenated outside the timing
         sxf, swf = sx.to(torch.float32), sw.to(torch.float32)
@@ -311,10 +340,13 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         # cores, 4 int8 products of 2 ops (multiply, add) per lane product
         bound = card.bound(nbytes, 8 * m * k * n, INT8_TENSOR_OPS_PER_S)
     got = kern()
+    again = kern()
     want = plain()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     where = f"{name} M={m} K={k} N={n} n={bits} t={t}"
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"{where}: two launches on the same inputs differ")
     if name == "lowrank_matmul":
         # the float32 correction is summed in another order
         limit = 2e-6 * want.abs().max().item()
@@ -337,6 +369,10 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
             if library is None:
                 library = lambda: torch.matmul(xq, wq)
             row["library_ms"] = cuda_ms(library, reps=20, warmup=2)
+        if name in ("packed_matmul", "lowrank_matmul"):
+            # the device's time alone, kernel and library call alike
+            row["device_ms"] = graph_ms(kern)
+            row["library_device_ms"] = graph_ms(library)
     return row
 
 
@@ -351,9 +387,97 @@ def phase_kernels(card: Card) -> list:
             + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None else
                f"none (exact matmul {row['exact_matmul_ms']:.4f})") if "ms" in row else ""
         )
+        if row.get("library_ms"):
+            times += f" ratio {row['ms'] / row['library_ms']:.3f}"
+        if "device_ms" in row:
+            times += (f" device_ms {row['device_ms']:.4f} library_device_ms "
+                      f"{row['library_device_ms']:.4f} device ratio "
+                      f"{row['device_ms'] / row['library_device_ms']:.3f}")
         agree = "bit-equal" if row["max_abs_err"] == 0 else f"max |err| {row['max_abs_err']:.3e}"
         print(f"kernel {name} M={m} K={k} N={n} n={bits} t={t}: {agree}{times} "
               f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
+    return rows + phase_gemm_edges()
+
+
+# (kernel, kind, M, K, N, n): the tensor-core GEMMs at their edges
+GEMM_EDGES = [
+    ("packed_matmul", "extreme mixed", 4, 3072, 1024, 8),
+    ("packed_matmul", "extreme alike", 4, 3072, 1024, 8),
+    ("packed_matmul", "extreme mixed", 128, 3072, 1024, 15),
+    ("packed_matmul", "extreme alike", 4, 3072, 1024, 15),
+    ("packed_matmul", "random", 4, 301, 64, 12),  # odd K: a zero pad lane
+    ("packed_matmul", "random", 1, 1024, 3072, 8),
+    ("packed_matmul", "random", 33, 300, 70, 15),
+    ("lowrank_matmul", "mag 255", 4, 1024, 3072, 8),
+    ("lowrank_matmul", "mag 255", 128, 1024, 3072, 8),
+    ("lowrank_matmul", "zero tables", 4, 3072, 1024, 8),
+    ("lowrank_matmul", "zero tables", 33, 300, 70, 8),
+    ("lowrank_matmul", "random", 1, 1024, 3072, 8),
+    ("lowrank_matmul", "random", 33, 300, 70, 8),
+    ("lowrank_matmul", "rank 24", 33, 300, 70, 8),  # three blocks of 8 r per K step
+]
+
+
+def phase_gemm_edges() -> list:
+    """packed_matmul and lowrank_matmul at their edges, untimed: lanes at
+    +-(2^n - 1) with mixed or like signs (every int8 plane pair at its
+    extreme; int32 sums at n = 8, int64 at n = 15), an odd K, M = 1 and
+    a ragged shape; lowrank with every magnitude 255 and mixed signs, and
+    with zero SVD tables, where it must be bit-equal (the exact part
+    alone).  Each also launched twice: the same bits both times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import artifacts
+    from repro_torch.kernels import lowrank_matmul as lr
+    from repro_torch.kernels import packed_matmul as pm
+
+    rows = []
+    for i, (name, kind, m, k, n_cols, bits) in enumerate(GEMM_EDGES):
+        rng = np.random.default_rng(900 + i)
+        qmax = (1 << bits) - 1
+        if name == "packed_matmul":
+            if kind == "extreme mixed":
+                a, b = rng.choice([-qmax, qmax], (m, k)), rng.choice([-qmax, qmax], (k, n_cols))
+            elif kind == "extreme alike":
+                a, b = np.full((m, k), qmax), np.full((k, n_cols), -qmax)
+            else:
+                a, b = rng.integers(-qmax, qmax + 1, (m, k)), rng.integers(-qmax, qmax + 1, (k, n_cols))
+            pa = pm.pack_i16_pairs(torch.from_numpy(a).cuda(), dim=1)
+            pb = pm.pack_i16_pairs(torch.from_numpy(b).cuda(), dim=0)
+            kern = lambda: pm.packed_matmul(pa, pb, n=bits)
+            plain = lambda: pm.packed_matmul_plain(pa, pb)
+        else:
+            mag_a, mag_b = rng.integers(0, qmax + 1, (m, k)), rng.integers(0, qmax + 1, (k, n_cols))
+            if kind == "mag 255":
+                mag_a, mag_b = np.full_like(mag_a, qmax), np.full_like(mag_b, qmax)
+            sign_a = rng.choice([-1, 0, 1], (m, k), p=[0.45, 0.1, 0.45])
+            sign_b = rng.choice([-1, 1], (k, n_cols))
+            rank = 24 if kind == "rank 24" else 8
+            u, v, _ = artifacts.svd_factors(bits, 4, rank, True, torch.device("cuda"))
+            if kind == "zero tables":
+                u, v = torch.zeros_like(u), torch.zeros_like(v)
+            args = (u, v, torch.from_numpy(mag_a).to("cuda", torch.uint8),
+                    torch.from_numpy(sign_a).to("cuda", torch.int8),
+                    torch.from_numpy(mag_b).to("cuda", torch.uint8),
+                    torch.from_numpy(sign_b).to("cuda", torch.int8))
+            kern = lambda: lr.lowrank_matmul(*args, n=bits)
+            plain = lambda: lr.lowrank_matmul_plain(*args, n=bits)
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        where = f"{name} {kind} M={m} K={k} N={n_cols} n={bits}"
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"{where}: two launches on the same inputs differ")
+        err = (got - want).abs().max().item()
+        if name == "lowrank_matmul" and kind != "zero tables":
+            limit = 2e-6 * want.abs().max().item()
+            check(err <= limit, f"{where}: kernel vs plain max |err| {err} over {limit}")
+        else:
+            check(torch.equal(got, want), f"{where}: kernel != plain (max |err| {err})")
+        agree = "bit-equal" if err == 0 else f"max |err| {err:.3e} (max |want| {want.abs().max().item():.6g})"
+        print(f"kernel {where}: {agree}, two launches bit-identical", flush=True)
+        rows.append(dict(name=name, label=kind, shape=[m, k, n_cols], n=bits, t=None,
+                         max_abs_err=err))
     return rows
 
 
@@ -1298,7 +1422,8 @@ def main() -> int:
     for name in GEMM_KERNELS + ATTN_KERNELS + BWD_KERNELS + ELEMENTWISE_KERNELS:
         mine = [r for r in rows if r["name"] == name]
         if name in GEMM_KERNELS:
-            main_row = next(r for r in mine if tuple(r["shape"]) == MAIN_SHAPE and r["n"] == 8)
+            main_row = next(r for r in mine
+                            if tuple(r["shape"]) == MAIN_SHAPE and r["n"] == 8 and "ms" in r)
         elif name in BWD_KERNELS:
             main_row = next(r for r in mine if r["label"] == "train")
         elif name in ELEMENTWISE_KERNELS:
@@ -1326,6 +1451,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            **{key: main_row[key] for key in ("device_ms", "library_device_ms")
+               if key in main_row},
             "shape": main_row["shape"],
             **per_step,
         })

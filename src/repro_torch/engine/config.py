@@ -212,13 +212,11 @@ def _lut_smem_bytes(n: int, bm: int) -> int:
 
 
 def _lowrank_smem_bytes(n: int, bm: int, rank: int) -> int:
-    """``csrc/lowrank_matmul.cu``'s dynamic shared memory at row tile ``bm``:
-    the two (2^n, r) float32 tables, the int32 operand tiles and the
-    gathered float32 embedding tiles of both sides."""
-    from repro_torch.kernels.build import BLOCK_COLS, LOWRANK_BLOCK_K as bk
+    """``csrc/lowrank_matmul.cu``'s dynamic shared memory at token tile
+    ``bm`` (``kernels.lowrank_matmul.smem_bytes``)."""
+    from repro_torch.kernels.lowrank_matmul import smem_bytes
 
-    return 4 * (2 * (1 << n) * rank + bm * bk + bk * BLOCK_COLS
-                + bm * bk * rank + bk * rank * BLOCK_COLS)
+    return smem_bytes(n, bm, rank)
 
 
 _SMEM_BYTES = {
@@ -231,18 +229,21 @@ _SMEM_BYTES = {
 def kernel_tiles(mode: str, n: int, t: int, m: int, rank: int = 8) -> int:
     """The CUDA kernels' row tile for one GEMM call of ``m`` rows, checked.
 
-    The column and K tiles are fixed in ``csrc/*.cu``; the row tile is
-    picked from M by each kernel's wrapper (``kernels.build.block_rows``),
-    and this returns that pick.  For the modes that hold tables in shared
-    memory (``bitexact``: the uint16 product table; ``lowrank``: the two
-    SVD factors and the gathered embedding tiles, which grow with
+    The row tile is picked from M by each kernel's wrapper: the tensor-core
+    GEMMs by ``kernels.lowrank_matmul.tile`` (``lowrank``) and
+    ``kernels.packed_matmul.tile`` (``inject``), the others by
+    ``kernels.build.block_rows``; this returns that pick.  For
+    the modes that hold tables in shared memory (``bitexact``: the uint16
+    product table; ``lowrank``: the two SVD factors, which grow with
     ``rank``) the footprint is checked against the 227 KiB a block may
     use, at dispatch rather than at launch.  ``t`` shapes the table
     contents or the recurrence, not the footprint.
     """
+    from repro_torch.kernels import lowrank_matmul, packed_matmul
     from repro_torch.kernels.build import block_rows
 
-    bm = block_rows(m)
+    pick = {"lowrank": lowrank_matmul.tile, "inject": packed_matmul.tile}.get(mode)
+    bm = pick(m)[0] if pick is not None else block_rows(m)
     footprint = _SMEM_BYTES.get(mode)
     if footprint is not None and footprint(n, bm, rank) > SMEM_PER_BLOCK:
         raise ValueError(

@@ -22,6 +22,7 @@ prefill and decode kernels); each has its own binding and count.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -32,9 +33,9 @@ import threading
 import torch
 
 __all__ = [
-    "BLOCK_COLS", "BLOCK_K", "BLOCK_ROWS", "BUILD_DIR", "CSRC", "KERNELS", "LOWRANK_BLOCK_K",
-    "SMEM_PER_BLOCK", "CudaKernel", "block_rows", "build_all", "check_operand", "nvcc_path",
-    "wide_accumulator",
+    "BLOCK_COLS", "BLOCK_K", "BLOCK_ROWS", "BUILD_DIR", "CSRC", "KERNELS", "SMEM_PER_BLOCK",
+    "SPLIT_BLOCKS_PER_SM", "CudaKernel", "block_rows", "build_all", "check_operand",
+    "nvcc_path", "pick_tile", "sm_count", "split_k", "tile_counters", "wide_accumulator",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -155,19 +156,84 @@ def check_operand(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-# Block tiles shared by the three GEMM kernels (csrc/*.cu): BM rows by 64
+# Block tiles of lut_matmul and seqmul_matmul (csrc/*.cu): BM rows by 64
 # output columns, K staged 32 at a time.  Each wrapper picks BM from M with
 # block_rows(), the one place that choice is made.
 BLOCK_ROWS = (4, 16, 64)
 BLOCK_COLS = 64
 BLOCK_K = 32
-LOWRANK_BLOCK_K = 16  # csrc/lowrank_matmul.cu stages K 16 at a time
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use on Hopper
+
+SPLIT_BLOCKS_PER_SM = 2  # the split-K GEMMs' grids fill one wave of this many blocks per SM
 
 
 def block_rows(m: int) -> int:
     """The smallest row tile that holds ``m`` rows, else the largest."""
     return next((bm for bm in BLOCK_ROWS if m <= bm), BLOCK_ROWS[-1])
+
+
+def pick_tile(m: int, tiles: tuple) -> tuple[int, int]:
+    """The ``(BM, BN)`` of ``tiles`` for ``m`` rows: the smallest token tile
+    that holds them, else the largest."""
+    return next((tile for tile in tiles if m <= tile[0]), tiles[-1])
+
+
+def split_k(tiles: int, k: int, *, step: int, min_chunk: int, sms: int,
+            max_chunk: int | None = None) -> tuple[int, int]:
+    """``(splits, chunk)``: K cut into ``splits`` slices of ``chunk`` (a
+    multiple of ``step``; the last slice may be shorter, none is empty).
+
+    Splits as far as ``tiles * splits`` stays within one wave of
+    :data:`SPLIT_BLOCKS_PER_SM` blocks per SM and slices of at least
+    ``min_chunk`` allow; no slice is longer than ``max_chunk`` where one is
+    given.  A grid of 8-24 output tiles at decode would otherwise leave
+    most of the 132 SMs idle, and a second, mostly empty wave would double
+    the time.
+    """
+    if k <= 0:
+        return 1, step
+    want = max(1, SPLIT_BLOCKS_PER_SM * sms // tiles)
+    splits = max(1, min(want, k // min_chunk))
+    chunk = -(-k // splits)
+    chunk = -(-chunk // step) * step
+    if max_chunk is not None:
+        chunk = min(chunk, max_chunk // step * step)
+    return -(-k // chunk), chunk
+
+
+def _device_key(device: torch.device) -> tuple[str, int]:
+    if device.index is not None:
+        return device.type, device.index
+    return device.type, torch.cuda.current_device() if device.type == "cuda" else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA ``device``."""
+    return _sm_count(_device_key(device)[1])
+
+
+_counters: dict = {}
+
+
+def tile_counters(device: torch.device, count: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``count`` split-K tile counters.
+
+    A split-K kernel's last block of each tile sets that tile's counter
+    back to 0 before the kernel ends, so the buffer is zeroed once, when
+    it is first made or grown, and serves every later launch on the stream
+    (launches on one stream never overlap).
+    """
+    key = _device_key(device)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def wide_accumulator(k: int, max_product: int) -> bool:

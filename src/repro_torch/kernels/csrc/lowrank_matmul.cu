@@ -6,178 +6,628 @@
 //
 // Computes out[m, j] = float(sum_k a[m,k] * b[k,j])
 //                    + sum_k sum_r sa[m,k] U[|a[m,k]|, r] * sb[k,j] V[|b[k,j]|, r]
-// for sign-magnitude operands (magnitudes uint8, signs int8 in {-1, 0, 1},
-// a = sa * |a|), with U, V the (2^n, rank) float32 SVD factors of the error
-// table (n <= 8).  This is the reference's `A@B + Ue' @ Ve'` with Ue' =
-// sa * U[|a|] (M, K*r) and Ve' = sb * V[|b|] (K*r, N).
+// for sign-magnitude operands (magnitudes uint8 clamped to 2^n - 1, signs
+// int8 in {-1, 0, 1}, a = sa * |a|), with U, V the (2^n, rank) float32 SVD
+// factors of the error table (n <= 8).  This is the reference's
+// `A@B + Ue' @ Ve'` with Ue' = sa * U[|a|] (M, K*r), Ve' = sb * V[|b|].
 //
-// Design.  The reference gathers Ve' as a (K, N, r) float32 tensor in
-// device memory before the kernel (100 MB per call at qwen3's (3072, 1024)
-// down projection, r = 8).  Here both tables (8 KiB each at n = 8, r = 8)
-// are copied once per block into shared memory, and the block gathers
-// U[|a|] and V[|b|] itself for each K step, so the kernel reads only the
-// int8 magnitudes and signs.  The grid covers (N-tile, M-tile); each block
-// walks the whole K axis itself in steps of kBK, staging the signed
-// integers and the gathered, signed embeddings of both operands in shared
-// memory.  Each of the 256 threads owns one output column and BM/4 rows; a
-// warp reads one A-side value (broadcast) and 32 consecutive B-side values
-// (no bank conflict) per step.
+// What bounds it on the H100.  The correction is 2*M*K*N*r FLOPs; on the
+// tensor cores as three TF32 products (below) that is 6*M*K*N*r at 495
+// TFLOP/s, 0.039 ms at (M, K, N, r) = (128, 1024, 3072, 8).  The operands
+// are 2 bytes per element (magnitude and sign), so at decode (M = 4) the
+// weight's bytes bound it instead (1-3 us at 3.35 TB/s).  In practice the
+// kernel is bound by the instructions that feed the MMAs: every K step a
+// lane loads its entries and six to eight table rows and assembles the
+// fragments, several instructions per mma.sync (PERF.md, PR 15).
 //
-// Sums.  The exact part is an integer, summed in int32 while
-// K * (2^n - 1)^2 < 2^31 and in int64 beyond (the host picks), and
-// converted to float32 once, as the port's other integer GEMMs do
-// (PERF.md, "Integer accumulation").  The correction is summed in float32
-// over k, then r.  The plain version (kernels/lowrank_matmul.py) computes
-// the same split, with the correction's float32 sums in another order.
+// Tiles.  Each block owns a BM x BN output tile and one K slice.  Warps
+// are 16 * MT tokens by 32 weight columns: tokens are the MMA's rows (A),
+// weight columns its columns (B), and MMA column g of n-tile j is weight
+// column 4g + j of the warp's 32, so a lane's four columns are adjacent.
+// The magnitude and sign tiles of each K step of 32 are staged with
+// cp.async in a ring of kStages (the next steps' copies in flight while
+// this one computes).  When a stage lands, each element is converted once
+// for the whole block: into its int8 planes and into a uint16 table entry.
 //
-// Bound on the H100.  The operands are a few MB of int8, so the work
-// bounds it: 2 * M * K * N * r float32 FLOPs for the correction (the exact
-// part fits the int8 tensor cores' rate and costs little beside it).  At
-// decode (M = 4) the grid has N/64 blocks (16..48 of 132 SMs) and each
-// walks all of K, so this first kernel sits far from that bound; split-K
-// and tensor-core tiles are later work.
+// Exact part, int8 tensor cores.  |x| = 128 h + l splits each operand
+// into two signed int8 planes, s*h in {-1, 0, 1} and s*l in [-127, 127]
+// (byte-SIMD; the weight's planes transposed to K-contiguous rows).
+// a*b = 16384 hh + 128 (hl + lh) + ll: four mma.sync.m16n8k32.s8.s8 per
+// tile and step, folded into one int32 sum per output.  The host sizes
+// each block's K slice so that K_slice * (2^n - 1)^2 < 2^31
+// (kernels/lowrank_matmul.py `max_k_chunk`): the block's partial is exact
+// in int32, the split-K partials are summed in int64, and the total is
+// converted to float32 once, as the plain version converts its float64
+// sum.  Bit-equal to the plain version's exact part.
+//
+// Correction, split TF32 on the tensor cores.  Both (2^n, r) tables sit
+// in shared memory as (hi, lo) pairs, hi = tf32(x), lo = tf32(x - hi),
+// with a zero row (32 KiB for both at n = 8, r = 8).  A table entry names
+// the row of an element (its clamped magnitude, or the zero row for sign
+// 0) and its sign.  Per K step a lane loads the table row pairs its
+// fragments need, one 16-byte load each, flips their sign bits where the
+// entry says (a weight row's load is then its B fragment as it is), and
+// the MMA m16n8k8 .tf32 runs
+// lo*hi + hi*lo + hi*hi (lo*lo, about 2^-22 of a product, is dropped).
+// Each product then carries a relative error near 2^-21; the tensor
+// core's float32 accumulation truncates, so a fresh accumulator takes
+// kFlush = 16 K steps and is then added (round to nearest) to the running
+// float32 sum: the truncation error stays relative to 16 steps' sum, not
+// to the whole K, where it would grow with K * ulp(sum).  The plain
+// version sums in float32 in another order; the two agree within
+// 2e-6 * max|want| (chip_smoke.py, tests/test_torch_gpu.py).
+//
+// Split K, fixed order.  At decode the output has 8-24 tiles for 132 SMs,
+// so the host splits K over gridDim.z (up to one wave of two blocks per
+// SM, K slices of at least 64).  Every block writes its int32 partial and
+// float32 correction to the workspace [split][M][N]; the last block of a
+// tile to finish (a counter per tile, atomicAdd after __threadfence) sums
+// the partials in split order 0, 1, ..., converts, writes the output and
+// resets its counter to 0, so the next launch finds it zeroed.  No float
+// atomics: two launches on the same inputs give the same bits.  One
+// launch, no memset; the counters are zeroed once when the host first
+// allocates them, and launches on one stream never overlap.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 64;  // output columns per block, one per thread column
-constexpr int kBK = 16;  // K extent staged in shared memory per step
-constexpr int kRowGroups = kThreads / kBN;
+constexpr int kThreads = 128;   // four warps
+constexpr int kBK = 32;         // K per stage: one m16n8k32 step, 32 m16n8k8 steps
+constexpr int kStages = 3;      // cp.async ring depth
+constexpr int kFlush = 16;      // K steps per tensor-core partial of the correction
+constexpr int kXRow = 48;       // bytes per token row of a raw tile (32 + pad: no bank conflict)
+constexpr int kWPlaneRow = 40;  // bytes per weight column of a plane tile (32 + pad)
+constexpr int kXPlaneRow = 32;  // bytes per token row of a plane tile
+constexpr int kMaxSmem = 232448;
+constexpr int kMaxDevices = 64;
 
-// bytes of dynamic shared memory at row tile bm (kept in step with
-// engine/config.py `_lowrank_smem_bytes`)
-__host__ __device__ constexpr size_t smem_bytes(int bm, int side, int rank) {
-  return 4 * (size_t(2) * side * rank + size_t(bm) * kBK + size_t(kBK) * kBN +
-              size_t(bm) * kBK * rank + size_t(kBK) * rank * kBN);
+// WM warps along M (16 * MT tokens each), 4 / WM along N (32 weight columns each)
+template <int WM, int MT>
+struct Tile {
+  static constexpr int kWarpsN = 4 / WM;
+  static constexpr int BM = 16 * MT * WM;
+  static constexpr int BN = 32 * kWarpsN;
+  static constexpr int kWRaw = kBK * BN;    // bytes of one raw weight array (magnitude or sign)
+  static constexpr int kXRaw = BM * kXRow;  // bytes of one raw token array
+  static constexpr int kStage = 2 * kWRaw + 2 * kXRaw;
+  static constexpr int kPlanes = 2 * BN * kWPlaneRow + 2 * BM * kXPlaneRow;
+  static constexpr int kEntries = 2 * kBK * (BN + BM);  // uint16 table-row entries
+};
+
+// both tables as (hi, lo) float pairs, 2^n rows and a zero row; kept in
+// step with kernels/lowrank_matmul.py `smem_bytes`
+__host__ __device__ size_t table_bytes(int side, int r8) { return size_t(16) * (side + 1) * r8; }
+
+template <int WM, int MT>
+size_t smem_bytes(int side, int r8) {
+  using T = Tile<WM, MT>;
+  return table_bytes(side, r8) + size_t(kStages) * T::kStage + T::kPlanes + T::kEntries;
 }
 
-template <int BM, typename Acc>
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  // src-size 0 fills the 16 bytes with zeros: magnitude 0 and sign 0 add 0
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four magnitude and sign bytes -> the signed planes s*h and s*l (|x| = 128 h + l)
+__device__ __forceinline__ void split_planes(uint32_t mag, uint32_t sgn, uint32_t qmax4,
+                                             uint32_t& h, uint32_t& l) {
+  mag = __vminu4(mag, qmax4);
+  const uint32_t neg = __vcmpgts4(0u, sgn);  // 0xff where the sign is negative
+  const uint32_t keep = __vcmpne4(sgn, 0u);  // 0xff where it is not zero
+  const uint32_t hb = (mag >> 7) & 0x01010101u, lb = mag & 0x7f7f7f7fu;
+  h = __vsub4(hb ^ neg, neg) & keep;
+  l = __vsub4(lb ^ neg, neg) & keep;
+}
+
+// rows r[k] of 4 bytes (one per column) -> columns r[c] of 4 bytes (one per k)
+__device__ __forceinline__ void transpose4(uint32_t (&r)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+  r[0] = __byte_perm(t0, t1, 0x5410);
+  r[1] = __byte_perm(t0, t1, 0x7632);
+  r[2] = __byte_perm(t2, t3, 0x5410);
+  r[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// the table entry of byte e: the row (the clamped magnitude, or the zero
+// row `side` for sign 0) and the sign in bit 15
+__device__ __forceinline__ uint32_t table_entry(uint32_t mag, uint32_t sgn, int e, int qmax) {
+  const int m = min(int((mag >> (8 * e)) & 0xffu), qmax);
+  const int s = int(int8_t(sgn >> (8 * e)));
+  return uint32_t(s != 0 ? m : qmax + 1) | (s < 0 ? 0x8000u : 0u);
+}
+
+// One table row's (hi, lo) pairs for r = 8q + 2t, 8q + 2t + 1, signed by
+// the entry.  The XORs also let the compiler place each value straight in
+// its fragment register: with the sign in the table rows instead (rows
+// +T, -T), the loads' registers had to be moved into fragment order, and
+// the kernel ran slower at M = 128 (PERF.md, PR 15).
+__device__ __forceinline__ uint4 gather(const float* tab, int row_f, uint32_t entry, int off) {
+  const uint4 x = *reinterpret_cast<const uint4*>(tab + int(entry & 0x7fffu) * row_f + off);
+  const uint32_t neg = (entry & 0x8000u) << 16;
+  return make_uint4(x.x ^ neg, x.y ^ neg, x.z ^ neg, x.w ^ neg);
+}
+
+template <int WM, int MT>
 __global__ void __launch_bounds__(kThreads)
 lowrank_matmul_kernel(const float* __restrict__ u, const float* __restrict__ v,
                       const uint8_t* __restrict__ mag_a, const int8_t* __restrict__ sign_a,
                       const uint8_t* __restrict__ mag_b, const int8_t* __restrict__ sign_b,
-                      float* __restrict__ out, int M, int N, int K, int n, int rank) {
-  constexpr int TM = BM / kRowGroups;
+                      float* __restrict__ out, int* __restrict__ ws_int,
+                      float* __restrict__ ws_corr, int* __restrict__ counters, int M, int N,
+                      int K, int n, int rank, int k_chunk, int vec) {
+  using T = Tile<WM, MT>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int side = 1 << n;
-  const int qmax = side - 1;
-  float* ut = reinterpret_cast<float*>(smem);  // [side][rank]
-  float* vt = ut + side * rank;                // [side][rank]
-  int* a_val = reinterpret_cast<int*>(vt + side * rank);  // [BM][kBK]
-  int* b_val = a_val + BM * kBK;                          // [kBK][kBN]
-  float* ue = reinterpret_cast<float*>(b_val + kBK * kBN);  // [BM][kBK][rank]
-  float* ve = ue + BM * kBK * rank;                         // [kBK][rank][kBN]
+  const int side = 1 << n, qmax = side - 1;
+  const int r8 = (rank + 7) & ~7;
+  const int row_f = 2 * r8;  // floats per table row: (hi, lo) per r
+  float* utab = reinterpret_cast<float*>(smem);  // [side + 1][row_f], row `side` zero
+  float* vtab = utab + (side + 1) * row_f;
+  unsigned char* ring = smem + table_bytes(side, r8);
+  unsigned char* wph = ring + kStages * T::kStage;  // [BN][kWPlaneRow] weight s*h
+  unsigned char* wpl = wph + T::BN * kWPlaneRow;   // weight s*l
+  unsigned char* xph = wpl + T::BN * kWPlaneRow;   // [BM][kXPlaneRow] token s*h
+  unsigned char* xpl = xph + T::BM * kXPlaneRow;   // token s*l
+  uint16_t* went = reinterpret_cast<uint16_t*>(xpl + T::BM * kXPlaneRow);  // [kBK][BN]
+  uint16_t* xent = went + kBK * T::BN;  // [kBK][BM]: tokens g and g + 8 of a 16 adjacent
 
-  for (int i = threadIdx.x; i < side * rank; i += kThreads) {
-    ut[i] = u[i];
-    vt[i] = v[i];
-  }
+  const int tid = threadIdx.x;
+  const int n_base = blockIdx.x * T::BN, m_base = blockIdx.y * T::BM;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const int stages = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
-  const int tx = threadIdx.x % kBN;
-  const int ty = threadIdx.x / kBN;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * kBN;
-  Acc acc[TM];
-  float corr[TM];
+  // The tables as (hi, lo) pairs: r = 8q + 2p + e sits at float q*16 +
+  // p*4 + e (hi) and + 2 (lo), so lane t reads its r = 8q + 2t, 8q + 2t + 1
+  // with one 16-byte load.
+  // Columns past the rank and row `side` are 0.  A thread takes four r of
+  // a row at a time, its eight loads issued together.
+  const int row_chunks = r8 / 4;
+#pragma unroll 4
+  for (int i = tid; i < (side + 1) * row_chunks; i += kThreads) {
+    const int row = i / row_chunks, r0 = (i % row_chunks) * 4;
+    float xu[4], xv[4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    acc[i] = 0;
-    corr[i] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const bool in = row < side && r0 + e < rank;
+      xu[e] = in ? __ldg(u + row * rank + r0 + e) : 0.f;
+      xv[e] = in ? __ldg(v + row * rank + r0 + e) : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 2 * h;
+      const int pos = row * row_f + (r >> 3) * 16 + ((r & 7) >> 1) * 4;
+      const float u0 = __uint_as_float(tf32_rna(xu[2 * h])), u1 = __uint_as_float(tf32_rna(xu[2 * h + 1]));
+      const float v0 = __uint_as_float(tf32_rna(xv[2 * h])), v1 = __uint_as_float(tf32_rna(xv[2 * h + 1]));
+      const float4 us = make_float4(u0, u1, __uint_as_float(tf32_rna(xu[2 * h] - u0)),
+                                    __uint_as_float(tf32_rna(xu[2 * h + 1] - u1)));
+      const float4 vs = make_float4(v0, v1, __uint_as_float(tf32_rna(xv[2 * h] - v0)),
+                                    __uint_as_float(tf32_rna(xv[2 * h + 1] - v1)));
+      *reinterpret_cast<float4*>(utab + pos) = us;
+      *reinterpret_cast<float4*>(vtab + pos) = vs;
+    }
   }
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();  // the tables are in; the previous step's tiles are consumed
-    for (int i = threadIdx.x; i < BM * kBK; i += kThreads) {
-      const int r = row0 + i / kBK, k = k0 + i % kBK;
-      int mag = 0, sg = 0;  // pad lanes: magnitude 0, sign 0 -> add 0
-      if (r < M && k < K) {
-        const size_t off = size_t(r) * K + k;
-        mag = min(int(mag_a[off]), qmax);
-        sg = sign_a[off];
+  auto load_stage = [&](int st) {
+    unsigned char* base = ring + (st % kStages) * T::kStage;
+    unsigned char* wm = base;
+    unsigned char* wsg = wm + T::kWRaw;
+    unsigned char* xm = wsg + T::kWRaw;
+    unsigned char* xsg = xm + T::kXRaw;
+    const int k0 = k_begin + st * kBK;
+    if (vec) {  // K % 16 == N % 16 == 0, 16-byte aligned operands
+      constexpr int kRowChunks = T::BN / 16;
+      for (int c = tid; c < kBK * kRowChunks; c += kThreads) {
+        const int kk = c / kRowChunks, col = (c % kRowChunks) * 16;
+        const int k = k0 + kk, j = n_base + col;
+        const bool ok = k < k_end && j < N;
+        const size_t off = ok ? size_t(k) * N + j : 0;
+        cp_async16(wm + kk * T::BN + col, mag_b + off, ok);
+        cp_async16(wsg + kk * T::BN + col, sign_b + off, ok);
       }
-      a_val[i] = sg * mag;
-      for (int j = 0; j < rank; ++j) ue[i * rank + j] = float(sg) * ut[mag * rank + j];
+      for (int c = tid; c < T::BM * 2; c += kThreads) {
+        const int r = c >> 1, col = (c & 1) * 16;
+        const int m = m_base + r, k = k0 + col;
+        const bool ok = m < M && k < k_end;
+        const size_t off = ok ? size_t(m) * K + k : 0;
+        cp_async16(xm + r * kXRow + col, mag_a + off, ok);
+        cp_async16(xsg + r * kXRow + col, sign_a + off, ok);
+      }
+    } else {  // ragged shapes: byte loads, zeros past the edges
+      for (int e = tid; e < kBK * T::BN; e += kThreads) {
+        const int k = k0 + e / T::BN, j = n_base + e % T::BN;
+        const bool ok = k < k_end && j < N;
+        const size_t off = size_t(k) * N + j;
+        wm[e] = ok ? mag_b[off] : 0;
+        wsg[e] = ok ? uint8_t(sign_b[off]) : 0;
+      }
+      for (int e = tid; e < T::BM * kBK; e += kThreads) {
+        const int r = e / kBK, kk = e % kBK;
+        const int m = m_base + r, k = k0 + kk;
+        const bool ok = m < M && k < k_end;
+        const size_t off = size_t(m) * K + k;
+        xm[r * kXRow + kk] = ok ? mag_a[off] : 0;
+        xsg[r * kXRow + kk] = ok ? uint8_t(sign_a[off]) : 0;
+      }
     }
-    for (int i = threadIdx.x; i < kBK * kBN; i += kThreads) {
-      const int kk = i / kBN, c = i % kBN;
-      const int k = k0 + kk, col = col0 + c;
-      int mag = 0, sg = 0;
-      if (k < K && col < N) {
-        const size_t off = size_t(k) * N + col;
-        mag = min(int(mag_b[off]), qmax);
-        sg = sign_b[off];
+  };
+
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < stages) load_stage(st);
+    cp_async_commit();
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int n0w = (warp % T::kWarpsN) * 32, m0w = (warp / T::kWarpsN) * 16 * MT;
+  const uint32_t qmax4 = 0x01010101u * uint32_t(qmax);
+  float acc[MT][4][4], part[MT][4][4];
+  int iacc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[mt][j][c] = 0.f;
+        part[mt][j][c] = 0.f;
+        iacc[mt][j][c] = 0;
       }
-      b_val[i] = sg * mag;
-      for (int j = 0; j < rank; ++j) ve[(kk * rank + j) * kBN + c] = float(sg) * vt[mag * rank + j];
+
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // this stage landed; the previous stage's tiles, planes and entries are consumed
+    if (st + kStages - 1 < stages) load_stage(st + kStages - 1);
+    cp_async_commit();
+    const unsigned char* wm = ring + (st % kStages) * T::kStage;
+    const unsigned char* wsg = wm + T::kWRaw;
+    const unsigned char* xm = wsg + T::kWRaw;
+    const unsigned char* xsg = xm + T::kXRaw;
+
+    // Once per stage and element: the int8 planes (the weight's 4 x 4 byte
+    // blocks transposed to K-contiguous rows) and the table entries.
+    for (int b = tid; b < (kBK / 4) * (T::BN / 4); b += kThreads) {
+      const int kb = b / (T::BN / 4), nb = b % (T::BN / 4);
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int off = (4 * kb + i) * T::BN + 4 * nb;
+        const uint32_t mw = *reinterpret_cast<const uint32_t*>(wm + off);
+        const uint32_t sw = *reinterpret_cast<const uint32_t*>(wsg + off);
+        split_planes(mw, sw, qmax4, h[i], l[i]);
+        *reinterpret_cast<uint2*>(went + off) =
+            make_uint2(table_entry(mw, sw, 0, qmax) | table_entry(mw, sw, 1, qmax) << 16,
+                       table_entry(mw, sw, 2, qmax) | table_entry(mw, sw, 3, qmax) << 16);
+      }
+      transpose4(h);
+      transpose4(l);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<uint32_t*>(wph + (4 * nb + i) * kWPlaneRow + 4 * kb) = h[i];
+        *reinterpret_cast<uint32_t*>(wpl + (4 * nb + i) * kWPlaneRow + 4 * kb) = l[i];
+      }
+    }
+    for (int w = tid; w < T::BM * (kBK / 4); w += kThreads) {
+      const int r = w / (kBK / 4), c = w % (kBK / 4);
+      const uint32_t mw = *reinterpret_cast<const uint32_t*>(xm + r * kXRow + 4 * c);
+      const uint32_t sw = *reinterpret_cast<const uint32_t*>(xsg + r * kXRow + 4 * c);
+      uint32_t h, l;
+      split_planes(mw, sw, qmax4, h, l);
+      *reinterpret_cast<uint32_t*>(xph + r * kXPlaneRow + 4 * c) = h;
+      *reinterpret_cast<uint32_t*>(xpl + r * kXPlaneRow + 4 * c) = l;
+      const int pos = (r & ~15) + (r & 7) * 2 + ((r >> 3) & 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        xent[(4 * c + e) * T::BM + pos] = table_entry(mw, sw, e, qmax);
     }
     __syncthreads();
-    for (int kk = 0; kk < kBK; ++kk) {
-      const int b = b_val[kk * kBN + tx];
+
+    // Exact part: tokens are the MMA's rows (A), weight columns its
+    // columns (B); MMA column g of tile j is weight column 4g + j of the
+    // warp's 32.  Lane t's K bytes 8t..8t+7 are the MMA's logical K
+    // 4t..4t+3 (first word) and 16+4t..16+4t+3 (second), on both operands.
+    {
+      uint32_t xa[2][MT][4], wb[2][4][2];  // [plane h, l][tile][register]
 #pragma unroll
-      for (int i = 0; i < TM; ++i) acc[i] += Acc(a_val[(ty * TM + i) * kBK + kk] * b);
-      for (int j = 0; j < rank; ++j) {
-        const float vj = ve[(kk * rank + j) * kBN + tx];
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int i = 0; i < TM; ++i) corr[i] += ue[((ty * TM + i) * kBK + kk) * rank + j] * vj;
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+          const int off = (m0w + 16 * mt + 8 * h + g) * kXPlaneRow + 8 * t;
+          const uint2 hv = *reinterpret_cast<const uint2*>(xph + off);
+          const uint2 lv = *reinterpret_cast<const uint2*>(xpl + off);
+          xa[0][mt][h] = hv.x;
+          xa[0][mt][2 + h] = hv.y;
+          xa[1][mt][h] = lv.x;
+          xa[1][mt][2 + h] = lv.y;
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int off = (n0w + 4 * g + j) * kWPlaneRow + 8 * t;
+        const uint2 hv = *reinterpret_cast<const uint2*>(wph + off);
+        const uint2 lv = *reinterpret_cast<const uint2*>(wpl + off);
+        wb[0][j][0] = hv.x;
+        wb[0][j][1] = hv.y;
+        wb[1][j][0] = lv.x;
+        wb[1][j][1] = lv.y;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int hh[4] = {0, 0, 0, 0}, mid[4] = {0, 0, 0, 0}, ll[4] = {0, 0, 0, 0};
+          mma_s8(hh, xa[0][mt], wb[0][j]);
+          mma_s8(mid, xa[0][mt], wb[1][j]);
+          mma_s8(mid, xa[1][mt], wb[0][j]);
+          mma_s8(ll, xa[1][mt], wb[1][j]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) iacc[mt][j][c] += 16384 * hh[c] + 128 * mid[c] + ll[c];
+        }
+    }
+
+    // Correction: per K step, the (hi, lo) table pairs of each lane's
+    // entries straight into the fragments.  A (tokens) takes rows g and
+    // g + 8, B (weight) its column; logical K column t / t + 4 is
+    // r = 8q + 2t / + 1, so a weight row's load is its B fragment as it is.
+    // Four K steps at a time: their entries first, then for each block of
+    // 8 r their gathers and MMAs in one straight run, so that the next
+    // steps' loads overlap this step's MMAs.
+#pragma unroll 1
+    for (int k4 = 0; k4 < kBK; k4 += 4) {
+      uint2 we[4];
+      uint32_t xe[4][MT];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        we[e] = *reinterpret_cast<const uint2*>(went + (k4 + e) * T::BN + n0w + 4 * g);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          xe[e][mt] = *reinterpret_cast<const uint32_t*>(xent + (k4 + e) * T::BM + m0w +
+                                                         16 * mt + 2 * g);
+      }
+      for (int q = 0; q < r8 / 8; ++q) {
+        const int off = q * 16 + 4 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint4 wv[4], xv[MT][2];
+          wv[0] = gather(vtab, row_f, we[e].x & 0xffffu, off);
+          wv[1] = gather(vtab, row_f, we[e].x >> 16, off);
+          wv[2] = gather(vtab, row_f, we[e].y & 0xffffu, off);
+          wv[3] = gather(vtab, row_f, we[e].y >> 16, off);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            xv[mt][0] = gather(utab, row_f, xe[e][mt] & 0xffffu, off);
+            xv[mt][1] = gather(utab, row_f, xe[e][mt] >> 16, off);
+          }
+          // lo * hi, hi * lo, then hi * hi, each over every tile first
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_tf32(part[mt][j], xv[mt][0].z, xv[mt][1].z, xv[mt][0].w, xv[mt][1].w,
+                       wv[j].x, wv[j].y);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_tf32(part[mt][j], xv[mt][0].x, xv[mt][1].x, xv[mt][0].y, xv[mt][1].y,
+                       wv[j].z, wv[j].w);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_tf32(part[mt][j], xv[mt][0].x, xv[mt][1].x, xv[mt][0].y, xv[mt][1].y,
+                       wv[j].x, wv[j].y);
+        }
+      }
+      if ((k4 + 4) % kFlush == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[mt][j][c] = __fadd_rn(acc[mt][j][c], part[mt][j][c]);
+              part[mt][j][c] = 0.f;
+            }
       }
     }
   }
-  const int col = col0 + tx;
+  cp_async_wait<0>();
+
+  // C fragment c of tile (mt, j): token 16 mt + g + 8 (c >> 1), weight
+  // column 4 (2t + (c & 1)) + j
+  const size_t plane = size_t(M) * N;
+  const bool split = gridDim.z > 1;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r < M && col < N) out[size_t(r) * N + col] = __fadd_rn(float(acc[i]), corr[i]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = m_base + m0w + 16 * mt + g + 8 * (c >> 1);
+        const int col = n_base + n0w + 4 * (2 * t + (c & 1)) + j;
+        if (m >= M || col >= N) continue;
+        const size_t o = size_t(m) * N + col;
+        if (split) {
+          ws_int[blockIdx.z * plane + o] = iacc[mt][j][c];
+          ws_corr[blockIdx.z * plane + o] = acc[mt][j][c];
+        } else {
+          out[o] = __fadd_rn(__int2float_rn(iacc[mt][j][c]), acc[mt][j][c]);
+        }
+      }
+  if (!split) return;
+
+  // the last block of this tile to finish sums the partials in split order
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  __threadfence();
+  const bool last =
+      __syncthreads_or(tid == 0 && atomicAdd(counters + tile, 1) == int(gridDim.z) - 1);
+  if (!last) return;
+  __threadfence();
+  // Each thread owns kGroups runs of four outputs; for each split, the
+  // loads of all its runs are issued together, then added in split order
+  // 0, 1, 2, ... (the float32 sums' order is fixed).
+  const int splits = gridDim.z;
+  if ((N & 3) == 0) {
+    constexpr int kGroups = T::BM * T::BN / (4 * kThreads);
+    long long isum[kGroups][4];
+    float csum[kGroups][4];
+    size_t off[kGroups];
+    bool ok[kGroups];
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      const int e = 4 * (tid + i * kThreads);
+      const int m = m_base + e / T::BN, col = n_base + e % T::BN;
+      ok[i] = m < M && col < N;
+      off[i] = ok[i] ? size_t(m) * N + col : 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        isum[i][c] = 0;
+        csum[i][c] = 0.f;
+      }
+    }
+    for (int s = 0; s < splits; ++s) {
+      int4 iv[kGroups];
+      float4 cv[kGroups];
+#pragma unroll
+      for (int i = 0; i < kGroups; ++i) {
+        iv[i] = ok[i] ? __ldcg(reinterpret_cast<const int4*>(ws_int + s * plane + off[i]))
+                      : make_int4(0, 0, 0, 0);
+        cv[i] = ok[i] ? __ldcg(reinterpret_cast<const float4*>(ws_corr + s * plane + off[i]))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < kGroups; ++i) {
+        isum[i][0] += iv[i].x;
+        isum[i][1] += iv[i].y;
+        isum[i][2] += iv[i].z;
+        isum[i][3] += iv[i].w;
+        csum[i][0] = __fadd_rn(csum[i][0], cv[i].x);
+        csum[i][1] = __fadd_rn(csum[i][1], cv[i].y);
+        csum[i][2] = __fadd_rn(csum[i][2], cv[i].z);
+        csum[i][3] = __fadd_rn(csum[i][3], cv[i].w);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i)
+      if (ok[i])
+        *reinterpret_cast<float4*>(out + off[i]) = make_float4(
+            __fadd_rn(__ll2float_rn(isum[i][0]), csum[i][0]),
+            __fadd_rn(__ll2float_rn(isum[i][1]), csum[i][1]),
+            __fadd_rn(__ll2float_rn(isum[i][2]), csum[i][2]),
+            __fadd_rn(__ll2float_rn(isum[i][3]), csum[i][3]));
+  } else {  // ragged N: one output at a time
+    for (int e = tid; e < T::BM * T::BN; e += kThreads) {
+      const int m = m_base + e / T::BN, col = n_base + e % T::BN;
+      if (m >= M || col >= N) continue;
+      const size_t o = size_t(m) * N + col;
+      long long isum = 0;
+      float csum = 0.f;
+      for (int s = 0; s < splits; ++s) {
+        isum += __ldcg(ws_int + s * plane + o);
+        csum = __fadd_rn(csum, __ldcg(ws_corr + s * plane + o));
+      }
+      out[o] = __fadd_rn(__ll2float_rn(isum), csum);
+    }
   }
+  if (tid == 0) counters[tile] = 0;
 }
 
-template <int BM, typename Acc>
+template <int WM, int MT>
 cudaError_t launch(const void* u, const void* v, const void* ma, const void* sa, const void* mb,
-                   const void* sb, void* out, int M, int N, int K, int n, int rank,
+                   const void* sb, void* out, void* ws_int, void* ws_corr, void* counters, int M,
+                   int N, int K, int n, int rank, int splits, int k_chunk, int vec,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(BM, 1 << n, rank);
-  auto kernel = lowrank_matmul_kernel<BM, Acc>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  using T = Tile<WM, MT>;
+  const size_t smem = smem_bytes<WM, MT>(1 << n, (rank + 7) & ~7);
+  if (smem > size_t(kMaxSmem) || (M + T::BM - 1) / T::BM > 65535) return cudaErrorInvalidValue;
+  auto kernel = lowrank_matmul_kernel<WM, MT>;
+  // the largest footprint allowed so far on each device: the attribute is
+  // set when a launch needs more, not once per launch
+  static size_t sized[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM);
+  if (dev >= kMaxDevices || smem > sized[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) sized[dev] = smem;
+  }
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(u), static_cast<const float*>(v),
       static_cast<const uint8_t*>(ma), static_cast<const int8_t*>(sa),
       static_cast<const uint8_t*>(mb), static_cast<const int8_t*>(sb), static_cast<float*>(out),
-      M, N, K, n, rank);
+      static_cast<int*>(ws_int), static_cast<float*>(ws_corr), static_cast<int*>(counters), M,
+      N, K, n, rank, k_chunk, vec);
   return cudaGetLastError();
-}
-
-template <typename Acc>
-cudaError_t launch_acc(const void* u, const void* v, const void* ma, const void* sa,
-                       const void* mb, const void* sb, void* out, int M, int N, int K, int n,
-                       int rank, int bm, cudaStream_t stream) {
-  if (bm == 4) return launch<4, Acc>(u, v, ma, sa, mb, sb, out, M, N, K, n, rank, stream);
-  if (bm == 16) return launch<16, Acc>(u, v, ma, sa, mb, sb, out, M, N, K, n, rank, stream);
-  if (bm == 64) return launch<64, Acc>(u, v, ma, sa, mb, sb, out, M, N, K, n, rank, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// bm picks the tile (kernels/lowrank_matmul.py TILES): 16 tokens x 128
+// columns, 32 x 64 or 64 x 64.  splits * k_chunk covers K; each
+// slice's int32 partial must be exact.
 extern "C" int lowrank_matmul_launch(const void* u, const void* v, const void* mag_a,
                                      const void* sign_a, const void* mag_b, const void* sign_b,
-                                     void* out, int M, int N, int K, int n, int rank, int bm,
-                                     int wide_acc, int device, void* stream) {
-  if (n < 1 || n > 8 || rank < 1 || M < 1 || N < 1 || K < 0 ||
-      (bm != 4 && bm != 16 && bm != 64) || (M + bm - 1) / bm > 65535 ||
-      smem_bytes(bm, 1 << n, rank) > 232448)
+                                     void* out, void* ws_int, void* ws_corr, void* counters,
+                                     int M, int N, int K, int n, int rank, int bm, int splits,
+                                     int k_chunk, int vec, int device, void* stream) {
+  const long long qmax = (1LL << n) - 1;
+  if (n < 1 || n > 8 || rank < 1 || M < 1 || N < 1 || K < 0 || splits < 1 || splits > 65535 ||
+      k_chunk < kBK || k_chunk % kBK != 0 || (long long)splits * k_chunk < K ||
+      (splits > 1 && (long long)(splits - 1) * k_chunk >= K) ||
+      (long long)k_chunk * qmax * qmax >= (1LL << 31) ||
+      (splits > 1 && (ws_int == nullptr || ws_corr == nullptr || counters == nullptr)))
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   const auto s = static_cast<cudaStream_t>(stream);
-  err = wide_acc ? launch_acc<long long>(u, v, mag_a, sign_a, mag_b, sign_b, out, M, N, K, n,
-                                         rank, bm, s)
-                 : launch_acc<int>(u, v, mag_a, sign_a, mag_b, sign_b, out, M, N, K, n, rank,
-                                   bm, s);
+  if (bm == 16)
+    err = launch<1, 1>(u, v, mag_a, sign_a, mag_b, sign_b, out, ws_int, ws_corr, counters, M, N,
+                       K, n, rank, splits, k_chunk, vec, s);
+  else if (bm == 32)
+    err = launch<2, 1>(u, v, mag_a, sign_a, mag_b, sign_b, out, ws_int, ws_corr, counters, M, N,
+                       K, n, rank, splits, k_chunk, vec, s);
+  else if (bm == 64)
+    err = launch<2, 2>(u, v, mag_a, sign_a, mag_b, sign_b, out, ws_int, ws_corr, counters, M, N,
+                       K, n, rank, splits, k_chunk, vec, s);
+  else
+    err = cudaErrorInvalidValue;
   return int(err);
 }
 

@@ -6,25 +6,72 @@ odd index), padding an odd K with a zero lane.  Words are int32 tensors
 holding the reference's uint32 bit patterns (torch has no uint32
 arithmetic on the CPU).  :func:`packed_matmul` runs the CUDA kernel
 ``csrc/packed_matmul.cu`` for CUDA tensors and the plain version
-:func:`packed_matmul_plain` for CPU tensors.
+:func:`packed_matmul_plain` for CPU tensors.  The kernel splits each lane
+into int8 planes for the int8 tensor cores and splits K over blocks at
+small M (:func:`launch_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.build import (
-    CudaKernel, block_rows, check_operand, wide_accumulator,
+    CudaKernel, check_operand, pick_tile, sm_count, split_k, tile_counters, wide_accumulator,
 )
 
-__all__ = ["KERNEL", "pack_i16_pairs", "packed_matmul", "packed_matmul_plain"]
+__all__ = [
+    "KERNEL", "TILES", "Plan", "launch_plan", "pack_i16_pairs", "packed_matmul",
+    "packed_matmul_plain", "tile", "workspace_bytes",
+]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "packed_matmul", "packed_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    "packed_matmul", "packed_matmul_launch",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 )
+
+# csrc/packed_matmul.cu: (tokens, weight columns) per block, four warps of
+# 32 columns by 8, 16 or 32 tokens; words (64 K lanes) per stage
+TILES = ((8, 128), (32, 64), (64, 64))
+KW_STEP = 32
+MIN_KW_CHUNK = 64  # the shortest slice of words a split gives a block
+
+
+class Plan(NamedTuple):
+    """One launch: the (bm, bn) block tile and the K words cut into
+    ``splits`` slices of ``kw_chunk``."""
+
+    bm: int
+    bn: int
+    splits: int
+    kw_chunk: int
+
+
+def tile(m: int) -> tuple[int, int]:
+    """The kernel's (tokens, weight columns) block tile for ``m`` rows."""
+    return pick_tile(m, TILES)
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(m: int, kw: int, n_cols: int, sms: int = 132) -> Plan:
+    """The kernel's tile and split for an (m, kw) x (kw, n_cols) call in
+    words on a card with ``sms`` SMs.  A slice may be any length: the
+    kernel's int8 plane sums cover one step of 32 lanes (below 2^21) and
+    fold into the block's sum, int64 where :func:`wide_accumulator` says so."""
+    bm, bn = tile(m)
+    tiles = -(-m // bm) * -(-n_cols // bn)
+    splits, chunk = split_k(tiles, kw, step=KW_STEP, min_chunk=MIN_KW_CHUNK, sms=sms)
+    return Plan(bm, bn, splits, chunk)
+
+
+def workspace_bytes(plan: Plan, m: int, n_cols: int, wide: bool) -> int:
+    """Bytes of the split-K workspace: one integer partial (int64 if
+    ``wide``) per split and output; none without a split."""
+    return 0 if plan.splits == 1 else plan.splits * m * n_cols * (8 if wide else 4)
 
 
 def pack_i16_pairs(q: torch.Tensor, *, dim: int) -> torch.Tensor:
@@ -72,10 +119,19 @@ def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15) -> torch.T
     n_dim = pb.shape[1]
     check_operand(pa, "pa", torch.int32, (m_dim, kw), dev)
     check_operand(pb, "pb", torch.int32, (kw, n_dim), dev)
-    bm = block_rows(m_dim)
+    plan = launch_plan(m_dim, kw, n_dim, sm_count(dev))
     out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
     wide = wide_accumulator(2 * kw, ((1 << n) - 1) ** 2)
+    ws = ws_ptr = counters = None
+    if plan.splits > 1:
+        dtype = torch.int64 if wide else torch.int32
+        nbytes = workspace_bytes(plan, m_dim, n_dim, wide)
+        ws = torch.empty(nbytes // dtype.itemsize, dtype=dtype, device=dev)
+        ws_ptr = ws.data_ptr()
+        counters = tile_counters(dev, -(-m_dim // plan.bm) * -(-n_dim // plan.bn)).data_ptr()
+    vec = kw % 4 == 0 and n_dim % 4 == 0 and pa.data_ptr() % 16 == 0 and pb.data_ptr() % 16 == 0
     KERNEL.launch(
-        dev, pa.data_ptr(), pb.data_ptr(), out.data_ptr(), m_dim, n_dim, kw, bm, int(wide)
+        dev, pa.data_ptr(), pb.data_ptr(), out.data_ptr(), ws_ptr, counters, m_dim, n_dim, kw,
+        plan.bm, plan.splits, plan.kw_chunk, int(vec), int(wide),
     )
     return out

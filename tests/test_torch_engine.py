@@ -293,8 +293,105 @@ def test_kernel_tiles_hold_the_table_in_shared_memory():
     assert config._lut_smem_bytes(8, 64) <= config.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):  # a 512 KiB table at n=9
         config.kernel_tiles("bitexact", 9, 4, 4)
-    # lowrank: the two (2^n, r) tables and the embedding tiles grow with r
+    # lowrank: the two (2^n, r) tables as (hi, lo) float pairs grow with r
+    # (rounded up to 8); the cp.async ring, planes and entries do not
     assert config.kernel_tiles("lowrank", 8, 4, 128, rank=8) == 64
-    assert config._lowrank_smem_bytes(8, 64, 8) == 90112
-    with pytest.raises(ValueError, match="rank=32"):
-        config.kernel_tiles("lowrank", 8, 4, 128, rank=32)
+    rest = 3 * 10240 + 9216 + 8192
+    assert config._lowrank_smem_bytes(8, 64, 8) == 16 * 257 * 8 + rest == 81_024
+    assert config._lowrank_smem_bytes(8, 64, 24) == 16 * 257 * 24 + rest
+    assert config.kernel_tiles("lowrank", 8, 4, 128, rank=40) == 64
+    assert config.kernel_tiles("lowrank", 8, 4, 4, rank=40) == 16
+    with pytest.raises(ValueError, match="rank=41"):
+        config.kernel_tiles("lowrank", 8, 4, 128, rank=41)
+
+
+# ------------------------------------- tensor-core GEMM launch plans (host)
+@pytest.mark.parametrize("m,lowrank_tile,packed_tile", [
+    (1, (16, 128), (8, 128)), (4, (16, 128), (8, 128)), (8, (16, 128), (8, 128)),
+    (9, (16, 128), (32, 64)), (16, (16, 128), (32, 64)), (17, (32, 64), (32, 64)),
+    (32, (32, 64), (32, 64)), (33, (64, 64), (64, 64)), (128, (64, 64), (64, 64)),
+    (4096, (64, 64), (64, 64)),
+])
+def test_gemm_tiles_are_the_smallest_token_tile_that_holds_m(m, lowrank_tile, packed_tile):
+    from repro_torch.kernels import lowrank_matmul as lr
+    from repro_torch.kernels import packed_matmul as pm
+
+    assert lr.tile(m) == lowrank_tile and pm.tile(m) == packed_tile
+    assert config.kernel_tiles("lowrank", 8, 4, m) == lowrank_tile[0]
+    assert config.kernel_tiles("inject", 8, 4, m) == packed_tile[0]
+
+
+@pytest.mark.parametrize("tiles,k,max_chunk,want", [
+    (24, 1024, None, (8, 128)),      # decode up/gate projection: 192 blocks
+    (8, 3072, None, (24, 128)),      # decode down projection
+    (96, 1024, None, (2, 512)),      # prefill (128 tokens): 192 blocks, one wave
+    (264, 1024, None, (1, 1024)),    # two blocks per SM already
+    (4, 100, None, (1, 128)),        # too short to split
+    (1, 0, None, (1, 32)),
+    (3072, 70000, 33024, (3, 33024)),  # the int32 bound alone splits K
+])
+def test_split_k_fills_the_card_in_whole_stages(tiles, k, max_chunk, want):
+    from repro_torch.kernels import build
+
+    assert build.split_k(tiles, k, step=32, min_chunk=128, sms=132, max_chunk=max_chunk) == want
+
+
+def test_split_k_slices_cover_k_exactly_once():
+    from repro_torch.kernels import build
+
+    for tiles in (1, 7, 24, 96, 300):
+        for k in (1, 31, 32, 300, 1024, 3072, 70000):
+            splits, chunk = build.split_k(tiles, k, step=32, min_chunk=128, sms=132,
+                                          max_chunk=33024)
+            assert chunk % 32 == 0 and 32 <= chunk <= 33024
+            assert (splits - 1) * chunk < k <= splits * chunk
+            # no more slices than the card wants, unless the int32 cap forces them
+            assert splits <= max(-(-2 * 132 // tiles), -(-k // 33024))
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_lowrank_k_chunk_keeps_the_int32_sum_exact(n):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lowrank_matmul as lr
+
+    qmax_sq = ((1 << n) - 1) ** 2
+    chunk = lr.max_k_chunk(n)
+    assert chunk % lr.K_STEP == 0
+    assert not build.wide_accumulator(chunk, qmax_sq)
+    assert build.wide_accumulator(chunk + lr.K_STEP, qmax_sq)
+    plan = lr.launch_plan(4096, 70000, 3072, n)
+    assert plan.k_chunk <= chunk and plan.splits * plan.k_chunk >= 70000
+
+
+def test_lowrank_and_packed_launch_plans_and_workspaces():
+    from repro_torch.kernels import lowrank_matmul as lr
+    from repro_torch.kernels import packed_matmul as pm
+
+    # decode: 24 tiles of 128 columns, K split 11 ways (264 blocks: two a
+    # SM); prefill: no int32 cap reached
+    plan = lr.launch_plan(4, 1024, 3072, 8)
+    assert plan == lr.Plan(16, 128, 11, 96)
+    assert lr.workspace_bytes(plan, 4, 3072) == 11 * 4 * 3072 * 8
+    assert lr.launch_plan(128, 1024, 3072, 8) == lr.Plan(64, 64, 2, 512)
+    assert lr.launch_plan(32, 1024, 3072, 8, sms=66) == lr.Plan(32, 64, 2, 512)
+    no_split = lr.launch_plan(4096, 1024, 3072, 8)
+    assert no_split.splits == 1 and lr.workspace_bytes(no_split, 4096, 3072) == 0
+    # packed works in words (two lanes each); the workspace is int64 when wide
+    plan = pm.launch_plan(4, 512, 3072)
+    assert plan == pm.Plan(8, 128, 8, 64)
+    assert pm.workspace_bytes(plan, 4, 3072, wide=False) == 8 * 4 * 3072 * 4
+    assert pm.workspace_bytes(plan, 4, 3072, wide=True) == 8 * 4 * 3072 * 8
+    assert pm.launch_plan(33, 150, 70) == pm.Plan(64, 64, 2, 96)
+    assert pm.launch_plan(1, 0, 70).splits == 1
+
+
+def test_tile_counters_are_zeroed_once_and_grow():
+    from repro_torch.kernels import build
+
+    dev = torch.device("cpu")
+    buf = build.tile_counters(dev, 10)
+    assert buf.dtype == torch.int32 and buf.numel() >= 1024 and not buf.any()
+    assert build.tile_counters(dev, 1000) is buf
+    grown = build.tile_counters(dev, 5000)
+    assert grown.numel() == 5000 and not grown.any()
+    assert build.tile_counters(dev, 10) is grown

@@ -7,9 +7,13 @@ where JAX is not installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances (kernel against plain version, both on the card):
-- the integer GEMMs (lut, seqmul, packed): bit-equal;
+- the integer GEMMs (lut, seqmul, packed): bit-equal, ``packed_matmul``
+  also at its edge cases (every plane pair at its extreme, odd K, M = 1,
+  ragged shapes);
 - ``lowrank_matmul``: max |err| <= 2e-6 * max |want|: the exact part is an
-  integer on both sides, the float32 correction is summed in another order;
+  integer on both sides, the float32 correction is summed in another order
+  (split TF32 on the tensor cores); bit-equal with zero SVD tables;
+- the split-K GEMMs (packed, lowrank): two launches give the same bits;
 - ``flash_attention`` / ``flash_decode``: 2e-5, the reference's flash
   tolerance, for float32 sums in another order;
 - ``approx_flash_attention``: within one probability quantum, max|v| /
@@ -84,6 +88,94 @@ def test_lowrank_matmul_matches_plain_version(m, k, n, card):
     got, want = lr.lowrank_matmul(*args, n=8), lr.lowrank_matmul_plain(*args, n=8)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _packed_edge_operands(case, card):
+    """(pa, pb, n) of one packed edge case: lanes at +-(2^n - 1) (signs
+    mixed or all alike, so the sums reach K * (2^n - 1)^2), an odd K
+    (a zero pad lane), M = 1 and a ragged shape."""
+    rng = np.random.default_rng(len(case))
+    kind, m, k, n_cols, n = case
+    qmax = (1 << n) - 1
+    if kind == "extreme mixed":
+        a = rng.choice([-qmax, qmax], size=(m, k))
+        b = rng.choice([-qmax, qmax], size=(k, n_cols))
+    elif kind == "extreme alike":
+        a, b = np.full((m, k), qmax), np.full((k, n_cols), -qmax)
+    else:
+        a = rng.integers(-qmax, qmax + 1, size=(m, k))
+        b = rng.integers(-qmax, qmax + 1, size=(k, n_cols))
+    from repro_torch.kernels import packed_matmul as pm
+
+    pa = pm.pack_i16_pairs(torch.from_numpy(a).to(card), dim=1)
+    pb = pm.pack_i16_pairs(torch.from_numpy(b).to(card), dim=0)
+    return pa, pb, n
+
+
+PACKED_EDGES = [
+    ("extreme mixed", 4, 3072, 1024, 8), ("extreme alike", 4, 3072, 1024, 8),
+    ("extreme mixed", 128, 3072, 1024, 15), ("extreme alike", 4, 3072, 1024, 15),
+    ("random", 4, 301, 64, 12), ("random", 1, 1024, 3072, 8), ("random", 33, 300, 70, 15),
+]
+
+
+@pytest.mark.parametrize("case", PACKED_EDGES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}x{c[3]}-n{c[4]}")
+def test_packed_matmul_edge_cases_bitmatch_and_repeat(case, card):
+    """Bit-equal to the plain version at the extremes of every plane pair
+    (int32 sums at n = 8, int64 at n = 15), at an odd K, M = 1 and a
+    ragged shape; two launches give the same bits (split-K order)."""
+    from repro_torch.kernels import packed_matmul as pm
+
+    pa, pb, n = _packed_edge_operands(case, card)
+    got, again = pm.packed_matmul(pa, pb, n=n), pm.packed_matmul(pa, pb, n=n)
+    want = pm.packed_matmul_plain(pa, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got), _bits(again))
+
+
+LOWRANK_EDGES = [("mag 255", 4, 1024, 3072), ("mag 255", 128, 1024, 3072),
+                 ("zero tables", 4, 3072, 1024), ("zero tables", 33, 300, 70),
+                 ("random", 1, 1024, 3072), ("random", 33, 300, 70),
+                 ("rank 24", 33, 300, 70), ("rank 24", 4, 1024, 3072)]
+
+
+@pytest.mark.parametrize("case", LOWRANK_EDGES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}x{c[3]}")
+def test_lowrank_matmul_edge_cases(case, card):
+    """Every magnitude 255 with mixed signs, zero SVD tables (then the
+    exact part alone: bit-equal), M = 1, a ragged shape, and rank 24 (three
+    blocks of 8 r per K step); within 2e-6 * max|want| otherwise; two
+    launches give the same bits."""
+    from repro_torch.engine import artifacts
+    from repro_torch.kernels import lowrank_matmul as lr
+
+    kind, m, k, n_cols = case
+    rng = np.random.default_rng(m + k)
+    mag_a = rng.integers(0, 256, size=(m, k))
+    mag_b = rng.integers(0, 256, size=(k, n_cols))
+    if kind == "mag 255":
+        mag_a, mag_b = np.full_like(mag_a, 255), np.full_like(mag_b, 255)
+    sign_a = rng.choice([-1, 0, 1], size=(m, k), p=[0.45, 0.1, 0.45])
+    sign_b = rng.choice([-1, 1], size=(k, n_cols))
+    u, v, _ = artifacts.svd_factors(8, 4, 24 if kind == "rank 24" else 8, True, card)
+    if kind == "zero tables":
+        u, v = torch.zeros_like(u), torch.zeros_like(v)
+    args = (u, v, torch.from_numpy(mag_a).to(card, torch.uint8),
+            torch.from_numpy(sign_a).to(card, torch.int8),
+            torch.from_numpy(mag_b).to(card, torch.uint8),
+            torch.from_numpy(sign_b).to(card, torch.int8))
+    got, again = lr.lowrank_matmul(*args, n=8), lr.lowrank_matmul(*args, n=8)
+    want = lr.lowrank_matmul_plain(*args, n=8)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    if kind == "zero tables":
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
 
 
 def _attn_inputs(card, b, s, t, h, kv, hd, dtype, seed):
