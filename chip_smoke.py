@@ -25,22 +25,28 @@ Phases, one line each (or a few):
    one long shape each; flash_attention and flash_decode within 2e-5,
    approx_attention within one probability quantum (max|v| / 255) and
    1e-5 for 99% of the outputs, with the bit-equal share printed.
-   Backward: the dq and dk/dv kernels against ``flash_attention_bwd_plain``
-   on the forward kernel's (o, lse), float32, within 1e-4 * max|want| per
-   output, at the train shape (B 8, S = T = 128, bf16), at S = T = 1024, with
-   window + softcap, and over the serve cache with masked slots and one
-   left-padded row.  Elementwise multiplier: ``seqmul_packed`` at n in
-   {4, 8, 12, 15} and ``seqmul_words`` at n in {8, 15, 16}, t in {1, n/2,
-   n-1}, approx and fix_to_1 both ways, on every (a, b) pair (n <= 8, 12)
-   or numpy draws (2^20 + 3 at n = 15, 2^24 at n = 16), then sizes 1, 127,
-   129 and 2^20 + 3, a 0-d and an empty tensor, and unaligned views: all
-   bit-equal.
+   Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
+   operands split into two bf16 terms, tiles with nothing to add skipped)
+   against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
+   float32, within 1e-4 * max|want| per output (max|err| / limit printed for
+   each) and bit-identical over two launches, at the train shape (B 8, S =
+   T = 128, bf16), at S = T = 1024, with window + softcap, and over the
+   serve cache with masked slots and one left-padded row, each with
+   ``launch_plan`` equal to the launch the built library makes; the build phase
+   checks that every instantiation of both kernels has tensor-core
+   instructions (HMMA) in its SASS.  Elementwise multiplier:
+   ``seqmul_packed`` at n in {4, 8, 12, 15} and ``seqmul_words`` at n in
+   {8, 15, 16}, t in {1, n/2, n-1}, approx and fix_to_1 both ways, on
+   every (a, b) pair (n <= 8, 12) or numpy draws (2^20 + 3 at n = 15, 2^24
+   at n = 16), then sizes 1, 127, 129 and 2^20 + 3, a 0-d and an empty
+   tensor, and unaligned views: all bit-equal.
    Timed rows print the kernel's time, the plain version's, the bound
    (the larger of the bytes at 3.35 TB/s and the operations at their
    rate: table lookups at the shared-memory rate, the least integer
    operations of the recurrence at the SMs' int32 issue rate, int8
    tensor-core products (4 per product of 9- to 16-bit operands), TF32
-   tensor-core products (lowrank's correction, 3 per product), float32
+   tensor-core products (lowrank's correction, 3 per product), bf16
+   tensor-core products (the backward, as its split runs them), float32
    FLOPs on the CUDA cores; for attention
    counted over the query-slot pairs and the K/V slots this run's
    positions need, masked pairs adding nothing) and one PyTorch
@@ -53,7 +59,8 @@ Phases, one line each (or a few):
    two is printed as a yardstick only).  Times are per call over a loop
    of calls (the host's launch included); packed_matmul and
    lowrank_matmul also print ``device_ms`` and ``library_device_ms``, the
-   device's time alone (calls replayed from one CUDA graph);
+   device's time alone (calls replayed from one CUDA graph), and the
+   backward pair its ``device_ms``;
 4. reference: ``engine.matmul`` on the card against the CPU reference
    bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
    and reduced qwen3-0.6b prefill logits on the card against the CPU
@@ -125,6 +132,7 @@ INT32_OPS_PER_CLK_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 SMEM_LOOKUPS_PER_CLK_PER_SM = 32  # 32 banks, one 4-byte word each per clock
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (NVIDIA data sheet)
 TF32_TENSOR_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores (NVIDIA data sheet)
+BF16_TENSOR_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
 F32_LANES_PER_CLK_PER_SM = 128  # Hopper SM: 4 partitions x 32 FP32 lanes, one FMA each
 
 # qwen3-0.6b projections (K, N): q, k/v, o, mlp up/gate, mlp down
@@ -185,6 +193,29 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_instructions(source: str) -> dict:
+    """``{kernel: [count per instantiation]}`` of tensor-core MMA
+    instructions (HMMA for mma.sync, HGMMA for wgmma) in the SASS of a built
+    library (``cuobjdump -sass``); each instantiation must have some."""
+    from repro_torch.kernels import build
+
+    tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(source))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            name = next((n for n in ("bwd_dq_kernel", "bwd_dkv_kernel") if n in mangled), mangled)
+            current = counts.setdefault(name, [])
+            current.append(0)
+        elif current is not None and ("HMMA" in line or "HGMMA" in line):
+            current[-1] += 1
+    check(bool(counts) and all(all(c) for c in counts.values()),
+          f"{source}: a kernel without tensor-core instructions: {counts}")
+    return counts
 
 
 # --------------------------------------------------------------- timing
@@ -654,7 +685,8 @@ def backward_cases():
 
 def run_backward_case(card: Card, case, seed):
     """dq and dk/dv kernels against flash_attention_bwd_plain on the forward
-    kernel's (o, lse), float32 before the cast."""
+    kernel's (o, lse), float32 before the cast; two launches must give the
+    same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -671,41 +703,49 @@ def run_backward_case(card: Card, case, seed):
     dq_fn = lambda: fa.flash_attention_bwd_dq(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
     dkv_fn = lambda: fa.flash_attention_bwd_dkv(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
     plain = lambda: fa.flash_attention_bwd_plain(q, k, v, q_pos, k_pos, o, lse, do, **kw)
-    got = (dq_fn(), *dkv_fn())
+    got, again = (dq_fn(), *dkv_fn()), (dq_fn(), *dkv_fn())
     want = plain()
     torch.cuda.synchronize()
     where = f"backward {label} B={b} S={s} T={t} window={window} softcap={softcap}"
-    errs = []
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+    for kernel in ("dq", "dkv"):
+        plan = fa.launch_plan(kernel, b, s, t, h, kv, hd, q.dtype)
+        built = fa.built_launch_plan(kernel, b, s, t, h, kv, hd, q.dtype)
+        check(plan == built, f"{where}: launch_plan {plan} but the kernel launches {built}")
+    errs, ratios = [], []
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
         check(bool(torch.isfinite(a).all()), f"{where}: non-finite {name}")
+        check(torch.equal(a, a2), f"{where}: {name} differs between two launches")
         err = (a - w).abs().max().item()
         limit = 1e-4 * w.abs().max().item()
         check(err <= limit, f"{where}: {name} max |err| {err} over {limit}")
         errs.append(err)
-    # The work this run's data needs: per allowed (query head, slot) pair 3*hd
-    # FMAs in dq (the two recomputed dots, ds.k) and 4*hd in dk/dv (the same
-    # dots, p.do, ds.q); a query with no allowed slot (a pad) adds p.do at
-    # every slot to dv.  Bytes: q, k, v (bf16), do, lse, dd read once; dq or
-    # dk and dv (float32) written once.
+        ratios.append(err / limit)
+    # The work this run's data needs, on the bf16 tensor cores as the kernels
+    # split it (csrc/flash_attention_bwd.cu): per allowed (query head, slot)
+    # pair, 2*hd FLOPs per product, 5 products in dq (q k^T; do v^T with do
+    # as two bf16 terms; ds k, ds as two terms) and 8 in dk/dv (the same
+    # 3 for s and dp; ds^T q, 2; p^T do, both split, 3); a query with no
+    # allowed slot (a pad) adds p^T do at every slot to dv.  Bytes: q, k, v
+    # (bf16), do, lse, dd read once; dq or dk and dv (float32) written once.
     allow = fa.allow_mask(q_pos, k_pos, causal=True, window=window)
     pairs = h * allow.sum().item()
     pad_pairs = h * t * (~allow.any(-1)).sum().item()
     inputs = 2 * (q.numel() + k.numel() + v.numel()) + 4 * (do.numel() + lse.numel() + dd.numel())
     inputs += 4 * (q_pos.numel() + k_pos.numel())
+    bf16 = BF16_TENSOR_FLOPS_PER_S
     bounds = {
-        "flash_attention_bwd_dq": card.bound(inputs + 4 * q.numel(), 2 * 3 * hd * pairs,
-                                             card.f32_flops_per_s),
+        "flash_attention_bwd_dq": card.bound(inputs + 4 * q.numel(), 2 * hd * 5 * pairs, bf16),
         "flash_attention_bwd_dkv": card.bound(inputs + 8 * k.numel(),
-                                              2 * hd * (4 * pairs + pad_pairs),
-                                              card.f32_flops_per_s),
+                                              2 * hd * (8 * pairs + 3 * pad_pairs), bf16),
     }
     total = card.bound(inputs + 4 * q.numel() + 8 * k.numel(),
-                       2 * hd * (7 * pairs + pad_pairs), card.f32_flops_per_s)
+                       2 * hd * (13 * pairs + 3 * pad_pairs), bf16)
     rows = []
-    for name, err in (("flash_attention_bwd_dq", errs[0]),
-                      ("flash_attention_bwd_dkv", max(errs[1:]))):
+    for name, err, ratio in (("flash_attention_bwd_dq", errs[0], ratios[0]),
+                             ("flash_attention_bwd_dkv", max(errs[1:]), max(ratios[1:]))):
         rows.append(dict(name=name, label=label, shape=[b, s, t, h, kv, hd], max_abs_err=err,
-                         bound_ms=bounds[name][0], bound_by=bounds[name][1]))
+                         err_over_limit=ratio, bound_ms=bounds[name][0],
+                         bound_by=bounds[name][1]))
     reps = 5 if label == "long" else 20
     plain_ms = cuda_ms(plain, reps=2)
     library_ms = None
@@ -719,15 +759,19 @@ def run_backward_case(card: Card, case, seed):
         library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g_out, retain_graph=True),
                              reps=reps, warmup=2)
     for row, fn in zip(rows, (dq_fn, dkv_fn)):
-        row.update(ms=cuda_ms(fn, reps=reps, warmup=2), plain_ms=plain_ms,
-                   library_ms=library_ms)
-    times = (f" dq ms {rows[0]['ms']:.4f} dkv ms {rows[1]['ms']:.4f} plain_ms (whole "
+        row.update(ms=cuda_ms(fn, reps=reps, warmup=2), device_ms=graph_ms(fn),
+                   plain_ms=plain_ms, library_ms=library_ms)
+    pair_ms = rows[0]["ms"] + rows[1]["ms"]
+    times = (f" dq ms {rows[0]['ms']:.4f} (device {rows[0]['device_ms']:.4f}) dkv ms "
+             f"{rows[1]['ms']:.4f} (device {rows[1]['device_ms']:.4f}) plain_ms (whole "
              f"backward) {plain_ms:.3f} library_ms (SDPA backward) "
-             + (f"{library_ms:.4f}" if library_ms is not None else "none"))
-    print(f"kernel {where}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
-          f"(1e-4 * max|want|){times} bound_ms dq {rows[0]['bound_ms']:.5f} "
-          f"({rows[0]['bound_by']}) dkv {rows[1]['bound_ms']:.5f} ({rows[1]['bound_by']}) "
-          f"whole backward {total[0]:.5f} ({total[1]})", flush=True)
+             + (f"{library_ms:.4f} pair/SDPA {pair_ms / library_ms:.3f}"
+                if library_ms is not None else "none"))
+    print(f"kernel {where}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
+          f"over the limit 1e-4 * max|want|: dq {ratios[0]:.4f} dk {ratios[1]:.4f} dv "
+          f"{ratios[2]:.4f}; two launches bit-identical, launch_plan as built;{times} bound_ms dq "
+          f"{rows[0]['bound_ms']:.5f} ({rows[0]['bound_by']}) dkv {rows[1]['bound_ms']:.5f} "
+          f"({rows[1]['bound_by']}) whole backward {total[0]:.5f} ({total[1]})", flush=True)
     return rows
 
 
@@ -1342,6 +1386,9 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
+    for kernel, count in sorted(tensor_core_instructions("flash_attention_bwd").items()):
+        print(f"build: flash_attention_bwd SASS: {kernel} HMMA/HGMMA per instantiation "
+              f"{count}", flush=True)
 
     # 3. kernels
     rows = (phase_kernels(card) + phase_attention(card) + phase_backward(card)
@@ -1451,7 +1498,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            **{key: main_row[key] for key in ("device_ms", "library_device_ms")
+            **{key: main_row[key] for key in ("device_ms", "library_device_ms",
+                                              "err_over_limit")
                if key in main_row},
             "shape": main_row["shape"],
             **per_step,

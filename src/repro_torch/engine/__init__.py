@@ -27,6 +27,9 @@ _LAZY = {
     "register_mode": "modes",
     "ModeSpec": "modes",
     "GemmParams": "modes",
+    "quantize_operands": "modes",
+    "bitexact_gemm_int": "modes",
+    "seqmul_gemm_int": "modes",
     "resolve_t": "config",
     "kernel_tiles": "config",
     "resolve_tier": "config",

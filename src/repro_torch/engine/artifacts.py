@@ -14,8 +14,34 @@ import numpy as np
 import torch
 
 from repro_torch.core import luts
+from repro_torch.device import resolve_device
 
-__all__ = ["product_lut_u16", "svd_factors", "error_moments"]
+__all__ = [
+    "error_lut", "error_moments", "product_lut", "product_lut_flat", "product_lut_u16",
+    "svd_factors",
+]
+
+
+@functools.lru_cache(maxsize=32)
+def _int32_table(kind: str, n: int, t: int, fix_to_1: bool, device: torch.device):
+    table = (luts.product_lut if kind == "product" else luts.error_lut)(n, t, fix_to_1=fix_to_1)
+    return torch.from_numpy(table).to(device)
+
+
+def product_lut(n: int, t: int, fix_to_1: bool = True, device=None) -> torch.Tensor:
+    """(2^n, 2^n) int32 approximate-product table on ``device`` (``cuda``
+    unless the caller asks for the CPU)."""
+    return _int32_table("product", n, t, fix_to_1, resolve_device(device))
+
+
+def product_lut_flat(n: int, t: int, fix_to_1: bool = True, device=None) -> torch.Tensor:
+    """(2^{2n},) int32 flattened product table (the reference kernel's layout)."""
+    return product_lut(n, t, fix_to_1, device).reshape(-1)
+
+
+def error_lut(n: int, t: int, fix_to_1: bool = True, device=None) -> torch.Tensor:
+    """(2^n, 2^n) int32 signed error table (approx - exact) on ``device``."""
+    return _int32_table("error", n, t, fix_to_1, resolve_device(device))
 
 
 @functools.lru_cache(maxsize=32)

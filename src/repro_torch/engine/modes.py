@@ -44,6 +44,8 @@ __all__ = [
     "list_modes",
     "default_generator",
     "quantize_operands",
+    "bitexact_gemm_int",
+    "seqmul_gemm_int",
 ]
 
 class GemmParams(NamedTuple):
@@ -121,6 +123,30 @@ def quantize_operands(x: torch.Tensor, w: torch.Tensor, n: int):
     mx, sx = quantization.quantize(x, qx)
     mw, sw = quantization.quantize(w, qw)
     return (mx, sx), (mw, sw), qx.scale * qw.scale
+
+
+def bitexact_gemm_int(mag_a: torch.Tensor, sign_a: torch.Tensor, mag_b: torch.Tensor,
+                      sign_b: torch.Tensor, *, n: int, t: int,
+                      fix_to_1: bool = True) -> torch.Tensor:
+    """Bit-exact signed approximate GEMM on integer sign-magnitude operands.
+
+    mag_a (M, K), mag_b (K, N) integer magnitudes, signs in {-1, 0, 1};
+    returns (M, N) float32.  The plain body of ``kernels.lut_matmul`` on
+    the operands' device: every product from the (2^n, 2^n) table (n <= 8),
+    summed as exact integers and converted once, so it equals the
+    reference's float32 sum wherever that sum is exact (|sum| < 2^24).
+    """
+    lut = artifacts.product_lut_u16(n, t, fix_to_1, mag_a.device)
+    return lut_matmul_plain(lut, mag_a, sign_a, mag_b, sign_b, n=n)
+
+
+def seqmul_gemm_int(mag_a: torch.Tensor, sign_a: torch.Tensor, mag_b: torch.Tensor,
+                    sign_b: torch.Tensor, *, n: int, t: int, approx: bool = True,
+                    fix_to_1: bool = True) -> torch.Tensor:
+    """The split-word recurrence as a GEMM (n <= 12): the plain body of
+    ``kernels.seqmul_matmul``, exact integer sums converted once."""
+    return seqmul_matmul_plain(mag_a, sign_a, mag_b, sign_b, n=n, t=t, approx=approx,
+                               fix_to_1=fix_to_1)
 
 
 # ------------------------------------------------------------ mode bodies

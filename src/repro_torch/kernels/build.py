@@ -35,7 +35,8 @@ import torch
 __all__ = [
     "BLOCK_COLS", "BLOCK_K", "BLOCK_ROWS", "BUILD_DIR", "CSRC", "KERNELS", "SMEM_PER_BLOCK",
     "SPLIT_BLOCKS_PER_SM", "CudaKernel", "block_rows", "build_all", "check_operand",
-    "nvcc_path", "pick_tile", "sm_count", "split_k", "tile_counters", "wide_accumulator",
+    "library_path", "nvcc_path", "pick_tile", "sm_count", "split_k", "tile_counters",
+    "wide_accumulator",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -61,13 +62,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the toolkit")
 
 
-def _target(name: str) -> pathlib.Path:
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` is built (its source's hash
+    in the name)."""
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, pathlib.Path, pathlib.Path]:
-    out = _target(name)
+    out = library_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -79,7 +82,7 @@ def build_all(names=KERNELS) -> dict:
     """Compile every stale kernel at once; returns ``{name: compiler log}``
     (``-Xptxas -v`` register and shared-memory report) for those built."""
     with _lock:
-        started = {n: _start(n) for n in names if not _target(n).exists()}
+        started = {n: _start(n) for n in names if not library_path(n).exists()}
         logs, failed = {}, []
         for name, (proc, tmp, out) in started.items():
             log, _ = proc.communicate()
@@ -101,7 +104,7 @@ def _library(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                lib = ctypes.CDLL(str(_target(name)))
+                lib = ctypes.CDLL(str(library_path(name)))
                 lib.kernel_error_string.argtypes = [ctypes.c_int]
                 lib.kernel_error_string.restype = ctypes.c_char_p
                 _libs[name] = lib
@@ -129,6 +132,11 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
+
+    def library(self) -> ctypes.CDLL:
+        """The built library of this kernel's source (compiled at first use)."""
+        self._bind()
+        return self._lib
 
     def launch(self, device: torch.device, *args) -> None:
         """Call the C entry point with ``args``, then the device index and

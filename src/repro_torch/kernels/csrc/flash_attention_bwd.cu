@@ -27,31 +27,84 @@
 // the unwritten ones too.  Rows past S and slots past T do not exist and
 // add nothing.
 //
-// Design.  A simple kernel, right first: float32 FMAs on the CUDA cores from
-// shared memory, no tensor cores, every tile computed (the causally masked
-// ones too).  128 threads; tiles of 32 query rows by 32 key slots staged as
-// float32 rows padded to HD+1 floats, so the rows and slots a warp reads
-// sit in distinct banks.
-//   dq: one block per (q-tile, head, batch) walks every key tile of its KV
-//       head.  Thread (row = tid/4, lane = tid%4) computes 8 (row, slot)
-//       pairs (slots lane + 4i) and owns dq's columns lane + 4c of its row.
-//   dk/dv: one block per (k-tile, KV head, batch) walks the group's g query
-//       heads and every query tile: the TPU grid's sequential (g, q-block)
-//       axes become a loop inside the block, so no two blocks write one
-//       output and no atomics are needed.  Thread (slot = tid/4, lane)
-//       computes 8 (row, slot) pairs (rows lane + 4i) and owns dk's and dv's
-//       columns lane + 4c of its slot.
-// Both write float32; the cast to the input dtype happens outside, as at
-// :253.
+// What bounds it on the H100.  Five products per allowed (query head,
+// slot) pair, each 2*hd FLOPs: QK^T and dO.V^T in both kernels, dS.K (dq),
+// dS^T.Q and P^T.dO (dk/dv).  On the bf16 tensor cores with the splits
+// below (5 bf16 MMA products per pair in dq, 8 in dk/dv) that is 3.5 GFLOP
+// at the train shape (B 8, S = T = 128, causal, 16 query and 8 KV heads of
+// 128), 3.6 us at 989 TFLOP/s, against 34 MB of operands and outputs read
+// or written once (10 us at 3.35 TB/s): bytes bound it there.  At S = T =
+// 1024 (B 1) the products take 28 us and the same bytes 10 us.
 //
-// Bound on the H100.  7*hd FMAs per allowed (query head, slot) pair, 3*hd in
-// dq (two recomputed dots and ds.k) and 4*hd in dk/dv (the same two dots,
-// p.do and ds.q), on the float32 CUDA cores: at the train shape (B = 8,
-// S = T = 128, causal, 16 query and 8 KV heads of 128) 1.9 GFLOP against
-// some 33 MB of operands, so operations, not bytes, bound it.  Tensor
-// cores (wgmma on bf16 tiles), skipping fully masked tiles and splitting
-// the long walks are later work.
+// Tensor cores with float32-accurate products.  The reference computes the
+// backward in float32; one bf16 rounding of a float32 operand (2^-8
+// relative) would be far outside the limit (1e-4 * max|want| per output).
+// Every product runs mma.sync.m16n8k16 bf16 with float32 accumulation:
+//   - a bf16 operand (q, k, v on the main path) enters as it is: its
+//     products are exact;
+//   - a float32 operand x (do; the recomputed p and ds; q, k, v when the
+//     inputs are float32) enters as kSplit = 2 bf16 terms, x1 = bf16(x),
+//     x2 = bf16(x - x1), |x - x1 - x2| <= 2^-16 |x|;
+//   - a float32 x bf16 product runs both terms (2 MMAs, error <= 2^-16 of
+//     the product); a float32 x float32 product runs x1 y1 + x1 y2 + x2 y1
+//     (3 MMAs; the dropped x2 y2 and the two residuals: <= 3 * 2^-16).
+// Per product:
+//   QK^T    bf16 q, k: exact (float32 inputs: 3 MMAs, <= 3 * 2^-16).  An
+//           error e in s moves p by a factor exp(e): |e| <= 3 * 2^-16 *
+//           scale * sum_d |q_d k_d|, about 5e-5 at unit-variance q, k and
+//           hd = 128, and far less on the main path.
+//   dO.V^T  do split, v exact: <= 2^-16 per term (float32 v: 3 * 2^-16).
+//   dS.K    ds split, k exact: <= 2^-16 per term.
+//   dS^T.Q  ds split, q exact: <= 2^-16 per term.
+//   P^T.dO  p and do split: <= 3 * 2^-16 per term.
+// The terms' errors have no common sign, so a sum of n of them carries
+// about sqrt(n) times one term's error, as its value grows about sqrt(n)
+// times one term: the outputs' error stays near 2^-16 to 3 * 2^-16 of their
+// size, against a limit of 1e-4 = 6.6 * 2^-16 of the largest.  The tensor
+// core's float32 sum truncates, adding at most an ulp of the partial per
+// MMA (up to 2 * T / 16 MMAs into one dq, 3 * g * S / 16 into one dv: at
+// S = T = 1024, g = 2, 384 ulps = 4.6e-5 of the partial, seldom all of one
+// sign).  chip_smoke.py prints max|err| / limit for each output.
+//
+// Skipped tiles, decided from the data (positions and lse, never assuming
+// that positions are monotone).  dq: a key tile none of whose (row, slot)
+// pairs is allowed contributes exactly 0 (ds is masked); it is skipped when
+// no slot of it can be allowed for the block's query positions, judged by
+// their min and max.  dk/dv: a query tile is skipped only when none of its
+// pairs can be allowed (judged by the block's slot positions' min and max)
+// and none of its rows puts p != 0 on a masked slot (exp(NEG_INF - lse) is
+// 0 for every row but a pad row).  Each block makes a bit mask of its live
+// tiles first and walks only those; kernels/flash_attention.py
+// `bwd_tile_plan` is the same rule in PyTorch.
+//
+// Tiles.  Rows of every bf16 tile are padded by 16 bytes (HD + 8 values),
+// so the eight rows an ldmatrix reads fall in eight distinct bank groups.
+//   dq: one block per (64 query rows, head, batch), four warps of 16 rows;
+//       q (bf16 as it is) and do (split) are staged once; key tiles of 32
+//       stream through a two-stage cp.async ring (k, v and the slot
+//       positions), the next live tile's copy in flight while this one
+//       computes.  Grid (S/64) H B: 256 blocks at the train shape and at
+//       S = T = 1024, two resident per SM (85 KiB of shared memory each).
+//   dk/dv: one block per (64 key slots, KV head, batch); k and v are staged
+//       once.  The walk over the group's g query heads and the query tiles
+//       of 32 is split between two warp groups of four warps (bf16
+//       inputs), the live tiles taken in turn, each group with its own
+//       cp.async ring (q, raw float32 do, positions, lse, dd) and named
+//       barrier.  Grid (T/64) KV B: 128 blocks at the train shape and at
+//       S = T = 1024 for 132 SMs, one resident per SM (168 KiB), so without
+//       the split each SM would hold four warps; with it, eight.  At the
+//       end the second group hands its dk/dv partials to the first through
+//       shared memory, which adds them in that fixed order.
+//   Per step each warp recomputes its 16 x 32 tile of s and dp on the
+//   tensor cores, forms p and ds in the accumulator registers, and feeds
+//   them (split) as the A operand of the next products: the C fragment of
+//   two 8-column tiles is the A fragment of one 16-deep step.
+// No float atomics: every output element is summed by one thread in a
+// fixed order, so two launches on the same inputs give the same bits.
+// Both kernels write float32; the cast to the input dtype happens outside,
+// as at :253.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,12 +112,253 @@
 namespace {
 
 constexpr float kNegInf = -2.3819763e38f;
-constexpr int kThreads = 128;
-constexpr int kBQ = 32;  // query rows per tile
-constexpr int kBK = 32;  // key slots per tile
+constexpr int kSplit = 2;     // bf16 terms of a float32 operand
+constexpr int kStages = 2;    // cp.async ring depth
+constexpr int kDqRows = 64;   // dq: query rows per block (four warps of 16)
+constexpr int kDqKeys = 32;   // dq: key slots per step
+constexpr int kDqThreads = 128;
+constexpr int kKvKeys = 64;   // dk/dv: key slots per block (four warps of 16)
+constexpr int kKvRows = 32;   // dk/dv: query rows per step
+constexpr int kGroupThreads = 128;
+constexpr int kMaxSmem = 232448;
+constexpr int kMaxDevices = 64;
+static_assert(kDqKeys == 32 && kKvRows == 32, "a warp judges one tile, a lane per row or slot");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// bf16 inputs are exact MMA operands; float32 inputs are split like do
+template <typename T>
+struct Input;
+template <>
+struct Input<__nv_bfloat16> {
+  static constexpr int kPlanes = 1, kGroups = 2;
+};
+template <>
+struct Input<float> {
+  static constexpr int kPlanes = kSplit, kGroups = 1;
+};
+
+// Shared memory, in bytes; kept in step with kernels/flash_attention.py
+// `smem_bytes`.  A plane is one bf16 term of a tile, rows of HD + 8 values.
+template <typename T, int HD>
+struct DqLayout {
+  static constexpr int LD = HD + 8;
+  static constexpr int P = Input<T>::kPlanes;
+  static constexpr bool kRaw = P > 1;  // float32 k, v: staged raw, then split
+  static constexpr int kRow = 2 * LD;
+  static constexpr int kQ = P * kDqRows * kRow;
+  static constexpr int kDo = kSplit * kDqRows * kRow;
+  static constexpr int kKvPlanes = 2 * P * kDqKeys * kRow;  // k and v of one step
+  static constexpr int kStage = (kRaw ? 2 * kDqKeys * HD * 4 : kKvPlanes) + kDqKeys * 4;
+  static constexpr int kFixed = kQ + kDo + kStages * kStage + (kRaw ? kKvPlanes : 0);
+};
+
+template <typename T, int HD>
+struct KvLayout {
+  static constexpr int LD = HD + 8;
+  static constexpr int P = Input<T>::kPlanes;
+  static constexpr int G = Input<T>::kGroups;
+  static constexpr bool kRaw = P > 1;  // float32 q: staged raw, then split
+  static constexpr int kRow = 2 * LD;
+  static constexpr int kKv = 2 * P * kKvKeys * kRow;
+  static constexpr int kQStage = kRaw ? kKvRows * HD * 4 : kKvRows * kRow;
+  // q, raw do, then the rows' positions, lse and dd
+  static constexpr int kStage = kQStage + kKvRows * HD * 4 + 3 * kKvRows * 4;
+  static constexpr int kGroup = kStages * kStage + kSplit * kKvRows * kRow + (kRaw ? P * kKvRows * kRow : 0);
+  static constexpr int kFixed = kKv + G * kGroup;
+  static_assert(G <= 2, "two warp groups at most");
+  static_assert(G == 1 || kGroup >= 2 * kKvKeys * HD * 4, "a group's area holds its dk/dv partials");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the named barrier of one warp group (barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(kGroupThreads) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment of the 16 x 16 block at (row0, col0) of a plane (rows of ld values)
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* plane, int ld,
+                                       int row0, int col0, int lane) {
+  ldsm_x4(a, plane + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8);
+}
+
+// B fragments {b0, b1} of two 8-wide n-tiles (n0.., n0 + 8..), 16 deep from
+// k0, of a plane whose rows are n (k contiguous)
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16* plane, int ld,
+                                          int n0, int k0, int lane) {
+  ldsm_x4(b, plane + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// the same of a plane whose rows are k (n contiguous)
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16* plane, int ld,
+                                          int k0, int n0, int lane) {
+  ldsm_x4_t(b, plane + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+
+// d += sum of A_i B_j over the terms i + j < kSplit (a one-plane operand is
+// exact), the small terms first; h picks the n-tile of the B fragments
+template <int PA, int PB>
+__device__ __forceinline__ void mma_terms(float (&d)[4], const uint32_t (&a)[PA][4],
+                                          const uint32_t (&b)[PB][4], int h) {
+#pragma unroll
+  for (int s = kSplit - 1; s >= 0; --s)
+#pragma unroll
+    for (int i = 0; i < PA; ++i) {
+      const int j = s - i;
+      if (j >= 0 && j < PB) mma_bf16(d, a[i], b[j][2 * h], b[j][2 * h + 1]);
+    }
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat162 v) {
+  return uint32_t(__bfloat16_as_ushort(v.x)) | (uint32_t(__bfloat16_as_ushort(v.y)) << 16);
+}
+
+// two float32 values (k, k + 1) -> their kSplit bf16 terms, packed in pairs
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&out)[kSplit]) {
+#pragma unroll
+  for (int i = 0; i < kSplit; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    out[i] = bf16_bits(v);
+    x0 -= __low2float(v);
+    x1 -= __high2float(v);
+  }
+}
+
+// the split A fragments of the 16 x 16 block held as two 16 x 8 C tiles
+__device__ __forceinline__ void split_a(uint32_t (&a)[kSplit][4], const float (&c0)[4],
+                                        const float (&c1)[4]) {
+  uint32_t x[kSplit];
+  split_pair(c0[0], c0[1], x);
+#pragma unroll
+  for (int i = 0; i < kSplit; ++i) a[i][0] = x[i];
+  split_pair(c0[2], c0[3], x);
+#pragma unroll
+  for (int i = 0; i < kSplit; ++i) a[i][1] = x[i];
+  split_pair(c1[0], c1[1], x);
+#pragma unroll
+  for (int i = 0; i < kSplit; ++i) a[i][2] = x[i];
+  split_pair(c1[2], c1[3], x);
+#pragma unroll
+  for (int i = 0; i < kSplit; ++i) a[i][3] = x[i];
+}
+
+// four float32 values -> their terms, stored at column c of row r of each plane
+template <int LD>
+__device__ __forceinline__ void store_split(__nv_bfloat16* planes, int plane, int r, int c,
+                                            float4 x) {
+  uint32_t lo[kSplit], hi[kSplit];
+  split_pair(x.x, x.y, lo);
+  split_pair(x.z, x.w, hi);
+#pragma unroll
+  for (int s = 0; s < kSplit; ++s)
+    *reinterpret_cast<uint2*>(planes + s * plane + r * LD + c) = make_uint2(lo[s], hi[s]);
+}
+
+// rows x HD float32 staged raw in shared memory -> kSplit planes
+template <int HD>
+__device__ void split_rows(__nv_bfloat16* planes, int plane, const float* raw, int rows, int tid,
+                           int nthreads) {
+  constexpr int C4 = HD / 4;
+  for (int i = tid; i < rows * C4; i += nthreads) {
+    const int r = i / C4, c = (i % C4) * 4;
+    store_split<HD + 8>(planes, plane, r, c, *reinterpret_cast<const float4*>(raw + r * HD + c));
+  }
+}
+
+// rows x HD float32 read from device memory (rows past nvalid as zeros) -> kSplit planes
+template <int HD>
+__device__ void load_split_rows(__nv_bfloat16* planes, int plane, const float* src,
+                                size_t stride, int rows, int nvalid, int tid, int nthreads) {
+  constexpr int C4 = HD / 4;
+#pragma unroll 4
+  for (int i = tid; i < rows * C4; i += nthreads) {
+    const int r = i / C4, c = (i % C4) * 4;
+    const float4 x = r < nvalid ? __ldg(reinterpret_cast<const float4*>(src + r * stride + c))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    store_split<HD + 8>(planes, plane, r, c, x);
+  }
+}
+
+// rows x HD values of type T, cp.async into rows of LD values (zeros past nvalid)
+template <typename T, int HD, int LD>
+__device__ void copy_rows(T* dst, const T* src, size_t stride, int rows, int nvalid, int tid,
+                          int nthreads) {
+  constexpr int kChunk = 16 / sizeof(T);
+  constexpr int kPerRow = HD / kChunk;
+  for (int i = tid; i < rows * kPerRow; i += nthreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kChunk;
+    const bool ok = r < nvalid;
+    cp_async16(dst + r * LD + c, ok ? src + r * stride + c : src, ok);
+  }
+}
+
+// the first live tile at or after `from`, or -1
+__device__ __forceinline__ int next_live(const uint32_t* mask, int words, int from) {
+  int w = from >> 5;
+  if (w >= words) return -1;
+  uint32_t bits = mask[w] & (~0u << (from & 31));
+  while (bits == 0) {
+    if (++w >= words) return -1;
+    bits = mask[w];
+  }
+  return (w << 5) + __ffs(bits) - 1;
+}
+
+// `n` live tiles on from `pos` (-1: before the first), or -1
+__device__ __forceinline__ int advance_live(const uint32_t* mask, int words, int pos, int n) {
+  for (int i = 0; i < n; ++i) {
+    pos = next_live(mask, words, pos + 1);
+    if (pos < 0) break;
+  }
+  return pos;
+}
+
+__device__ __forceinline__ void warp_min_max(int& mn, int& mx) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+}
 
 __device__ __forceinline__ bool allowed(int qp, int kp, int causal, int window) {
   if (kp < 0) return false;
@@ -92,98 +386,200 @@ __device__ __forceinline__ Pair recompute(float dot, float dpv, float lse, float
   return {p, ok ? ds : 0.f};
 }
 
-size_t dq_smem(int hd) {
-  return 4 * (4 * size_t(kBQ) * (hd + 1) + size_t(kBQ) * (kBK + 1) + kBK);
-}
-
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDqThreads, 2)
 flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ dd,
                               const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                               float* __restrict__ dq, int S, int T_len, int H, int KV,
                               int causal, int window, float softcap, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int NC = HD / 4;  // dq columns per thread
-  extern __shared__ __align__(16) float fsmem[];
-  float* qs = fsmem;              // [kBQ][LD]
-  float* dos = qs + kBQ * LD;     // [kBQ][LD]
-  float* ks = dos + kBQ * LD;     // [kBK][LD]
-  float* vs = ks + kBK * LD;      // [kBK][LD]
-  float* dss = vs + kBK * LD;     // [kBQ][kBK + 1]
-  int* kps = reinterpret_cast<int*>(dss + kBQ * (kBK + 1));  // [kBK]
+  using L = DqLayout<T, HD>;
+  constexpr int LD = L::LD, P = L::P;
+  constexpr int kPlaneQ = kDqRows * LD, kPlaneK = kDqKeys * LD;  // values per plane
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);           // [P][64][LD]
+  __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);  // [kSplit][64][LD]
+  unsigned char* ring = smem + L::kQ + L::kDo;                          // kStages x (k, v, slots)
+  __nv_bfloat16* kv_split = reinterpret_cast<__nv_bfloat16*>(ring + kStages * L::kStage);
+  uint32_t* mask = reinterpret_cast<uint32_t*>(ring + kStages * L::kStage +
+                                               (L::kRaw ? L::kKvPlanes : 0));
+  __shared__ int red[8];
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kDqRows, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int row = threadIdx.x / 4, lane = threadIdx.x % 4;
-  const int qrow = q0 + row;
-  const bool live = qrow < S;
+  const int rows = min(kDqRows, S - q0);
+  const int tiles = (T_len + kDqKeys - 1) / kDqKeys;
+  const int words = (tiles + 31) >> 5;
+  const size_t q_row = size_t(H) * HD, k_row = size_t(KV) * HD;  // values between rows
+  const size_t q_off = ((size_t(b) * S + q0) * H + h) * HD;
 
-  for (int i = threadIdx.x; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, qr = q0 + r;
-    const size_t off = ((size_t(b) * S + qr) * H + h) * HD + d;
-    qs[r * LD + d] = qr < S ? to_f32(q[off]) : 0.f;
-    dos[r * LD + d] = qr < S ? dout[off] : 0.f;
+  // q (as it is, or split) and do (split), once per block
+  if constexpr (L::kRaw) {
+    load_split_rows<HD>(qs, kPlaneQ, q + q_off, q_row, kDqRows, rows, tid, kDqThreads);
+  } else {
+    copy_rows<T, HD, LD>(qs, q + q_off, q_row, kDqRows, rows, tid, kDqThreads);
+    cp_async_commit();
   }
-  const size_t stat = (size_t(b) * H + h) * S + qrow;
-  const int qp = live ? q_pos[size_t(b) * S + qrow] : 0;
-  const float row_lse = live ? lse[stat] : 0.f;
-  const float row_dd = live ? dd[stat] : 0.f;
+  load_split_rows<HD>(dos, kPlaneQ, dout + q_off, q_row, kDqRows, rows, tid, kDqThreads);
 
-  float acc[NC];
+  // this thread's rows: g and g + 8 of its warp's 16
+  const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
+  const bool live_lo = r_lo < rows, live_hi = r_hi < rows;
+  const size_t stat = (size_t(b) * H + h) * S + q0;
+  const int* qpos = q_pos + size_t(b) * S + q0;
+  const int qp_lo = live_lo ? qpos[r_lo] : 0, qp_hi = live_hi ? qpos[r_hi] : 0;
+  const float lse_lo = live_lo ? lse[stat + r_lo] : 0.f, lse_hi = live_hi ? lse[stat + r_hi] : 0.f;
+  const float dd_lo = live_lo ? dd[stat + r_lo] : 0.f, dd_hi = live_hi ? dd[stat + r_hi] : 0.f;
+
+  // the block's query positions: min and max
+  int qmin = INT_MAX, qmax = INT_MIN;
+  if (tid < rows) qmin = qmax = qpos[tid];
+  warp_min_max(qmin, qmax);
+  if (lane == 0) {
+    red[2 * warp] = qmin;
+    red[2 * warp + 1] = qmax;
+  }
+  for (int i = tid; i < words; i += kDqThreads) mask[i] = 0;
+  __syncthreads();
+  qmin = min(min(red[0], red[2]), min(red[4], red[6]));
+  qmax = max(max(red[1], red[3]), max(red[5], red[7]));
+
+  // live key tiles: some slot that some query of the block may attend
+  const int* kpos = k_pos + size_t(b) * T_len;
+  for (int kt = warp; kt < tiles; kt += kDqThreads / 32) {
+    const int key = kt * kDqKeys + lane;
+    const int kp = key < T_len ? kpos[key] : -1;
+    const bool may = kp >= 0 && (!causal || kp <= qmax) &&
+                     (window < 0 || (long long)qmin - kp < window);
+    if (__any_sync(0xffffffffu, may) && lane == 0) atomicOr(mask + (kt >> 5), 1u << (kt & 31));
+  }
+  if constexpr (!L::kRaw) cp_async_wait<0>();
+  __syncthreads();
+
+  auto load_tile = [&](int kt, int st) {
+    unsigned char* base = ring + st * L::kStage;
+    const int k0 = kt * kDqKeys, nvalid = T_len - k0;
+    const size_t off = ((size_t(b) * T_len + k0) * KV + kvh) * HD;
+    if constexpr (L::kRaw) {
+      float* raw = reinterpret_cast<float*>(base);
+      copy_rows<T, HD, HD>(raw, k + off, k_row, kDqKeys, nvalid, tid, kDqThreads);
+      copy_rows<T, HD, HD>(raw + kDqKeys * HD, v + off, k_row, kDqKeys, nvalid, tid, kDqThreads);
+    } else {
+      T* planes = reinterpret_cast<T*>(base);
+      copy_rows<T, HD, LD>(planes, k + off, k_row, kDqKeys, nvalid, tid, kDqThreads);
+      copy_rows<T, HD, LD>(planes + kPlaneK, v + off, k_row, kDqKeys, nvalid, tid, kDqThreads);
+    }
+    int* kps = reinterpret_cast<int*>(base + L::kStage - kDqKeys * 4);
+    if (tid < kDqKeys) cp_async4(kps + tid, kpos + (tid < nvalid ? k0 + tid : 0), tid < nvalid);
+  };
+
+  float acc[HD / 8][4];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
-  for (int k0 = 0; k0 < T_len; k0 += kBK) {
-    __syncthreads();  // q and do are in; the previous tile is consumed
-    for (int i = threadIdx.x; i < kBK * HD; i += kThreads) {
-      const int j = i / HD, d = i % HD, key = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < T_len) {
-        const size_t off = ((size_t(b) * T_len + key) * KV + kvh) * HD + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
+  int cur = next_live(mask, words, 0);
+  if (cur >= 0) load_tile(cur, 0);
+  cp_async_commit();
+  for (int it = 0; cur >= 0; ++it) {
+    const int nxt = next_live(mask, words, cur + 1);
+    if (nxt >= 0) load_tile(nxt, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this step's tile landed
+    unsigned char* base = ring + (it & 1) * L::kStage;
+    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(base);
+    if constexpr (L::kRaw) {
+      const float* raw = reinterpret_cast<const float*>(base);
+      split_rows<HD>(kv_split, kPlaneK, raw, kDqKeys, tid, kDqThreads);
+      split_rows<HD>(kv_split + P * kPlaneK, kPlaneK, raw + kDqKeys * HD, kDqKeys, tid,
+                     kDqThreads);
+      __syncthreads();
+      ks = kv_split;
+    }
+    const __nv_bfloat16* vs = ks + P * kPlaneK;
+    const int* kps = reinterpret_cast<const int*>(base + L::kStage - kDqKeys * 4);
+    const int k0 = cur * kDqKeys;
+
+    // s = q k^T and dp = do v^T: 16 rows x 32 slots per warp
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[P][4], da[kSplit][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p) load_a(qa[p], qs + p * kPlaneQ, LD, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int s = 0; s < kSplit; ++s)
+        load_a(da[s], dos + s * kPlaneQ, LD, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t kb[P][4], vb[P][4];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          load_b_nk(kb[p], ks + p * kPlaneK, LD, 16 * np, 16 * kk, lane);
+          load_b_nk(vb[p], vs + p * kPlaneK, LD, 16 * np, 16 * kk, lane);
+        }
+        mma_terms<P, P>(sc[2 * np], qa, kb, 0);
+        mma_terms<P, P>(sc[2 * np + 1], qa, kb, 1);
+        mma_terms<kSplit, P>(dp[2 * np], da, vb, 0);
+        mma_terms<kSplit, P>(dp[2 * np + 1], da, vb, 1);
       }
-      ks[j * LD + d] = kx;
-      vs[j * LD + d] = vx;
     }
-    for (int j = threadIdx.x; j < kBK; j += kThreads)
-      kps[j] = k0 + j < T_len ? k_pos[size_t(b) * T_len + k0 + j] : -1;
-    __syncthreads();
-
+    // ds, in place of s; C fragment c of tile j: row g + 8 (c >> 1), slot 8 j + 2 t + (c & 1)
 #pragma unroll
-    for (int i = 0; i < kBK / 4; ++i) {
-      const int j = lane + 4 * i;
-      float dot = 0.f, dpv = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        dot += qs[row * LD + d] * ks[j * LD + d];
-        dpv += dos[row * LD + d] * vs[j * LD + d];
+    for (int j = 0; j < 4; ++j) {
+      const int col = j * 8 + 2 * t;
+      const int2 kp = *reinterpret_cast<const int2*>(kps + col);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool hi = c >= 2;
+        const bool ok = (hi ? live_hi : live_lo) && k0 + col + (c & 1) < T_len &&
+                        allowed(hi ? qp_hi : qp_lo, (c & 1) ? kp.y : kp.x, causal, window);
+        sc[j][c] = recompute(sc[j][c], dp[j][c], hi ? lse_hi : lse_lo, hi ? dd_hi : dd_lo, ok,
+                             scale, softcap).ds;
       }
-      const bool ok = live && k0 + j < T_len && allowed(qp, kps[j], causal, window);
-      dss[row * (kBK + 1) + j] = recompute(dot, dpv, row_lse, row_dd, ok, scale, softcap).ds;
     }
-    __syncwarp();  // the row's 4 lanes share one warp
-    for (int j = 0; j < kBK; ++j) {
-      const float ds = dss[row * (kBK + 1) + j];
+    // dq += ds k
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[c] += ds * ks[j * LD + lane + 4 * c];
+    for (int kq = 0; kq < 2; ++kq) {
+      uint32_t sa[kSplit][4];
+      split_a(sa, sc[2 * kq], sc[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t kb[P][4];
+#pragma unroll
+        for (int p = 0; p < P; ++p) load_b_kn(kb[p], ks + p * kPlaneK, LD, 16 * kq, 16 * np, lane);
+        mma_terms<kSplit, P>(acc[2 * np], sa, kb, 0);
+        mma_terms<kSplit, P>(acc[2 * np + 1], sa, kb, 1);
+      }
     }
+    __syncthreads();  // this stage is consumed before the next step refills it
+    cur = nxt;
   }
-  if (live) {
-    float* o = dq + ((size_t(b) * S + qrow) * H + h) * HD;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[lane + 4 * c] = acc[c] * scale;
-  }
-}
+  cp_async_wait<0>();
 
-size_t dkv_smem(int hd) {
-  return 4 * (4 * size_t(kBK) * (hd + 1) + 2 * size_t(kBK) * (kBQ + 1) + 3 * kBQ);
+  float* out = dq + q_off;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (live_lo)
+      *reinterpret_cast<float2*>(out + r_lo * q_row + col) =
+          make_float2(acc[j][0] * scale, acc[j][1] * scale);
+    if (live_hi)
+      *reinterpret_cast<float2*>(out + r_hi * q_row + col) =
+          make_float2(acc[j][2] * scale, acc[j][3] * scale);
+  }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Input<T>::kGroups * kGroupThreads, 1)
 flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const float* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ dd,
@@ -191,94 +587,247 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                float* __restrict__ dk, float* __restrict__ dv, int S, int T_len,
                                int H, int KV, int causal, int window, float softcap,
                                float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int NC = HD / 4;  // dk and dv columns per thread
-  constexpr int LP = kBQ + 1;
-  extern __shared__ __align__(16) float fsmem[];
-  float* ks = fsmem;              // [kBK][LD]
-  float* vs = ks + kBK * LD;      // [kBK][LD]
-  float* qs = vs + kBK * LD;      // [kBQ][LD]
-  float* dos = qs + kBQ * LD;     // [kBQ][LD]
-  float* ps = dos + kBQ * LD;     // [kBK][LP]: p, slot-major
-  float* dss = ps + kBK * LP;     // [kBK][LP]: ds, slot-major
-  float* lses = dss + kBK * LP;   // [kBQ]
-  float* dds = lses + kBQ;        // [kBQ]
-  int* qps = reinterpret_cast<int*>(dds + kBQ);  // [kBQ]
+  using L = KvLayout<T, HD>;
+  constexpr int LD = L::LD, P = L::P, G = L::G;
+  constexpr int kThreads = G * kGroupThreads;
+  constexpr int kPlaneK = kKvKeys * LD, kPlaneQ = kKvRows * LD;  // values per plane
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [P][64][LD]
+  __nv_bfloat16* vs = ks + P * kPlaneK;                          // [P][64][LD]
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem + L::kKv + G * L::kGroup);
+  __shared__ int red[4];
 
-  const int k0 = blockIdx.x * kBK, kvh = blockIdx.y, b = blockIdx.z;
-  const int g = H / KV;
-  const int slot = threadIdx.x / 4, lane = threadIdx.x % 4;
-  const int key = k0 + slot;
-  const bool live = key < T_len;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int grp = tid / kGroupThreads, gtid = tid % kGroupThreads, wg = warp % 4;
+  unsigned char* area = smem + L::kKv + grp * L::kGroup;  // this group's ring and planes
+  __nv_bfloat16* do_split = reinterpret_cast<__nv_bfloat16*>(area + kStages * L::kStage);
+  __nv_bfloat16* q_split = do_split + kSplit * kPlaneQ;  // float32 q only
 
-  for (int i = threadIdx.x; i < kBK * HD; i += kThreads) {
-    const int j = i / HD, d = i % HD, kk = k0 + j;
-    float kx = 0.f, vx = 0.f;
-    if (kk < T_len) {
-      const size_t off = ((size_t(b) * T_len + kk) * KV + kvh) * HD + d;
-      kx = to_f32(k[off]);
-      vx = to_f32(v[off]);
-    }
-    ks[j * LD + d] = kx;
-    vs[j * LD + d] = vx;
+  const int k0 = blockIdx.x * kKvKeys, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KV;
+  const int keys = min(kKvKeys, T_len - k0);
+  const int q_tiles = (S + kKvRows - 1) / kKvRows;
+  const int entries = group * q_tiles;  // (query head of the group, query tile)
+  const int words = (entries + 31) >> 5;
+  const size_t q_row = size_t(H) * HD, k_row = size_t(KV) * HD;  // values between rows
+  const size_t k_off = ((size_t(b) * T_len + k0) * KV + kvh) * HD;
+
+  // k and v (as they are, or split), once per block
+  if constexpr (L::kRaw) {
+    load_split_rows<HD>(ks, kPlaneK, k + k_off, k_row, kKvKeys, keys, tid, kThreads);
+    load_split_rows<HD>(vs, kPlaneK, v + k_off, k_row, kKvKeys, keys, tid, kThreads);
+  } else {
+    copy_rows<T, HD, LD>(ks, k + k_off, k_row, kKvKeys, keys, tid, kThreads);
+    copy_rows<T, HD, LD>(vs, v + k_off, k_row, kKvKeys, keys, tid, kThreads);
+    cp_async_commit();
   }
-  const int kp = live ? k_pos[size_t(b) * T_len + key] : -1;
 
-  float dk_acc[NC], dv_acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  // this thread's slots: g and g + 8 of its warp's 16
+  const int* kpos = k_pos + size_t(b) * T_len + k0;
+  const int s_lo = wg * 16 + g, s_hi = s_lo + 8;
+  const bool live_lo = s_lo < keys, live_hi = s_hi < keys;
+  const int kp_lo = live_lo ? kpos[s_lo] : -1, kp_hi = live_hi ? kpos[s_hi] : -1;
 
-  for (int gi = 0; gi < g; ++gi) {
-    const int h = kvh * g + gi;
-    for (int q0 = 0; q0 < S; q0 += kBQ) {
-      __syncthreads();  // k and v are in; the previous tile is consumed
-      for (int i = threadIdx.x; i < kBQ * HD; i += kThreads) {
-        const int r = i / HD, d = i % HD, qr = q0 + r;
-        const size_t off = ((size_t(b) * S + qr) * H + h) * HD + d;
-        qs[r * LD + d] = qr < S ? to_f32(q[off]) : 0.f;
-        dos[r * LD + d] = qr < S ? dout[off] : 0.f;
-      }
-      for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-        const int qr = q0 + r;
-        const size_t stat = (size_t(b) * H + h) * S + qr;
-        qps[r] = qr < S ? q_pos[size_t(b) * S + qr] : 0;
-        lses[r] = qr < S ? lse[stat] : 0.f;
-        dds[r] = qr < S ? dd[stat] : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int i = 0; i < kBQ / 4; ++i) {
-        const int r = lane + 4 * i;
-        float dot = 0.f, dpv = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-          dot += qs[r * LD + d] * ks[slot * LD + d];
-          dpv += dos[r * LD + d] * vs[slot * LD + d];
-        }
-        const bool exists = live && q0 + r < S;
-        const bool ok = exists && allowed(qps[r], kp, causal, window);
-        const Pair pr = recompute(dot, dpv, lses[r], dds[r], ok, scale, softcap);
-        ps[slot * LP + r] = exists ? pr.p : 0.f;  // p is not masked (see the note)
-        dss[slot * LP + r] = pr.ds;
-      }
-      __syncwarp();  // the slot's 4 lanes share one warp
-      for (int r = 0; r < kBQ; ++r) {
-        const float p = ps[slot * LP + r], ds = dss[slot * LP + r];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv_acc[c] += p * dos[r * LD + lane + 4 * c];
-          dk_acc[c] += ds * qs[r * LD + lane + 4 * c];
-        }
-      }
+  // the block's written slots' positions: min and max
+  int kmin = INT_MAX, kmax = INT_MIN;
+  if (tid < keys && kpos[tid] >= 0) kmin = kmax = kpos[tid];
+  if (warp < 2) {
+    warp_min_max(kmin, kmax);
+    if (lane == 0) {
+      red[2 * warp] = kmin;
+      red[2 * warp + 1] = kmax;
     }
   }
-  if (live) {
-    const size_t off = ((size_t(b) * T_len + key) * KV + kvh) * HD;
+  for (int i = tid; i < words; i += kThreads) mask[i] = 0;
+  __syncthreads();
+  kmin = min(red[0], red[2]);
+  kmax = max(red[1], red[3]);
+  const bool any_key = kmin <= kmax;
+
+  // live query tiles: a row that may attend a slot of the block, or a row
+  // with p != 0 on masked slots (a pad row)
+  for (int e = warp; e < entries; e += kThreads / 32) {
+    const int gi = e / q_tiles, qt = e - gi * q_tiles;
+    const int r = qt * kKvRows + lane;
+    bool live = false;
+    if (r < S) {
+      const int qp = q_pos[size_t(b) * S + r];
+      const float l = lse[(size_t(b) * H + kvh * group + gi) * S + r];
+      live = (any_key && (!causal || qp >= kmin) && (window < 0 || (long long)qp - kmax < window)) ||
+             expf(kNegInf - l) != 0.f;
+    }
+    if (__any_sync(0xffffffffu, live) && lane == 0) atomicOr(mask + (e >> 5), 1u << (e & 31));
+  }
+  if constexpr (!L::kRaw) cp_async_wait<0>();
+  __syncthreads();
+
+  auto load_entry = [&](int e, int st) {
+    unsigned char* base = area + st * L::kStage;
+    const int gi = e / q_tiles, qt = e - gi * q_tiles;
+    const int hh = kvh * group + gi, r0 = qt * kKvRows, nvalid = S - r0;
+    const size_t off = ((size_t(b) * S + r0) * H + hh) * HD;
+    if constexpr (L::kRaw)
+      copy_rows<T, HD, HD>(reinterpret_cast<T*>(base), q + off, q_row, kKvRows, nvalid, gtid,
+                           kGroupThreads);
+    else
+      copy_rows<T, HD, LD>(reinterpret_cast<T*>(base), q + off, q_row, kKvRows, nvalid, gtid,
+                           kGroupThreads);
+    copy_rows<float, HD, HD>(reinterpret_cast<float*>(base + L::kQStage), dout + off, q_row,
+                             kKvRows, nvalid, gtid, kGroupThreads);
+    int* qps = reinterpret_cast<int*>(base + L::kQStage + kKvRows * HD * 4);
+    if (gtid < 3 * kKvRows) {
+      const int which = gtid / kKvRows, i = gtid % kKvRows;
+      const bool ok = i < nvalid;
+      const size_t row = ok ? i : 0;
+      const size_t stat = (size_t(b) * H + hh) * S + r0 + row;
+      if (which == 0)
+        cp_async4(qps + i, q_pos + size_t(b) * S + r0 + row, ok);
+      else
+        cp_async4(qps + which * kKvRows + i, (which == 1 ? lse : dd) + stat, ok);
+    }
+  };
+
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[off + lane + 4 * c] = dk_acc[c] * scale;
-      dv[off + lane + 4 * c] = dv_acc[c];
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
+
+  // the live tiles in turn: group 0 takes the first, group 1 the second, ...
+  int cur = advance_live(mask, words, -1, grp + 1);
+  if (cur >= 0) load_entry(cur, 0);
+  cp_async_commit();
+  for (int it = 0; cur >= 0; ++it) {
+    const int nxt = advance_live(mask, words, cur, G);
+    if (nxt >= 0) load_entry(nxt, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    group_sync(grp);  // this step's tile landed
+    const unsigned char* base = area + (it & 1) * L::kStage;
+    split_rows<HD>(do_split, kPlaneQ, reinterpret_cast<const float*>(base + L::kQStage), kKvRows,
+                   gtid, kGroupThreads);
+    const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(base);
+    if constexpr (L::kRaw) {
+      split_rows<HD>(q_split, kPlaneQ, reinterpret_cast<const float*>(base), kKvRows, gtid,
+                     kGroupThreads);
+      qs = q_split;
+    }
+    group_sync(grp);
+    const int* qps = reinterpret_cast<const int*>(base + L::kQStage + kKvRows * HD * 4);
+    const float* lses = reinterpret_cast<const float*>(qps + kKvRows);
+    const float* dds = lses + kKvRows;
+    const int r0 = (cur % q_tiles) * kKvRows;
+
+    // s^T = k q^T and dp^T = v do^T: 16 slots x 32 rows per warp
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[j][c] = dpt[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[P][4], va[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        load_a(ka[p], ks + p * kPlaneK, LD, wg * 16, kk * 16, lane);
+        load_a(va[p], vs + p * kPlaneK, LD, wg * 16, kk * 16, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t qb[P][4], db[kSplit][4];
+#pragma unroll
+        for (int p = 0; p < P; ++p) load_b_nk(qb[p], qs + p * kPlaneQ, LD, 16 * np, 16 * kk, lane);
+#pragma unroll
+        for (int s = 0; s < kSplit; ++s)
+          load_b_nk(db[s], do_split + s * kPlaneQ, LD, 16 * np, 16 * kk, lane);
+        mma_terms<P, P>(st[2 * np], ka, qb, 0);
+        mma_terms<P, P>(st[2 * np + 1], ka, qb, 1);
+        mma_terms<P, kSplit>(dpt[2 * np], va, db, 0);
+        mma_terms<P, kSplit>(dpt[2 * np + 1], va, db, 1);
+      }
+    }
+    // p and ds in place; C fragment c of tile j: slot g + 8 (c >> 1), row 8 j + 2 t + (c & 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i0 = j * 8 + 2 * t;
+      const int2 qp = *reinterpret_cast<const int2*>(qps + i0);
+      const float2 l2 = *reinterpret_cast<const float2*>(lses + i0);
+      const float2 d2 = *reinterpret_cast<const float2*>(dds + i0);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool hi = c >= 2, odd = c & 1;
+        const bool exists = (hi ? live_hi : live_lo) && r0 + i0 + odd < S;
+        const bool ok = exists && allowed(odd ? qp.y : qp.x, hi ? kp_hi : kp_lo, causal, window);
+        const Pair pr = recompute(st[j][c], dpt[j][c], odd ? l2.y : l2.x, odd ? d2.y : d2.x, ok,
+                                  scale, softcap);
+        st[j][c] = exists ? pr.p : 0.f;  // p is not masked (see the note)
+        dpt[j][c] = pr.ds;
+      }
+    }
+    // dv += p^T do, dk += ds^T q
+#pragma unroll
+    for (int kq = 0; kq < 2; ++kq) {
+      uint32_t pa[kSplit][4], sa[kSplit][4];
+      split_a(pa, st[2 * kq], st[2 * kq + 1]);
+      split_a(sa, dpt[2 * kq], dpt[2 * kq + 1]);
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t db[kSplit][4], qb[P][4];
+#pragma unroll
+        for (int s = 0; s < kSplit; ++s)
+          load_b_kn(db[s], do_split + s * kPlaneQ, LD, 16 * kq, 16 * np, lane);
+#pragma unroll
+        for (int p = 0; p < P; ++p) load_b_kn(qb[p], qs + p * kPlaneQ, LD, 16 * kq, 16 * np, lane);
+        mma_terms<kSplit, kSplit>(dv_acc[2 * np], pa, db, 0);
+        mma_terms<kSplit, kSplit>(dv_acc[2 * np + 1], pa, db, 1);
+        mma_terms<kSplit, P>(dk_acc[2 * np], sa, qb, 0);
+        mma_terms<kSplit, P>(dk_acc[2 * np + 1], sa, qb, 1);
+      }
+    }
+    group_sync(grp);  // this stage and the planes are consumed before they are refilled
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+
+  if constexpr (G > 1) {
+    // group 1's partials, through its own area, added by group 0 in that order
+    __syncthreads();
+    float* part = reinterpret_cast<float*>(smem + L::kKv + L::kGroup);
+    constexpr int kRegs = HD / 8 * 4;
+    if (grp == 1) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          part[(j * 4 + c) * kGroupThreads + gtid] = dk_acc[j][c];
+          part[(kRegs + j * 4 + c) * kGroupThreads + gtid] = dv_acc[j][c];
+        }
+    }
+    __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dk_acc[j][c] += part[(j * 4 + c) * kGroupThreads + gtid];
+        dv_acc[j][c] += part[(kRegs + j * 4 + c) * kGroupThreads + gtid];
+      }
+  }
+
+  float* dko = dk + k_off;
+  float* dvo = dv + k_off;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (live_lo) {
+      *reinterpret_cast<float2*>(dko + s_lo * k_row + col) =
+          make_float2(dk_acc[j][0] * scale, dk_acc[j][1] * scale);
+      *reinterpret_cast<float2*>(dvo + s_lo * k_row + col) = make_float2(dv_acc[j][0], dv_acc[j][1]);
+    }
+    if (live_hi) {
+      *reinterpret_cast<float2*>(dko + s_hi * k_row + col) =
+          make_float2(dk_acc[j][2] * scale, dk_acc[j][3] * scale);
+      *reinterpret_cast<float2*>(dvo + s_hi * k_row + col) = make_float2(dv_acc[j][2], dv_acc[j][3]);
     }
   }
 }
@@ -289,15 +838,57 @@ struct Args {
   float softcap, scale;
 };
 
+size_t mask_bytes(int entries) { return 4 * size_t((entries + 31) / 32); }
+
+// The kernel's shared-memory attribute, set when a launch needs more than
+// any launch before it on this device, not on every launch.
+template <typename K>
+cudaError_t reserve_smem(K kernel, size_t smem, size_t (&sized)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && smem <= sized[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err == cudaSuccess && dev < kMaxDevices) sized[dev] = smem;
+  return err;
+}
+
+// One launch of either kernel: its grid, threads per block and dynamic
+// shared memory.  The launches below use it, and flash_attention_bwd_plan
+// exports it, so that kernels/flash_attention.py `launch_plan` can be held
+// to it.
+struct Plan {
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+template <typename T, int HD>
+cudaError_t plan_dq(int B, int S, int T_len, int H, int KV, Plan* p) {
+  p->grid = dim3((S + kDqRows - 1) / kDqRows, H, B);
+  p->threads = kDqThreads;
+  p->smem = DqLayout<T, HD>::kFixed + mask_bytes((T_len + kDqKeys - 1) / kDqKeys);
+  return cudaSuccess;
+}
+
+template <typename T, int HD>
+cudaError_t plan_dkv(int B, int S, int T_len, int H, int KV, Plan* p) {
+  p->grid = dim3((T_len + kKvKeys - 1) / kKvKeys, KV, B);
+  p->threads = Input<T>::kGroups * kGroupThreads;
+  p->smem = KvLayout<T, HD>::kFixed + mask_bytes((H / KV) * ((S + kKvRows - 1) / kKvRows));
+  return cudaSuccess;
+}
+
 template <typename T, int HD>
 cudaError_t launch_dq(const Args& a, void* dq, cudaStream_t stream) {
-  const size_t smem = dq_smem(HD);
+  Plan p;
+  plan_dq<T, HD>(a.B, a.S, a.T_len, a.H, a.KV, &p);
+  if (p.smem > size_t(kMaxSmem)) return cudaErrorInvalidValue;
   auto kernel = flash_attention_bwd_dq_kernel<T, HD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  static size_t sized[kMaxDevices] = {};
+  cudaError_t err = reserve_smem(kernel, p.smem, sized);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, a.B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<p.grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.dd), static_cast<const int*>(a.q_pos),
@@ -308,13 +899,14 @@ cudaError_t launch_dq(const Args& a, void* dq, cudaStream_t stream) {
 
 template <typename T, int HD>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
-  const size_t smem = dkv_smem(HD);
+  Plan p;
+  plan_dkv<T, HD>(a.B, a.S, a.T_len, a.H, a.KV, &p);
+  if (p.smem > size_t(kMaxSmem)) return cudaErrorInvalidValue;
   auto kernel = flash_attention_bwd_dkv_kernel<T, HD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  static size_t sized[kMaxDevices] = {};
+  cudaError_t err = reserve_smem(kernel, p.smem, sized);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T_len + kBK - 1) / kBK, a.KV, a.B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<p.grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.dd), static_cast<const int*>(a.q_pos),
@@ -343,6 +935,14 @@ cudaError_t dq_dispatch(int dtype, int hd, const Args& a, void* dq, cudaStream_t
 
 cudaError_t dkv_dispatch(int dtype, int hd, const Args& a, void* dk, void* dv, cudaStream_t s) {
   DISPATCH(launch_dkv, a, dk, dv, s)
+}
+
+cudaError_t plan_dispatch(int kernel, int dtype, int hd, int B, int S, int T_len, int H, int KV,
+                          Plan* p) {
+  if (kernel == 0) {
+    DISPATCH(plan_dq, B, S, T_len, H, KV, p)
+  }
+  DISPATCH(plan_dkv, B, S, T_len, H, KV, p)
 }
 
 bool bad_args(int dtype, int B, int S, int T_len, int H, int KV) {
@@ -379,6 +979,20 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
   const Args a{q, k, v, dout, lse, dd, q_pos, k_pos, B, S, T_len, H, KV, causal, window,
                softcap, scale};
   return int(dkv_dispatch(dtype, hd, a, dk, dv, static_cast<cudaStream_t>(stream)));
+}
+
+// The launch of the dq (kernel 0) or the dk/dv kernel (1) for these
+// arguments: out = {grid x, y, z, threads, shared-memory bytes}.
+extern "C" int flash_attention_bwd_plan(int kernel, int dtype, int B, int S, int T_len, int H,
+                                        int KV, int hd, long long* out) {
+  if (bad_args(dtype, B, S, T_len, H, KV) || (kernel != 0 && kernel != 1))
+    return int(cudaErrorInvalidValue);
+  Plan p;
+  cudaError_t err = plan_dispatch(kernel, dtype, hd, B, S, T_len, H, KV, &p);
+  if (err != cudaSuccess) return int(err);
+  const long long plan[5] = {p.grid.x, p.grid.y, p.grid.z, p.threads, (long long)p.smem};
+  for (int i = 0; i < 5; ++i) out[i] = plan[i];
+  return 0;
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -13,7 +13,10 @@ positions (B, S) / (B, T) with ``-1`` marking an unwritten cache slot;
 decode takes q (B, H, hd) and q_pos (B,).  Outputs are float32.  The
 reference's ``bq``/``bk``/``interpret`` arguments have no counterpart: the
 tiles are the kernel's own, and they change only the order of float32
-sums.
+sums.  The backward kernels run their products on the bf16 tensor cores,
+a float32 operand split into two bf16 terms, and skip the tiles that add
+nothing: :func:`launch_plan` and :func:`smem_bytes` give their launches,
+:func:`bwd_tile_plan` the tiles they compute, for tests on the CPU.
 
 The plain versions are the port's attention math, also used by
 ``models/attention.py`` on its plain path: the direct softmax, or the
@@ -25,17 +28,18 @@ head h // g.  ``NEG_INF`` is the reference's finite large negative, never
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_operand
+from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand
 
 __all__ = [
-    "DECODE_KERNEL", "DKV_KERNEL", "DQ_KERNEL", "FORWARD_KERNEL", "FlashBackward", "NEG_INF",
-    "allow_mask", "attend", "flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
-    "flash_attention_bwd_dq", "flash_attention_bwd_plain", "flash_attention_fwd",
-    "flash_attention_plain", "flash_decode", "flash_decode_plain", "needs_grad",
+    "DECODE_KERNEL", "DKV_KERNEL", "DQ_KERNEL", "FORWARD_KERNEL", "BwdPlan", "FlashBackward",
+    "NEG_INF", "allow_mask", "attend", "built_launch_plan", "bwd_probs", "bwd_tile_plan",
+    "flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+    "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_plain", "flash_decode",
+    "flash_decode_plain", "launch_plan", "needs_grad", "smem_bytes",
 ]
 
 NEG_INF = -2.3819763e38  # bf16-safe large negative (the reference's value)
@@ -65,6 +69,89 @@ DKV_KERNEL = CudaKernel(
     [_P] * 10 + [_I] * 9 + [_F, _F, _I, _P], source="flash_attention_bwd",
 )
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/flash_attention_bwd.cu: dq blocks of 64 query rows (four warps of 16)
+# stepping over 32 key slots; dk/dv blocks of 64 slots stepping over 32
+# query rows, in two warp groups of four warps for bf16 inputs (one for
+# float32); a float32 operand enters the bf16 tensor cores as SPLIT terms,
+# a bf16 one as it is; cp.async rings of STAGES steps; bf16 rows padded by 8
+DQ_ROWS, DQ_KEYS, KV_KEYS, KV_ROWS = 64, 32, 64, 32
+GROUP_THREADS, SPLIT, STAGES, ROW_PAD = 128, 2, 2, 8
+
+
+class BwdPlan(NamedTuple):
+    """One launch of a backward kernel: its grid, threads per block and
+    dynamic shared memory in bytes."""
+
+    grid: tuple
+    threads: int
+    smem: int
+
+
+def _planes(dtype: torch.dtype) -> int:
+    """bf16 terms per value of q, k, v: 1 for bf16, SPLIT for float32."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype}; the kernels take {list(_DTYPES)}")
+    return 1 if dtype == torch.bfloat16 else SPLIT
+
+
+def _groups(dtype: torch.dtype) -> int:
+    """Warp groups of the dk/dv kernel: two for bf16, one for float32."""
+    return 2 if _planes(dtype) == 1 else 1
+
+
+def smem_bytes(kernel: str, hd: int, dtype: torch.dtype, s: int, t: int, group: int) -> int:
+    """Dynamic shared memory of one block of ``kernel`` ("dq" or "dkv") at
+    head width ``hd``, S = ``s`` query rows, T = ``t`` slots and ``group``
+    query heads per KV head; kept in step with the layouts of
+    ``csrc/flash_attention_bwd.cu`` (``DqLayout``, ``KvLayout``)."""
+    planes, row = _planes(dtype), 2 * (hd + ROW_PAD)
+    raw = planes > 1
+    if kernel == "dq":
+        kv_planes = 2 * planes * DQ_KEYS * row
+        stage = (2 * DQ_KEYS * hd * 4 if raw else kv_planes) + DQ_KEYS * 4
+        fixed = (planes + SPLIT) * DQ_ROWS * row + STAGES * stage + (kv_planes if raw else 0)
+        entries = -(-t // DQ_KEYS)
+    elif kernel == "dkv":
+        q_stage = KV_ROWS * hd * 4 if raw else KV_ROWS * row
+        stage = q_stage + KV_ROWS * hd * 4 + 3 * KV_ROWS * 4
+        area = STAGES * stage + (SPLIT + (planes if raw else 0)) * KV_ROWS * row
+        fixed = 2 * planes * KV_KEYS * row + _groups(dtype) * area
+        entries = group * -(-s // KV_ROWS)
+    else:
+        raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
+    return fixed + 4 * -(-entries // 32)  # the live-tile bit mask
+
+
+def launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
+                dtype: torch.dtype) -> BwdPlan:
+    """The grid, block and shared memory of one launch of ``kernel`` ("dq"
+    or "dkv") on q (b, s, h, hd) and k/v (b, t, kv, hd)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
+    smem = smem_bytes(kernel, hd, dtype, s, t, h // kv)
+    if kernel == "dq":
+        return BwdPlan((-(-s // DQ_ROWS), h, b), DQ_ROWS // 16 * 32, smem)  # a warp per 16 rows
+    return BwdPlan((-(-t // KV_KEYS), kv, b), _groups(dtype) * GROUP_THREADS, smem)
+
+
+def built_launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
+                      dtype: torch.dtype) -> BwdPlan:
+    """The launch that the built ``csrc/flash_attention_bwd.cu`` makes for
+    these arguments (its ``flash_attention_bwd_plan``), which
+    :func:`launch_plan` must equal; builds the library, so it needs
+    ``nvcc``."""
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
+    fn = DQ_KERNEL.library().flash_attention_bwd_plan
+    fn.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(int(kernel == "dkv"), _DTYPES[dtype], b, s, t, h, kv, hd, out)
+    if err != 0:
+        raise ValueError(f"flash_attention_bwd_plan refused {kernel} {(b, s, t, h, kv, hd)} "
+                         f"{dtype}: CUDA error {err}")
+    return BwdPlan(tuple(out[:3]), out[3], out[4])
 
 
 # ------------------------------------------------------------ plain math
@@ -165,6 +252,32 @@ def flash_attention_plain(q, k, v, q_pos, k_pos, causal=True, window=None, softc
                   scale=scale)
 
 
+def bwd_probs(q, k, v, q_pos, k_pos, lse, do, dd, causal=True, window=None, softcap=None,
+              scale=1.0):
+    """The backward's recomputed ``(p, ds)``, each (B, H, S, T) float32: p =
+    exp(s - lse) with s = NEG_INF on masked slots (so p = 1 there on a row
+    with no allowed slot, 0 on every other row), ds = p (dp - dd) (1 -
+    tanh^2 under softcap), 0 on masked slots.  ``do`` is float32 and ``dd``
+    = sum(do * o) (B, H, S)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    raw = _scores(q, k, None, scale)  # (B, H, S, T)
+    th = None
+    if softcap:
+        th = torch.tanh(raw / softcap)
+        sc = th * softcap
+    else:
+        sc = raw
+    allow = allow_mask(q_pos, k_pos, causal=causal, window=window)[:, None]
+    p = torch.exp(torch.where(allow, sc, NEG_INF) - lse[..., None])
+    dog = do.reshape(b, s, kv, h // kv, hd)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.to(torch.float32)).reshape(b, h, s, t)
+    ds = p * (dp - dd[..., None])
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    return p, torch.where(allow, ds, 0.0)
+
+
 def flash_attention_bwd_plain(q, k, v, q_pos, k_pos, o, lse, do, causal=True, window=None,
                               softcap=None, scale=1.0):
     """The reference's ``_bwd`` in torch: the FlashAttention-2 recompute of
@@ -181,27 +294,71 @@ def flash_attention_bwd_plain(q, k, v, q_pos, k_pos, o, lse, do, causal=True, wi
     g = h // kv
     do = do.to(torch.float32)
     dd = torch.einsum("bshd,bshd->bhs", do, o.to(torch.float32))
-    raw = _scores(q, k, None, scale)  # (B, H, S, T)
-    th = None
-    if softcap:
-        th = torch.tanh(raw / softcap)
-        sc = th * softcap
-    else:
-        sc = raw
-    allow = allow_mask(q_pos, k_pos, causal=causal, window=window)[:, None]
-    p = torch.exp(torch.where(allow, sc, NEG_INF) - lse[..., None])
+    p, ds = bwd_probs(q, k, v, q_pos, k_pos, lse, do, dd, causal=causal, window=window,
+                      softcap=softcap, scale=scale)
     dog = do.reshape(b, s, kv, g, hd)
-    pg = p.reshape(b, kv, g, s, t)
-    dv = torch.einsum("bkgst,bskgd->btkd", pg, dog)
-    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.to(torch.float32)).reshape(b, h, s, t)
-    ds = p * (dp - dd[..., None])
-    if th is not None:
-        ds = ds * (1.0 - th * th)
-    ds = torch.where(allow, ds, 0.0).reshape(b, kv, g, s, t)
+    dv = torch.einsum("bkgst,bskgd->btkd", p.reshape(b, kv, g, s, t), dog)
+    ds = ds.reshape(b, kv, g, s, t)
     dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(torch.float32)).reshape(b, s, h, hd)
     qg = q.to(torch.float32).reshape(b, s, kv, g, hd)
     dk = torch.einsum("bkgst,bskgd->btkd", ds, qg)
     return dq * scale, dk * scale, dv
+
+
+def _tiles(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """(N, L) -> (N, ceil(L / rows), rows), the tail filled with ``fill``."""
+    n, length = x.shape
+    pad = torch.full((n, -length % rows), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1).reshape(n, -1, rows)
+
+
+def bwd_tile_plan(q_pos, k_pos, lse, *, causal: bool, window: Optional[int]):
+    """The tiles the backward kernels compute, by the rule they follow
+    (``csrc/flash_attention_bwd.cu``), decided from positions and lse.
+
+    Returns ``(dq_live, dkv_live)``: ``dq_live`` (B, ceil(S/64), ceil(T/32))
+    for the dq kernel's blocks of 64 query rows and its steps of 32 slots
+    (live when some written slot of the step may be allowed for the block's
+    query positions, judged by their min and max); ``dkv_live`` (B, H,
+    ceil(T/64), ceil(S/32)) for the dk/dv kernel's blocks of 64 slots and
+    its steps of 32 rows of query head h (live when some row may attend a
+    slot of the block, judged by the written slots' min and max, or when
+    some row puts p != 0 on masked slots: a pad row, lse = NEG_INF).  A tile
+    that is not live adds exactly 0: its ds is 0, and in dk/dv its p too.
+    """
+    b, h = lse.shape[:2]
+    big = torch.iinfo(torch.int64).max // 4
+    qp, kp = q_pos.to(torch.int64), k_pos.to(torch.int64)
+    rows = torch.ones_like(qp, dtype=torch.bool)
+
+    # dq: the block's query positions by their min and max
+    exists = _tiles(rows, DQ_ROWS, False)
+    qt = _tiles(qp, DQ_ROWS, 0)
+    qmin = torch.where(exists, qt, big).amin(-1)[:, :, None, None]
+    qmax = torch.where(exists, qt, -big).amax(-1)[:, :, None, None]
+    slots = _tiles(kp, DQ_KEYS, -1)[:, None]  # (B, 1, nK, 32)
+    may = slots >= 0
+    if causal:
+        may = may & (slots <= qmax)
+    if window is not None:
+        may = may & (qmin - slots < window)
+    dq_live = may.any(-1)
+
+    # dk/dv: the block's written slots by their min and max
+    kb = _tiles(kp, KV_KEYS, -1)
+    written = kb >= 0
+    kmin = torch.where(written, kb, big).amin(-1)[:, :, None, None]
+    kmax = torch.where(written, kb, -big).amax(-1)[:, :, None, None]
+    qr = _tiles(qp, KV_ROWS, 0)[:, None]  # (B, 1, nQ, 32)
+    may = written.any(-1)[:, :, None, None] & _tiles(rows, KV_ROWS, False)[:, None]
+    if causal:
+        may = may & (qr >= kmin)
+    if window is not None:
+        may = may & (qr - kmax < window)
+    pad = torch.exp(NEG_INF - lse.to(torch.float32)) != 0  # (B, H, S)
+    pad = _tiles(pad.reshape(b * h, -1), KV_ROWS, False).reshape(b, h, -1, KV_ROWS)
+    dkv_live = may.any(-1)[:, None] | pad.any(-1)[:, :, None, :]
+    return dq_live, dkv_live
 
 
 def flash_decode_plain(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
@@ -279,6 +436,8 @@ def _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd):
     check_operand(do, "do", torch.float32, (b, s, h, hd), q.device)
     check_operand(lse, "lse", torch.float32, (b, h, s), q.device)
     check_operand(dd, "dd", torch.float32, (b, h, s), q.device)
+    # the kernels copy rows of q, k, v and do 16 bytes at a time
+    q, k, v, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, do))
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, dd, q_pos, k_pos)]
     return ptrs, dtype, (b, s, t, h, kv, hd), (q, k, v, q_pos, k_pos, do, lse, dd)
 

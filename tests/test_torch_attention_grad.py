@@ -183,3 +183,112 @@ def test_no_lse_without_a_gradient():
     assert plain.grad_fn is None
     o, lse = flash_attention.flash_attention_fwd(*args, scale=0.25, with_lse=True)
     assert torch.equal(o, plain) and lse.shape == (2, 4, 32)
+
+
+# ------------------------------------------ the backward kernels' tile plan
+def _skip_case(name):
+    """Positions (B = 2, S query rows, T slots) of each case the skip rule
+    must get right; returns (q_pos, k_pos, causal, window)."""
+    b, s = 2, 200
+    jj = np.arange(s, dtype=np.int32)[None].repeat(b, 0)
+    if name == "causal":
+        return jj, jj.copy(), True, None
+    if name == "window 24":
+        return jj, jj.copy(), True, 24
+    if name == "window 24, not causal":
+        return jj, jj.copy(), False, 24
+    if name == "left pad 5":
+        shift = np.array([[0], [5]], np.int32)
+        return jj - shift, np.where(jj >= shift, jj - shift, -1).astype(np.int32), True, None
+    if name == "serve cache":  # a 48-slot cache of which the 32 prompt slots are written
+        qj = np.arange(32, dtype=np.int32)[None].repeat(b, 0)
+        shift = np.array([[0], [5]], np.int32)
+        kj = np.arange(48, dtype=np.int32)[None].repeat(b, 0)
+        kp = np.where((kj >= shift) & (kj < 32), kj - shift, -1).astype(np.int32)
+        return qj - shift, kp, True, None
+    # not monotone: rows reversed inside every 8, slots shuffled inside every 64
+    rng = np.random.default_rng(0)
+    qp = jj.reshape(b, -1, 8)[:, :, ::-1].reshape(b, s).copy()
+    kp = jj.copy()
+    for i in range(0, s, 64):
+        kp[:, i:i + 64] = rng.permutation(kp[0, i:i + 64])
+    return qp, kp, True, None
+
+
+SKIP_CASES = ["causal", "window 24", "window 24, not causal", "left pad 5", "serve cache",
+              "not monotone"]
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_skipped_backward_tiles_add_exactly_nothing(case):
+    """Every tile the kernels' plan skips has p == 0 and ds == 0 exactly on
+    the plain backward (dq: ds; dk/dv: both), so skipping it changes no
+    bit; a query tile holding a pad row (lse = NEG_INF, p = 1 on masked
+    slots) is never skipped in dk/dv.  Each case skips some tiles."""
+    qp, kp, causal, window = _skip_case(case)
+    b, s, t, h, kv, hd = 2, qp.shape[1], kp.shape[1], 4, 2, 16
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    do = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(np.float32))
+    tqp, tkp = torch.from_numpy(qp), torch.from_numpy(kp)
+    kw = dict(causal=causal, window=window, softcap=None, scale=hd**-0.5)
+    o, lse = flash_attention.attend(q, k, v, tqp, tkp, with_lse=True, **kw)
+    dd = torch.einsum("bshd,bshd->bhs", do, o)
+    p, ds = flash_attention.bwd_probs(q, k, v, tqp, tkp, lse, do, dd, **kw)
+    dq_live, dkv_live = flash_attention.bwd_tile_plan(tqp, tkp, lse, causal=causal, window=window)
+    fa = flash_attention
+    assert dq_live.shape == (b, -(-s // fa.DQ_ROWS), -(-t // fa.DQ_KEYS))
+    assert dkv_live.shape == (b, h, -(-t // fa.KV_KEYS), -(-s // fa.KV_ROWS))
+    for bi, qt, kt in (~dq_live).nonzero().tolist():
+        tile = ds[bi, :, qt * fa.DQ_ROWS:(qt + 1) * fa.DQ_ROWS, kt * fa.DQ_KEYS:(kt + 1) * fa.DQ_KEYS]
+        assert bool((tile == 0).all()), ("dq", bi, qt, kt)
+    for bi, hi, kt, qt in (~dkv_live).nonzero().tolist():
+        rows = slice(qt * fa.KV_ROWS, (qt + 1) * fa.KV_ROWS)
+        slots = slice(kt * fa.KV_KEYS, (kt + 1) * fa.KV_KEYS)
+        assert bool((p[bi, hi, rows, slots] == 0).all()), ("p", bi, hi, kt, qt)
+        assert bool((ds[bi, hi, rows, slots] == 0).all()), ("ds", bi, hi, kt, qt)
+    pad_rows = lse == np.float32(fa.NEG_INF)  # (B, H, S)
+    for bi, hi, r in pad_rows.nonzero().tolist():
+        assert bool(dkv_live[bi, hi, :, r // fa.KV_ROWS].all()), ("pad", bi, hi, r)
+    assert bool(pad_rows.any()) == (case in ("left pad 5", "serve cache"))
+    assert not bool(dq_live.all())  # the serve cache: its unwritten tail
+    assert s <= fa.KV_KEYS or not bool(dkv_live.all())
+
+
+BWD_SHAPES = {  # (B, S, T, H, KV): the train shape, S = T = 1024, the serve cache
+    "train": (8, 128, 128, 16, 8), "long": (1, 1024, 1024, 16, 8), "serve": (4, 32, 48, 16, 8),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BWD_SHAPES))
+@pytest.mark.parametrize("hd", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_backward_launch_plans_fit_the_card(dtype, hd, shape):
+    """Every built head width and dtype: the shared memory of a block fits
+    the 227 KiB a block may use, and the grid and block fit CUDA's limits."""
+    b, s, t, h, kv = BWD_SHAPES[shape]
+    for kernel in ("dq", "dkv"):
+        plan = flash_attention.launch_plan(kernel, b, s, t, h, kv, hd, dtype)
+        assert plan.smem <= 227 * 1024 == flash_attention.SMEM_PER_BLOCK
+        assert plan.smem == flash_attention.smem_bytes(kernel, hd, dtype, s, t, h // kv)
+        assert 1 <= plan.grid[0] < 2**31 and 1 <= plan.grid[1] <= 65535
+        assert 1 <= plan.grid[2] <= 65535
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+
+
+def test_backward_launch_plans_at_the_train_and_long_shapes():
+    """dq: (S/64) H B blocks of four warps, two resident per SM; dk/dv:
+    (T/64) KV B blocks of two warp groups (bf16), one per SM: 128 blocks
+    at the train shape and at S = T = 1024 for 132 SMs."""
+    fa = flash_attention
+    bf = torch.bfloat16
+    assert fa.launch_plan("dq", 8, 128, 128, 16, 8, 128, bf) == fa.BwdPlan((2, 16, 8), 128, 87_300)
+    assert fa.launch_plan("dkv", 8, 128, 128, 16, 8, 128, bf) == fa.BwdPlan((2, 8, 8), 256, 171_524)
+    assert fa.launch_plan("dq", 1, 1024, 1024, 16, 8, 128, bf).grid == (16, 16, 1)
+    assert fa.launch_plan("dkv", 1, 1024, 1024, 16, 8, 128, bf).grid == (16, 8, 1)
+    assert 2 * fa.launch_plan("dq", 1, 1024, 1024, 16, 8, 128, bf).smem <= 228 * 1024
+    f32 = fa.launch_plan("dkv", 8, 128, 128, 16, 8, 128, torch.float32)
+    assert f32.threads == 128 and f32.smem <= fa.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.launch_plan("dq", 1, 8, 8, 2, 1, 48, bf)

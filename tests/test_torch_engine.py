@@ -395,3 +395,72 @@ def test_tile_counters_are_zeroed_once_and_grow():
     grown = build.tile_counters(dev, 5000)
     assert grown.numel() == 5000 and not grown.any()
     assert build.tile_counters(dev, 10) is grown
+
+
+# ------------------------------------------------ the engine's public API
+def _int_operands(m, k, n_cols, n, seed):
+    """Sign-magnitude integer operands: magnitudes in [0, 2^n - 1], signs in
+    {-1, 0, 1}."""
+    rng = np.random.default_rng(seed)
+    ma = rng.integers(0, 1 << n, (m, k)).astype(np.uint32)
+    mb = rng.integers(0, 1 << n, (k, n_cols)).astype(np.uint32)
+    sa = rng.choice([-1, 0, 1], (m, k)).astype(np.int8)
+    sb = rng.choice([-1, 0, 1], (k, n_cols)).astype(np.int8)
+    return ma, sa, mb, sb
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n,t,k", [(4, 2, 64), (6, 3, 100), (8, 4, 256), (8, 7, 129)])
+@pytest.mark.parametrize("fn", ["bitexact_gemm_int", "seqmul_gemm_int"])
+def test_integer_gemm_entry_points_bitmatch_reference(fn, n, t, k, seed):
+    """``engine.bitexact_gemm_int`` / ``seqmul_gemm_int`` against the
+    reference's, bit-equal: at n <= 8 and K <= 256 every partial of the
+    reference's float32 sum stays below 2^24, where it is exact."""
+    ma, sa, mb, sb = _int_operands(5, k, 7, n, seed=seed * 100 + n * 10 + t)
+    assert k * ((1 << 2 * n) - 1) < 2**24  # the largest table product is below 2^(2n)
+    want = np.asarray(getattr(jax_modes, fn)(
+        jnp.asarray(ma), jnp.asarray(sa), jnp.asarray(mb), jnp.asarray(sb), n=n, t=t))
+    got = getattr(engine, fn)(torch.from_numpy(ma.astype(np.int64)), torch.from_numpy(sa),
+                              torch.from_numpy(mb.astype(np.int64)), torch.from_numpy(sb), n=n, t=t)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,t", [(4, 2), (8, 4)])
+def test_seqmul_gemm_int_exact_products_match_reference(n, t):
+    """``approx=False`` runs the exact recurrence: the plain integer GEMM."""
+    ma, sa, mb, sb = _int_operands(4, 32, 6, n, seed=n + t)
+    want = np.asarray(jax_modes.seqmul_gemm_int(
+        jnp.asarray(ma), jnp.asarray(sa), jnp.asarray(mb), jnp.asarray(sb), n=n, t=t,
+        approx=False))
+    got = engine.seqmul_gemm_int(torch.from_numpy(ma.astype(np.int64)), torch.from_numpy(sa),
+                                 torch.from_numpy(mb.astype(np.int64)), torch.from_numpy(sb),
+                                 n=n, t=t, approx=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = (ma.astype(np.int64) * sa) @ (mb.astype(np.int64) * sb)
+    np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
+
+
+@pytest.mark.parametrize("name", ["product_lut", "product_lut_flat", "error_lut"])
+@pytest.mark.parametrize("n,t,fix_to_1", [(4, 2, True), (8, 4, True), (8, 4, False)])
+def test_artifact_tables_equal_reference(name, n, t, fix_to_1):
+    from repro.engine import artifacts as jax_artifacts
+    from repro_torch.engine import artifacts
+
+    want = np.asarray(getattr(jax_artifacts, name)(n, t, fix_to_1))
+    got = getattr(artifacts, name)(n, t, fix_to_1, device="cpu")
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_quantize_operands_is_exported_and_matches_reference():
+    x, w = _operands(6, 40, 9, seed=4)
+    (jmx, jsx), (jmw, jsw), jscale = jax_modes.quantize_operands(jnp.asarray(x), jnp.asarray(w), 8)
+    (mx, sx), (mw, sw), scale = engine.quantize_operands(torch.from_numpy(x),
+                                                         torch.from_numpy(w), 8)
+    for got, want in ((mx, jmx), (sx, jsx), (mw, jmw), (sw, jsw)):
+        np.testing.assert_array_equal(got.numpy().astype(np.int64),
+                                      np.asarray(want).astype(np.int64))
+    np.testing.assert_array_equal(np.float32(scale), np.asarray(jscale, np.float32))
+    for name in ("quantize_operands", "bitexact_gemm_int", "seqmul_gemm_int"):
+        assert name in engine.__all__

@@ -255,31 +255,58 @@ def _bwd_inputs(card, b, s, h, kv, hd, dtype, seed, pad=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("h,kv,hd,window,softcap,pad", [(16, 8, 128, None, None, 0),
-                                                        (8, 2, 64, 24, 30.0, 0),
-                                                        (4, 4, 16, None, None, 5)])
-def test_flash_backward_kernels_match_plain_version(h, kv, hd, window, softcap, pad, dtype,
-                                                    card):
+@pytest.mark.parametrize("h,kv,hd,window,softcap,pad,s,causal", [
+    (16, 8, 128, None, None, 0, 72, True), (8, 2, 64, 24, 30.0, 0, 72, True),
+    (4, 4, 16, None, None, 5, 72, True), (16, 8, 128, None, None, 0, 200, True),
+    (4, 2, 32, 24, None, 0, 200, False),
+])
+def test_flash_backward_kernels_match_plain_version(h, kv, hd, window, softcap, pad, s, causal,
+                                                    dtype, card):
     """dq and dk/dv against ``flash_attention_bwd_plain`` on the forward
     kernel's (o, lse), float32 before the cast: within 1e-4 * max|want| per
-    output (float32 sums in another order), the fully masked pad rows too."""
+    output (bf16 tensor-core products of split float32 operands, float32
+    sums in another order), the fully masked pad rows too; a second launch
+    gives the same bits.  S = T = 200 has partial tiles and tiles the
+    kernels skip (causally masked, or out of the window)."""
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v, qp, kp, do = _bwd_inputs(card, 2, 72, h, kv, hd, dtype, seed=h + hd, pad=pad)
-    kw = dict(causal=True, window=window, softcap=softcap, scale=hd**-0.5)
+    q, k, v, qp, kp, do = _bwd_inputs(card, 2, s, h, kv, hd, dtype, seed=h + hd, pad=pad)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=hd**-0.5)
     o, lse = fa.flash_attention_fwd(q, k, v, qp, kp, **kw, with_lse=True)
     _, want_lse = fa.attend(q, k, v, qp, kp, **kw, with_lse=True)
     torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
     dd = torch.einsum("bshd,bshd->bhs", do, o)
-    got = (fa.flash_attention_bwd_dq(q, k, v, qp, kp, do, lse, dd, **kw),
-           *fa.flash_attention_bwd_dkv(q, k, v, qp, kp, do, lse, dd, **kw))
+    launch = lambda: (fa.flash_attention_bwd_dq(q, k, v, qp, kp, do, lse, dd, **kw),
+                      *fa.flash_attention_bwd_dkv(q, k, v, qp, kp, do, lse, dd, **kw))
+    got, again = launch(), launch()
     want = fa.flash_attention_bwd_plain(q, k, v, qp, kp, o, lse, do, **kw)
     torch.cuda.synchronize()
-    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+    for name, a, a2, b_ in zip(("dq", "dk", "dv"), got, again, want):
         err = (a - b_).abs().max().item()
         assert err <= 1e-4 * b_.abs().max().item(), (name, err)
+        assert torch.equal(a, a2), name
     if pad:
         assert bool((got[0][1, :pad] == 0).all())
+    if s > 128:
+        dq_live, dkv_live = fa.bwd_tile_plan(qp, kp, lse, causal=causal, window=window)
+        assert not bool(dq_live.all()) and not bool(dkv_live.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_backward_launch_plan_is_the_kernels(hd, dtype, card):
+    """``launch_plan`` and ``smem_bytes``, which the CPU tests read, equal
+    the grid, block and shared memory that the built library launches
+    with, at the train shape, S = T = 1024, the serve cache and S = T = 200."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for b, s, t, h, kv in ((8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8), (4, 32, 48, 16, 8),
+                           (2, 200, 200, 4, 2)):
+        for kernel in ("dq", "dkv"):
+            plan = fa.launch_plan(kernel, b, s, t, h, kv, hd, dtype)
+            assert plan == fa.built_launch_plan(kernel, b, s, t, h, kv, hd, dtype), \
+                (kernel, b, s, t, h, kv)
+            assert plan.smem == fa.smem_bytes(kernel, hd, dtype, s, t, h // kv)
 
 
 @pytest.mark.parametrize("mode", ["bitexact", "lowrank"])
