@@ -12,13 +12,16 @@ Phases, one line each (or a few):
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card at the main path's shapes.  GEMMs: M in {decode batch,
    admission prompt, batch x prompt}, (K, N) the projections of
-   qwen3-0.6b, plus a sweep over (n, t); the integer GEMMs must be
-   bit-equal, lowrank_matmul within 2e-6 * max|want|, and the split-K
-   GEMMs (packed, lowrank) must give the same bits on two launches.  Then
+   qwen3-0.6b, plus a sweep over (n, t), and lut_matmul at the train
+   shape (M = 1024, both MLP projections); the integer GEMMs must be
+   bit-equal, lowrank_matmul within 2e-6 * max|want|, and every GEMM must
+   give the same bits on two launches; lut_matmul's and seqmul_matmul's
+   ``launch_plan`` must equal the launch the built library makes.  Then
    their edge cases: packed lanes at +-(2^n - 1) at n = 8 and 15 with K =
    3072, an odd K, M = 1 and (33, 300, 70); lowrank with every magnitude
    255 and mixed signs, with zero SVD tables (then bit-equal), M = 1,
-   (33, 300, 70) and rank 24.  Attention: the
+   (33, 300, 70) and rank 24; lut and seqmul with every magnitude 2^n - 1
+   and mixed signs, M = 1, (33, 301, 70), n = 1 and int64 sums.  Attention: the
    serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
    prefill q (4, 32) over a 48-slot cache with a masked tail, key block
    16; decode batch 4 over 48 slots), a window + softcap case each, and
@@ -57,10 +60,11 @@ Phases, one line each (or a few):
    approximate products of lut_matmul, seqmul_matmul, approx_attention
    and the elementwise pair, and the exact torch.matmul beside the first
    two is printed as a yardstick only).  Times are per call over a loop
-   of calls (the host's launch included); packed_matmul and
-   lowrank_matmul also print ``device_ms`` and ``library_device_ms``, the
-   device's time alone (calls replayed from one CUDA graph), and the
-   backward pair its ``device_ms``;
+   of calls (the host's launch included); every GEMM row also prints
+   ``device_ms``, the device's time alone (calls replayed from one CUDA
+   graph), packed_matmul and lowrank_matmul with ``library_device_ms``
+   beside it, lut_matmul with its time on magnitudes below 64 (no bank
+   conflict in its gathers), and the backward pair its ``device_ms``;
 4. reference: ``engine.matmul`` on the card against the CPU reference
    bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
    and reduced qwen3-0.6b prefill logits on the card against the CPU
@@ -273,12 +277,22 @@ class Card:
         return (max(t_bytes, ops_s) * 1e3, "bytes" if t_bytes >= ops_s else "operations")
 
 
-def seqmul_ops_per_product(n: int) -> int:
-    """The least int32 operations one approximate product of the recurrence
-    needs, one Hopper instruction each: 8 per cycle and 7 per product, the
-    count set out in the note of ``csrc/seqmul_matmul.cu``.  Every product
-    runs all n cycles, whatever its operands."""
+def one_word_ops_per_product(n: int) -> int:
+    """The least int32 operations one product of the elementwise kernels'
+    one-word recurrence needs (``csrc/seqmul_kernel.cu``), one Hopper
+    instruction each: 8 per cycle and 7 per product."""
     return 8 * n + 7
+
+
+def seqmul_ops(m: int, k: int, n_cols: int, n: int) -> int:
+    """The int32 issue slots the bit-sliced recurrence needs for an (m, k)
+    x (k, n_cols) call, the count set out in the note of
+    ``csrc/seqmul_matmul.cu``: 3n^2 + 19n + 4 per output and K word of 32
+    lanes (POPC, at a quarter of the rate of LOP3 and IADD3 on sm_90,
+    counted as 4), and 2 (n + 2) per operand element to build its planes.
+    Every product runs all n cycles, whatever its operands."""
+    words = -(-k // 32)
+    return m * n_cols * words * (3 * n * n + 19 * n + 4) + (m * k + k * n_cols) * 2 * (n + 2)
 
 
 def operands(m, k, n, bits, seed):
@@ -305,6 +319,8 @@ def kernel_cases():
     for n_bits, t in ((8, 1), (8, 2), (8, 6), (4, 2), (6, 3)):
         cases.append(("lut_matmul", SERVE["batch"], 1024, 3072, n_bits, t))
         cases.append(("seqmul_matmul", SERVE["batch"], 1024, 3072, n_bits, t))
+    for k, n in ((1024, 3072), (3072, 1024)):  # the MLP projections at the train shape
+        cases.append(("lut_matmul", TRAIN["batch"] * TRAIN["seq"], k, n, 8, 4))
     for m in (SERVE["batch"], SERVE["batch"] * SERVE["prompt"]):
         cases.append(("seqmul_matmul", m, 1024, 3072, 12, 6))
         cases.append(("seqmul_matmul", m, 3072, 1024, 12, 5))
@@ -326,7 +342,8 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
     from repro_torch.kernels import seqmul_matmul as sm
 
     _, _, mx, sx, mw, sw, scale = operands(m, k, n, bits, seed)
-    library = None
+    library = plan = None
+    extra = {}
     if name == "lowrank_matmul":
         u, v, _ = artifacts.svd_factors(bits, t, 8, True, mx.device)
         a, b = mx.to(torch.uint8), mw.to(torch.uint8)
@@ -352,15 +369,22 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         a, b = mx.to(torch.uint8), mw.to(torch.uint8)
         kern = lambda: lm.lut_matmul(lut, a, sx, b, sw, n=bits)
         plain = lambda: lm.lut_matmul_plain(lut, a, sx, b, sw, n=bits)
+        plan = lm.launch_plan(m, k, n, bits, card.sms)
+        built = lm.built_launch_plan(plan, m, k, n, bits, card.sms)
+        # the bytes the function must move: operands, output and table once
         nbytes = lut.numel() * 2 + 2 * m * k + 2 * k * n + 4 * m * n
         bound = card.bound(nbytes, m * k * n, card.lookups_per_s)
+        # the design's copies of the table, one per block of the persistent
+        # grid, read from L2 into shared memory: reported, not in the bound
+        extra = dict(table_copy_bytes=lut.numel() * 2 * plan.grid[0])
     elif name == "seqmul_matmul":
         a, b = mx.to(torch.int16), mw.to(torch.int16)
         kern = lambda: sm.seqmul_matmul(a, sx, b, sw, n=bits, t=t)
         plain = lambda: sm.seqmul_matmul_plain(a, sx, b, sw, n=bits, t=t)
+        plan = sm.launch_plan(m, k, n, bits, card.sms)
+        built = sm.built_launch_plan(plan, m, k, n, bits, t)
         nbytes = 3 * m * k + 3 * k * n + 4 * m * n
-        ops = m * k * n * seqmul_ops_per_product(bits)
-        bound = card.bound(nbytes, ops, card.int32_ops_per_s)
+        bound = card.bound(nbytes, seqmul_ops(m, k, n, bits), card.int32_ops_per_s)
     else:
         pa = pm.pack_i16_pairs(mx * sx.to(torch.int32), dim=1)
         pb = pm.pack_i16_pairs(mw * sw.to(torch.int32), dim=0)
@@ -385,7 +409,13 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
     else:
         check(torch.equal(got, want), f"{where}: kernel != plain (max |err| {err})")
     row = dict(name=name, shape=[m, k, n], n=bits, t=t, max_abs_err=err,
-               bound_ms=bound[0], bound_by=bound[1])
+               bound_ms=bound[0], bound_by=bound[1], **extra)
+    if plan is not None:
+        # the Python plan the wrapper launches with against the built library's
+        check((plan.grid, plan.threads, plan.smem) == built,
+              f"{where}: launch_plan {plan} but the library launches {built}")
+        row["plan"] = dict(grid=list(plan.grid), threads=plan.threads, smem=plan.smem,
+                           splits=plan.splits, k_chunk=plan.k_chunk)
     if timed:
         # the dequantized operands (the joint scale folded into the left one)
         xq, wq = (mx * sx).to(torch.float32) * scale, (mw * sw).to(torch.float32)
@@ -400,17 +430,25 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
             if library is None:
                 library = lambda: torch.matmul(xq, wq)
             row["library_ms"] = cuda_ms(library, reps=20, warmup=2)
-        if name in ("packed_matmul", "lowrank_matmul"):
-            # the device's time alone, kernel and library call alike
-            row["device_ms"] = graph_ms(kern)
+        # the device's time alone, kernel and library call alike
+        row["device_ms"] = graph_ms(kern)
+        if library is not None:
             row["library_device_ms"] = graph_ms(library)
+        if name == "lut_matmul":
+            # the same call with every magnitude below 64, where no two lanes
+            # of a warp's gather share a bank (csrc/lut_matmul.cu): the rest of
+            # device_ms over this is what the bank conflicts cost
+            a64, b64 = a & 63, b & 63
+            row["device_ms_mag_below_64"] = graph_ms(
+                lambda: lm.lut_matmul(lut, a64, sx, b64, sw, n=bits))
     return row
 
 
 def phase_kernels(card: Card) -> list:
     rows = []
     for i, (name, m, k, n, bits, t) in enumerate(kernel_cases()):
-        timed = (bits, t) == (8, 4)  # the main path's (n, t)
+        # the main path's (n, t), and seqmul's int64 sums at n = 12
+        timed = (bits, t) == (8, 4) or (name == "seqmul_matmul" and bits == 12)
         row = run_kernel_case(card, name, m, k, n, bits, t, seed=100 + i, timed=timed)
         rows.append(row)
         times = (
@@ -420,10 +458,18 @@ def phase_kernels(card: Card) -> list:
         )
         if row.get("library_ms"):
             times += f" ratio {row['ms'] / row['library_ms']:.3f}"
-        if "device_ms" in row:
+        if "library_device_ms" in row:
             times += (f" device_ms {row['device_ms']:.4f} library_device_ms "
                       f"{row['library_device_ms']:.4f} device ratio "
                       f"{row['device_ms'] / row['library_device_ms']:.3f}")
+        elif "device_ms" in row:
+            times += f" device_ms {row['device_ms']:.4f}"
+        if "device_ms_mag_below_64" in row:
+            times += f" (magnitudes below 64: {row['device_ms_mag_below_64']:.4f})"
+        if "plan" in row:
+            times += f" plan {row['plan']} as built"
+        if "table_copy_bytes" in row:
+            times += f" table copies (L2 to shared memory) {row['table_copy_bytes']} bytes"
         agree = "bit-equal" if row["max_abs_err"] == 0 else f"max |err| {row['max_abs_err']:.3e}"
         print(f"kernel {name} M={m} K={k} N={n} n={bits} t={t}: {agree}{times} "
               f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
@@ -446,22 +492,37 @@ GEMM_EDGES = [
     ("lowrank_matmul", "random", 1, 1024, 3072, 8),
     ("lowrank_matmul", "random", 33, 300, 70, 8),
     ("lowrank_matmul", "rank 24", 33, 300, 70, 8),  # three blocks of 8 r per K step
+    ("lut_matmul", "mag max", 4, 3072, 1024, 8),
+    ("lut_matmul", "mag max", 1024, 1024, 3072, 8),
+    ("lut_matmul", "random", 1, 1024, 3072, 8),
+    ("lut_matmul", "random", 33, 301, 70, 8),  # ragged: byte loads, one split tile
+    ("lut_matmul", "random", 2, 33000, 64, 8),  # int64 sums
+    ("lut_matmul", "random", 33, 301, 70, 1),
+    ("seqmul_matmul", "mag max", 4, 3072, 1024, 12),  # int64 sums
+    ("seqmul_matmul", "mag max", 128, 1024, 3072, 8),
+    ("seqmul_matmul", "random", 1, 1024, 3072, 8),
+    ("seqmul_matmul", "random", 33, 301, 70, 8),
+    ("seqmul_matmul", "random", 33, 301, 70, 1),
 ]
 
 
 def phase_gemm_edges() -> list:
-    """packed_matmul and lowrank_matmul at their edges, untimed: lanes at
+    """The split-K GEMMs at their edges, untimed: packed lanes at
     +-(2^n - 1) with mixed or like signs (every int8 plane pair at its
     extreme; int32 sums at n = 8, int64 at n = 15), an odd K, M = 1 and
     a ragged shape; lowrank with every magnitude 255 and mixed signs, and
     with zero SVD tables, where it must be bit-equal (the exact part
-    alone).  Each also launched twice: the same bits both times."""
+    alone); lut and seqmul with every magnitude 2^n - 1 and mixed signs,
+    M = 1, a ragged shape, n = 1, and int64 sums (lut at K = 33000, seqmul
+    at n = 12).  Each also launched twice: the same bits both times."""
     import numpy as np
     import torch
 
     from repro_torch.engine import artifacts
     from repro_torch.kernels import lowrank_matmul as lr
+    from repro_torch.kernels import lut_matmul as lm
     from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import seqmul_matmul as sm
 
     rows = []
     for i, (name, kind, m, k, n_cols, bits) in enumerate(GEMM_EDGES):
@@ -478,6 +539,25 @@ def phase_gemm_edges() -> list:
             pb = pm.pack_i16_pairs(torch.from_numpy(b).cuda(), dim=0)
             kern = lambda: pm.packed_matmul(pa, pb, n=bits)
             plain = lambda: pm.packed_matmul_plain(pa, pb)
+        elif name in ("lut_matmul", "seqmul_matmul"):
+            mag_a, mag_b = rng.integers(0, qmax + 1, (m, k)), rng.integers(0, qmax + 1, (k, n_cols))
+            if kind == "mag max":
+                mag_a, mag_b = np.full_like(mag_a, qmax), np.full_like(mag_b, qmax)
+            dtype = torch.uint8 if name == "lut_matmul" else torch.int16
+            args = (torch.from_numpy(mag_a).to("cuda", dtype),
+                    torch.from_numpy(rng.choice([-1, 0, 1], (m, k), p=[0.45, 0.1, 0.45]))
+                    .to("cuda", torch.int8),
+                    torch.from_numpy(mag_b).to("cuda", dtype),
+                    torch.from_numpy(rng.choice([-1, 0, 1], (k, n_cols), p=[0.45, 0.1, 0.45]))
+                    .to("cuda", torch.int8))
+            t = max(1, bits // 2)
+            if name == "lut_matmul":
+                args = (artifacts.product_lut_u16(bits, t, True, torch.device("cuda")), *args)
+                kern = lambda: lm.lut_matmul(*args, n=bits)
+                plain = lambda: lm.lut_matmul_plain(*args, n=bits)
+            else:
+                kern = lambda: sm.seqmul_matmul(*args, n=bits, t=t)
+                plain = lambda: sm.seqmul_matmul_plain(*args, n=bits, t=t)
         else:
             mag_a, mag_b = rng.integers(0, qmax + 1, (m, k)), rng.integers(0, qmax + 1, (k, n_cols))
             if kind == "mag 255":
@@ -857,7 +937,7 @@ def run_elementwise_case(card: Card, case, seed: int, timed: bool):
         g1, w1 = (g1, w1) if name == "seqmul_words" else ((g1,), (w1,))
         err1 = max(u32_err(g, w) for g, w in zip(g1, w1))
         check(err1 == 0, f"{where}, unaligned view: kernel != plain (max |err| {err1})")
-    bound = card.bound(nbytes, a.numel() * seqmul_ops_per_product(n), card.int32_ops_per_s)
+    bound = card.bound(nbytes, a.numel() * one_word_ops_per_product(n), card.int32_ops_per_s)
     row = dict(name=name, shape=list(shape), n=n, t=t, approx=approx, fix_to_1=fix,
                max_abs_err=err, bound_ms=bound[0], bound_by=bound[1])
     if timed:
@@ -1482,8 +1562,12 @@ def main() -> int:
         elif name in ELEMENTWISE_KERNELS:
             per_step = dict(n=main_row["n"], t=main_row["t"])
         else:
+            # the main-path serve run's pool prefill and decode step around them
             per_step = dict(launches_per_prefill=runs[name]["per_prefill"][name],
-                            launches_per_decode_step=runs[name]["per_decode"][name])
+                            launches_per_decode_step=runs[name]["per_decode"][name],
+                            serve_prefill_ms=runs[name]["prefill_ms"],
+                            serve_decode_step_ms=runs[name]["decode_ms"],
+                            serve_busy_share=runs[name]["busy_share"])
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
         table.append({
@@ -1499,7 +1583,8 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             **{key: main_row[key] for key in ("device_ms", "library_device_ms",
-                                              "err_over_limit")
+                                              "device_ms_mag_below_64", "err_over_limit",
+                                              "plan")
                if key in main_row},
             "shape": main_row["shape"],
             **per_step,

@@ -204,11 +204,12 @@ DEFAULT_N = 8  # LUT-backed modes require n <= 8; the engine-wide default
 
 # ------------------------------------------------- CUDA kernel parameters
 def _lut_smem_bytes(n: int, bm: int) -> int:
-    """``csrc/lut_matmul.cu``'s dynamic shared memory at row tile ``bm``:
-    int32 index and magnitude tiles, int8 sign tiles and the uint16 table."""
-    from repro_torch.kernels.build import BLOCK_COLS, BLOCK_K
+    """``csrc/lut_matmul.cu``'s dynamic shared memory at row tile ``bm``
+    (``kernels.lut_matmul.smem_bytes``): the uint16 table and one stage of
+    operand words."""
+    from repro_torch.kernels.lut_matmul import smem_bytes
 
-    return 5 * (bm * BLOCK_K + BLOCK_K * BLOCK_COLS) + 2 * (1 << (2 * n))
+    return smem_bytes(n, bm)
 
 
 def _lowrank_smem_bytes(n: int, bm: int, rank: int) -> int:
@@ -229,21 +230,20 @@ _SMEM_BYTES = {
 def kernel_tiles(mode: str, n: int, t: int, m: int, rank: int = 8) -> int:
     """The CUDA kernels' row tile for one GEMM call of ``m`` rows, checked.
 
-    The row tile is picked from M by each kernel's wrapper: the tensor-core
-    GEMMs by ``kernels.lowrank_matmul.tile`` (``lowrank``) and
-    ``kernels.packed_matmul.tile`` (``inject``), the others by
-    ``kernels.build.block_rows``; this returns that pick.  For
-    the modes that hold tables in shared memory (``bitexact``: the uint16
-    product table; ``lowrank``: the two SVD factors, which grow with
-    ``rank``) the footprint is checked against the 227 KiB a block may
-    use, at dispatch rather than at launch.  ``t`` shapes the table
-    contents or the recurrence, not the footprint.
+    The row tile is picked from M by each kernel's wrapper, through the
+    ``tile`` of ``kernels.lut_matmul`` (``bitexact``),
+    ``kernels.seqmul_matmul`` (``seqmul``), ``kernels.lowrank_matmul``
+    (``lowrank``) and ``kernels.packed_matmul`` (``inject``); this returns
+    that pick.  For the modes that hold tables in shared memory
+    (``bitexact``: the uint16 product table; ``lowrank``: the two SVD
+    factors, which grow with ``rank``) the footprint is checked against
+    the 227 KiB a block may use, at dispatch rather than at launch.  ``t``
+    shapes the table contents or the recurrence, not the footprint.
     """
-    from repro_torch.kernels import lowrank_matmul, packed_matmul
-    from repro_torch.kernels.build import block_rows
+    from repro_torch.kernels import lowrank_matmul, lut_matmul, packed_matmul, seqmul_matmul
 
-    pick = {"lowrank": lowrank_matmul.tile, "inject": packed_matmul.tile}.get(mode)
-    bm = pick(m)[0] if pick is not None else block_rows(m)
+    bm = {"bitexact": lut_matmul, "seqmul": seqmul_matmul, "lowrank": lowrank_matmul,
+          "inject": packed_matmul}[mode].tile(m)[0]
     footprint = _SMEM_BYTES.get(mode)
     if footprint is not None and footprint(n, bm, rank) > SMEM_PER_BLOCK:
         raise ValueError(

@@ -33,10 +33,9 @@ import threading
 import torch
 
 __all__ = [
-    "BLOCK_COLS", "BLOCK_K", "BLOCK_ROWS", "BUILD_DIR", "CSRC", "KERNELS", "SMEM_PER_BLOCK",
-    "SPLIT_BLOCKS_PER_SM", "CudaKernel", "block_rows", "build_all", "check_operand",
-    "library_path", "nvcc_path", "pick_tile", "sm_count", "split_k", "tile_counters",
-    "wide_accumulator",
+    "BUILD_DIR", "CSRC", "KERNELS", "SMEM_PER_BLOCK", "SPLIT_BLOCKS_PER_SM", "CudaKernel",
+    "build_all", "check_operand", "device_index", "library_path", "nvcc_path", "pick_tile",
+    "sm_count", "sm_count_of", "split_k", "tile_counters", "wide_accumulator", "workspace_bytes",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -63,9 +62,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library of ``csrc/<name>.cu`` is built (its source's hash
-    in the name)."""
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """Where the library of ``csrc/<name>.cu`` is built (the hash of its
+    source and of the shared ``csrc/*.cuh`` headers in the name)."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -164,20 +166,9 @@ def check_operand(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-# Block tiles of lut_matmul and seqmul_matmul (csrc/*.cu): BM rows by 64
-# output columns, K staged 32 at a time.  Each wrapper picks BM from M with
-# block_rows(), the one place that choice is made.
-BLOCK_ROWS = (4, 16, 64)
-BLOCK_COLS = 64
-BLOCK_K = 32
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use on Hopper
 
 SPLIT_BLOCKS_PER_SM = 2  # the split-K GEMMs' grids fill one wave of this many blocks per SM
-
-
-def block_rows(m: int) -> int:
-    """The smallest row tile that holds ``m`` rows, else the largest."""
-    return next((bm for bm in BLOCK_ROWS if m <= bm), BLOCK_ROWS[-1])
 
 
 def pick_tile(m: int, tiles: tuple) -> tuple[int, int]:
@@ -187,12 +178,14 @@ def pick_tile(m: int, tiles: tuple) -> tuple[int, int]:
 
 
 def split_k(tiles: int, k: int, *, step: int, min_chunk: int, sms: int,
-            max_chunk: int | None = None) -> tuple[int, int]:
+            max_chunk: int | None = None,
+            per_sm: int = SPLIT_BLOCKS_PER_SM) -> tuple[int, int]:
     """``(splits, chunk)``: K cut into ``splits`` slices of ``chunk`` (a
     multiple of ``step``; the last slice may be shorter, none is empty).
 
     Splits as far as ``tiles * splits`` stays within one wave of
-    :data:`SPLIT_BLOCKS_PER_SM` blocks per SM and slices of at least
+    ``per_sm`` blocks per SM (:data:`SPLIT_BLOCKS_PER_SM`, or 1 for a
+    persistent grid of one block per SM) and slices of at least
     ``min_chunk`` allow; no slice is longer than ``max_chunk`` where one is
     given.  A grid of 8-24 output tiles at decode would otherwise leave
     most of the 132 SMs idle, and a second, mostly empty wave would double
@@ -200,7 +193,7 @@ def split_k(tiles: int, k: int, *, step: int, min_chunk: int, sms: int,
     """
     if k <= 0:
         return 1, step
-    want = max(1, SPLIT_BLOCKS_PER_SM * sms // tiles)
+    want = max(1, per_sm * sms // tiles)
     splits = max(1, min(want, k // min_chunk))
     chunk = -(-k // splits)
     chunk = -(-chunk // step) * step
@@ -209,20 +202,32 @@ def split_k(tiles: int, k: int, *, step: int, min_chunk: int, sms: int,
     return -(-k // chunk), chunk
 
 
+def workspace_bytes(splits: int, m: int, n_cols: int, wide: bool) -> int:
+    """Bytes of an integer GEMM's split-K workspace: one partial (int64 if
+    ``wide``) per split and output; none without a split."""
+    return 0 if splits == 1 else splits * m * n_cols * (8 if wide else 4)
+
+
 def _device_key(device: torch.device) -> tuple[str, int]:
     if device.index is not None:
         return device.type, device.index
     return device.type, torch.cuda.current_device() if device.type == "cuda" else 0
 
 
+def device_index(device: torch.device) -> int:
+    """The index of a CUDA ``device`` (the current one where it names none)."""
+    return _device_key(device)[1]
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count_of(index: int) -> int:
+    """The number of SMs of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sm_count(device: torch.device) -> int:
     """The number of SMs of a CUDA ``device``."""
-    return _sm_count(_device_key(device)[1])
+    return sm_count_of(device_index(device))
 
 
 _counters: dict = {}

@@ -61,7 +61,7 @@
 // so the host splits K over gridDim.z (up to one wave of two blocks per
 // SM, K slices of at least 64).  Every block writes its int32 partial and
 // float32 correction to the workspace [split][M][N]; the last block of a
-// tile to finish (a counter per tile, atomicAdd after __threadfence) sums
+// tile to finish (a counter per tile, split_k.cuh) sums
 // the partials in split order 0, 1, ..., converts, writes the output and
 // resets its counter to 0, so the next launch finds it zeroed.  No float
 // atomics: two launches on the same inputs give the same bits.  One
@@ -70,6 +70,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "split_k.cuh"
 
 namespace {
 
@@ -493,11 +495,7 @@ lowrank_matmul_kernel(const float* __restrict__ u, const float* __restrict__ v,
 
   // the last block of this tile to finish sums the partials in split order
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  __threadfence();
-  const bool last =
-      __syncthreads_or(tid == 0 && atomicAdd(counters + tile, 1) == int(gridDim.z) - 1);
-  if (!last) return;
-  __threadfence();
+  if (!split_k_last(counters, tile, gridDim.z)) return;
   // Each thread owns kGroups runs of four outputs; for each split, the
   // loads of all its runs are issued together, then added in split order
   // 0, 1, 2, ... (the float32 sums' order is fixed).
@@ -564,7 +562,7 @@ lowrank_matmul_kernel(const float* __restrict__ u, const float* __restrict__ v,
       out[o] = __fadd_rn(__ll2float_rn(isum), csum);
     }
   }
-  if (tid == 0) counters[tile] = 0;
+  split_k_release(counters, tile);
 }
 
 template <int WM, int MT>

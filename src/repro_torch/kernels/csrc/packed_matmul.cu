@@ -46,7 +46,7 @@
 // so the host (kernels/packed_matmul.py `launch_plan`) splits K over
 // gridDim.z, up to one wave of two blocks per SM.  Every block writes its
 // integer partial to the workspace [split][M][N]; the last block of a tile
-// to finish (a counter per tile, atomicAdd after __threadfence) sums the
+// to finish (a counter per tile, split_k.cuh) sums the
 // partials in split order (in int32 unless wide, the next split's loads in
 // flight while one is added), converts, writes the output and resets its
 // counter to 0.  One launch, no memset: the counters are zeroed once when
@@ -54,6 +54,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "split_k.cuh"
 
 namespace {
 
@@ -271,11 +273,7 @@ packed_matmul_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__
 
   // the last block of this tile to finish sums the partials in split order
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  __threadfence();
-  const bool last =
-      __syncthreads_or(tid == 0 && atomicAdd(counters + tile, 1) == int(gridDim.z) - 1);
-  if (!last) return;
-  __threadfence();
+  if (!split_k_last(counters, tile, gridDim.z)) return;
   // Each thread owns kGroups runs of four outputs; the loads of all its
   // runs for split s + 1 are in flight while split s is added.  The sums
   // stay in Acc: int32 holds the total wherever wide_accumulator says no.
@@ -326,7 +324,7 @@ packed_matmul_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__
       out[o] = __ll2float_rn(sum);
     }
   }
-  if (tid == 0) counters[tile] = 0;
+  split_k_release(counters, tile);
 }
 
 template <int WN, int MT, typename Acc>

@@ -20,9 +20,9 @@
 // written as one 16-byte store per output) when every pointer is 16-byte
 // aligned; the grid has ceil(len / 4) threads, and the last one takes the
 // ragged tail an element at a time (so does every thread when a pointer is
-// not aligned).  The recurrence is the one-word form of seqmul_product in
-// seqmul_matmul.cu, which tests/test_torch_numerics.py holds equal to the
-// port's recurrence: one 32-bit word W holds s_lsp in bits [0, t) and s_msp
+// not aligned).  The recurrence is in its one-word form, a numpy copy of
+// which tests/test_torch_numerics.py holds equal to the port's
+// recurrence: one 32-bit word W holds s_lsp in bits [0, t) and s_msp
 // from bit t up, so S^{j-1} >> 1 is W >> 1, the exact cycle is s = aug + m,
 // the LSP carry-out is bit t of s ^ aug ^ m, and the approximate cycle takes
 // that carry back out and adds the one deferred from the cycle before.
@@ -33,8 +33,11 @@
 // runs on the caller's stream and does not synchronise.
 //
 // Bound on the H100.  Integer ALU work: a product needs at least 8 int32
-// operations per cycle and 7 around the loop (the count of seqmul_matmul.cu,
-// chip_smoke.seqmul_ops_per_product), 8n + 7 at 64 int32 lanes per clock per
+// operations per cycle (W >> 1, bit j of b, select a, s = aug + m,
+// s ^ aug ^ m, its bit t, W = s - c + c_prev, a funnel shift of s's LSB
+// into lo) and 7 around the loop (shift lo into place, the fix_to_1 test
+// and its two predicated writes, lo + (W << (n-1)), the store's packing),
+// chip_smoke.one_word_ops_per_product: 8n + 7 at 64 int32 lanes per clock per
 // SM, against 12 bytes (packed: two reads, one write) or 16 (words) per
 // element at 3.35 TB/s.  The card does about 5 int32 operations in the time
 // it moves one byte, so the operations bound from n = 7 (packed) and n = 9

@@ -5,27 +5,122 @@ the CUDA kernel ``csrc/lut_matmul.cu`` for CUDA tensors and the plain
 version :func:`lut_matmul_plain` for CPU tensors; there is no other
 fallback.  Both accumulate exact integers and convert to float32 once, so
 they are bit-equal at any K (see the kernel's source note for how this
-departs from the JAX reference's float32 sums past |sum| = 2^24).
+departs from the JAX reference's float32 sums past |sum| = 2^24).  The
+kernel is a persistent grid of one block per SM that copies the table
+into shared memory once and walks (row tile, column tile, K slice) work
+items (:func:`launch_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.build import (
-    CudaKernel, block_rows, check_operand, wide_accumulator,
+    CudaKernel, check_operand, device_index, pick_tile, sm_count_of, split_k, tile_counters,
+    wide_accumulator, workspace_bytes,
 )
 
-__all__ = ["KERNEL", "lut_matmul", "lut_matmul_plain"]
+__all__ = [
+    "KERNEL", "TILES", "Plan", "built_launch_plan", "launch_plan", "lut_matmul",
+    "lut_matmul_plain", "smem_bytes", "tile",
+]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "lut_matmul", "lut_matmul_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    "lut_matmul", "lut_matmul_launch", [_P] * 6 + [_I] * 10 + [_P, _P, _I, _P]
 )
 
+# csrc/lut_matmul.cu: row tiles of 512 columns for a 512-thread block (4
+# rows x 1 column, 8 x 2 and 8 x 4 per thread); K per stage
+BN = 512
+TILES = ((4, BN), (16, BN), (32, BN))
+THREADS = 512
+STAGE_K = 32
+MIN_K_CHUNK = 64  # the shortest K slice a split gives a work item
+MAX_ROUND_SPLITS = 4  # the most slices that even out the rounds of many tiles
+
 _CHUNK_ELEMS = 1 << 24  # (M, k-chunk, N) gather cube per step of the plain version
+
+
+class Plan(NamedTuple):
+    """One launch: the row tile, K cut into ``splits`` slices of
+    ``k_chunk``, the persistent grid (one block per SM, at most one per
+    work item), threads and shared memory, the work items and the bytes of
+    the split-K workspace (0 without a split), whose partials are int64
+    when ``wide``."""
+
+    bm: int
+    splits: int
+    k_chunk: int
+    grid: tuple
+    threads: int
+    smem: int
+    items: int
+    workspace: int
+    wide: bool
+
+
+def tile(m: int) -> tuple[int, int]:
+    """The kernel's (rows, columns) tile for ``m`` rows: the smallest row
+    tile that holds them, else the largest."""
+    return pick_tile(m, TILES)
+
+
+def smem_bytes(n: int, bm: int) -> int:
+    """Shared memory of one block: the uint16 table (rounded up to whole
+    16-byte words) and one word per (k, column) and per (k, row) of a
+    stage."""
+    table = -(-(2 << (2 * n)) // 16) * 16
+    return table + 4 * STAGE_K * (BN + bm)
+
+
+def launch_plan(m: int, k: int, n_cols: int, n: int, sms: int = 132) -> Plan:
+    """The launch of an (m, k) x (k, n_cols) call at bit width ``n`` on a
+    card with ``sms`` SMs: K is split as far as the work items fill one
+    block per SM and slices of :data:`MIN_K_CHUNK` allow.  With more tiles
+    than SMs, K is cut into the fewest slices (at most
+    :data:`MAX_ROUND_SPLITS`) that need the fewest rounds of work per
+    tile's worth: 192 tiles on 132 SMs take two rounds whole, three rounds
+    of half items cut in two."""
+    bm, bn = tile(m)
+    tiles = -(-m // bm) * -(-n_cols // bn)
+    if tiles > sms:
+        want = min(range(1, MAX_ROUND_SPLITS + 1), key=lambda s: -(-tiles * s // sms) / s)
+        splits, chunk = split_k(1, k, step=STAGE_K, min_chunk=MIN_K_CHUNK, sms=want, per_sm=1)
+    else:
+        splits, chunk = split_k(tiles, k, step=STAGE_K, min_chunk=MIN_K_CHUNK, sms=sms,
+                                per_sm=1)
+    items = tiles * splits
+    wide = wide_accumulator(k, (1 << (2 * n)) - 1)
+    return Plan(bm, splits, chunk, (min(items, sms), 1, 1), THREADS, smem_bytes(n, bm), items,
+                workspace_bytes(splits, m, n_cols, wide), wide)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_on(index: int, m: int, k: int, n_cols: int, n: int) -> tuple[Plan, int]:
+    """:func:`launch_plan` on CUDA device ``index`` and its SM count, once
+    per shape."""
+    sms = sm_count_of(index)
+    return launch_plan(m, k, n_cols, n, sms), sms
+
+
+def built_launch_plan(plan: Plan, m: int, k: int, n_cols: int, n: int, sms: int) -> tuple:
+    """(grid, threads, shared memory) of the launch that the built
+    ``csrc/lut_matmul.cu`` makes for ``plan`` (its ``lut_matmul_plan``),
+    which ``plan`` must equal; builds the library, so it needs ``nvcc``."""
+    fn = KERNEL.library().lut_matmul_plan
+    fn.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(m, n_cols, k, n, plan.bm, plan.splits, plan.k_chunk, sms, out)
+    if err != 0:
+        raise ValueError(f"lut_matmul_plan refused {plan} at {(m, k, n_cols, n)}: "
+                         f"CUDA error {err}")
+    return tuple(out[:3]), out[3], out[4]
 
 
 def _table_i64(lut: torch.Tensor) -> torch.Tensor:
@@ -71,11 +166,19 @@ def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor
     check_operand(sign_b, "sign_b", torch.int8, (k_dim, n_dim), dev)
     if lut.data_ptr() % 4:
         raise ValueError("lut must be 4-byte aligned (the kernel copies it as 32-bit words)")
-    bm = block_rows(m_dim)
+    index = device_index(dev)
+    plan, sms = _plan_on(index, m_dim, k_dim, n_dim, n)
     out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
-    wide = wide_accumulator(k_dim, (1 << (2 * n)) - 1)
+    ws_ptr = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace, dtype=torch.uint8, device=dev)
+        ws_ptr = ws.data_ptr()
+        counters = tile_counters(dev, plan.items // plan.splits).data_ptr()
+    vec = (k_dim % 16 == 0 and n_dim % 16 == 0
+           and all(x.data_ptr() % 16 == 0 for x in (mag_a, sign_a, mag_b, sign_b)))
     KERNEL.launch(
         dev, lut.data_ptr(), mag_a.data_ptr(), sign_a.data_ptr(), mag_b.data_ptr(),
-        sign_b.data_ptr(), out.data_ptr(), m_dim, n_dim, k_dim, n, bm, int(wide),
+        sign_b.data_ptr(), out.data_ptr(), m_dim, n_dim, k_dim, n, plan.bm, int(plan.wide),
+        plan.splits, plan.k_chunk, sms, int(vec), ws_ptr, counters,
     )
     return out

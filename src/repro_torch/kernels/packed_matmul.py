@@ -21,11 +21,12 @@ import torch
 
 from repro_torch.kernels.build import (
     CudaKernel, check_operand, pick_tile, sm_count, split_k, tile_counters, wide_accumulator,
+    workspace_bytes,
 )
 
 __all__ = [
     "KERNEL", "TILES", "Plan", "launch_plan", "pack_i16_pairs", "packed_matmul",
-    "packed_matmul_plain", "tile", "workspace_bytes",
+    "packed_matmul_plain", "tile",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,12 +67,6 @@ def launch_plan(m: int, kw: int, n_cols: int, sms: int = 132) -> Plan:
     tiles = -(-m // bm) * -(-n_cols // bn)
     splits, chunk = split_k(tiles, kw, step=KW_STEP, min_chunk=MIN_KW_CHUNK, sms=sms)
     return Plan(bm, bn, splits, chunk)
-
-
-def workspace_bytes(plan: Plan, m: int, n_cols: int, wide: bool) -> int:
-    """Bytes of the split-K workspace: one integer partial (int64 if
-    ``wide``) per split and output; none without a split."""
-    return 0 if plan.splits == 1 else plan.splits * m * n_cols * (8 if wide else 4)
 
 
 def pack_i16_pairs(q: torch.Tensor, *, dim: int) -> torch.Tensor:
@@ -125,7 +120,7 @@ def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15) -> torch.T
     ws = ws_ptr = counters = None
     if plan.splits > 1:
         dtype = torch.int64 if wide else torch.int32
-        nbytes = workspace_bytes(plan, m_dim, n_dim, wide)
+        nbytes = workspace_bytes(plan.splits, m_dim, n_dim, wide)
         ws = torch.empty(nbytes // dtype.itemsize, dtype=dtype, device=dev)
         ws_ptr = ws.data_ptr()
         counters = tile_counters(dev, -(-m_dim // plan.bm) * -(-n_dim // plan.bn)).data_ptr()

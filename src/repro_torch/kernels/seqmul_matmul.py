@@ -4,31 +4,112 @@ Counterpart of ``repro/kernels/seqmul_matmul.py``.  :func:`seqmul_matmul`
 runs the CUDA kernel ``csrc/seqmul_matmul.cu`` for CUDA tensors and the
 plain version :func:`seqmul_matmul_plain` for CPU tensors.  The plain
 version runs ``engine.recurrence.seqmul_recurrence`` on K-chunks of the
-(M, K, N) outer-product cube; the kernel runs the same recurrence per
-product in registers.  Both sum exact integers and convert once.
+(M, K, N) outer-product cube; the kernel runs the same recurrence
+bit-sliced, 32 values of k to a word, and splits K over blocks at small M
+(:func:`launch_plan`).  Both sum exact integers and convert once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.engine.recurrence import pack_u32, seqmul_recurrence, validate_nt
 from repro_torch.kernels.build import (
-    CudaKernel, block_rows, check_operand, wide_accumulator,
+    CudaKernel, check_operand, device_index, pick_tile, sm_count_of, split_k, tile_counters,
+    wide_accumulator, workspace_bytes,
 )
 
-__all__ = ["KERNEL", "MAX_N", "seqmul_matmul", "seqmul_matmul_plain"]
+__all__ = [
+    "KERNEL", "MAX_N", "TILES", "Plan", "built_launch_plan", "launch_plan", "seqmul_matmul",
+    "seqmul_matmul_plain", "smem_bytes", "tile",
+]
 
 MAX_N = 12
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "seqmul_matmul", "seqmul_matmul_launch",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    [_P] * 5 + [_I] * 12 + [_P, _P, _I, _P],
 )
 
+# csrc/seqmul_matmul.cu: (rows, columns) per block of eight warps, one
+# column and one or two rows per thread; K words of 32 lanes per stage
+TILES = ((2, 128), (4, 64), (8, 32), (16, 32))
+THREADS = 256
+STAGE_WORDS = 4
+STAGE_K = 32 * STAGE_WORDS
+
 _CHUNK_ELEMS = 1 << 23  # (M, k-chunk, N) recurrence cube per step of the plain version
+
+
+class Plan(NamedTuple):
+    """One launch: the (bm, bn) block tile, K cut into ``splits`` slices of
+    ``k_chunk``, the grid, threads and shared memory, and the bytes of the
+    split-K workspace (0 without a split), whose partials are int64 when
+    ``wide``."""
+
+    bm: int
+    bn: int
+    splits: int
+    k_chunk: int
+    grid: tuple
+    threads: int
+    smem: int
+    workspace: int
+    wide: bool
+
+
+def tile(m: int) -> tuple[int, int]:
+    """The kernel's (rows, columns) block tile for ``m`` rows: the smallest
+    row tile that holds them, else the largest."""
+    return pick_tile(m, TILES)
+
+
+def smem_bytes(n: int, bm: int, bn: int) -> int:
+    """Shared memory of one block: the A planes, n + 2 per (row, K word)
+    rounded up to whole 16-byte words, and the B planes, n + 2 per
+    (K word, column)."""
+    a_stride = (n + 2 + 3) // 4 * 4
+    return 4 * (bm * STAGE_WORDS * a_stride + STAGE_WORDS * (n + 2) * bn)
+
+
+def launch_plan(m: int, k: int, n_cols: int, n: int, sms: int = 132) -> Plan:
+    """The launch of an (m, k) x (k, n_cols) call at bit width ``n`` on a
+    card with ``sms`` SMs: tiles x splits fill one wave of two blocks per
+    SM where K allows.  Any slice length is exact: the per-plane counts
+    are bounded by K, and the cross-block sums are int64 where
+    :func:`wide_accumulator` says so on the whole K."""
+    bm, bn = tile(m)
+    tiles_n, tiles_m = -(-n_cols // bn), -(-m // bm)
+    splits, chunk = split_k(tiles_n * tiles_m, k, step=STAGE_K, min_chunk=STAGE_K, sms=sms)
+    wide = wide_accumulator(k, (1 << (2 * n)) - 1)
+    return Plan(bm, bn, splits, chunk, (tiles_n, tiles_m, splits), THREADS,
+                smem_bytes(n, bm, bn), workspace_bytes(splits, m, n_cols, wide), wide)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_on(index: int, m: int, k: int, n_cols: int, n: int) -> Plan:
+    """:func:`launch_plan` on CUDA device ``index``, once per shape."""
+    return launch_plan(m, k, n_cols, n, sm_count_of(index))
+
+
+def built_launch_plan(plan: Plan, m: int, k: int, n_cols: int, n: int, t: int) -> tuple:
+    """(grid, threads, shared memory) of the launch that the built
+    ``csrc/seqmul_matmul.cu`` makes for ``plan`` (its
+    ``seqmul_matmul_plan``), which ``plan`` must equal; builds the
+    library, so it needs ``nvcc``."""
+    fn = KERNEL.library().seqmul_matmul_plan
+    fn.argtypes = [_I] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(m, n_cols, k, n, t, plan.bm, plan.bn, plan.splits, plan.k_chunk, out)
+    if err != 0:
+        raise ValueError(f"seqmul_matmul_plan refused {plan} at {(m, k, n_cols, n, t)}: "
+                         f"CUDA error {err}")
+    return tuple(out[:3]), out[3], out[4]
 
 
 def _check_nt(n: int, t: int) -> None:
@@ -64,7 +145,8 @@ def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
                   approx: bool = True, fix_to_1: bool = True) -> torch.Tensor:
     """(M, K) x (K, N) -> (M, N) float32 GEMM, the recurrence per product.
 
-    mag_*: int16 magnitudes in [0, 2^n); sign_*: int8 in {-1, 0, 1}.
+    mag_*: int16 magnitudes in [0, 2^n); sign_*: int8 in {-1, 0, 1} (the
+    kernel reads magnitude bits 0..n-1 and a sign's bits 0 and 7 only).
     """
     _check_nt(n, t)
     if mag_a.device.type == "cpu":
@@ -77,11 +159,17 @@ def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
     check_operand(sign_a, "sign_a", torch.int8, (m_dim, k_dim), dev)
     check_operand(mag_b, "mag_b", torch.int16, (k_dim, n_dim), dev)
     check_operand(sign_b, "sign_b", torch.int8, (k_dim, n_dim), dev)
-    bm = block_rows(m_dim)
+    index = device_index(dev)
+    plan = _plan_on(index, m_dim, k_dim, n_dim, n)
     out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
-    wide = wide_accumulator(k_dim, (1 << (2 * n)) - 1)
+    ws_ptr = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace, dtype=torch.uint8, device=dev)
+        ws_ptr = ws.data_ptr()
+        counters = tile_counters(dev, plan.grid[0] * plan.grid[1]).data_ptr()
     KERNEL.launch(
         dev, mag_a.data_ptr(), sign_a.data_ptr(), mag_b.data_ptr(), sign_b.data_ptr(),
-        out.data_ptr(), m_dim, n_dim, k_dim, n, t, int(approx), int(fix_to_1), bm, int(wide),
+        out.data_ptr(), m_dim, n_dim, k_dim, n, t, int(approx), int(fix_to_1), plan.bm,
+        int(plan.wide), plan.bn, plan.splits, plan.k_chunk, ws_ptr, counters,
     )
     return out

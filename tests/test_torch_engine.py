@@ -278,7 +278,11 @@ def test_wrapper_operand_checks_and_launch_parameters():
         build.check_operand(ok.T, "a", torch.int16, (6, 4), dev)
     with pytest.raises(ValueError, match="is on"):
         build.check_operand(ok, "a", torch.int16, (4, 6), torch.device("meta"))
-    assert [build.block_rows(m) for m in (1, 4, 5, 16, 17, 64, 4096)] == [4, 4, 16, 16, 64, 64, 64]
+    from repro_torch.kernels import lut_matmul, seqmul_matmul
+
+    ms = (1, 4, 5, 16, 17, 64, 4096)
+    assert [lut_matmul.tile(m)[0] for m in ms] == [4, 4, 16, 16, 32, 32, 32]
+    assert [seqmul_matmul.tile(m)[0] for m in ms] == [2, 4, 8, 16, 16, 16, 16]
     # int32 sums hold K * (2^(2n) - 1) below 2^31: K <= 32768 at n=8
     assert not build.wide_accumulator(32768, 2**16 - 1)
     assert build.wide_accumulator(32769, 2**16 - 1)
@@ -286,11 +290,11 @@ def test_wrapper_operand_checks_and_launch_parameters():
 
 
 def test_kernel_tiles_hold_the_table_in_shared_memory():
-    from repro_torch.kernels import build
+    from repro_torch.kernels import lut_matmul
 
-    assert config.kernel_tiles("bitexact", 8, 4, 4) == build.block_rows(4) == 4
-    assert config.kernel_tiles("seqmul", 12, 6, 128) == 64
-    assert config._lut_smem_bytes(8, 64) <= config.SMEM_PER_BLOCK
+    assert config.kernel_tiles("bitexact", 8, 4, 4) == lut_matmul.tile(4)[0] == 4
+    assert config.kernel_tiles("seqmul", 12, 6, 128) == 16
+    assert config._lut_smem_bytes(8, 32) <= config.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):  # a 512 KiB table at n=9
         config.kernel_tiles("bitexact", 9, 4, 4)
     # lowrank: the two (2^n, r) tables as (hi, lo) float pairs grow with r
@@ -364,6 +368,7 @@ def test_lowrank_k_chunk_keeps_the_int32_sum_exact(n):
 
 
 def test_lowrank_and_packed_launch_plans_and_workspaces():
+    from repro_torch.kernels import build
     from repro_torch.kernels import lowrank_matmul as lr
     from repro_torch.kernels import packed_matmul as pm
 
@@ -379,8 +384,8 @@ def test_lowrank_and_packed_launch_plans_and_workspaces():
     # packed works in words (two lanes each); the workspace is int64 when wide
     plan = pm.launch_plan(4, 512, 3072)
     assert plan == pm.Plan(8, 128, 8, 64)
-    assert pm.workspace_bytes(plan, 4, 3072, wide=False) == 8 * 4 * 3072 * 4
-    assert pm.workspace_bytes(plan, 4, 3072, wide=True) == 8 * 4 * 3072 * 8
+    assert build.workspace_bytes(plan.splits, 4, 3072, wide=False) == 8 * 4 * 3072 * 4
+    assert build.workspace_bytes(plan.splits, 4, 3072, wide=True) == 8 * 4 * 3072 * 8
     assert pm.launch_plan(33, 150, 70) == pm.Plan(64, 64, 2, 96)
     assert pm.launch_plan(1, 0, 70).splits == 1
 

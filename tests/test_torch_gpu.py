@@ -9,11 +9,14 @@ where JAX is not installed:
 Tolerances (kernel against plain version, both on the card):
 - the integer GEMMs (lut, seqmul, packed): bit-equal, ``packed_matmul``
   also at its edge cases (every plane pair at its extreme, odd K, M = 1,
-  ragged shapes);
+  ragged shapes), ``lut_matmul`` and ``seqmul_matmul`` at every M of the
+  serve and train paths, ragged and split shapes, every magnitude at
+  2^n - 1, seqmul at every (n, t), lut at n = 1, 4, 8, int64 sums;
 - ``lowrank_matmul``: max |err| <= 2e-6 * max |want|: the exact part is an
   integer on both sides, the float32 correction is summed in another order
   (split TF32 on the tensor cores); bit-equal with zero SVD tables;
-- the split-K GEMMs (packed, lowrank): two launches give the same bits;
+- the split-K GEMMs (packed, lowrank, lut, seqmul): two launches give the
+  same bits; lut's and seqmul's ``launch_plan`` equal the built plans;
 - ``flash_attention`` / ``flash_decode``: 2e-5, the reference's flash
   tolerance, for float32 sums in another order;
 - ``approx_flash_attention``: within one probability quantum, max|v| /
@@ -176,6 +179,120 @@ def test_lowrank_matmul_edge_cases(case, card):
         assert torch.equal(got, want)
     else:
         assert (got - want).abs().max().item() <= 2e-6 * want.abs().max().item()
+
+
+def _sign_magnitude(m, k, n_cols, n, seed, card, kind="random"):
+    """Magnitudes in [0, 2^n) (all 2^n - 1 for "extreme") and signs in
+    {-1, 0, 1}, mixed, as int16 / int8 tensors on the card."""
+    rng = np.random.default_rng(seed)
+    qmax = (1 << n) - 1
+    mag_a, mag_b = rng.integers(0, qmax + 1, (m, k)), rng.integers(0, qmax + 1, (k, n_cols))
+    if kind == "extreme":
+        mag_a, mag_b = np.full_like(mag_a, qmax), np.full_like(mag_b, qmax)
+    sign_a = rng.choice([-1, 0, 1], (m, k), p=[0.45, 0.1, 0.45])
+    sign_b = rng.choice([-1, 0, 1], (k, n_cols), p=[0.45, 0.1, 0.45])
+    return (torch.from_numpy(mag_a).to(card, torch.int16),
+            torch.from_numpy(sign_a).to(card, torch.int8),
+            torch.from_numpy(mag_b).to(card, torch.int16),
+            torch.from_numpy(sign_b).to(card, torch.int8))
+
+
+def _run_twice(kernel, plain, args, **kw):
+    got, again, want = kernel(*args, **kw), kernel(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    return got, again, want
+
+
+# (M, K, N, kind): every M of the serve and train paths, a ragged K and N,
+# the main projections, and every magnitude at 2^n - 1 with mixed signs
+APPROX_GEMM_SHAPES = [
+    (1, 301, 70, "random"), (4, 301, 70, "random"), (32, 301, 70, "random"),
+    (33, 301, 70, "random"), (128, 301, 70, "random"), (1024, 301, 70, "random"),
+    (4, 1024, 3072, "random"), (4, 3072, 1024, "random"), (128, 1024, 3072, "random"),
+    (4, 3072, 1024, "extreme"), (33, 1024, 256, "extreme"),
+]
+
+
+@pytest.mark.parametrize("m,k,n_cols,kind", APPROX_GEMM_SHAPES)
+@pytest.mark.parametrize("kernel", ["lut_matmul", "seqmul_matmul"])
+def test_approx_gemms_bitmatch_and_repeat(kernel, m, k, n_cols, kind, card):
+    """Bit-equal to the plain version and bit-identical over two launches
+    (split K where the plan splits) at n = 8, t = 4."""
+    from repro_torch.engine import artifacts
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import seqmul_matmul as sm
+
+    args = _sign_magnitude(m, k, n_cols, 8, m * 7 + k, card, kind)
+    if kernel == "lut_matmul":
+        lut = artifacts.product_lut_u16(8, 4, True, card)
+        args = (lut, args[0].to(torch.uint8), args[1], args[2].to(torch.uint8), args[3])
+        got, again, want = _run_twice(lm.lut_matmul, lm.lut_matmul_plain, args, n=8)
+    else:
+        got, again, want = _run_twice(sm.seqmul_matmul, sm.seqmul_matmul_plain, args, n=8, t=4)
+    assert torch.equal(got, want)
+    assert torch.equal(_bits(got), _bits(again))
+
+
+@pytest.mark.parametrize("n", range(1, 13))
+def test_seqmul_matmul_every_split_bitmatches(n, card):
+    """Every t at this n, approximate with and without fix_to_1 and exact,
+    at a ragged shape split over K; every magnitude at 2^n - 1 with mixed
+    signs; at n = 12 also K = 3072 (int64 sums)."""
+    from repro_torch.kernels import seqmul_matmul as sm
+
+    cases = [(4, 301, 70, "random"), (33, 301, 70, "random"), (4, 301, 70, "extreme")]
+    if n == 12:
+        cases += [(4, 3072, 1024, "random"), (128, 3072, 256, "extreme")]
+    for m, k, n_cols, kind in cases:
+        args = _sign_magnitude(m, k, n_cols, n, n * 31 + m, card, kind)
+        for t in range(1, max(1, n - 1) + 1):
+            for approx, fix in ((True, True), (True, False), (False, False)):
+                got, again, want = _run_twice(sm.seqmul_matmul, sm.seqmul_matmul_plain, args,
+                                              n=n, t=t, approx=approx, fix_to_1=fix)
+                where = (m, k, n_cols, kind, n, t, approx, fix)
+                assert torch.equal(got, want), where
+                assert torch.equal(_bits(got), _bits(again)), where
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_lut_matmul_every_width_bitmatches(n, card):
+    """The table at n = 1, 4 and 8, magnitudes past 2^n - 1 clamped (uint8
+    up to 255), ragged and split shapes, int64 sums past K * (2^(2n) - 1)
+    >= 2^31 at n = 8."""
+    from repro_torch.engine import artifacts
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lut_matmul as lm
+
+    lut = artifacts.product_lut_u16(n, max(1, n // 2), True, card)
+    cases = [(4, 301, 70), (33, 1024, 512), (1, 64, 16)]
+    if n == 8:
+        cases.append((2, 33000, 64))
+        assert build.wide_accumulator(33000, (1 << 16) - 1)
+    for m, k, n_cols in cases:
+        a, sa, b, sb = _sign_magnitude(m, k, n_cols, 8, m + k + n, card, "random")
+        args = (lut, a.to(torch.uint8), sa, b.to(torch.uint8), sb)
+        got, again, want = _run_twice(lm.lut_matmul, lm.lut_matmul_plain, args, n=n)
+        assert torch.equal(got, want), (n, m, k, n_cols)
+        assert torch.equal(_bits(got), _bits(again)), (n, m, k, n_cols)
+
+
+@pytest.mark.parametrize("m,k,n_cols,kind", APPROX_GEMM_SHAPES)
+def test_approx_gemm_launch_plans_are_the_kernels(m, k, n_cols, kind, card):
+    """``launch_plan`` (grid, threads, shared memory), which the CPU tests
+    read, equals the launch each built library makes for it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import seqmul_matmul as sm
+
+    sms = build.sm_count(card)
+    for n in (1, 8, 12):
+        plan = sm.launch_plan(m, k, n_cols, n, sms)
+        assert (plan.grid, plan.threads, plan.smem) == sm.built_launch_plan(
+            plan, m, k, n_cols, n, max(1, n - 1))
+    for n in (1, 8):
+        plan = lm.launch_plan(m, k, n_cols, n, sms)
+        assert (plan.grid, plan.threads, plan.smem) == lm.built_launch_plan(
+            plan, m, k, n_cols, n, sms)
 
 
 def _attn_inputs(card, b, s, t, h, kv, hd, dtype, seed):

@@ -67,8 +67,8 @@ def test_recurrence_bitmatches_reference_exhaustively(n):
 
 
 def _one_word_product(a, b, *, n, t, approx, fix_to_1):
-    """``seqmul_product`` of ``csrc/seqmul_matmul.cu`` in numpy: both words
-    of the accumulator in one (s_lsp in bits [0, t), s_msp above)."""
+    """The one-word recurrence of ``csrc/seqmul_kernel.cu`` in numpy: both
+    words of the accumulator in one (s_lsp in bits [0, t), s_msp above)."""
     bit_t = 1 << t
     w, c_prev, lo = (np.zeros_like(a) for _ in range(3))
     for j in range(n):
@@ -90,10 +90,10 @@ def _one_word_product(a, b, *, n, t, approx, fix_to_1):
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 12])
 def test_one_word_form_of_the_seqmul_kernel_equals_the_recurrence(n):
-    """The CUDA kernel's form of the recurrence gives the product of the
-    port's recurrence (held to the JAX one above), the plain version the
-    kernel is checked against on the card: every (a, b) at n <= 8, 2^16
-    random pairs at n = 12."""
+    """The elementwise CUDA kernel's form of the recurrence gives the
+    product of the port's recurrence (held to the JAX one above), the plain
+    version the kernel is checked against on the card: every (a, b) at
+    n <= 8, 2^16 random pairs at n = 12."""
     if n <= 8:
         a, b = _all_pairs(n)
     else:
