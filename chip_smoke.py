@@ -25,9 +25,18 @@ Phases, one line each (or a few):
    serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
    prefill q (4, 32) over a 48-slot cache with a masked tail, key block
    16; decode batch 4 over 48 slots), a window + softcap case each, and
-   one long shape each; flash_attention and flash_decode within 2e-5,
-   approx_attention within one probability quantum (max|v| / 255) and
-   1e-5 for 99% of the outputs, with the bit-equal share printed.
+   one long shape each, and approx_attention_bitexact at the train shape
+   (B 8, S = T = 128, key block 64, with lse); flash_attention and
+   flash_decode within 2e-5, approx_attention within one probability
+   quantum (max|v| / 255) and 1e-5 for 99% of the outputs, with the
+   bit-equal share printed, bit-identical over two launches and with
+   ``launch_plan`` equal to the launch the built library makes; one more
+   launch counts on the card the (work item, key block) pairs the kernel
+   skips, which must equal the masked-block rule's count
+   (``approx_tile_plan``), and the count goes into the kernels line; the build
+   phase checks that every lowrank instantiation of approx_attention has
+   tensor-core instructions (IMMA, HMMA) in its SASS and no bitexact one
+   has any.
    Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
    operands split into two bf16 terms, tiles with nothing to add skipped)
    against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
@@ -52,7 +61,9 @@ Phases, one line each (or a few):
    tensor-core products (the backward, as its split runs them), float32
    FLOPs on the CUDA cores; for attention
    counted over the query-slot pairs and the K/V slots this run's
-   positions need, masked pairs adding nothing) and one PyTorch
+   positions need, masked pairs adding nothing; approx_attention_lowrank
+   as int8 tensor-core products for its exact parts and split TF32 for
+   its corrections, as lowrank_matmul) and one PyTorch
    call that computes the same function, a yardstick the port never calls
    (torch.matmul for packed_matmul and lowrank_matmul,
    scaled_dot_product_attention for flash_attention and flash_decode, its
@@ -64,7 +75,8 @@ Phases, one line each (or a few):
    ``device_ms``, the device's time alone (calls replayed from one CUDA
    graph), packed_matmul and lowrank_matmul with ``library_device_ms``
    beside it, lut_matmul with its time on magnitudes below 64 (no bank
-   conflict in its gathers), and the backward pair its ``device_ms``;
+   conflict in its gathers), and the backward pair and the timed
+   approximate attention rows their ``device_ms``;
 4. reference: ``engine.matmul`` on the card against the CPU reference
    bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
    and reduced qwen3-0.6b prefill logits on the card against the CPU
@@ -199,10 +211,13 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tensor_core_instructions(source: str) -> dict:
+def tensor_core_instructions(source: str, names: tuple, without: tuple = ()) -> dict:
     """``{kernel: [count per instantiation]}`` of tensor-core MMA
-    instructions (HMMA for mma.sync, HGMMA for wgmma) in the SASS of a built
-    library (``cuobjdump -sass``); each instantiation must have some."""
+    instructions (HMMA for float and mma.sync, HGMMA for wgmma, IMMA for
+    integer mma.sync) in the SASS of a built library (``cuobjdump
+    -sass``), for the kernels whose names contain one of ``names`` or
+    ``without``; each instantiation of ``names`` must have some, none of
+    ``without`` any."""
     from repro_torch.kernels import build
 
     tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
@@ -212,13 +227,16 @@ def tensor_core_instructions(source: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            name = next((n for n in ("bwd_dq_kernel", "bwd_dkv_kernel") if n in mangled), mangled)
-            current = counts.setdefault(name, [])
-            current.append(0)
-        elif current is not None and ("HMMA" in line or "HGMMA" in line):
+            name = next((n for n in names + without if n in mangled), None)
+            current = None if name is None else counts.setdefault(name, [])
+            if current is not None:
+                current.append(0)
+        elif current is not None and any(op in line for op in ("HMMA", "HGMMA", "IMMA")):
             current[-1] += 1
-    check(bool(counts) and all(all(c) for c in counts.values()),
+    check(all(counts.get(n) and all(counts[n]) for n in names),
           f"{source}: a kernel without tensor-core instructions: {counts}")
+    check(all(counts.get(n) and not any(counts[n]) for n in without),
+          f"{source}: tensor-core instructions where none belong: {counts}")
     return counts
 
 
@@ -596,7 +614,8 @@ def phase_gemm_edges() -> list:
 def attention_cases():
     """(kernel, label, B, S, T, bk, window, softcap, timed): the serve shapes
     (prefill q (B, 32) over the 48-slot cache, decode over it), a window +
-    softcap variant of each, and one long shape each."""
+    softcap variant of each, one long shape each, and bitexact at the train
+    shape of run (b) (with lse)."""
     b, p = SERVE["batch"], SERVE["prompt"]
     cases = []
     for name in ATTN_KERNELS:
@@ -608,6 +627,8 @@ def attention_cases():
     cases.append(("flash_decode", "long", 4, 1, 4096, None, None, None, True))
     cases.append(("approx_attention_bitexact", "long", 1, 1024, 1024, 64, None, None, True))
     cases.append(("approx_attention_lowrank", "long", 1, 1024, 1024, 128, None, None, True))
+    cases.append(("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
+                  TRAIN["seq"], 64, None, None, True))
     return cases
 
 
@@ -680,25 +701,34 @@ def run_attention_case(card: Card, case, seed):
         bound = card.bound(2 * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
                            card.f32_flops_per_s)
     else:
-        mode = name.rsplit("_", 1)[1]
-        kw = dict(mode=mode, n=8, t=4, rank=8, causal=True, window=window, softcap=softcap,
+        mode, rank = name.rsplit("_", 1)[1], 8
+        # the train row returns lse too, as the train step's forward does
+        with_lse = label == "train"
+        kw = dict(mode=mode, n=8, t=4, rank=rank, causal=True, window=window, softcap=softcap,
                   scale=scale, bk=bk)
         wrapper = lambda: aa.approx_flash_attention(q, k, v, q_pos, k_pos, **kw)
-        plain = lambda: aa.approx_attention_plain(q, k, v, q_pos, k_pos, **kw)
+        plain = lambda: aa.approx_attention_plain(q, k, v, q_pos, k_pos, with_lse=with_lse,
+                                                  **kw)
         # the kernel alone, on operands quantized once outside the timing
-        ops = aa.kernel_operands(q, k, v, mode=mode, n=8, t=4, fix_to_1=True, rank=8)
+        ops = aa.kernel_operands(q, k, v, mode=mode, n=8, t=4, fix_to_1=True, rank=rank)
         kern = lambda: aa.launch_kernel(ops, q_pos, k_pos, bk=bk, causal=True, window=window,
-                                        softcap=softcap, scale=scale)
+                                        softcap=softcap, scale=scale, with_lse=with_lse)
+        plan = aa.launch_plan(mode, b, s, t, h, kv, hd, 8, rank, card.sms)
+        built = aa.built_launch_plan(mode, b, s, t, h, kv, hd, 8, rank, card.sms)
+        # magnitudes and signs of q and the needed k, v slots (a byte each)
+        nbytes = 2 * q.numel() + kv_bytes + io_bytes + (4 * b * h * s if with_lse else 0)
         if mode == "bitexact":
-            # magnitudes and signs of q, k, v (a byte each), the uint16 table
-            nbytes = 2 * q.numel() + kv_bytes + 2 * 2**16 + io_bytes
-            bound = card.bound(nbytes, 2 * pairs * hd, card.lookups_per_s)
+            # and the uint16 table, once; two lookups per pair and d
+            bound = card.bound(nbytes + 2 * 2**16, 2 * pairs * hd, card.lookups_per_s)
         else:
-            # qi, ki, vi and their r-wide embeddings in float32 (1 + r = 9
-            # floats per element, twice kv_bytes' 2 bytes), the U table
-            nbytes = 4 * 9 * q.numel() + 2 * 9 * kv_bytes + 4 * 2**8 * 8 + io_bytes
-            ops_s = 4 * pairs * hd * 9 / card.f32_flops_per_s + pairs * 8 / card.lookups_per_s
-            bound = card.bound_s(nbytes, ops_s)
+            # and U and V (2^n, r) float32, once.  Per pair, the exact
+            # products of QK and AV (2 hd) on the int8 tensor cores (4
+            # products of 2 ops each, as lowrank_matmul), their corrections
+            # (2 hd r) as 3 TF32 products, and r lookups for U[p_int]
+            ops_s = (16 * pairs * hd / INT8_TENSOR_OPS_PER_S
+                     + 3 * 2 * 2 * pairs * hd * rank / TF32_TENSOR_FLOPS_PER_S
+                     + pairs * rank / card.lookups_per_s)
+            bound = card.bound_s(nbytes + 2 * 4 * 2**8 * rank, ops_s)
     if name in ("flash_attention", "flash_decode") and softcap is None:
         # the same q/k/v and boolean mask; SDPA takes heads before the sequence
         qt = (q[:, :1] if name == "flash_decode" else q).transpose(1, 2).contiguous()
@@ -709,14 +739,44 @@ def run_attention_case(card: Card, case, seed):
     got = (wrapper if name.startswith("approx") else kern)()
     want = plain()
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
-    if name.startswith("approx"):
-        check(torch.equal(kern(), got), f"{name} {label}: the kernel alone != the wrapper")
-    diff = (got - want).abs()
-    err = diff.max().item()
     where = f"{name} {label} B={b} S={s} T={t} bk={bk} window={window} softcap={softcap}"
-    row = dict(name=name, label=label, shape=[b, s, t, h, kv, hd], bk=bk, max_abs_err=err,
+    row = dict(name=name, label=label, shape=[b, s, t, h, kv, hd], bk=bk,
                bound_ms=bound[0], bound_by=bound[1])
+    if name.startswith("approx"):
+        first, again = kern(), kern()
+        if with_lse:
+            (first, lse), (again, lse2), (want, want_lse) = first, again, want
+            check(torch.equal(lse.view(torch.int32), lse2.view(torch.int32)),
+                  f"{where}: lse differs between two launches")
+            row["lse_max_abs_err"] = (lse - want_lse).abs().max().item()
+        check(torch.equal(first.view(torch.int32), got.view(torch.int32)),
+              f"{where}: the kernel alone != the wrapper")
+        check(torch.equal(first.view(torch.int32), again.view(torch.int32)),
+              f"{where}: two launches on the same inputs differ")
+        check(plan == built, f"{where}: launch_plan {plan} but the kernel launches {built}")
+        row["plan"] = dict(grid=list(plan.grid), threads=plan.threads, smem=plan.smem,
+                           rows=plan.rows, heads=plan.heads)
+        # the (work item, key block) pairs the kernel skips, counted on the card
+        # in one more launch, against the masked-block rule's count on the CPU
+        # (approx_tile_plan's pairs, once per KV head and head chunk)
+        live = aa.approx_tile_plan(q_pos, k_pos, bk=bk, rows=plan.rows, causal=True,
+                                   window=window)
+        per_tile = kv * -(-(h // kv) // plan.heads)
+        planned, pairs_total = int((~live).sum()) * per_tile, live.numel() * per_tile
+        counter = torch.zeros(1, dtype=torch.int32, device=q.device)
+        counted = aa.launch_kernel(ops, q_pos, k_pos, bk=bk, causal=True, window=window,
+                                   softcap=softcap, scale=scale, with_lse=with_lse,
+                                   skipped=counter)
+        counted = counted[0] if with_lse else counted
+        check(torch.equal(first.view(torch.int32), counted.view(torch.int32)),
+              f"{where}: the launch that counts skipped pairs differs")
+        row["skipped_pairs"] = int(counter.item())
+        check(row["skipped_pairs"] == planned,
+              f"{where}: the kernel skipped {row['skipped_pairs']} (item, block) pairs, "
+              f"approx_tile_plan {planned}")
+    check(bool(torch.isfinite(got).all()), f"{where}: non-finite output")
+    diff = (got - want).abs()
+    err = row["max_abs_err"] = diff.max().item()
     if name.startswith("approx"):
         quantum = v.float().abs().max().item() / 255
         row["bit_equal_share"] = (diff == 0).float().mean().item()
@@ -725,7 +785,11 @@ def run_attention_case(card: Card, case, seed):
               f"{where}: max |err| {err} (quantum {quantum}), within 1e-5: "
               f"{row['within_1e-5_share']}")
         agree = (f"max |err| {err:.3e} (quantum {quantum:.3e}), bit-equal "
-                 f"{row['bit_equal_share']:.4f}, within 1e-5 {row['within_1e-5_share']:.4f}")
+                 f"{row['bit_equal_share']:.4f}, within 1e-5 {row['within_1e-5_share']:.4f}"
+                 + (f", lse max |err| {row['lse_max_abs_err']:.3e}" if with_lse else "")
+                 + f"; two launches bit-identical, launch_plan as built {row['plan']}, "
+                 f"(item, key block) pairs skipped on the card {row['skipped_pairs']} of "
+                 f"{pairs_total}, approx_tile_plan's count {planned}")
     else:
         check(bool((diff <= 2e-5 + 2e-5 * want.abs()).all()), f"{where}: max |err| {err}")
         agree = f"max |err| {err:.3e} (rtol/atol 2e-5)"
@@ -736,10 +800,11 @@ def run_attention_case(card: Card, case, seed):
         row["library_ms"] = cuda_ms(library, reps=reps, warmup=2) if library else None
         if name.startswith("approx"):
             row["wrapper_ms"] = cuda_ms(wrapper, reps=reps, warmup=2)
+            row["device_ms"] = graph_ms(kern)
     times = (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} library_ms "
              + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "none")
-             + (f" wrapper_ms (with quantization) {row['wrapper_ms']:.4f}"
-                if "wrapper_ms" in row else "")
+             + (f" wrapper_ms (with quantization) {row['wrapper_ms']:.4f} device_ms "
+                f"{row['device_ms']:.4f}" if "wrapper_ms" in row else "")
              if timed else "")
     print(f"kernel {where}: {agree}{times} bound_ms {row['bound_ms']:.5f} ({row['bound_by']})",
           flush=True)
@@ -1466,9 +1531,12 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
-    for kernel, count in sorted(tensor_core_instructions("flash_attention_bwd").items()):
-        print(f"build: flash_attention_bwd SASS: {kernel} HMMA/HGMMA per instantiation "
-              f"{count}", flush=True)
+    sass_checks = (("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel"), ()),
+                   ("approx_attention", ("lowrank_kernel",), ("bitexact_kernel",)))
+    for source, names, without in sass_checks:
+        for kernel, count in sorted(tensor_core_instructions(source, names, without).items()):
+            print(f"build: {source} SASS: {kernel} HMMA/HGMMA/IMMA per instantiation {count}",
+                  flush=True)
 
     # 3. kernels
     rows = (phase_kernels(card) + phase_attention(card) + phase_backward(card)
@@ -1568,6 +1636,9 @@ def main() -> int:
                             serve_prefill_ms=runs[name]["prefill_ms"],
                             serve_decode_step_ms=runs[name]["decode_ms"],
                             serve_busy_share=runs[name]["busy_share"])
+            if name == "approx_attention_bitexact":
+                # and in each step of train run (b), at the train row's shape
+                per_step["launches_per_train_step"] = train_runs["bitexact"]["per_step"][name]
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
         table.append({
@@ -1584,7 +1655,7 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             **{key: main_row[key] for key in ("device_ms", "library_device_ms",
                                               "device_ms_mag_below_64", "err_over_limit",
-                                              "plan")
+                                              "plan", "skipped_pairs")
                if key in main_row},
             "shape": main_row["shape"],
             **per_step,

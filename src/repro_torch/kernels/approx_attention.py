@@ -26,6 +26,13 @@ the same key-block partition and padding, the same update order, and
 :func:`online_update` / :func:`bitexact_tile` / :func:`lowrank_tile` as
 functions on tensors (batched over batch, head and query rows).
 
+The kernels leave out the (query tile, key block) pairs that change no
+row's (m, l, acc), by the masked-block rule set out in the CUDA source:
+:func:`approx_tile_plan` gives those pairs from the positions (the tests
+run the plain version without them, bit-identical to
+:func:`approx_attention_plain`), and :func:`launch_plan` /
+:func:`smem_bytes` give the launches, for tests on the CPU.
+
 Gradients are straight-through, as the reference's ``custom_vjp``: the
 forward (kernel or plain version) also returns lse = m + log(max(l,
 1e-30)), and the exact flash-attention backward
@@ -44,16 +51,16 @@ import torch
 
 from repro_torch.core import quantization
 from repro_torch.engine import artifacts
-from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand
+from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand, sm_count
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, NEG_INF, FlashBackward, allow_mask, needs_grad,
+    HEAD_DIMS, NEG_INF, FlashBackward, _tiles, allow_mask, needs_grad,
 )
 
 __all__ = [
-    "ATTN_MODES", "BITEXACT_KERNEL", "LOWRANK_KERNEL", "MAX_ATTN_N", "KernelOperands",
-    "approx_attention_plain", "approx_flash_attention", "attn_tiles", "bitexact_tile",
-    "kernel_operands", "launch_kernel", "lowrank_tile", "online_update", "prepare",
-    "quant_signed", "validate_attn_mode",
+    "ATTN_MODES", "BITEXACT_KERNEL", "LOWRANK_KERNEL", "MAX_ATTN_N", "AttnPlan", "KernelOperands",
+    "approx_attention_plain", "approx_flash_attention", "approx_tile_plan", "attn_tiles", "bitexact_tile", "built_launch_plan", "kernel_operands",
+    "launch_kernel", "launch_plan", "lowrank_tile", "online_update", "prepare", "quant_signed",
+    "smem_bytes", "validate_attn_mode",
 ]
 
 ATTN_MODES = ("bitexact", "lowrank")
@@ -61,20 +68,22 @@ DEFAULT_BQ = 128
 DEFAULT_BK = 128
 BITEXACT_BK = 64  # the reference's VMEM-certified key block for bitexact
 MAX_ATTN_N = 8  # both modes gather (2^n, ...) tables
-MAX_BK = 128  # the kernel stages at most this many keys per block
-_ROWS = 16  # csrc/approx_attention.cu kBQ
-_KEY_CHUNK = 16  # csrc/approx_attention.cu kKC (lowrank)
+MAX_BK = 128  # the kernels stage at most this many keys per block
+# csrc/approx_attention.cu: bitexact blocks of 512 threads staging 64 key
+# slots at a time; lowrank blocks of 256 threads, items of 32 row-heads
+_BITEXACT_THREADS, _CHUNK = 512, 64
+_LOWRANK_THREADS, _LOWRANK_RH = 256, 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (6 operands, table, q_pos, k_pos, scales, out, lse, B, S, T, H, KV, hd, n, bk, causal,
-#  window, softcap, scale, [rank,] device, stream)
+# (mq, sq, mk, sk, mv, sv, table, q_pos, k_pos, scales, out, lse, skipped, B, S, T, H, KV, hd,
+#  n, bk, causal, window, softcap, scale, [rank,] sms, device, stream)
 BITEXACT_KERNEL = CudaKernel(
     "approx_attention_bitexact", "approx_attention_bitexact_launch",
-    [_P] * 12 + [_I] * 10 + [_F, _F, _I, _P], source="approx_attention",
+    [_P] * 13 + [_I] * 10 + [_F, _F, _I, _I, _P], source="approx_attention",
 )
 LOWRANK_KERNEL = CudaKernel(
     "approx_attention_lowrank", "approx_attention_lowrank_launch",
-    [_P] * 12 + [_I] * 10 + [_F, _F, _I, _I, _P], source="approx_attention",
+    [_P] * 13 + [_I] * 10 + [_F, _F, _I, _I, _I, _P], source="approx_attention",
 )
 
 
@@ -209,15 +218,43 @@ def _k_side(x):
     return x.permute(0, 2, 1, 3)[:, :, None]
 
 
+# ------------------------------------------------------ the masked-block rule
+def approx_tile_plan(q_pos, k_pos, *, bk: int, rows: int, causal: bool,
+                     window: Optional[int]) -> torch.Tensor:
+    """The (query tile, key block) pairs the kernels compute, by the rule
+    they follow (``csrc/approx_attention.cu``), from positions alone.
+
+    Returns ``live`` (B, ceil(S / rows), ceil(T / bk)) bool.  A pair is
+    skipped (``False``) when (a) no row of the tile may attend any slot of
+    the block, judged from the tile's least and greatest position against
+    each written slot, and (b) every row of the tile has an allowed slot
+    somewhere in T.  A skipped pair leaves every row's (m, l, acc) as they
+    were.
+    """
+    b = q_pos.shape[0]
+    big = torch.iinfo(torch.int64).max // 4
+    qp, kp = q_pos.to(torch.int64), k_pos.to(torch.int64)
+    exists = _tiles(torch.ones_like(qp, dtype=torch.bool), rows, False)
+    qt = _tiles(qp, rows, 0)
+    qmin = torch.where(exists, qt, big).amin(-1)[:, :, None, None]
+    qmax = torch.where(exists, qt, -big).amax(-1)[:, :, None, None]
+    slots = _tiles(kp, bk, -1)[:, None]  # (B, 1, nK, bk)
+    may = slots >= 0
+    if causal:
+        may = may & (slots <= qmax)
+    if window is not None:
+        may = may & (qmin - slots < window)
+    has = allow_mask(q_pos, k_pos, causal=causal, window=window).any(-1)  # (B, S)
+    missing = _tiles(~has, rows, False).any(-1)  # (B, nQ): a row with no allowed slot
+    return may.any(-1) | missing[:, :, None].expand(b, -1, may.shape[2])
+
+
 # ---------------------------------------------------------------- plain
-def approx_attention_plain(q, k, v, q_pos, k_pos, *, mode="lowrank", n=8, t=4,
-                           fix_to_1=True, rank=8, causal=True, window=None, softcap=None,
-                           scale=1.0, bk=None, with_lse=False):
-    """The reference's ``approx_attention_reference`` on tensors: query
-    tiles of ``DEFAULT_BQ`` rows (all heads at once; rows are independent),
-    key blocks of ``bk`` in order, the key side zero-padded to a block
-    multiple with ``k_pos = -1``.  With ``with_lse`` it returns ``(o,
-    lse)``, lse (B, H, S) = m + log(max(l, 1e-30)) as the kernel writes it."""
+def _blockwise(q, k, v, q_pos, k_pos, *, mode, n, t, fix_to_1, rank, causal, window, softcap,
+               scale, bk, with_lse, _keep=None):
+    """The reference's blockwise loop.  ``_keep`` (B, S, key blocks) bool,
+    for the tests of the masked-block rule only: where it is False the
+    block leaves the row's (m, l, acc) as they were."""
     validate_attn_mode(mode, n)
     b, s, h, hd = q.shape
     tt, kv = k.shape[1], k.shape[2]
@@ -256,9 +293,15 @@ def approx_attention_plain(q, k, v, q_pos, k_pos, *, mode="lowrank", n=8, t=4,
                 s_int, av_int = bitexact_tile(qo[0], qo[1], ko[0], ko[1], ko[2], ko[3], lut,
                                               n=n)
             allow = allow_mask(q_pos[:, rows], kp[:, keys], causal=causal, window=window)
-            m, l, acc = online_update(
+            state = online_update(
                 m, l, acc, s_int, allow[:, None, None], av_int, qk_scale=qk_scale,
                 pv_scale=pv_scale, scale=scale, softcap=softcap, n=n)
+            if _keep is None:
+                m, l, acc = state
+            else:
+                keep = _keep[:, rows, k0 // bk_][:, None, None]  # (B, 1, 1, nr)
+                m, l = (torch.where(keep, new, old) for new, old in zip(state, (m, l)))
+                acc = torch.where(keep[..., None], state[2], acc)
         l = torch.clamp(l, min=1e-30)
         out[..., rows, :] = acc / l[..., None]
         lse[..., rows] = m + torch.log(l)
@@ -266,16 +309,105 @@ def approx_attention_plain(q, k, v, q_pos, k_pos, *, mode="lowrank", n=8, t=4,
     return (out, lse.reshape(b, h, s)) if with_lse else out
 
 
+def approx_attention_plain(q, k, v, q_pos, k_pos, *, mode="lowrank", n=8, t=4,
+                           fix_to_1=True, rank=8, causal=True, window=None, softcap=None,
+                           scale=1.0, bk=None, with_lse=False):
+    """The reference's ``approx_attention_reference`` on tensors: query
+    tiles of ``DEFAULT_BQ`` rows (all heads at once; rows are independent),
+    key blocks of ``bk`` in order, the key side zero-padded to a block
+    multiple with ``k_pos = -1``.  With ``with_lse`` it returns ``(o,
+    lse)``, lse (B, H, S) = m + log(max(l, 1e-30)) as the kernel writes it."""
+    return _blockwise(q, k, v, q_pos, k_pos, mode=mode, n=n, t=t, fix_to_1=fix_to_1,
+                      rank=rank, causal=causal, window=window, softcap=softcap, scale=scale,
+                      bk=bk, with_lse=with_lse)
+
+
 # ---------------------------------------------------------------- kernel
-def smem_bytes(mode: str, n: int, hd: int, rank: int) -> int:
-    """``csrc/approx_attention.cu``'s dynamic shared memory per block."""
-    rows, kc = _ROWS, _KEY_CHUNK
-    stats = 4 * (2 * rows * MAX_BK + 3 * rows + MAX_BK)
+class AttnPlan(NamedTuple):
+    """One launch of an approximate attention kernel: its grid, threads per
+    block, dynamic shared memory in bytes, and each work item's query rows
+    and query heads (of one KV head's group)."""
+
+    grid: tuple
+    threads: int
+    smem: int
+    rows: int
+    heads: int
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _stats_bytes(rh: int) -> int:
+    return _align16(4 * (4 * rh + MAX_BK + 4))
+
+
+def _bitexact_rh(hd: int, tm: int) -> int:
+    """Row-heads per bitexact item: 16 TM (32 TM at hd 16)."""
+    return 16 * tm * (32 // min(32, hd))
+
+
+def smem_bytes(mode: str, n: int, hd: int, rank: int, tm: int = 4) -> int:
+    """``csrc/approx_attention.cu``'s dynamic shared memory per block:
+    bitexact at row-tile factor ``tm`` (4, the most, by default), lowrank
+    at ``rank``; kept in step with ``bitexact_smem`` / ``LowrankLayout``."""
     if mode == "bitexact":
-        return 2 * (1 << (2 * n)) + 2 * rows * (hd + 4) + 2 * MAX_BK * (hd + 4) + stats
-    wide = hd * rank
-    return 4 * ((1 << n) * rank + rows * (hd + 1) + rows * (wide + 1)
-                + kc * (hd + 1) + kc * (wide + 1)) + stats
+        rh = _bitexact_rh(hd, tm)
+        return (_align16(2 << (2 * n)) + 4 * hd * rh + 2 * _CHUNK * hd + 4 * rh * MAX_BK
+                + _stats_bytes(rh))
+    hdp, rh = max(hd, 32), _LOWRANK_RH
+    tables = 16 * ((1 << n) + 1) * (-(-rank // 8) * 8)
+    q_part = _align16(2 * rh * (hdp + 32) + 2 * hd * rh)
+    k_part = 2 * MAX_BK * (hdp + 8) + 2 * hd * (MAX_BK + 4)
+    v_part = 2 * hdp * (MAX_BK + 8) + 2 * MAX_BK * (hdp + 4)
+    return (tables + q_part + _align16(max(k_part, v_part)) + 4 * rh * MAX_BK
+            + rh * (MAX_BK + 32) + _stats_bytes(rh))
+
+
+def _geometry(b: int, s: int, h: int, kv: int, rh: int) -> tuple[int, int, int]:
+    """(items, rows, heads) of a launch whose items hold ``rh`` row-heads."""
+    g = h // kv
+    heads = min(g, rh)
+    rows = rh // heads
+    return b * kv * -(-g // heads) * -(-s // rows), rows, heads
+
+
+def launch_plan(mode: str, b: int, s: int, t: int, h: int, kv: int, hd: int, n: int,
+                rank: int, sms: int) -> AttnPlan:
+    """The launch of ``mode``'s kernel on q (b, s, h, hd), k/v (b, t, kv, hd)
+    with ``sms`` SMs: a persistent grid of min(items, sms) blocks; bitexact
+    items hold 16 TM row-heads, TM = 4, 2 or 1 the largest that gives
+    every SM an item; lowrank items 32."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
+    validate_attn_mode(mode, n)
+    if mode == "bitexact":
+        for tm in (4, 2, 1):
+            items, rows, heads = _geometry(b, s, h, kv, _bitexact_rh(hd, tm))
+            if items >= sms:
+                break
+        threads, smem = _BITEXACT_THREADS, smem_bytes(mode, n, hd, rank, tm)
+    else:
+        items, rows, heads = _geometry(b, s, h, kv, _LOWRANK_RH)
+        threads, smem = _LOWRANK_THREADS, smem_bytes(mode, n, hd, rank)
+    return AttnPlan((min(items, sms), 1, 1), threads, smem, rows, heads)
+
+
+def built_launch_plan(mode: str, b: int, s: int, t: int, h: int, kv: int, hd: int, n: int,
+                      rank: int, sms: int) -> AttnPlan:
+    """The launch that the built ``csrc/approx_attention.cu`` makes for these
+    arguments (its ``approx_attention_plan``), which :func:`launch_plan`
+    must equal; builds the library, so it needs ``nvcc``."""
+    fn = BITEXACT_KERNEL.library().approx_attention_plan
+    fn.argtypes = [_I] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    err = fn(ATTN_MODES.index(mode), b, s, t, h, kv, hd, n, rank, sms, out)
+    if err != 0:
+        raise ValueError(f"approx_attention_plan refused {mode} {(b, s, t, h, kv, hd, n, rank)}: "
+                         f"CUDA error {err}")
+    return AttnPlan(tuple(out[:3]), out[3], out[4], out[5], out[6])
 
 
 class KernelOperands(NamedTuple):
@@ -286,47 +418,53 @@ class KernelOperands(NamedTuple):
     rank: int
     q_shape: tuple  # (B, S, H, hd)
     k_shape: tuple  # (B, T, KV, hd)
-    args: list  # the six operands of the mode's entry point
-    table: torch.Tensor  # bitexact: the uint16 product table; lowrank: U
+    args: list  # magnitudes (uint8) and signs (int8) of q, k and v
+    table: torch.Tensor  # bitexact: the uint16 product table; lowrank: U and V (2, 2^n, r)
     scales: torch.Tensor  # [qk_scale, pv_scale]
 
 
 def kernel_operands(q, k, v, *, mode, n, t, fix_to_1, rank) -> KernelOperands:
-    """Quantize q, k, v (:func:`prepare`) into the kernel's operands, checked."""
+    """Quantize q, k, v as :func:`prepare` does into the kernel's operands,
+    checked: magnitudes and signs in both modes (lowrank builds its error
+    embeddings in shared memory, from the U and V tables)."""
     b, s, h, hd = q.shape
     tt, kv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not split into groups over {kv} KV heads")
+    validate_attn_mode(mode, n)
     nbytes = smem_bytes(mode, n, hd, rank)
     if nbytes > SMEM_PER_BLOCK:
         raise ValueError(f"approx attention ({mode}, n={n}, hd={hd}, rank={rank}) needs "
                          f"{nbytes} bytes of shared memory, over {SMEM_PER_BLOCK}")
     dev = q.device
-    ops, (qk_scale, pv_scale) = prepare(mode, q, k, v, n=n, t=t, fix_to_1=fix_to_1, rank=rank)
+    # both kernels read magnitudes and signs: prepare's bitexact operands
+    ops, (qk_scale, pv_scale) = prepare("bitexact", q, k, v, n=n, t=t, fix_to_1=fix_to_1,
+                                        rank=rank)
     scales = torch.stack([qk_scale, pv_scale]).to(torch.float32).contiguous()
+    mq, sq, mk, sk, mv, sv = ops
+    args = [mq.to(torch.uint8), sq.to(torch.int8), mk.to(torch.uint8), sk.to(torch.int8),
+            mv.to(torch.uint8), sv.to(torch.int8)]
     if mode == "lowrank":
-        table = ops[-1]
-        args = [x.contiguous() for x in ops[:-1]]
-        widths = (hd, hd, hd, hd * rank, hd * rank, rank * hd)
-        sides = ((b, s, h), (b, tt, kv), (b, tt, kv), (b, s, h), (b, tt, kv), (b, tt, kv))
-        for name, x, w_, lead in zip(("qi", "ki", "vi", "ueq", "vek", "vev"), args, widths,
-                                     sides):
-            check_operand(x, name, torch.float32, (*lead, w_), dev)
-        check_operand(table, "ut", torch.float32, (1 << n, rank), dev)
+        u, vf, _ = artifacts.svd_factors(n, t, rank, fix_to_1, dev)
+        table = torch.stack([u, vf]).to(torch.float32).contiguous()
+        check_operand(table, "tables", torch.float32, (2, 1 << n, rank), dev)
     else:
         table = artifacts.product_lut_u16(n, t, fix_to_1, dev)
-        mq, sq, mk, sk, mv, sv = ops
-        args = [mq.to(torch.uint8), sq.to(torch.int8), mk.to(torch.uint8), sk.to(torch.int8),
-                mv.to(torch.uint8), sv.to(torch.int8)]
     return KernelOperands(mode, n, rank, (b, s, h, hd), (b, tt, kv, hd), args, table, scales)
 
 
 def launch_kernel(ops: KernelOperands, q_pos, k_pos, *, bk, causal, window, softcap,
-                  scale, with_lse=False):
+                  scale, with_lse=False, skipped: Optional[torch.Tensor] = None):
     """One launch of the mode's kernel on prepared operands -> (B, S, H, hd)
-    f32, or ``(o, lse)`` with ``with_lse`` (lse (B, H, S) f32)."""
+    f32, or ``(o, lse)`` with ``with_lse`` (lse (B, H, S) f32).
+
+    ``skipped``, a one-element int32 tensor on the card or None: the kernel
+    adds one to it for each (work item, key block) pair it skips, that is
+    each pair :func:`approx_tile_plan` skips at the plan's ``rows``, once
+    per KV head and head chunk (``-(-(H // KV) // plan.heads)``).
+    """
     b, s, h, hd = ops.q_shape
     tt, kv = ops.k_shape[1], ops.k_shape[2]
     if not 1 <= bk <= MAX_BK:
@@ -335,6 +473,13 @@ def launch_kernel(ops: KernelOperands, q_pos, k_pos, *, bk, causal, window, soft
     q_pos, k_pos = q_pos.to(torch.int32).contiguous(), k_pos.to(torch.int32).contiguous()
     check_operand(q_pos, "q_pos", torch.int32, (b, s), dev)
     check_operand(k_pos, "k_pos", torch.int32, (b, tt), dev)
+    shapes = (ops.q_shape, ops.k_shape, ops.k_shape)
+    for i, (name, x) in enumerate(zip(("mq", "sq", "mk", "sk", "mv", "sv"), ops.args)):
+        check_operand(x, name, (torch.uint8, torch.int8)[i % 2], shapes[i // 2], dev)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels load 16 bytes)")
+    if skipped is not None:
+        check_operand(skipped, "skipped", torch.int32, (1,), dev)
     lowrank = ops.mode == "lowrank"
     kernel, tail = (LOWRANK_KERNEL, [ops.rank]) if lowrank else (BITEXACT_KERNEL, [])
     out = torch.empty((b, s, h, hd), dtype=torch.float32, device=dev)
@@ -342,9 +487,10 @@ def launch_kernel(ops: KernelOperands, q_pos, k_pos, *, bk, causal, window, soft
     kernel.launch(
         dev, *(x.data_ptr() for x in ops.args), ops.table.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), ops.scales.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, s, tt, h, kv, hd, ops.n, bk,
+        None if lse is None else lse.data_ptr(),
+        None if skipped is None else skipped.data_ptr(), b, s, tt, h, kv, hd, ops.n, bk,
         int(bool(causal)), -1 if window is None else int(window), float(softcap or 0.0),
-        float(scale), *tail,
+        float(scale), *tail, sm_count(dev),
     )
     return (out, lse) if with_lse else out
 

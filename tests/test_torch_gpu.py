@@ -22,7 +22,8 @@ Tolerances (kernel against plain version, both on the card):
 - ``approx_flash_attention``: within one probability quantum, max|v| /
   (2^n - 1), everywhere, and 1e-5 for 99% of the outputs: the sums of l
   (both modes) and of the lowrank scores run in another order, and an ulp
-  there can move a ``p_int`` across a rounding boundary;
+  there can move a ``p_int`` across a rounding boundary; two launches give
+  the same bits, and ``launch_plan`` equals the built plan;
 - the flash backward (dq, dk/dv kernels): within 1e-4 * max|want| per
   output, float32 before the cast (sums of up to T terms in another order);
 - the elementwise multiplier (``seqmul_packed``, ``seqmul_words``):
@@ -353,6 +354,82 @@ def test_approx_attention_matches_plain_version(mode, bk, window, softcap, card)
     assert bool(torch.isfinite(got).all())
     assert err.max().item() <= v.float().abs().max().item() / 255
     assert (err <= 1e-5).float().mean().item() >= 0.99
+
+
+def _padded_cache(card, b, s, t, h, kv, hd, seed):
+    """bf16 q/k/v over a cache of t slots: row 1 left-padded by 5 (its first
+    queries see no slot), row 2 by 40, every row's slots past its prompt of
+    s an unwritten tail."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn((b, t, kv, hd), generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn((b, t, kv, hd), generator=g, device=card).to(torch.bfloat16)
+    pad = torch.zeros((b, 1), dtype=torch.int64, device=card)
+    pad[1], pad[2] = 5, 40
+    jj = torch.arange(t, device=card).expand(b, t)
+    q_pos = (torch.arange(s, device=card).expand(b, s) - pad).to(torch.int32)
+    k_pos = torch.where((jj >= pad) & (jj < s), jj - pad, -1).to(torch.int32)
+    return q, k, v, q_pos, k_pos
+
+
+@pytest.mark.parametrize("mode,hd,n,rank,bk,window,softcap", [
+    ("bitexact", 16, 8, 8, 16, None, None), ("bitexact", 64, 4, 8, 64, 24, 30.0),
+    ("bitexact", 128, 8, 8, 128, None, None), ("bitexact", 32, 8, 8, 40, None, 30.0),
+    ("lowrank", 16, 8, 4, 8, None, 30.0), ("lowrank", 64, 8, 24, 128, 24, None),
+    ("lowrank", 128, 4, 8, 64, None, None), ("lowrank", 32, 8, 1, 100, None, None),
+])
+def test_approx_attention_redesign_matches_plain_version(mode, hd, n, rank, bk, window, softcap,
+                                                         card):
+    """Left pads and a masked tail over T = 256 (pairs the kernels skip, and
+    tiles that must walk every block), at every head width, n = 4, ranks 1
+    and 24, ragged key blocks: within one probability quantum max|v| /
+    (2^n - 1), 99% within 1e-5, lse within 1e-5; two launches give the same
+    bits, and a third, counting on the card the pairs it skips, skips the
+    pairs of ``approx_tile_plan`` (some, not all) and gives the same bits."""
+    from repro_torch.kernels import approx_attention as aa
+
+    b, s, t, h, kv = 3, 72, 256, 8, 2
+    q, k, v, qp, kp = _padded_cache(card, b, s, t, h, kv, hd, seed=hd + n + rank)
+    kw = dict(causal=True, window=window, softcap=softcap, scale=hd**-0.5)
+    ops = aa.kernel_operands(q, k, v, mode=mode, n=n, t=n // 2, fix_to_1=True, rank=rank)
+    got, again = (aa.launch_kernel(ops, qp, kp, bk=bk, with_lse=True, **kw) for _ in range(2))
+    want, want_lse = aa.approx_attention_plain(q, k, v, qp, kp, mode=mode, n=n, t=n // 2,
+                                               rank=rank, bk=bk, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b_.view(torch.int32))
+               for a, b_ in zip(got, again))
+    err = (got[0] - want).abs()
+    assert bool(torch.isfinite(got[0]).all())
+    assert err.max().item() <= v.float().abs().max().item() / ((1 << n) - 1)
+    assert (err <= 1e-5).float().mean().item() >= 0.99
+    assert (got[1] - want_lse).abs().max().item() <= 1e-5
+    plan = aa.launch_plan(mode, b, s, t, h, kv, hd, n, rank, torch.cuda.get_device_properties(
+        card).multi_processor_count)
+    live = aa.approx_tile_plan(qp, kp, bk=bk, rows=plan.rows, causal=True, window=window)
+    assert not bool(live.all())
+    counter = torch.zeros(1, dtype=torch.int32, device=card)
+    counted = aa.launch_kernel(ops, qp, kp, bk=bk, with_lse=True, skipped=counter, **kw)
+    assert all(torch.equal(a.view(torch.int32), b_.view(torch.int32))
+               for a, b_ in zip(got, counted))
+    assert counter.item() == int((~live).sum()) * kv * -(-(h // kv) // plan.heads)
+
+
+@pytest.mark.parametrize("mode", ["bitexact", "lowrank"])
+def test_approx_attention_launch_plan_is_the_kernels(mode, card):
+    """``launch_plan`` (which the CPU tests read) equals the launch that the
+    built library makes, at the serve, train and long shapes, every head
+    width, n = 4 and 8, ranks 1, 8 and 24, and a group wider than an item."""
+    from repro_torch.kernels import approx_attention as aa
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    shapes = [(4, 32, 48, 16, 8), (8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8),
+              (3, 72, 256, 8, 2), (2, 3, 7, 64, 1), (1, 10, 10, 6, 2)]
+    for b, s, t, h, kv in shapes:
+        for hd in (16, 32, 64, 128):
+            for n, rank in ((8, 8), (4, 1), (8, 24)):
+                plan = aa.launch_plan(mode, b, s, t, h, kv, hd, n, rank, sms)
+                assert plan == aa.built_launch_plan(mode, b, s, t, h, kv, hd, n, rank, sms), \
+                    (b, s, t, h, kv, hd, n, rank)
 
 
 def _bwd_inputs(card, b, s, h, kv, hd, dtype, seed, pad=0):
