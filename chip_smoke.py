@@ -25,18 +25,24 @@ Phases, one line each (or a few):
    serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
    prefill q (4, 32) over a 48-slot cache with a masked tail, key block
    16; decode batch 4 over 48 slots), a window + softcap case each, and
-   one long shape each, and approx_attention_bitexact at the train shape
-   (B 8, S = T = 128, key block 64, with lse); flash_attention and
-   flash_decode within 2e-5, approx_attention within one probability
+   one long shape each, and flash_attention and approx_attention_bitexact
+   at the train shape (B 8, S = T = 128, key block 64 for the latter, with
+   lse, as the train step's forward runs them); flash_attention (o, and
+   lse at the train shape) and flash_decode within rtol = atol = 2e-5
+   of the plain version (max|err| / limit printed),
+   approx_attention within one probability
    quantum (max|v| / 255) and 1e-5 for 99% of the outputs, with the
-   bit-equal share printed, bit-identical over two launches and with
-   ``launch_plan`` equal to the launch the built library makes; one more
-   launch counts on the card the (work item, key block) pairs the kernel
-   skips, which must equal the masked-block rule's count
-   (``approx_tile_plan``), and the count goes into the kernels line; the build
-   phase checks that every lowrank instantiation of approx_attention has
-   tensor-core instructions (IMMA, HMMA) in its SASS and no bitexact one
-   has any.
+   bit-equal share printed; every attention row bit-identical over two
+   launches and with ``launch_plan`` equal to the launch the built
+   library makes; one more launch counts on the card the work the kernel
+   skips, which must equal the masked-block rule's count (the (work item,
+   key tile) pairs of ``fwd_tile_plan`` or ``approx_tile_plan``, the
+   cache chunks of ``decode_chunk_plan``), and the count goes into the
+   kernels line; every flash_attention and flash_decode row also prints
+   its ``device_ms`` and SDPA's (``library_device_ms``); the build phase
+   checks that every forward instantiation of flash_attention and every
+   lowrank instantiation of approx_attention has tensor-core instructions
+   (HMMA, IMMA) in its SASS and no decode or bitexact one has any.
    Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
    operands split into two bf16 terms, tiles with nothing to add skipped)
    against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
@@ -58,8 +64,8 @@ Phases, one line each (or a few):
    operations of the recurrence at the SMs' int32 issue rate, int8
    tensor-core products (4 per product of 9- to 16-bit operands), TF32
    tensor-core products (lowrank's correction, 3 per product), bf16
-   tensor-core products (the backward, as its split runs them), float32
-   FLOPs on the CUDA cores; for attention
+   tensor-core products (the flash forward and backward, as their splits
+   run them), float32 FLOPs on the CUDA cores (the decode); for attention
    counted over the query-slot pairs and the K/V slots this run's
    positions need, masked pairs adding nothing; approx_attention_lowrank
    as int8 tensor-core products for its exact parts and split TF32 for
@@ -75,8 +81,8 @@ Phases, one line each (or a few):
    ``device_ms``, the device's time alone (calls replayed from one CUDA
    graph), packed_matmul and lowrank_matmul with ``library_device_ms``
    beside it, lut_matmul with its time on magnitudes below 64 (no bank
-   conflict in its gathers), and the backward pair and the timed
-   approximate attention rows their ``device_ms``;
+   conflict in its gathers), and the backward pair, the flash rows and the
+   timed approximate attention rows their ``device_ms``;
 4. reference: ``engine.matmul`` on the card against the CPU reference
    bodies at a small shape (bit-equal; lowrank within 2e-6 * max|want|),
    and reduced qwen3-0.6b prefill logits on the card against the CPU
@@ -104,7 +110,8 @@ Phases, one line each (or a few):
    ``attn_impl="pallas"`` (lut_matmul on the MLPs, flash_attention with
    lse, the dq and dk/dv kernels) and qwen3-0.6b bitexact on mlp and attn
    with ``attn_impl="pallas"`` (adds approx_attention_bitexact): the loss
-   must be finite and fall; each prints step ms, train tokens/s, launches
+   must be finite and fall; each prints the means of its first and last
+   ten losses, its first two losses, step ms, train tokens/s, launches
    per step and the busy share of one profiled step.  Then the train CLI
    on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
    injected at step 5, which it must recover from;
@@ -614,8 +621,9 @@ def phase_gemm_edges() -> list:
 def attention_cases():
     """(kernel, label, B, S, T, bk, window, softcap, timed): the serve shapes
     (prefill q (B, 32) over the 48-slot cache, decode over it), a window +
-    softcap variant of each, one long shape each, and bitexact at the train
-    shape of run (b) (with lse)."""
+    softcap variant of each, one long shape each, and the forwards of train
+    runs (a) and (b) at their shape, with lse: flash_attention and
+    bitexact."""
     b, p = SERVE["batch"], SERVE["prompt"]
     cases = []
     for name in ATTN_KERNELS:
@@ -627,6 +635,8 @@ def attention_cases():
     cases.append(("flash_decode", "long", 4, 1, 4096, None, None, None, True))
     cases.append(("approx_attention_bitexact", "long", 1, 1024, 1024, 64, None, None, True))
     cases.append(("approx_attention_lowrank", "long", 1, 1024, 1024, 128, None, None, True))
+    cases.append(("flash_attention", "train", TRAIN["batch"], TRAIN["seq"], TRAIN["seq"],
+                  None, None, None, True))
     cases.append(("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
                   TRAIN["seq"], 64, None, None, True))
     return cases
@@ -687,23 +697,32 @@ def run_attention_case(card: Card, case, seed):
     kv_bytes = 2 * 2 * kv * hd * slots
     # positions read once, the f32 output written once
     io_bytes = 4 * (q_pos.numel() + k_pos.numel()) + 4 * q.numel()
+    # the train rows return lse too (written once), as the train step's forward does
+    with_lse = label == "train"
+    lse_bytes = 4 * b * h * s if with_lse else 0
     library = None
     if name == "flash_decode":
         kw = dict(window=window, softcap=softcap, scale=scale)
         kern = lambda: fa.flash_decode(q[:, 0], k, v, q_pos, k_pos, **kw)
         plain = lambda: fa.flash_decode_plain(q[:, 0], k, v, q_pos, k_pos, **kw)
+        # bytes-bound: float32 FMAs on the CUDA cores, QK and PV (4 hd FLOPs a pair)
         bound = card.bound(2 * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
                            card.f32_flops_per_s)
     elif name == "flash_attention":
         kw = dict(causal=True, window=window, softcap=softcap, scale=scale)
-        kern = lambda: fa.flash_attention(q, k, v, q_pos, k_pos, **kw)
-        plain = lambda: fa.flash_attention_plain(q, k, v, q_pos, k_pos, **kw)
-        bound = card.bound(2 * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
-                           card.f32_flops_per_s)
+        if with_lse:
+            # the train step's forward: (o, lse) against the plain version's
+            kern = lambda: fa.flash_attention_fwd(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+            plain = lambda: fa.attend(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+        else:
+            kern = lambda: fa.flash_attention(q, k, v, q_pos, k_pos, **kw)
+            plain = lambda: fa.flash_attention_plain(q, k, v, q_pos, k_pos, **kw)
+        # the products the kernel runs on the bf16 tensor cores: QK^T on bf16 q
+        # and k (2 hd FLOPs a pair) and P.V with p as two bf16 terms (4 hd)
+        bound = card.bound(2 * q.numel() + kv_bytes + io_bytes + lse_bytes, 6 * pairs * hd,
+                           BF16_TENSOR_FLOPS_PER_S)
     else:
         mode, rank = name.rsplit("_", 1)[1], 8
-        # the train row returns lse too, as the train step's forward does
-        with_lse = label == "train"
         kw = dict(mode=mode, n=8, t=4, rank=rank, causal=True, window=window, softcap=softcap,
                   scale=scale, bk=bk)
         wrapper = lambda: aa.approx_flash_attention(q, k, v, q_pos, k_pos, **kw)
@@ -716,7 +735,7 @@ def run_attention_case(card: Card, case, seed):
         plan = aa.launch_plan(mode, b, s, t, h, kv, hd, 8, rank, card.sms)
         built = aa.built_launch_plan(mode, b, s, t, h, kv, hd, 8, rank, card.sms)
         # magnitudes and signs of q and the needed k, v slots (a byte each)
-        nbytes = 2 * q.numel() + kv_bytes + io_bytes + (4 * b * h * s if with_lse else 0)
+        nbytes = 2 * q.numel() + kv_bytes + io_bytes + lse_bytes
         if mode == "bitexact":
             # and the uint16 table, once; two lookups per pair and d
             bound = card.bound(nbytes + 2 * 2**16, 2 * pairs * hd, card.lookups_per_s)
@@ -774,6 +793,50 @@ def run_attention_case(card: Card, case, seed):
         check(row["skipped_pairs"] == planned,
               f"{where}: the kernel skipped {row['skipped_pairs']} (item, block) pairs, "
               f"approx_tile_plan {planned}")
+    else:
+        again = kern()
+        if with_lse:
+            (got, lse), (again, lse2), (want, want_lse) = got, again, want
+            check(torch.equal(lse.view(torch.int32), lse2.view(torch.int32)),
+                  f"{where}: lse differs between two launches")
+            lse_diff = (lse - want_lse).abs()
+            row["lse_max_abs_err"] = lse_diff.max().item()
+            row["lse_err_over_limit"] = (lse_diff / (2e-5 + 2e-5 * want_lse.abs())).max().item()
+            check(row["lse_err_over_limit"] <= 1,
+                  f"{where}: lse max |err| {row['lse_max_abs_err']} over rtol/atol 2e-5")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"{where}: two launches on the same inputs differ")
+        decode = name == "flash_decode"
+        plan_args = ("decode" if decode else "fwd", b, s, t, h, kv, hd, q.dtype)
+        plan = fa.launch_plan(*plan_args, sms=card.sms)
+        built = fa.built_launch_plan(*plan_args, sms=card.sms)
+        check(plan == built, f"{where}: launch_plan {plan} but the kernel launches {built}")
+        row["plan"] = dict(grid=list(plan.grid), threads=plan.threads, smem=plan.smem,
+                           rows=plan.rows, heads=plan.heads, keys=plan.keys)
+        # what the kernel skips, counted on the card in one more launch, against
+        # the rule's count on the CPU: (item, key tile) pairs of fwd_tile_plan once
+        # per KV head, or cache chunks of decode_chunk_plan once per KV head
+        counter = torch.zeros(1, dtype=torch.int32, device=q.device)
+        if decode:
+            live = fa.decode_chunk_plan(q_pos, k_pos, chunk=plan.keys, window=window)
+            counted = fa.launch_decode(q[:, 0], k, v, q_pos, k_pos, skipped=counter, **kw)
+            key, what = "skipped_chunks", "(b, KV head, chunk) triples"
+        else:
+            live = fa.fwd_tile_plan(q_pos, k_pos, rows=plan.rows, keys=plan.keys, causal=True,
+                                    window=window)
+            counted, counted_lse = fa.launch_forward(q, k, v, q_pos, k_pos, with_lse=with_lse,
+                                                     skipped=counter, **kw)
+            if with_lse:
+                check(torch.equal(lse.view(torch.int32), counted_lse.view(torch.int32)),
+                      f"{where}: the launch that counts skipped work writes another lse")
+            key, what = "skipped_pairs", "(item, key tile) pairs"
+        per_tile = kv * -(-(h // kv) // plan.heads)
+        planned, pairs_total = int((~live).sum()) * per_tile, live.numel() * per_tile
+        check(torch.equal(got.view(torch.int32), counted.view(torch.int32)),
+              f"{where}: the launch that counts skipped work differs")
+        row[key] = int(counter.item())
+        check(row[key] == planned, f"{where}: the kernel skipped {row[key]} {what}, the plan "
+                                   f"{planned}")
     check(bool(torch.isfinite(got).all()), f"{where}: non-finite output")
     diff = (got - want).abs()
     err = row["max_abs_err"] = diff.max().item()
@@ -791,8 +854,18 @@ def run_attention_case(card: Card, case, seed):
                  f"(item, key block) pairs skipped on the card {row['skipped_pairs']} of "
                  f"{pairs_total}, approx_tile_plan's count {planned}")
     else:
-        check(bool((diff <= 2e-5 + 2e-5 * want.abs()).all()), f"{where}: max |err| {err}")
-        agree = f"max |err| {err:.3e} (rtol/atol 2e-5)"
+        row["err_over_limit"] = (diff / (2e-5 + 2e-5 * want.abs())).max().item()
+        check(row["err_over_limit"] <= 1, f"{where}: max |err| {err}")
+        agree = (f"max |err| {err:.3e}, over the limit rtol/atol 2e-5: "
+                 f"{row['err_over_limit']:.4f}"
+                 + (f", lse max |err| {row['lse_max_abs_err']:.3e}, over the limit "
+                    f"{row['lse_err_over_limit']:.4f}" if with_lse else "")
+                 + f"; two launches bit-identical, launch_plan as built "
+                 f"{row['plan']}, {what} skipped on the card {row[key]} of {pairs_total}, the "
+                 f"plan's count {planned}")
+        row["device_ms"] = graph_ms(kern)
+        if library is not None:
+            row["library_device_ms"] = graph_ms(library)
     if timed:
         reps = 20 if label == "serve" else 5
         row["ms"] = cuda_ms(kern, reps=reps, warmup=2)
@@ -801,11 +874,14 @@ def run_attention_case(card: Card, case, seed):
         if name.startswith("approx"):
             row["wrapper_ms"] = cuda_ms(wrapper, reps=reps, warmup=2)
             row["device_ms"] = graph_ms(kern)
+    device = (f" device_ms {row['device_ms']:.4f}" if "device_ms" in row else "") + (
+        f" library_device_ms {row['library_device_ms']:.4f}" if "library_device_ms" in row
+        else "")
     times = (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} library_ms "
              + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "none")
-             + (f" wrapper_ms (with quantization) {row['wrapper_ms']:.4f} device_ms "
-                f"{row['device_ms']:.4f}" if "wrapper_ms" in row else "")
-             if timed else "")
+             + (f" wrapper_ms (with quantization) {row['wrapper_ms']:.4f}"
+                if "wrapper_ms" in row else "") + device
+             if timed else device)
     print(f"kernel {where}: {agree}{times} bound_ms {row['bound_ms']:.5f} ({row['bound_by']})",
           flush=True)
     return row
@@ -1418,11 +1494,12 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
              "device busy share not measured (the profiler saw no device time)")
     print(f"train {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}, batch {b} x seq {seq}, {n} steps "
-          f"(init {init_s:.1f}s): loss {first:.4f} -> {last:.4f}; step {step_ms:.1f} ms "
+          f"(init {init_s:.1f}s): loss {first:.4f} -> {last:.4f} (steps 1 and 2: "
+          f"{losses[0]:.6f}, {losses[1]:.6f}); step {step_ms:.1f} ms "
           f"(first {times[0] * 1e3:.1f} ms), {b * seq / step_ms * 1e3:.0f} train tokens/s; "
           f"launches per step {per_step}; {share}", flush=True)
     return dict(counts=counts, per_step=per_step, step_ms=step_ms, first=first, last=last,
-                busy_share=busy_ms / wall_ms if busy_ms else None)
+                losses=losses, busy_share=busy_ms / wall_ms if busy_ms else None)
 
 
 def phase_train_reference() -> None:
@@ -1531,7 +1608,8 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
-    sass_checks = (("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel"), ()),
+    sass_checks = (("flash_attention", ("flash_attention_kernel",), ("flash_decode_kernel",)),
+                   ("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel"), ()),
                    ("approx_attention", ("lowrank_kernel",), ("bitexact_kernel",)))
     for source, names, without in sass_checks:
         for kernel, count in sorted(tensor_core_instructions(source, names, without).items()):
@@ -1655,7 +1733,7 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             **{key: main_row[key] for key in ("device_ms", "library_device_ms",
                                               "device_ms_mag_below_64", "err_over_limit",
-                                              "plan", "skipped_pairs")
+                                              "plan", "skipped_pairs", "skipped_chunks")
                if key in main_row},
             "shape": main_row["shape"],
             **per_step,

@@ -53,7 +53,7 @@ from repro_torch.core import quantization
 from repro_torch.engine import artifacts
 from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand, sm_count
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, NEG_INF, FlashBackward, _tiles, allow_mask, needs_grad,
+    HEAD_DIMS, NEG_INF, FlashBackward, allow_mask, fwd_tile_plan, needs_grad,
 )
 
 __all__ = [
@@ -229,24 +229,10 @@ def approx_tile_plan(q_pos, k_pos, *, bk: int, rows: int, causal: bool,
     the block, judged from the tile's least and greatest position against
     each written slot, and (b) every row of the tile has an allowed slot
     somewhere in T.  A skipped pair leaves every row's (m, l, acc) as they
-    were.
+    were.  The exact forward's rule (:func:`fwd_tile_plan`), at key tiles of
+    ``bk``.
     """
-    b = q_pos.shape[0]
-    big = torch.iinfo(torch.int64).max // 4
-    qp, kp = q_pos.to(torch.int64), k_pos.to(torch.int64)
-    exists = _tiles(torch.ones_like(qp, dtype=torch.bool), rows, False)
-    qt = _tiles(qp, rows, 0)
-    qmin = torch.where(exists, qt, big).amin(-1)[:, :, None, None]
-    qmax = torch.where(exists, qt, -big).amax(-1)[:, :, None, None]
-    slots = _tiles(kp, bk, -1)[:, None]  # (B, 1, nK, bk)
-    may = slots >= 0
-    if causal:
-        may = may & (slots <= qmax)
-    if window is not None:
-        may = may & (qmin - slots < window)
-    has = allow_mask(q_pos, k_pos, causal=causal, window=window).any(-1)  # (B, S)
-    missing = _tiles(~has, rows, False).any(-1)  # (B, nQ): a row with no allowed slot
-    return may.any(-1) | missing[:, :, None].expand(b, -1, may.shape[2])
+    return fwd_tile_plan(q_pos, k_pos, rows=rows, keys=bk, causal=causal, window=window)
 
 
 # ---------------------------------------------------------------- plain

@@ -34,8 +34,8 @@ import torch
 
 __all__ = [
     "BUILD_DIR", "CSRC", "KERNELS", "SMEM_PER_BLOCK", "SPLIT_BLOCKS_PER_SM", "CudaKernel",
-    "build_all", "check_operand", "device_index", "library_path", "nvcc_path", "pick_tile",
-    "sm_count", "sm_count_of", "split_k", "tile_counters", "wide_accumulator", "workspace_bytes",
+    "build_all", "check_operand", "device_index", "float_scratch", "library_path", "nvcc_path",
+    "pick_tile", "sm_count", "sm_count_of", "split_k", "tile_counters", "wide_accumulator", "workspace_bytes",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -246,6 +246,25 @@ def tile_counters(device: torch.device, count: int) -> torch.Tensor:
     if buf is None or buf.numel() < count:
         buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
         _counters[key] = buf
+    return buf
+
+
+_scratch: dict = {}
+
+
+def float_scratch(device: torch.device, count: int) -> torch.Tensor:
+    """A float32 buffer of at least ``count`` elements for a kernel's
+    partials, kept per device and grown when a launch needs more.
+
+    Nothing in it outlives a launch: the kernel writes every partial before
+    it reads one.  Launches on one stream never overlap, so one buffer
+    serves every launch there, with no allocation per call.
+    """
+    key = _device_key(device)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.empty(max(count, 1 << 16), dtype=torch.float32, device=device)
+        _scratch[key] = buf
     return buf
 
 

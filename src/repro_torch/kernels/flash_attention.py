@@ -13,10 +13,15 @@ positions (B, S) / (B, T) with ``-1`` marking an unwritten cache slot;
 decode takes q (B, H, hd) and q_pos (B,).  Outputs are float32.  The
 reference's ``bq``/``bk``/``interpret`` arguments have no counterpart: the
 tiles are the kernel's own, and they change only the order of float32
-sums.  The backward kernels run their products on the bf16 tensor cores,
-a float32 operand split into two bf16 terms, and skip the tiles that add
-nothing: :func:`launch_plan` and :func:`smem_bytes` give their launches,
-:func:`bwd_tile_plan` the tiles they compute, for tests on the CPU.
+sums.  Every kernel runs its products on the bf16 tensor cores (the
+decode, bytes-bound, on float32 FMAs), a float32 operand split into bf16
+terms, and skips the tiles that add nothing: :func:`launch_plan` and
+:func:`smem_bytes` give the launches (``"fwd"``, ``"decode"``, ``"dq"``,
+``"dkv"``), :func:`fwd_tile_plan` the (query tile, key tile) pairs the
+forward computes, :func:`decode_chunk_plan` the cache chunks the decode
+reads, :func:`bwd_tile_plan` the backward's tiles, for tests on the CPU.
+:func:`launch_forward` and :func:`launch_decode` are the two kernels'
+launches with an optional on-card count of the pairs or chunks skipped.
 
 The plain versions are the port's attention math, also used by
 ``models/attention.py`` on its plain path: the direct softmax, or the
@@ -32,14 +37,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand
+from repro_torch.kernels.build import (
+    SMEM_PER_BLOCK, CudaKernel, check_operand, float_scratch, sm_count, tile_counters,
+)
 
 __all__ = [
     "DECODE_KERNEL", "DKV_KERNEL", "DQ_KERNEL", "FORWARD_KERNEL", "BwdPlan", "FlashBackward",
-    "NEG_INF", "allow_mask", "attend", "built_launch_plan", "bwd_probs", "bwd_tile_plan",
-    "flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+    "FwdPlan", "NEG_INF", "allow_mask", "attend", "built_launch_plan", "bwd_probs",
+    "bwd_tile_plan", "decode_chunk_plan", "decode_split", "flash_attention",
+    "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
     "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_plain", "flash_decode",
-    "flash_decode_plain", "launch_plan", "needs_grad", "smem_bytes",
+    "flash_decode_plain", "fwd_tile_plan", "launch_decode", "launch_forward", "launch_plan",
+    "needs_grad", "smem_bytes",
 ]
 
 NEG_INF = -2.3819763e38  # bf16-safe large negative (the reference's value)
@@ -48,14 +57,18 @@ K_CHUNK = 1024
 HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
 MAX_GROUP = 16  # flash_decode: query heads per KV head
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# (q, k, v, q_pos, k_pos, out, lse, skipped, dtype, B, S, T, H, KV, hd, causal, window,
+#  softcap, scale, sms, device, stream)
 FORWARD_KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
-    [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
+    [_P] * 8 + [_I] * 9 + [_F, _F, _I, _I, _P],
 )
+# (q, k, v, q_pos, k_pos, out, workspace, its floats, counters, skipped, dtype, B, T, H, KV,
+#  hd, window, softcap, scale, sms, device, stream)
 DECODE_KERNEL = CudaKernel(
     "flash_decode", "flash_decode_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    [_P] * 7 + [_LL, _P, _P] + [_I] * 7 + [_F, _F, _I, _I, _P],
     source="flash_attention",
 )
 # (q, k, v, do, lse, dd, q_pos, k_pos, outputs..., dtype, B, S, T, H, KV, hd, causal,
@@ -77,6 +90,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # a bf16 one as it is; cp.async rings of STAGES steps; bf16 rows padded by 8
 DQ_ROWS, DQ_KEYS, KV_KEYS, KV_ROWS = 64, 32, 64, 32
 GROUP_THREADS, SPLIT, STAGES, ROW_PAD = 128, 2, 2, 8
+# csrc/flash_attention.cu: forward items of 64 row-heads (four warps of
+# 16: the group's query heads over its query rows) walking key tiles of
+# 64, two items to a bf16 block (a long one and a short one) where that
+# makes one wave, bf16 k and v through a two-stage cp.async ring, float32
+# q, k, v as FWD_SPLIT bf16 terms read tile by tile; decode blocks of 128 threads per
+# (KV head, cache chunk, batch), tiles of 32 slots in a two-stage ring,
+# chunks of whole DEC_STEP slots, about DEC_PER_SM blocks per SM, at most
+# DEC_MAX_CHUNKS of them
+FWD_ROW_HEADS, FWD_KEYS, FWD_THREADS, FWD_STAGES, FWD_SPLIT = 64, 64, 128, 2, 3
+DEC_TILE, DEC_STAGES, DEC_THREADS, DEC_STEP, DEC_PER_SM, DEC_MAX_CHUNKS = 32, 2, 128, 16, 4, 32
 
 
 class BwdPlan(NamedTuple):
@@ -88,6 +111,20 @@ class BwdPlan(NamedTuple):
     smem: int
 
 
+class FwdPlan(NamedTuple):
+    """One launch of the forward or the decode: grid, threads per block,
+    dynamic shared memory in bytes; the forward's query rows and query
+    heads per item and key slots per tile, or the decode's 1 row, the
+    group's query heads and the slots per cache chunk."""
+
+    grid: tuple
+    threads: int
+    smem: int
+    rows: int
+    heads: int
+    keys: int
+
+
 def _planes(dtype: torch.dtype) -> int:
     """bf16 terms per value of q, k, v: 1 for bf16, SPLIT for float32."""
     if dtype not in _DTYPES:
@@ -95,17 +132,46 @@ def _planes(dtype: torch.dtype) -> int:
     return 1 if dtype == torch.bfloat16 else SPLIT
 
 
+def _fwd_groups(dtype: torch.dtype, items: int = 0, sms: int = 1) -> int:
+    """Items side by side in one forward block (a group of four warps
+    each): two where bf16 allows it and the items are more than one per
+    SM but fit two per SM (one wave, a long and a short item on each SM),
+    else one (``fwd_groups`` of ``csrc/flash_attention.cu``); ``items =
+    0``: the most there may be."""
+    most = 2 if _planes(dtype) == 1 else 1
+    return most if items == 0 or sms < items <= 2 * sms else 1
+
+
 def _groups(dtype: torch.dtype) -> int:
     """Warp groups of the dk/dv kernel: two for bf16, one for float32."""
     return 2 if _planes(dtype) == 1 else 1
 
 
-def smem_bytes(kernel: str, hd: int, dtype: torch.dtype, s: int, t: int, group: int) -> int:
-    """Dynamic shared memory of one block of ``kernel`` ("dq" or "dkv") at
-    head width ``hd``, S = ``s`` query rows, T = ``t`` slots and ``group``
-    query heads per KV head; kept in step with the layouts of
-    ``csrc/flash_attention_bwd.cu`` (``DqLayout``, ``KvLayout``)."""
-    planes, row = _planes(dtype), 2 * (hd + ROW_PAD)
+def smem_bytes(kernel: str, hd: int, dtype: torch.dtype, s: int, t: int, group: int,
+               items: int = 0, sms: int = 1) -> int:
+    """Dynamic shared memory of one block of ``kernel`` ("fwd", "decode",
+    "dq" or "dkv") at head width ``hd``, S = ``s`` query rows, T = ``t``
+    slots and ``group`` query heads per KV head (the forward's: at its most
+    groups, or for ``items`` work items on ``sms`` SMs); kept in step with
+    the layouts of ``csrc/flash_attention.cu`` (``FwdLayout``,
+    ``DecLayout``) and ``csrc/flash_attention_bwd.cu`` (``DqLayout``,
+    ``KvLayout``)."""
+    row = 2 * (hd + ROW_PAD)
+    if kernel == "fwd":
+        planes = 1 if _planes(dtype) == 1 else FWD_SPLIT
+        stage = 2 * planes * FWD_KEYS * row + FWD_KEYS * 4  # k, v planes; slot positions
+        stages = FWD_STAGES if planes == 1 else 1
+        mask = 16 * -(-t // (FWD_KEYS * 128))  # live-tile bits in whole 16-byte units
+        return _fwd_groups(dtype, items, sms) * (planes * FWD_ROW_HEADS * row + stages * stage
+                                                 + mask)
+    if kernel == "decode":
+        size = 2 if _planes(dtype) == 1 else 4
+        tile = DEC_TILE * (hd * size + 16)  # rows padded by 16 bytes
+        # q (whole 16 bytes), the ring (k, v, slot positions), the scores and
+        # three stats per row, for the group's rows
+        return (-(-group * hd * 4 // 16) * 16 + DEC_STAGES * (2 * tile + DEC_TILE * 4)
+                + group * (DEC_TILE + 3) * 4)
+    planes = _planes(dtype)
     raw = planes > 1
     if kernel == "dq":
         kv_planes = 2 * planes * DQ_KEYS * row
@@ -119,30 +185,82 @@ def smem_bytes(kernel: str, hd: int, dtype: torch.dtype, s: int, t: int, group: 
         fixed = 2 * planes * KV_KEYS * row + _groups(dtype) * area
         entries = group * -(-s // KV_ROWS)
     else:
-        raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
+        raise ValueError(f"kernel must be 'fwd', 'decode', 'dq' or 'dkv', got {kernel!r}")
     return fixed + 4 * -(-entries // 32)  # the live-tile bit mask
 
 
+def _fwd_geometry(h: int, kv: int) -> tuple[int, int, int]:
+    """``(rows, heads, chunks)`` of the forward's work items: ``heads`` query
+    heads of a KV head's group (all g, or chunks of 64) over ``rows`` query
+    rows, 64 row-heads in all (``fwd_geometry`` of
+    ``csrc/flash_attention.cu``)."""
+    g = h // kv
+    heads = min(g, FWD_ROW_HEADS)
+    return FWD_ROW_HEADS // heads, heads, -(-g // heads)
+
+
+def decode_split(b: int, t: int, kv: int, sms: int) -> tuple[int, int]:
+    """``(chunks, chunk)``: the decode's cut of T slots into chunks of
+    ``chunk`` (a multiple of 16; the last may be shorter, none is empty),
+    as many as give about four blocks per SM over the b x kv pairs, at
+    most 32.  The kernel decides its split itself (``decode_split`` of
+    ``csrc/flash_attention.cu``); this copy is :func:`launch_plan`'s, for
+    the tests on the CPU."""
+    want = min(DEC_MAX_CHUNKS, max(1, DEC_PER_SM * sms // (b * kv)))
+    n = min(want, -(-t // DEC_STEP))
+    chunk = -(-(-(-t // n)) // DEC_STEP) * DEC_STEP
+    return -(-t // chunk), chunk
+
+
 def launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
-                dtype: torch.dtype) -> BwdPlan:
-    """The grid, block and shared memory of one launch of ``kernel`` ("dq"
-    or "dkv") on q (b, s, h, hd) and k/v (b, t, kv, hd)."""
+                dtype: torch.dtype, sms: Optional[int] = None):
+    """One launch of ``kernel`` on q (b, s, h, hd) and k/v (b, t, kv, hd):
+    a :class:`BwdPlan` for "dq" and "dkv", a :class:`FwdPlan` for "fwd"
+    (one block per one or two work items, a group of four warps each) and
+    "decode" (one block per KV head, cache chunk and batch row), both on a
+    card with ``sms`` SMs."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
+    if kernel in ("fwd", "decode") and sms is None:
+        raise ValueError(f"the {kernel} plan needs the card's SM count (sms=)")
+    if kernel == "fwd":
+        rows, heads, chunks = _fwd_geometry(h, kv)
+        items = b * kv * chunks * -(-s // rows)
+        groups = _fwd_groups(dtype, items, sms)
+        smem = smem_bytes(kernel, hd, dtype, s, t, h // kv, items, sms)
+        return FwdPlan((-(-items // groups), 1, 1), groups * FWD_THREADS, smem, rows, heads,
+                       FWD_KEYS)
     smem = smem_bytes(kernel, hd, dtype, s, t, h // kv)
+    if kernel == "decode":
+        if h // kv > MAX_GROUP:
+            raise ValueError(f"flash_decode takes up to {MAX_GROUP} query heads per KV head")
+        chunks, chunk = decode_split(b, t, kv, sms)
+        return FwdPlan((kv, chunks, b), DEC_THREADS, smem, 1, h // kv, chunk)
     if kernel == "dq":
         return BwdPlan((-(-s // DQ_ROWS), h, b), DQ_ROWS // 16 * 32, smem)  # a warp per 16 rows
     return BwdPlan((-(-t // KV_KEYS), kv, b), _groups(dtype) * GROUP_THREADS, smem)
 
 
 def built_launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
-                      dtype: torch.dtype) -> BwdPlan:
-    """The launch that the built ``csrc/flash_attention_bwd.cu`` makes for
-    these arguments (its ``flash_attention_bwd_plan``), which
+                      dtype: torch.dtype, sms: Optional[int] = None):
+    """The launch that the built library makes for these arguments (the
+    ``flash_attention_plan`` of ``csrc/flash_attention.cu`` for "fwd" and
+    "decode", the ``flash_attention_bwd_plan`` of
+    ``csrc/flash_attention_bwd.cu`` for "dq" and "dkv"), which
     :func:`launch_plan` must equal; builds the library, so it needs
     ``nvcc``."""
+    if kernel in ("fwd", "decode"):
+        fn = FORWARD_KERNEL.library().flash_attention_plan
+        fn.argtypes = [_I] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_longlong * 8)()
+        err = fn(int(kernel == "decode"), _DTYPES[dtype], b, s, t, h, kv, hd, sms or 0, out)
+        if err != 0:
+            raise ValueError(f"flash_attention_plan refused {kernel} {(b, s, t, h, kv, hd)} "
+                             f"{dtype}: CUDA error {err}")
+        return FwdPlan(tuple(out[:3]), *out[3:])
     if kernel not in ("dq", "dkv"):
-        raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
+        raise ValueError(f"kernel must be 'fwd', 'decode', 'dq' or 'dkv', got {kernel!r}")
     fn = DQ_KERNEL.library().flash_attention_bwd_plan
     fn.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
@@ -361,6 +479,51 @@ def bwd_tile_plan(q_pos, k_pos, lse, *, causal: bool, window: Optional[int]):
     return dq_live, dkv_live
 
 
+def fwd_tile_plan(q_pos, k_pos, *, rows: int, keys: int, causal: bool,
+                  window: Optional[int]) -> torch.Tensor:
+    """The (query tile, key tile) pairs the forward kernels compute, by the
+    masked-block rule they follow (``csrc/flash_attention.cu``; the
+    approximate forward's through :func:`approx_tile_plan`), from
+    positions alone.
+
+    Returns ``live`` (B, ceil(S / rows), ceil(T / keys)) bool.  A pair is
+    skipped (``False``) when (a) no row of the tile may attend any written
+    slot of the key tile, judged from the tile's least and greatest
+    position against each slot, and (b) every row of the tile has an
+    allowed slot somewhere in T.  A skipped pair leaves every row's (m, l,
+    acc) as they were; a tile with a row that has no allowed slot (a left
+    pad) keeps every key tile.
+    """
+    b = q_pos.shape[0]
+    big = torch.iinfo(torch.int64).max // 4
+    qp, kp = q_pos.to(torch.int64), k_pos.to(torch.int64)
+    exists = _tiles(torch.ones_like(qp, dtype=torch.bool), rows, False)
+    qt = _tiles(qp, rows, 0)
+    qmin = torch.where(exists, qt, big).amin(-1)[:, :, None, None]
+    qmax = torch.where(exists, qt, -big).amax(-1)[:, :, None, None]
+    slots = _tiles(kp, keys, -1)[:, None]  # (B, 1, nK, keys)
+    may = slots >= 0
+    if causal:
+        may = may & (slots <= qmax)
+    if window is not None:
+        may = may & (qmin - slots < window)
+    has = allow_mask(q_pos, k_pos, causal=causal, window=window).any(-1).expand(qp.shape)
+    missing = _tiles(~has, rows, False).any(-1)  # (B, nQ): a row with no allowed slot
+    return may.any(-1) | missing[:, :, None].expand(b, -1, may.shape[2])
+
+
+def decode_chunk_plan(q_pos, k_pos, *, chunk: int, window: Optional[int]) -> torch.Tensor:
+    """The cache chunks of ``chunk`` slots the decode kernel reads: ``live``
+    (B, ceil(T / chunk)) bool, a chunk being live when some slot of it is
+    allowed for the row's position q_pos (B,) (causal, and the window).
+    The group's query heads share that position, so a chunk that is not
+    live adds nothing to any of them, and the kernel skips it for every KV
+    head; a row with no live chunk gets the uniform average of all T slots.
+    """
+    allow = allow_mask(q_pos[:, None], k_pos, causal=True, window=window)[:, 0]  # (B, T)
+    return _tiles(allow, chunk, False).any(-1)
+
+
 def flash_decode_plain(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
                        scale=1.0) -> torch.Tensor:
     out = attend(q[:, None], k, v, q_pos[:, None], k_pos, causal=True, window=window,
@@ -389,6 +552,8 @@ def _check_qkv(q, k, v, q_pos, k_pos, q_shape, k_shape, qp_shape):
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x  # the common case, without a call into the dispatcher
     return x.to(torch.int32).contiguous()
 
 
@@ -401,6 +566,42 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _aligned(*tensors):
+    """The tensors, each cloned where its data is not 16-byte aligned (the
+    kernels copy rows 16 bytes at a time)."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors)
+
+
+def _skipped_ptr(skipped: Optional[torch.Tensor], device: torch.device):
+    if skipped is None:
+        return None
+    check_operand(skipped, "skipped", torch.int32, (1,), device)
+    return skipped.data_ptr()
+
+
+def launch_forward(q, k, v, q_pos, k_pos, *, causal=True, window=None, softcap=None, scale=1.0,
+                   with_lse=False, skipped: Optional[torch.Tensor] = None):
+    """One launch of ``_fwd_kernel``'s port on CUDA tensors -> ``(o, lse)``
+    (lse ``None`` unless ``with_lse``).  ``skipped``, a one-element int32
+    tensor on the card or None: the kernel adds to it the (work item, key
+    tile) pairs it skips, that is the pairs :func:`fwd_tile_plan` skips at
+    the plan's ``rows`` and ``keys``, once per KV head and head chunk."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    q, k, v, q_pos, k_pos = q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos), _i32(k_pos)
+    dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s))
+    q, k, v = _aligned(q, k, v)
+    out = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    FORWARD_KERNEL.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        k_pos.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        _skipped_ptr(skipped, q.device), dtype, b, s, t, h, kv, hd, int(bool(causal)),
+        _window(window), float(softcap or 0.0), float(scale), sm_count(q.device),
+    )
+    return out, lse
+
+
 def flash_attention_fwd(q, k, v, q_pos, k_pos, causal=True, window=None, softcap=None,
                         scale=1.0, *, with_lse=False):
     """The forward alone: ``(o, lse)``, o (B,S,H,hd) f32 and, with
@@ -410,18 +611,8 @@ def flash_attention_fwd(q, k, v, q_pos, k_pos, causal=True, window=None, softcap
         got = attend(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap,
                      scale=scale, with_lse=with_lse)
         return got if with_lse else (got, None)
-    b, s, h, hd = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    q, k, v, q_pos, k_pos = q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos), _i32(k_pos)
-    dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s))
-    out = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
-    FORWARD_KERNEL.launch(
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), dtype, b, s, t,
-        h, kv, hd, int(bool(causal)), _window(window), float(softcap or 0.0), float(scale),
-    )
-    return out, lse
+    return launch_forward(q, k, v, q_pos, k_pos, causal=causal, window=window, softcap=softcap,
+                          scale=scale, with_lse=with_lse)
 
 
 def _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd):
@@ -437,7 +628,7 @@ def _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd):
     check_operand(lse, "lse", torch.float32, (b, h, s), q.device)
     check_operand(dd, "dd", torch.float32, (b, h, s), q.device)
     # the kernels copy rows of q, k, v and do 16 bytes at a time
-    q, k, v, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, do))
+    q, k, v, do = _aligned(q, k, v, do)
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, dd, q_pos, k_pos)]
     return ptrs, dtype, (b, s, t, h, kv, hd), (q, k, v, q_pos, k_pos, do, lse, dd)
 
@@ -513,22 +704,39 @@ def flash_attention(q, k, v, q_pos, k_pos, causal=True, window=None, softcap=Non
     return FlashBackward.apply(q, k, v, q_pos, k_pos, fwd, kw)
 
 
-def flash_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
-                 scale=1.0) -> torch.Tensor:
-    """q (B,H,hd), k/v (B,T,KV,hd) cache, q_pos (B,), k_pos (B,T) -> (B,H,hd) f32."""
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, q_pos, k_pos, window=window, softcap=softcap,
-                                  scale=scale)
+def launch_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None, scale=1.0,
+                  skipped: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of ``_decode_kernel``'s port on CUDA tensors -> (B,H,hd)
+    f32.  ``skipped``, a one-element int32 tensor on the card or None: the
+    kernel adds to it the (batch row, KV head, chunk) triples it skips,
+    that is the chunks :func:`decode_chunk_plan` leaves out, once per KV
+    head."""
     b, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     q, q_pos, k_pos = q.contiguous(), _i32(q_pos), _i32(k_pos)
     dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, h, hd), (b, t, kv, hd), (b,))
     if h // kv > MAX_GROUP:
         raise ValueError(f"flash_decode takes up to {MAX_GROUP} query heads per KV head")
-    out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    k, v = _aligned(k, v)
+    dev = q.device
+    # the chunks' partials, (acc[hd], m, l) per (batch row, query head,
+    # chunk), in a buffer kept for every call: room for the most chunks the
+    # kernel's split makes, so the split is decided in the kernel alone
+    ws = float_scratch(dev, b * h * DEC_MAX_CHUNKS * (hd + 2))
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     DECODE_KERNEL.launch(
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), out.data_ptr(), dtype, b, t, h, kv, hd,
-        -1 if window is None else int(window), float(softcap or 0.0), float(scale),
+        dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), ws.numel(), tile_counters(dev, b * kv).data_ptr(),
+        _skipped_ptr(skipped, dev), dtype, b, t, h, kv, hd, _window(window),
+        float(softcap or 0.0), float(scale), sm_count(dev),
     )
     return out
+
+
+def flash_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
+                 scale=1.0) -> torch.Tensor:
+    """q (B,H,hd), k/v (B,T,KV,hd) cache, q_pos (B,), k_pos (B,T) -> (B,H,hd) f32."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, q_pos, k_pos, window=window, softcap=softcap,
+                                  scale=scale)
+    return launch_decode(q, k, v, q_pos, k_pos, window=window, softcap=softcap, scale=scale)

@@ -18,7 +18,11 @@ Tolerances (kernel against plain version, both on the card):
 - the split-K GEMMs (packed, lowrank, lut, seqmul): two launches give the
   same bits; lut's and seqmul's ``launch_plan`` equal the built plans;
 - ``flash_attention`` / ``flash_decode``: 2e-5, the reference's flash
-  tolerance, for float32 sums in another order;
+  tolerance, for float32 sums in another order (and the forward's bf16
+  tensor-core products of split float32 operands); two launches give the
+  same bits, the work each skips, counted on the card, is the plan's
+  (``fwd_tile_plan``, ``decode_chunk_plan``), and ``launch_plan`` equals
+  the built plan;
 - ``approx_flash_attention``: within one probability quantum, max|v| /
   (2^n - 1), everywhere, and 1e-5 for 99% of the outputs: the sums of l
   (both modes) and of the lowrank scores run in another order, and an ulp
@@ -308,33 +312,124 @@ def _attn_inputs(card, b, s, t, h, kv, hd, dtype, seed):
     return q, k, v, q_pos, k_pos
 
 
+def _flash_layout(card, layout, hd, dtype, seed):
+    """q/k/v and positions of one forward layout, and (B, S, T, H, KV):
+    "cache" S = 40 over T = 72 with row 0's tail unwritten; "left-pad"
+    S = 72 over T = 200 (not a multiple of the key tile) with rows 1 and 2
+    left-padded by 5 and 40 (their first queries see no slot) and a masked
+    tail; "causal-200" S = T = 200; "group-16" the cache layout with 16
+    query heads on one KV head."""
+    if layout == "cache":
+        return (*_attn_inputs(card, 2, 40, 72, 8, 2, hd, dtype, seed), (2, 40, 72, 8, 2))
+    if layout == "group-16":
+        return (*_attn_inputs(card, 2, 40, 72, 16, 1, hd, dtype, seed), (2, 40, 72, 16, 1))
+    b, s, t, h, kv = (3, 72, 200, 8, 2) if layout == "left-pad" else (2, 200, 200, 4, 2)
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g, device=card).to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=g, device=card).to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=g, device=card).to(dtype)
+    jj = torch.arange(t, device=card).expand(b, t)
+    if layout == "causal-200":
+        return q, k, v, jj[:, :s].int(), jj.int(), (b, s, t, h, kv)
+    pad = torch.zeros((b, 1), dtype=torch.int64, device=card)
+    pad[1], pad[2] = 5, 40
+    q_pos = (torch.arange(s, device=card).expand(b, s) - pad).int()
+    k_pos = torch.where((jj >= pad) & (jj < s), jj - pad, -1).int()
+    return q, k, v, q_pos, k_pos, (b, s, t, h, kv)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd,window,softcap", [(128, None, None), (64, 24, None),
-                                               (16, None, 30.0)])
-def test_flash_attention_matches_plain_version(hd, window, softcap, dtype, card):
+@pytest.mark.parametrize("hd,window,softcap,layout", [
+    (128, None, None, "cache"), (64, 24, None, "cache"), (16, None, 30.0, "cache"),
+    (128, None, None, "left-pad"), (32, None, 30.0, "left-pad"), (128, None, None, "causal-200"),
+    (64, 24, None, "causal-200"), (128, None, None, "group-16"), (16, 24, 30.0, "group-16"),
+])
+def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtype, card):
+    """The forward kernel against the plain version within 2e-5, over a
+    masked tail, left-padded rows (which walk every key tile), S = T = 200
+    causal and with a window (key tiles skipped), and 16 query heads per KV
+    head; a second launch gives the same bits, and a third, counting on the
+    card the (item, key tile) pairs it skips, skips those of
+    ``fwd_tile_plan`` and gives the same bits."""
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v, qp, kp = _attn_inputs(card, 2, 40, 72, 8, 2, hd, dtype, seed=hd)
+    q, k, v, qp, kp, (b, s, t, h, kv) = _flash_layout(card, layout, hd, dtype, seed=hd)
     kw = dict(causal=True, window=window, softcap=softcap, scale=hd**-0.5)
     got = fa.flash_attention(q, k, v, qp, kp, **kw)
     want = fa.flash_attention_plain(q, k, v, qp, kp, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v, qp, kp, **kw))
+    plan = fa.launch_plan("fwd", b, s, t, h, kv, hd, dtype,
+                          sms=torch.cuda.get_device_properties(card).multi_processor_count)
+    live = fa.fwd_tile_plan(qp, kp, rows=plan.rows, keys=plan.keys, causal=True, window=window)
+    counter = torch.zeros(1, dtype=torch.int32, device=card)
+    counted, _ = fa.launch_forward(q, k, v, qp, kp, skipped=counter, **kw)
+    assert torch.equal(counted, got)
+    assert counter.item() == int((~live).sum()) * kv * -(-(h // kv) // plan.heads)
+    if layout == "causal-200":
+        assert not bool(live.all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("h,kv,window,softcap", [(16, 8, None, None), (8, 1, 20, None),
-                                                 (4, 4, None, 30.0)])
-def test_flash_decode_matches_plain_version(h, kv, window, softcap, dtype, card):
+@pytest.mark.parametrize("h,kv,window,softcap,layout", [
+    (16, 8, None, None, "cache"), (8, 1, 20, None, "cache"), (4, 4, None, 30.0, "cache"),
+    (16, 1, None, None, "cache"), (16, 8, None, None, "empty-row"), (8, 2, 24, 30.0, "empty-row"),
+    (16, 8, None, None, "long"), (16, 1, 300, None, "long"),
+])
+def test_flash_decode_matches_plain_version(h, kv, window, softcap, layout, dtype, card):
+    """The decode kernel against the plain version within 2e-5, over 100
+    slots, with a row whose position allows no slot ("empty-row": the
+    uniform average of all T slots), and over 2,000 slots (chunks of the
+    cache split across blocks), 16 query heads per KV head included; a
+    second launch gives the same bits, and a third, counting on the card
+    the chunks it skips, skips those of ``decode_chunk_plan``."""
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v, _, kp = _attn_inputs(card, 3, 1, 100, h, kv, 128, dtype, seed=h + kv)
+    t = 2000 if layout == "long" else 100
+    q, k, v, _, kp = _attn_inputs(card, 3, 1, t, h, kv, 128, dtype, seed=h + kv)
     qp = kp.amax(dim=1)
+    if layout == "empty-row":
+        qp[1] = -1  # before every written slot: nothing is allowed
     kw = dict(window=window, softcap=softcap, scale=128**-0.5)
     got = fa.flash_decode(q[:, 0], k, v, qp, kp, **kw)
     want = fa.flash_decode_plain(q[:, 0], k, v, qp, kp, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, fa.flash_decode(q[:, 0], k, v, qp, kp, **kw))
+    plan = fa.launch_plan("decode", 3, 1, t, h, kv, 128, dtype,
+                          sms=torch.cuda.get_device_properties(card).multi_processor_count)
+    live = fa.decode_chunk_plan(qp, kp, chunk=plan.keys, window=window)
+    counter = torch.zeros(1, dtype=torch.int32, device=card)
+    counted = fa.launch_decode(q[:, 0], k, v, qp, kp, skipped=counter, **kw)
+    assert torch.equal(counted, got)
+    assert counter.item() == int((~live).sum()) * kv
+    if layout == "empty-row":
+        assert not bool(live[1].any())
+        torch.testing.assert_close(got[1], v[1].float().mean(0).repeat_interleave(h // kv, 0),
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_forward_launch_plan_is_the_kernels(hd, dtype, card):
+    """``launch_plan`` and ``smem_bytes`` for "fwd" and "decode", which the
+    CPU tests read, equal the launch that the built library makes, at the
+    serve, train and long shapes, S = T = 200 and groups of 1 to 16."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for b, s, t, h, kv in ((4, 32, 48, 16, 8), (8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8),
+                           (1, 4096, 4096, 16, 8), (2, 200, 200, 4, 2), (3, 72, 256, 16, 1),
+                           (2, 3, 7, 64, 1)):
+        for kernel in ("fwd", "decode"):
+            if kernel == "decode" and h // kv > fa.MAX_GROUP:
+                continue
+            plan = fa.launch_plan(kernel, b, s, t, h, kv, hd, dtype, sms=sms)
+            assert plan == fa.built_launch_plan(kernel, b, s, t, h, kv, hd, dtype, sms=sms), \
+                (kernel, b, s, t, h, kv)
+            items = b * kv * -(-s // plan.rows) * -(-(h // kv) // plan.heads)
+            assert plan.smem == fa.smem_bytes(kernel, hd, dtype, s, t, h // kv, items, sms)
 
 
 @pytest.mark.parametrize("mode,bk,window,softcap", [("bitexact", 16, None, None),
