@@ -27,7 +27,10 @@ Phases, one line each (or a few):
    16; decode batch 4 over 48 slots), a window + softcap case each, and
    one long shape each, and flash_attention and approx_attention_bitexact
    at the train shape (B 8, S = T = 128, key block 64 for the latter, with
-   lse, as the train step's forward runs them); flash_attention (o, and
+   lse, as the train step's forward runs them), and flash_attention at the
+   speculative verify shape (q (4, 5) over the 52-slot pool cache, per-row
+   starts, stale slots past each window, a dead lane parked in the spare
+   tail); flash_attention (o, and
    lse at the train shape) and flash_decode within rtol = atol = 2e-5
    of the plain version (max|err| / limit printed),
    approx_attention within one probability
@@ -50,9 +53,11 @@ Phases, one line each (or a few):
    each) and bit-identical over two launches, at the train shape (B 8, S =
    T = 128, bf16), at S = T = 1024, with window + softcap, and over the
    serve cache with masked slots and one left-padded row, each with
-   ``launch_plan`` equal to the launch the built library makes; the build phase
-   checks that every instantiation of both kernels has tensor-core
-   instructions (HMMA) in its SASS.  Elementwise multiplier:
+   ``launch_plan`` equal to the launch the built library makes, beside
+   SDPA's backward by loop time and by device time (its forward and
+   backward replayed from one CUDA graph, less its forward alone); the
+   build phase checks that every instantiation of both kernels has
+   tensor-core instructions (HMMA) in its SASS.  Elementwise multiplier:
    ``seqmul_packed`` at n in {4, 8, 12, 15} and ``seqmul_words`` at n in
    {8, 15, 16}, t in {1, n/2, n-1}, approx and fix_to_1 both ways, on
    every (a, b) pair (n <= 8, 12) or numpy draws (2^20 + 3 at n = 15, 2^24
@@ -103,7 +108,21 @@ Phases, one line each (or a few):
    set to 0 just before each run and read just after.
    After each run, one pool prefill and one decode step give the
    launches and host time per step, and a profiler pass over three
-   decode steps the device's busy share;
+   decode steps the device's busy share.  Then the rest of serving:
+   ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over the
+   exact run's 16 requests (packed_matmul) and on the pallas exact pool
+   over 8 of its requests (flash_decode, flash_attention, packed_matmul),
+   their streams held against the greedy runs' by the margin rule (equal
+   up to each request's first greedy step whose top-2 logit gap, by
+   teacher forcing, is under ``STREAM_MARGIN``), with accept rate, rounds,
+   modeled cost, tok/s and launches per round; the open loop on the
+   ``bursty`` preset (32 requests, virtual clock, ``SLOAdaptive`` on its
+   default ladder: lut_matmul, packed_matmul), whose switch sequence and
+   per-request queue delays must equal those of reduced qwen3-0.6b on the
+   CPU in the same call; the static loop at exact on 16 prompts of the
+   bucket's length, held against the continuous scheduler by the margin
+   rule; and ``run_soak`` on the ``steady`` preset (64 requests, windows of
+   32, two parity spot-checks), which must keep every invariant;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
@@ -114,7 +133,9 @@ Phases, one line each (or a few):
    ten losses, its first two losses, step ms, train tokens/s, launches
    per step and the busy share of one profiled step.  Then the train CLI
    on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
-   injected at step 5, which it must recover from;
+   injected at step 5, which it must recover from, with the losses of its
+   first and last steps (its "loss a -> b" averages ten steps at each end,
+   the same steps over a run of 8);
 7. error analysis: ``engine.multiply`` (auto) and
    ``kernels.ops.approx_multiply`` on CUDA tensors (``seqmul_packed``, its
    launch count seen to rise), ``exhaustive_eval(12, 6)`` with fix_to_1
@@ -165,6 +186,20 @@ MAIN_SHAPE = (SERVE["batch"] * SERVE["prompt"], 1024, 3072)  # reported in the J
 # qwen3-0.6b attention: query heads, KV heads, head width; the serve cache length
 HEADS, KV_HEADS, HEAD_DIM = 16, 8, 128
 CACHE = SERVE["prompt"] + SERVE["gen"]
+# self-speculative serving: proposals per round; a verify forward is (B, k+1)
+# over the pool cache, which holds k spare slots per row
+SPEC_K = 4
+VERIFY_CACHE = CACHE + SPEC_K
+# the open-loop run's TTFT target (ms), at which the bursty trace makes the
+# SLO-adaptive policy switch tiers (found on the CPU: the virtual clock's
+# schedule does not depend on the model)
+OPEN_SLO_TTFT_MS = 50.0
+# A greedy choice whose top-2 logit gap is under this many logits may go
+# either way between two programs that differ only in rounding: the logits
+# are float32 from a bf16 hidden state, whose rounding moves a logit by
+# about 1e-2 at full width.  Two streams must agree up to a request's first
+# step with a gap under it (gaps by teacher forcing the greedy stream)
+STREAM_MARGIN = 0.1
 GEMM_KERNELS = ("lut_matmul", "seqmul_matmul", "packed_matmul", "lowrank_matmul")
 ATTN_KERNELS = ("flash_attention", "flash_decode", "approx_attention_bitexact",
                 "approx_attention_lowrank")
@@ -637,25 +672,50 @@ def attention_cases():
     cases.append(("approx_attention_lowrank", "long", 1, 1024, 1024, 128, None, None, True))
     cases.append(("flash_attention", "train", TRAIN["batch"], TRAIN["seq"], TRAIN["seq"],
                   None, None, None, True))
+    # the speculative verify forward under attn_impl="pallas": q (B, k+1) over the
+    # whole pool cache, per-row starts, stale suffix slots, a dead lane parked
+    cases.append(("flash_attention", "verify", b, SPEC_K + 1, VERIFY_CACHE, None, None, None,
+                  False))
     cases.append(("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
                   TRAIN["seq"], 64, None, None, True))
     return cases
 
 
-def attention_inputs(b, s, t, seed):
+def attention_inputs(b, s, t, seed, label=None):
     """bf16 q/k/v and positions.  Prefill over a cache (t > s): row 1 is
     left-padded by 5, every row's slots past its prompt are an unwritten
     (masked) tail.  Decode: row i has written t - 16 + 4i slots (32-44 of
     the 48 at the serve shape, a nearly full cache at the long one).
-    Long prefill: no cache, positions 0..t-1."""
+    Long prefill: no cache, positions 0..t-1.  Verify: ``verify_positions``."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, s, HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
     k = torch.randn((b, t, KV_HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
     v = torch.randn((b, t, KV_HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
-    q_pos, k_pos = positions(b, s, t)
+    q_pos, k_pos = verify_positions(b, s, t) if label == "verify" else positions(b, s, t)
     return q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32)
+
+
+def verify_positions(b, s, t):
+    """A speculative verify window as ``models.attention`` masks it: row i,
+    left-padded by ``pad[i]`` in the prompt bucket with ``emitted[i]``
+    tokens out, writes slots ``w0 .. w0 + s - 1`` (``w0 = prompt + emitted -
+    1``) at true positions from ``w0 - pad``; the slots past the window hold
+    stale draft entries, masked.  The last row is a dead lane, parked at
+    ``t - s`` with positions 0..s-1."""
+    import torch
+
+    p = SERVE["prompt"]
+    pad = torch.tensor([0, 5, 2, 0][:b], device="cuda")
+    emitted = torch.tensor([1, 6, 11, 0][:b], device="cuda")
+    starts = p + emitted - 1
+    starts[-1], pad[-1] = t - s, t - s  # the dead lane: offset = its start
+    q_pos = (starts - pad)[:, None] + torch.arange(s, device="cuda")[None, :]
+    jj = torch.arange(t, device="cuda").expand(b, t)
+    last = (starts + s - 1)[:, None]
+    k_pos = torch.where((jj >= pad[:, None]) & (jj <= last), jj - pad[:, None], -1)
+    return q_pos, k_pos
 
 
 def positions(b, s, t):
@@ -681,7 +741,7 @@ def run_attention_case(card: Card, case, seed):
     from repro_torch.kernels import flash_attention as fa
 
     name, label, b, s, t, bk, window, softcap, timed = case
-    q, k, v, q_pos, k_pos = attention_inputs(b, s, t, seed)
+    q, k, v, q_pos, k_pos = attention_inputs(b, s, t, seed, label)
     scale = HEAD_DIM**-0.5
     hd, h, kv = HEAD_DIM, HEADS, KV_HEADS
     # The work this run's data needs: a query row reads the slots it may
@@ -969,7 +1029,7 @@ def run_backward_case(card: Card, case, seed):
                          bound_by=bounds[name][1]))
     reps = 5 if label == "long" else 20
     plain_ms = cuda_ms(plain, reps=2)
-    library_ms = None
+    library_ms = library_device_ms = None
     if softcap is None:  # SDPA has no softcap
         # the backward alone of SDPA on the same bf16 q/k/v and boolean mask,
         # its forward outside the timing; heads before the sequence
@@ -979,14 +1039,33 @@ def run_backward_case(card: Card, case, seed):
         g_out = do.transpose(1, 2).to(out.dtype)
         library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g_out, retain_graph=True),
                              reps=reps, warmup=2)
+        # its device time: forward and backward replayed from one CUDA graph,
+        # less the forward alone (autograd runs a backward on its forward's
+        # stream, so both are captured), on fresh leaves: the graph kept for
+        # the loop above holds the old leaves' gradient nodes on the default
+        # stream, which a capture may not wait on; warmed on a side stream
+        fresh = [x.detach().requires_grad_() for x in leaves]
+        fwd = lambda: F.scaled_dot_product_attention(*fresh, attn_mask=allow[:, None],
+                                                     scale=kw["scale"], enable_gqa=True)
+        fwd_bwd = lambda: torch.autograd.grad(fwd(), fresh, g_out)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fwd_bwd()
+        torch.cuda.current_stream().wait_stream(side)
+        library_device_ms = graph_ms(fwd_bwd) - graph_ms(fwd)
     for row, fn in zip(rows, (dq_fn, dkv_fn)):
         row.update(ms=cuda_ms(fn, reps=reps, warmup=2), device_ms=graph_ms(fn),
-                   plain_ms=plain_ms, library_ms=library_ms)
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms)
     pair_ms = rows[0]["ms"] + rows[1]["ms"]
     times = (f" dq ms {rows[0]['ms']:.4f} (device {rows[0]['device_ms']:.4f}) dkv ms "
              f"{rows[1]['ms']:.4f} (device {rows[1]['device_ms']:.4f}) plain_ms (whole "
              f"backward) {plain_ms:.3f} library_ms (SDPA backward) "
-             + (f"{library_ms:.4f} pair/SDPA {pair_ms / library_ms:.3f}"
+             + (f"{library_ms:.4f} pair/SDPA {pair_ms / library_ms:.3f} library_device_ms "
+                f"{library_device_ms:.4f} pair/SDPA by device time "
+                f"{(rows[0]['device_ms'] + rows[1]['device_ms']) / library_device_ms:.3f}"
                 if library_ms is not None else "none"))
     print(f"kernel {where}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
           f"over the limit 1e-4 * max|want|: dq {ratios[0]:.4f} dk {ratios[1]:.4f} dv "
@@ -1351,7 +1430,237 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
           f"{st.decode_s:.3f}s over {st.decode_steps} steps; run incl. warmup {wall:.2f}s; "
           f"launches {counts}", flush=True)
     steps = step_breakdown(label, sched, params)
-    return dict(counts=counts, tok_s=st.tokens_per_s, wall_s=st.wall_s, **steps)
+    return dict(counts=counts, tok_s=st.tokens_per_s, wall_s=st.wall_s, queue=queue,
+                outputs=result.outputs, model=sched.model, modeled_cost=st.modeled_cost,
+                **steps)
+
+
+def teacher_gaps(model, params, req, stream) -> list:
+    """The top-2 logit gap of each greedy step of ``stream``, by one forward
+    of the prompt and the stream (teacher forcing) at batch 1, unpadded."""
+    import numpy as np
+    import torch
+
+    toks = np.concatenate([req.tokens, stream[:-1]]).astype(np.int64)
+    with torch.inference_mode():
+        x = torch.as_tensor(toks[None], device="cuda")
+        pos = torch.arange(len(toks), device="cuda")[None]
+        hidden, _ = model.forward(params, x, pos, model.ctx())
+        logits = model.lm_head(params, hidden[:, req.prompt_len - 1:])[0]
+        top2 = torch.topk(logits, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).tolist()
+
+
+def hold_streams(label: str, queue, got: dict, want: dict, model, params) -> str:
+    """The margin rule: ``got``'s stream of each request must equal ``want``'s
+    up to the request's first greedy step whose top-2 gap is under
+    ``STREAM_MARGIN``; past it, agreement is reported, not required."""
+    import numpy as np
+
+    equal, after_tie = 0, []
+    for r in queue:
+        a, b = np.asarray(got[r.id]), np.asarray(want[r.id])
+        check(len(a) == len(b), f"{label}: request {r.id} has {len(a)} tokens, want {len(b)}")
+        if np.array_equal(a, b):
+            equal += 1
+            continue
+        j = int(np.flatnonzero(a != b)[0])
+        gaps = teacher_gaps(model, params, r, b)
+        tie = next((i for i, g in enumerate(gaps) if g < STREAM_MARGIN), None)
+        check(tie is not None and tie <= j,
+              f"{label}: request {r.id} diverged at step {j} before any near tie "
+              f"(top-2 gaps {[round(g, 4) for g in gaps[:j + 1]]})")
+        after_tie.append(f"{r.id}@{j} (gap {gaps[tie]:.4f} at step {tie})")
+    return (f"streams equal {equal} of {len(queue)}"
+            + (f", diverged after a near tie (margin {STREAM_MARGIN}): {', '.join(after_tie)}"
+               if after_tie else ""))
+
+
+def phase_serve_speculative(label: str, params, greedy: dict, *, expect: tuple,
+                            draft_run: dict = None) -> dict:
+    """``SelfSpeculative(k=SPEC_K, draft_tier="draft")`` on the exact pool of
+    ``greedy``'s run, over its queue; the streams held against greedy's.
+    Launches per round are counted around each decode round.  With
+    ``draft_run`` (the plain draft pool's run on the same queue), also the
+    degenerate pair draft = verify = exact over the first batch, whose
+    proposals the verify forward recomputes, and the share of first tokens
+    the draft pool and the exact pool agree on."""
+    import collections
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serve import ContinuousScheduler, SelfSpeculative
+
+    queue = greedy["queue"]
+    shape = dict(batch_size=SERVE["batch"], prompt_len=SERVE["prompt"], max_new=SERVE["gen"],
+                 quality="exact")
+    sched = ContinuousScheduler(greedy["model"], params, **shape,
+                                strategy=SelfSpeculative(k=SPEC_K, draft_tier="draft"))
+    in_rounds, rounds = collections.Counter(), [0]
+    decode_round = sched.strategy.decode_round
+
+    def counted_round(*args, **kw):
+        before = kernels.launch_counts()
+        rr = decode_round(*args, **kw)
+        after = kernels.launch_counts()
+        in_rounds.update({k: after[k] - before[k] for k in after})
+        rounds[0] += 1
+        return rr
+
+    sched.strategy.decode_round = counted_round
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = sched.run(queue)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    st, acc = result.stats, result.accounting
+    for name in expect:
+        check(counts[name] > 0, f"{label}: {name} was never launched ({counts})")
+    check(st.requests == len(queue) and acc.slot_leaks == 0 and acc.position_violations == 0,
+          f"{label}: served {st.requests} of {len(queue)}, accounting {acc}")
+    check(st.spec_rounds == rounds[0] and st.spec_proposed == sum(
+        r.proposed for r in result.request_stats),
+          f"{label}: speculated rounds {st.spec_rounds} of {rounds[0]}, proposed "
+          f"{st.spec_proposed}")
+    agree = hold_streams(label, queue, result.outputs, greedy["outputs"], sched.model, params)
+    per_round = {k: v / rounds[0] for k, v in in_rounds.items() if v}
+    extra = ""
+    if draft_run is not None:
+        first = queue[:SERVE["batch"]]
+        same = ContinuousScheduler(greedy["model"], params, **shape,
+                                   strategy=SelfSpeculative(k=SPEC_K, draft_tier="exact"))
+        deg = same.run(first)
+        torch.cuda.synchronize()
+        deg_agree = hold_streams(f"{label} draft=exact", first, deg.outputs,
+                                 greedy["outputs"], sched.model, params)
+        firsts = sum(int(draft_run["outputs"][r.id][0] == greedy["outputs"][r.id][0])
+                     for r in queue)
+        extra = (f"; degenerate pair draft = verify = exact over {len(first)} requests: "
+                 f"accept {deg.stats.spec_accepted}/{deg.stats.spec_proposed}, {deg_agree}; "
+                 f"the draft pool's first token equals the exact pool's in {firsts} of "
+                 f"{len(queue)} requests")
+    print(f"serve {label}: {st.summary()}; k={SPEC_K} draft tier draft, verify exact: accept "
+          f"{st.spec_accepted}/{st.spec_proposed} = {st.accept_rate:.4f} over {st.spec_rounds} "
+          f"rounds, {st.decode_steps} forwards, modeled cost {st.modeled_cost:.2f} (greedy "
+          f"{greedy['modeled_cost']:.2f}), {st.tokens_per_s:.2f} tok/s (greedy "
+          f"{greedy['tok_s']:.2f}); launches {counts} (warmup included), per round "
+          f"{per_round}; {agree}; run incl. warmup {wall:.2f}s{extra}", flush=True)
+    return dict(counts=counts, per_round=per_round, accept_rate=st.accept_rate,
+                tok_s=st.tokens_per_s)
+
+
+def phase_serve_open(params, model) -> dict:
+    """The open loop at full width: the ``bursty`` preset, virtual clock,
+    ``SLOAdaptive`` on its default ladder (high, balanced, draft).  No
+    request has an EOS, so the schedule does not depend on the model: the
+    switch sequence and every request's ``queue_delay_s`` and ``ttft_s``
+    must equal those of reduced qwen3-0.6b on the CPU, run here too."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ContinuousScheduler, SLOAdaptive
+    from repro_torch.serve.workload import generate, preset_spec
+
+    spec = preset_spec("bursty", requests=2 * SERVE["requests"], prompt_len=SERVE["prompt"],
+                       max_new=SERVE["gen"], vocab_size=model.cfg.vocab_size,
+                       slo_ttft_s=OPEN_SLO_TTFT_MS / 1e3)
+    draw = generate(spec, seed=0)
+    run = dict(arrivals_s=list(draw.arrivals_s), step_time_s=0.01, clock="virtual")
+    shape = dict(batch_size=SERVE["batch"], prompt_len=SERVE["prompt"], max_new=SERVE["gen"],
+                 quality="high")
+    sched = ContinuousScheduler(model, params, **shape)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = sched.run(list(draw.requests), policy=SLOAdaptive(slo_ttft_s=spec.slo_ttft_s),
+                       **run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    small = build_model(get_config("qwen3-0.6b").reduced())
+    cpu = ContinuousScheduler(small, small.init_params(0, device="cpu"), **shape).run(
+        [dataclasses.replace(r, tokens=r.tokens % small.cfg.vocab_size) for r in draw.requests],
+        policy=SLOAdaptive(slo_ttft_s=spec.slo_ttft_s), **run)
+    st = result.stats
+    switches = [(w.step, w.now_s, w.from_tier, w.to_tier, w.reason)
+                for w in result.tier_switches]
+    check(switches == [(w.step, w.now_s, w.from_tier, w.to_tier, w.reason)
+                       for w in cpu.tier_switches],
+          f"open loop: switches {switches} on the card, {cpu.tier_switches} on the CPU")
+    check(len(switches) >= 1, "open loop: the policy never switched tiers")
+    timing = lambda res: sorted((r.id, r.queue_delay_s, r.ttft_s, r.tier_served)
+                                for r in res.request_stats)
+    check(timing(result) == timing(cpu), "open loop: per-request queue delays differ from the "
+                                         "CPU run's")
+    check(st.requests == len(draw.requests) and st.starved == 0
+          and result.accounting.slot_leaks == 0, f"open loop: {st}")
+    for name in ("lut_matmul", "packed_matmul"):
+        check(counts[name] > 0, f"open loop: {name} was never launched ({counts})")
+    print(f"serve open slo-adaptive: bursty preset, {len(draw.requests)} requests offered at "
+          f"{draw.offered_rps:.1f} rps (virtual clock, step 10 ms, TTFT SLO "
+          f"{OPEN_SLO_TTFT_MS:.0f} ms): {st.summary()}; switches {switches}, equal to the CPU "
+          f"run's with every request's queue_delay_s and ttft_s; launches {counts}; run incl. "
+          f"warmup {wall:.2f}s", flush=True)
+    return dict(counts=counts, switches=len(switches))
+
+
+def phase_serve_static(params, model) -> dict:
+    """The static-batch loop at ``exact`` on 16 prompts of the bucket's
+    length (every row then sits at its true positions), held against the
+    continuous scheduler on the same queue by the margin rule."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serve import ContinuousScheduler, static_serve_loop, synth_requests
+
+    queue = synth_requests(SERVE["requests"], prompt_len=SERVE["prompt"], gen=SERVE["gen"],
+                           vocab_size=model.cfg.vocab_size, seed=1,
+                           min_prompt=SERVE["prompt"], vary_budget=False)
+    shape = dict(batch_size=SERVE["batch"], prompt_len=SERVE["prompt"])
+    cont = ContinuousScheduler(model, params, max_new=SERVE["gen"], **shape).run(queue)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = static_serve_loop(model, params, queue, gen=SERVE["gen"], **shape)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"serve static: a kernel ran at exact ({counts})")
+    st = result.stats
+    check(st.requests == len(queue) and st.tokens_out == len(queue) * SERVE["gen"],
+          f"serve static: {st}")
+    agree = hold_streams("serve static", queue, result.outputs, cont.outputs, model, params)
+    print(f"serve static: {st.summary()}; {st.decode_steps} decode steps (continuous "
+          f"{cont.stats.decode_steps}, {cont.stats.tokens_per_s:.2f} tok/s); against the "
+          f"continuous scheduler: {agree}; run incl. warmup {wall:.2f}s", flush=True)
+    return dict(tok_s=st.tokens_per_s)
+
+
+def phase_soak(params, model) -> dict:
+    """``run_soak`` at full width: the ``steady`` preset, 64 requests in
+    windows of 32, two parity spot-checks (each re-served alone, unpadded,
+    through the static loop, bit-equal)."""
+    import torch
+
+    from repro_torch.serve.soak import run_soak
+    from repro_torch.serve.workload import preset_spec
+
+    spec = preset_spec("steady", requests=4 * SERVE["requests"], prompt_len=SERVE["prompt"],
+                       max_new=SERVE["gen"], vocab_size=model.cfg.vocab_size)
+    t0 = time.perf_counter()
+    report = run_soak(model, params, spec, batch_size=SERVE["batch"], seed=0, window_size=32,
+                      spot_check=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = report.summary_row()
+    check(report.ok and row["invariants_ok"] == 1.0, f"soak: {report.violations}")
+    check(row["spot_checks"] == 2 and row["spot_check_failures"] == 0, f"soak: {row}")
+    print(f"soak: {report.describe()}; {json.dumps(row)}; run {wall:.2f}s", flush=True)
+    return row
 
 
 def step_breakdown(label: str, sched, params) -> dict:
@@ -1547,16 +1856,23 @@ def phase_train_cli() -> None:
     import shutil
 
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    history = ROOT / "build" / "chip_smoke_train_history.json"
     shutil.rmtree(ckpt, ignore_errors=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "paper-multiplier",
            "--steps", "8", "--batch", "8", "--seq", "128", "--ckpt-dir", str(ckpt),
-           "--ckpt-every", "4", "--inject-failures", "5", "--log-every", "2"]
+           "--ckpt-every", "4", "--inject-failures", "5", "--log-every", "2",
+           "--out", str(history)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600,
                               env={**os.environ, "PYTHONPATH": str(SRC)})
+        # the CLI's "loss a -> b" averages the first and last ten steps, which
+        # over 8 steps are the same steps: the first and last losses say more
+        losses = ([h["loss"] for h in json.loads(history.read_text())]
+                  if proc.returncode == 0 else [])
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+        history.unlink(missing_ok=True)
     wall = time.perf_counter() - t0
     out = proc.stdout
     check(proc.returncode == 0, f"train CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
@@ -1567,8 +1883,11 @@ def phase_train_cli() -> None:
     check("recovered from step 4" in out, f"train CLI did not recover from step 4: {out[-2000:]}")
     check(failures == 1 and restarts == 1 and all(map(math.isfinite, (a, b))),
           f"train CLI: {m.group(0)}")
+    # a step between the restored checkpoint and the failure runs twice
+    check(len(losses) >= 8 and all(map(math.isfinite, losses)), f"train CLI losses {losses}")
     lines = [ln for ln in out.splitlines() if ln.startswith(("arch=", "recovered", "loss"))]
-    print(f"train CLI ({wall:.1f}s): " + " | ".join(lines), flush=True)
+    print(f"train CLI ({wall:.1f}s): " + " | ".join(lines)
+          + f" | losses of steps 1 and 8: {losses[0]:.6f}, {losses[-1]:.6f}", flush=True)
 
 
 def main() -> int:
@@ -1641,7 +1960,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     every = tuple(kernels.ALL)
     n_req = SERVE["requests"]
-    phase_serve("exact", params, model, quality="exact", forbid=every, requests=n_req)
+    exact_run = phase_serve("exact", params, model, quality="exact", forbid=every,
+                            requests=n_req)
     runs = {
         "lut_matmul": phase_serve("balanced", params, model, quality="balanced",
                                   expect=("lut_matmul",), forbid=ATTN_KERNELS,
@@ -1663,6 +1983,19 @@ def main() -> int:
         "pallas lowrank mlp+attn", params, pallas, mode="lowrank", targets=("mlp", "attn"),
         expect=("lowrank_matmul", "approx_attention_lowrank", "flash_decode"),
         requests=n_req)
+    # the rest of serving: speculative rounds (draft proposals, one verify
+    # forward), the open loop with its policy, the static loop, the soak
+    spec_runs = {"packed_matmul": phase_serve_speculative(
+        "speculative", params, exact_run, expect=("packed_matmul",),
+        draft_run=runs["packed_matmul"])}
+    pallas_exact = runs["flash_attention"]
+    pallas_half = {**pallas_exact, "queue": pallas_exact["queue"][:n_req // 2]}
+    spec_runs["flash_attention"] = spec_runs["flash_decode"] = phase_serve_speculative(
+        "pallas speculative", params, pallas_half,
+        expect=("flash_decode", "flash_attention", "packed_matmul"))
+    phase_serve_open(params, model)
+    phase_serve_static(params, model)
+    phase_soak(params, model)
     del params
     torch.cuda.empty_cache()
 
@@ -1717,6 +2050,9 @@ def main() -> int:
             if name == "approx_attention_bitexact":
                 # and in each step of train run (b), at the train row's shape
                 per_step["launches_per_train_step"] = train_runs["bitexact"]["per_step"][name]
+        if name in spec_runs:
+            # each round of the speculative run: SPEC_K draft decodes and one verify
+            per_step["launches_per_spec_round"] = spec_runs[name]["per_round"].get(name, 0.0)
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
         table.append({

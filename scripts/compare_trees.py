@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one card: the serve decode's time per
-call and train run (a)'s losses, step by step.
+call, the closed-loop serve runs end to end, and train run (a)'s losses,
+step by step.
 
-    python3 scripts/compare_trees.py --decode OLD NEW NEW OLD --train OLD NEW --loss OLD NEW
+    python3 scripts/compare_trees.py --decode OLD NEW NEW OLD --serve OLD NEW NEW OLD \
+        --train OLD NEW --loss OLD NEW
 
 Each argument is a directory that holds ``src/repro_torch`` (``.`` for this
 checkout).  Every tree's kernels are built first, one ``nvcc`` per source,
@@ -13,6 +15,10 @@ all at once.  Then, each in a process of its own and in the order given:
   loop of 200 calls (the host's work and the launch included, as
   chip_smoke's ``ms``), five loops, and its device time (``graph_ms``);
   SDPA's, on the same inputs, beside it;
+- ``--serve``: chip_smoke's closed-loop serve runs of full-width
+  qwen3-0.6b at tiers ``exact`` and ``draft`` and, with
+  ``attn_impl="pallas"``, at ``exact`` (16 requests each): tok/s, and the
+  host-clock ms of one decode step and one pool prefill after each;
 - ``--train``: chip_smoke's train run (a), paper-multiplier with
   ``attn_impl="pallas"``, 16 steps from seed 0, and its loss at each step;
 - ``--loss``: that run's first loss (seed-0 weights, batch 0, no update)
@@ -73,6 +79,25 @@ def run_decode(tree: str) -> dict:
     sdpa_loops = [cs.cuda_ms(sdpa, reps=200, warmup=20) for _ in range(5)]
     return dict(what="decode", tree=tree, loop_ms=loops, device_ms=cs.graph_ms(kern),
                 sdpa_loop_ms=sdpa_loops, sdpa_device_ms=cs.graph_ms(sdpa))
+
+
+def run_serve(tree: str) -> dict:
+    _, cs = _use(tree)
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    params = model.init_params(0, device="cuda")
+    pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    got = {}
+    for label, m, quality in (("exact", model, "exact"), ("draft", model, "draft"),
+                              ("pallas exact", pallas, "exact")):
+        run = cs.phase_serve(label, params, m, quality=quality, requests=cs.SERVE["requests"])
+        got[label] = {k: run[k] for k in ("tok_s", "decode_ms", "prefill_ms")}
+    return dict(what="serve", tree=tree, **got)
 
 
 def run_train(tree: str) -> dict:
@@ -147,13 +172,15 @@ def build(trees: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--decode", nargs="*", default=[], metavar="TREE")
+    ap.add_argument("--serve", nargs="*", default=[], metavar="TREE")
     ap.add_argument("--train", nargs="*", default=[], metavar="TREE")
     ap.add_argument("--loss", nargs="*", default=[], metavar="TREE")
     ap.add_argument("--one", nargs=2, metavar=("WHAT", "TREE"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         what, tree = args.one
-        run = {"decode": run_decode, "train": run_train, "loss": run_loss}[what]
+        run = {"decode": run_decode, "serve": run_serve, "train": run_train,
+               "loss": run_loss}[what]
         print("result: " + json.dumps(run(tree)), flush=True)
         return 0
     import torch
@@ -163,13 +190,16 @@ def main() -> int:
     trees: dict = {}
     for tree in args.decode:
         trees.setdefault(tree, set()).add("flash_attention")
+    for tree in args.serve:
+        trees.setdefault(tree, set()).update(("flash_attention", "packed_matmul"))
     for tree in args.train + args.loss:
         trees.setdefault(tree, set()).update(TRAIN_KERNELS)
     t0 = time.perf_counter()
     build(trees)
     print(f"build: {sorted(trees)} in {time.perf_counter() - t0:.1f}s", flush=True)
     results = []
-    runs = [(what, tree) for what in ("decode", "train", "loss") for tree in getattr(args, what)]
+    runs = [(what, tree) for what in ("decode", "serve", "train", "loss")
+            for tree in getattr(args, what)]
     for what, tree in runs:
         out = subprocess.run([sys.executable, __file__, "--one", what, tree], check=True,
                              stdout=subprocess.PIPE, text=True).stdout

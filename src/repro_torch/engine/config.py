@@ -12,7 +12,9 @@ deferred-carry error that grows with ``t``.
   ``high``, ``balanced`` and ``draft``, with per-GEMM-class budgets;
   :func:`apply_quality` deploys one onto a ``ModelConfig``.
 * :func:`tier_cycle_factor` is the gate-delay model's per-step cost of a
-  tier relative to the exact design.
+  tier relative to the exact design; :func:`accept_rate_estimate`,
+  :func:`expected_round_tokens`, :func:`speculation_gain` and
+  :func:`best_spec_k` are the economics of self-speculative decoding.
 * :func:`kernel_tiles` checks the Hopper kernels' tiles for one call.
 
 Certification stand-in.  With ``mode`` set, the reference's
@@ -60,6 +62,10 @@ __all__ = [
     "resolve_tier",
     "apply_quality",
     "tier_cycle_factor",
+    "accept_rate_estimate",
+    "expected_round_tokens",
+    "speculation_gain",
+    "best_spec_k",
 ]
 
 
@@ -410,6 +416,99 @@ def tier_cycle_factor(
     mean_delay = sum(segmented_delay(q.n, q.t) for q in qc.per_target)
     mean_delay /= len(qc.per_target)
     return mean_delay / ripple_delay(n)
+
+
+
+# ------------------------------------------------- self-speculative decoding
+@functools.lru_cache(maxsize=256)
+def accept_rate_estimate(
+    draft_tier: Union[str, QualityTier],
+    verify_tier: Union[str, QualityTier],
+    *,
+    n: int = DEFAULT_N,
+    order: int = 1,
+) -> float:
+    """Closed-form lower bound on the draft-vs-verify agreement rate.
+
+    Self-speculative decoding (``serve.strategy.SelfSpeculative``) runs the
+    same weights at two tiers; a proposal is accepted when both tiers'
+    greedy argmax agree.  Per budgeted GEMM class the chance that either
+    tier's multiply deviates from exact is union-bounded by the sum of the
+    two resolved splits' Eq. 10 ER estimates; the product over classes of
+    ``max(0, 1 - (er_d + er_v))`` bounds the chance that both forwards
+    match the exact one, and so each other.  Two tiers with identical
+    resolved configurations give 1.0.
+    """
+    qd = resolve_tier(get_tier(draft_tier), n=n, order=order)
+    qv = resolve_tier(get_tier(verify_tier), n=n, order=order)
+    if (qd.mode, qd.per_target) == (qv.mode, qv.per_target):
+        return 1.0
+
+    def er(qc: QualityConfig, target: str) -> float:
+        for q in qc.per_target:
+            if q.target == target:
+                return sweep_t(q.n, order=order)[q.t - 1].er_bound
+        return 0.0  # unbudgeted target: exact at this tier
+
+    targets = {q.target for q in qd.per_target} | {q.target for q in qv.per_target}
+    est = 1.0
+    for tgt in sorted(targets):
+        est *= max(0.0, 1.0 - (er(qd, tgt) + er(qv, tgt)))
+    return est
+
+
+def expected_round_tokens(accept_rate: float, k: int) -> float:
+    """Expected committed tokens of one speculative round at depth ``k``:
+    a Bernoulli(α) acceptance chain stopped at the first rejection plus the
+    verify step's bonus token, ``(1 - α^(k+1)) / (1 - α)`` (``k + 1`` at
+    α = 1)."""
+    if not 0.0 <= accept_rate <= 1.0:
+        raise ValueError(f"accept_rate must be in [0, 1], got {accept_rate}")
+    if k < 1:
+        raise ValueError(f"speculation depth k must be >= 1, got {k}")
+    if accept_rate >= 1.0:
+        return float(k + 1)
+    return (1.0 - accept_rate ** (k + 1)) / (1.0 - accept_rate)
+
+
+def speculation_gain(
+    draft_tier: Union[str, QualityTier],
+    verify_tier: Union[str, QualityTier],
+    k: int,
+    *,
+    n: int = DEFAULT_N,
+    order: int = 1,
+) -> float:
+    """Modeled tokens-per-cost ratio of speculating vs plain verify decode:
+    ``E * f_verify / (k * f_draft + f_verify)`` with ``E`` the expected
+    round tokens and ``f`` the tiers' :func:`tier_cycle_factor`; above 1.0
+    speculation pays, and ``draft == verify`` gives exactly 1.0."""
+    alpha = accept_rate_estimate(draft_tier, verify_tier, n=n, order=order)
+    e_tokens = expected_round_tokens(alpha, k)
+    f_d = tier_cycle_factor(get_tier(draft_tier).name, n=n, order=order)
+    f_v = tier_cycle_factor(get_tier(verify_tier).name, n=n, order=order)
+    return e_tokens * f_v / (k * f_d + f_v)
+
+
+def best_spec_k(
+    draft_tier: Union[str, QualityTier],
+    verify_tier: Union[str, QualityTier],
+    *,
+    k_max: int = 8,
+    n: int = DEFAULT_N,
+    order: int = 1,
+) -> tuple[int, float]:
+    """``(k, gain)`` maximizing :func:`speculation_gain` over ``1 <= k <=
+    k_max``, ties toward the smaller depth; ``gain <= 1`` means "don't
+    speculate"."""
+    if k_max < 1:
+        raise ValueError(f"k_max must be >= 1, got {k_max}")
+    best = (1, speculation_gain(draft_tier, verify_tier, 1, n=n, order=order))
+    for k in range(2, k_max + 1):
+        g = speculation_gain(draft_tier, verify_tier, k, n=n, order=order)
+        if g > best[1]:
+            best = (k, g)
+    return best
 
 
 def apply_quality(

@@ -129,16 +129,24 @@ def synth_requests(
     budgets in [1, gen] (or all ``gen`` when ``vary_budget=False``);
     ``quality`` tags every request with an accuracy tier name.
 
-    ``workload`` (a traffic preset of the reference's
-    ``repro.serve.workload``) is not ported yet and raises; the default
-    (``workload=None``) is the uniform draw, byte-identical to the
-    reference's for a given seed.
+    ``workload`` opts into a :mod:`repro_torch.serve.workload` traffic preset
+    (``"steady"``/``"bursty"``/``"flood"``/``"churn"``): the request list
+    is then drawn from that preset's arrival/length/tier models
+    (``tier_mix`` weights tier tags; it defaults to tagging everything
+    ``quality`` when that is set).  The default (``workload=None``) is the
+    uniform draw.  Both are byte-identical to the reference's for a seed.
     """
     if workload is not None:
-        raise NotImplementedError(
-            "workload presets (repro/serve/workload.py) are not ported yet "
-            "(ROADMAP.md, 'Modules to port' item 7)"
+        from repro_torch.serve import workload as wl
+
+        if not tier_mix and quality is not None:
+            tier_mix = ((quality, 1.0),)
+        spec = wl.preset_spec(
+            workload, requests=count, prompt_len=prompt_len, max_new=gen,
+            vocab_size=vocab_size, tier_mix=tier_mix, eos_id=eos_id,
+            min_prompt=min(min_prompt, prompt_len),
         )
+        return [req for req, _ in wl.iter_requests(spec, seed)]
     rng = np.random.default_rng(seed)
     out: list[Request] = []
     for i in range(count):

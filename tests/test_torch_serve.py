@@ -131,17 +131,25 @@ def test_tier_pool_serves_its_tier_and_refuses_another(pools):
 
 
 def test_unported_serving_options_raise(pools):
+    """What stays unported (data-parallel serving, ROADMAP item 11) raises
+    NotImplementedError; unknown policy and strategy names raise ValueError
+    listing the known ones."""
     _, _, tmodel, tparams = pools
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ContinuousScheduler(tmodel, tparams, batch_size=BATCH, prompt_len=PROMPT, max_new=GEN,
+                            mesh=object())
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match="item 11"):
+        serve.main(["--reduced", "--device", "cpu", "--data-parallel"])
     sched = ContinuousScheduler(tmodel, tparams, batch_size=BATCH, prompt_len=PROMPT,
                                 max_new=GEN)
     req = synth_requests(1, prompt_len=PROMPT, gen=GEN, vocab_size=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.run(req, arrivals_s=[0.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.run(req, policy="adaptive")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"known: \['reject', 'slo-adaptive', 'static'\]"):
+        sched.run(req, policy="adaptive", warmup=False)
+    with pytest.raises(ValueError, match=r"known: \['greedy', 'speculative'\]"):
         ContinuousScheduler(tmodel, tparams, batch_size=1, prompt_len=PROMPT, max_new=GEN,
-                            strategy="speculative")
+                            strategy="beam")
 
 
 def _run(*args, **kw):
@@ -168,7 +176,7 @@ def test_entry_point_without_gpu_or_cpu_flag_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         from repro_torch.launch import serve
 
-        serve.main(["--reduced", "--device", "cpu", "--loop", "open"])
+        serve.main(["--reduced", "--device", "cpu", "--data-parallel"])
 
 
 def test_port_imports_no_jax():
@@ -177,7 +185,12 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.soak\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.serve.workload\n"
+        "import repro_torch.serve.soak\n"
+        "import repro_torch.serve.policy\n"
+        "import repro_torch.serve.strategy\n"
         "import repro_torch.core.error_metrics\n"
         "import repro_torch.kernels.seqmul_kernel\n"
         "import repro_torch.kernels.ops\n"
