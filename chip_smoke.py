@@ -21,7 +21,9 @@ Phases, one line each (or a few):
    3072, an odd K, M = 1 and (33, 300, 70); lowrank with every magnitude
    255 and mixed signs, with zero SVD tables (then bit-equal), M = 1,
    (33, 300, 70) and rank 24; lut and seqmul with every magnitude 2^n - 1
-   and mixed signs, M = 1, (33, 301, 70), n = 1 and int64 sums.  Attention: the
+   and mixed signs, M = 1, (33, 301, 70), n = 1 and int64 sums; lut, packed
+   and lowrank also at every projection of gemma2-9b (q, k/v, o, MLP up and
+   down; the MLP rows timed) and of yi-9b at M = 4 and 128.  Attention: the
    serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
    prefill q (4, 32) over a 48-slot cache with a masked tail, key block
    16; decode batch 4 over 48 slots), a window + softcap case each, and
@@ -45,7 +47,16 @@ Phases, one line each (or a few):
    its ``device_ms`` and SDPA's (``library_device_ms``); the build phase
    checks that every forward instantiation of flash_attention and every
    lowrank instantiation of approx_attention has tensor-core instructions
-   (HMMA, IMMA) in its SASS and no decode or bitexact one has any.
+   (HMMA, IMMA) in its SASS and no decode or bitexact one has any, and
+   prints each instantiation's registers and spill bytes, which must be 0
+   at every head-width-256 instantiation of both.  Head width 256,
+   every row timed and held as above: gemma2-9b's 16 query and 8 KV heads
+   at the serve shape and with window 16 and softcap 50 (all four
+   kernels), at S = T = 1024 (forward, bitexact, lowrank) and a decode over
+   4,096 slots, a decode over 8,192 slots under gemma2's own window of
+   4,096 (its dead chunks skipped and counted); gemma-7b's 16 / 16 heads
+   (forward and decode), yi-9b's 32 / 4 heads of 128 (forward and decode
+   at the serve shape), and one float32 forward at 256.
    Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
    operands split into two bf16 terms, tiles with nothing to add skipped)
    against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
@@ -96,6 +107,12 @@ Phases, one line each (or a few):
    pallas with the attention contractions approximated too); one train
    step's loss and gradients of reduced qwen3-0.6b (bitexact on mlp and
    attn, pallas) on the card against the CPU (rtol 1e-5; 1e-4 * max|want|);
+   then prefill and four decode steps' logits of reduced gemma-7b,
+   gemma2-9b and yi-9b (exact), and of gemma2-9b at ``reduced(head_dim=256,
+   attn_impl="pallas")`` at exact and at bitexact on mlp and attn (the
+   attention kernels at head width 256; each approximate call fed the
+   CPU's inputs after its own are held to 1e-4, since an ulp can cross an
+   8-bit quantizer boundary), card against CPU within rtol/atol 1e-4;
 5. serve: the continuous scheduler on full-width qwen3-0.6b (28 layers,
    d_model 1024, vocab 151936, bf16, weights from a seed) at tier
    ``exact`` (no kernel: the yardstick), tier ``balanced`` (lut_matmul),
@@ -122,7 +139,16 @@ Phases, one line each (or a few):
    CPU in the same call; the static loop at exact on 16 prompts of the
    bucket's length, held against the continuous scheduler by the margin
    rule; and ``run_soak`` on the ``steady`` preset (64 requests, windows of
-   32, two parity spot-checks), which must keep every invariant;
+   32, two parity spot-checks), which must keep every invariant.  Then
+   full-width gemma2-9b (42 layers, d_model 3584, 16 / 8 heads of 256,
+   9.24B params), gemma-7b (28 layers, 16 / 16 heads of 256) and yi-9b (48
+   layers, 32 / 4 heads of 128, an untied head), bf16 weights from seed 0,
+   one model on the card at a time, 8 requests (two batches) a run at the
+   exact tiers and 4 (one batch) at the approximate ones, with the same
+   checks and launch counts (one profiled decode step a run): gemma2-9b at exact, balanced, draft,
+   pallas exact, pallas balanced and pallas lowrank on mlp and attn;
+   gemma-7b at exact and pallas exact; yi-9b at exact, balanced and pallas
+   exact, each with its parameter count, decode step ms and busy share;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
@@ -134,8 +160,8 @@ Phases, one line each (or a few):
    per step and the busy share of one profiled step.  Then the train CLI
    on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
    injected at step 5, which it must recover from, with the losses of its
-   first and last steps (its "loss a -> b" averages ten steps at each end,
-   the same steps over a run of 8);
+   steps 1 and 8 (its own "loss a -> b", which averages ten steps at each
+   end, the same steps over a run of 8, is checked but not printed);
 7. error analysis: ``engine.multiply`` (auto) and
    ``kernels.ops.approx_multiply`` on CUDA tensors (``seqmul_packed``, its
    launch count seen to rise), ``exhaustive_eval(12, 6)`` with fix_to_1
@@ -153,17 +179,22 @@ Phases, one line each (or a few):
 8. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
+Each phase prints its wall seconds (``phase <name>: <s>s wall``).
+
 Any failed check exits non-zero before the last line is printed; so does
 a machine without CUDA, or a directory without the repository's ``src``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -186,6 +217,21 @@ MAIN_SHAPE = (SERVE["batch"] * SERVE["prompt"], 1024, 3072)  # reported in the J
 # qwen3-0.6b attention: query heads, KV heads, head width; the serve cache length
 HEADS, KV_HEADS, HEAD_DIM = 16, 8, 128
 CACHE = SERVE["prompt"] + SERVE["gen"]
+# the heads (query, KV, width) of gemma2-9b, gemma-7b and yi-9b, and gemma2's
+# local window and attention logit softcap
+GEMMA2_HEADS = dict(h=16, kv=8, hd=256)
+GEMMA7_HEADS = dict(h=16, kv=16, hd=256)
+YI_HEADS = dict(h=32, kv=4, hd=128)
+GEMMA2_WINDOW, GEMMA2_SOFTCAP = 4096, 50.0
+# gemma2-9b's MLP projections (K, N): up/gate, down; its attention
+# projections: q, k/v, o; yi-9b's: q and o, k/v, MLP up/gate, down
+GEMMA2_MLP = [(3584, 14336), (14336, 3584)]
+GEMMA2_ATTN_PROJECTIONS = [(3584, 4096), (3584, 2048), (4096, 3584)]
+YI_PROJECTIONS = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096)]
+# the full-width serve runs of the three wide models: two batches at the
+# exact tiers, one at the approximate ones (their steps are device-bound)
+WIDE_REQUESTS = 2 * SERVE["batch"]
+WIDE_APPROX_REQUESTS = SERVE["batch"]
 # self-speculative serving: proposals per round; a verify forward is (B, k+1)
 # over the pool cache, which holds k spare slots per row
 SPEC_K = 4
@@ -204,6 +250,10 @@ GEMM_KERNELS = ("lut_matmul", "seqmul_matmul", "packed_matmul", "lowrank_matmul"
 ATTN_KERNELS = ("flash_attention", "flash_decode", "approx_attention_bitexact",
                 "approx_attention_lowrank")
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the head-width-256 instantiations of each attention library, which must not
+# spill: forward (bf16, float32) x (softcap or not) and decode (bf16, float32);
+# lowrank, and bitexact at 1, 2 and 4 rows a thread
+WIDE_INSTANTIATIONS = {"flash_attention": 6, "approx_attention": 4}
 ELEMENTWISE_KERNELS = ("seqmul_packed", "seqmul_words")
 # the elementwise kernels' main rows: every (a, b) pair at n = 12 (packed)
 # and as many numpy draws at the paper's n = 16 (words), 2^24 elements each
@@ -251,6 +301,34 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print the wall seconds of the phase run inside."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f}s wall", flush=True)
+
+
+def ptxas_report(log: str) -> list:
+    """``[(kernel, registers, spill store bytes, spill load bytes)]`` per
+    instantiation from nvcc's ``-Xptxas -v`` log, names demangled where a
+    demangler is installed."""
+    rows = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        rows.append([chunk.split("'")[0], int(regs.group(1)) if regs else None,
+                     *(map(int, spill.groups()) if spill else (None, None))])
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool and rows:
+        names = subprocess.run([tool], input="\n".join(r[0] for r in rows), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for row, name in zip(rows, names):
+                row[0] = re.sub(r"\(anonymous namespace\)::|\(.*", "", name.replace("void ", ""))
+    return [tuple(r) for r in rows]
 
 
 def tensor_core_instructions(source: str, names: tuple, without: tuple = ()) -> dict:
@@ -369,7 +447,9 @@ def operands(m, k, n, bits, seed):
 
 
 def kernel_cases():
-    """(kernel, M, K, N, n, t) at the main-path shapes plus the sweep."""
+    """(kernel, M, K, N, n, t, timed) at the main-path shapes plus the
+    sweep, and the GEMMs of the serve tiers at every projection of
+    gemma2-9b and yi-9b (timed at gemma2's MLP)."""
     ms = (SERVE["batch"], SERVE["prompt"], SERVE["batch"] * SERVE["prompt"])
     cases = []
     for name in ("lut_matmul", "seqmul_matmul", "packed_matmul"):
@@ -389,6 +469,16 @@ def kernel_cases():
     for m in ms:
         for k, n in PROJECTIONS:
             cases.append(("lowrank_matmul", m, k, n, 8, 4))
+    # the main path's (n, t), and seqmul's int64 sums at n = 12
+    cases = [(*c, c[4:] == (8, 4) or (c[0] == "seqmul_matmul" and c[4] == 12))
+             for c in cases]
+    # gemma2-9b's and yi-9b's projections at the decode batch and the pool prefill
+    for name in ("lut_matmul", "packed_matmul", "lowrank_matmul"):
+        for m in (SERVE["batch"], SERVE["batch"] * SERVE["prompt"]):
+            for k, n in GEMMA2_MLP:
+                cases.append((name, m, k, n, 8, 4, True))
+            for k, n in GEMMA2_ATTN_PROJECTIONS + YI_PROJECTIONS:
+                cases.append((name, m, k, n, 8, 4, False))
     return cases
 
 
@@ -506,9 +596,7 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
 
 def phase_kernels(card: Card) -> list:
     rows = []
-    for i, (name, m, k, n, bits, t) in enumerate(kernel_cases()):
-        # the main path's (n, t), and seqmul's int64 sums at n = 12
-        timed = (bits, t) == (8, 4) or (name == "seqmul_matmul" and bits == 12)
+    for i, (name, m, k, n, bits, t, timed) in enumerate(kernel_cases()):
         row = run_kernel_case(card, name, m, k, n, bits, t, seed=100 + i, timed=timed)
         rows.append(row)
         times = (
@@ -653,47 +741,105 @@ def phase_gemm_edges() -> list:
 
 
 # ----------------------------------------------------------- attention
+@dataclasses.dataclass(frozen=True)
+class AttnCase:
+    """One attention row: the kernel, a label, q (b, s) over t slots, the
+    key block (approximate attention), window, softcap, whether it is
+    timed, and the heads (query, KV, width) and the dtype of q, k, v."""
+
+    name: str
+    label: str
+    b: int
+    s: int
+    t: int
+    bk: int = None
+    window: int = None
+    softcap: float = None
+    timed: bool = False
+    h: int = HEADS
+    kv: int = KV_HEADS
+    hd: int = HEAD_DIM
+    dtype: str = "bfloat16"
+
+
 def attention_cases():
-    """(kernel, label, B, S, T, bk, window, softcap, timed): the serve shapes
-    (prefill q (B, 32) over the 48-slot cache, decode over it), a window +
-    softcap variant of each, one long shape each, and the forwards of train
-    runs (a) and (b) at their shape, with lse: flash_attention and
-    bitexact."""
+    """The serve shapes of qwen3-0.6b (prefill q (B, 32) over the 48-slot
+    cache, decode over it), a window + softcap variant of each, one long
+    shape each, and the forwards of train runs (a) and (b) at their shape,
+    with lse: flash_attention and bitexact; then head width 256
+    (``wide_attention_cases``)."""
     b, p = SERVE["batch"], SERVE["prompt"]
     cases = []
     for name in ATTN_KERNELS:
         s = 1 if name == "flash_decode" else p
         bk = {"flash_decode": None, "flash_attention": None}.get(name, 16)
-        cases.append((name, "serve", b, s, CACHE, bk, None, None, True))
-        cases.append((name, "window+softcap", b, s, CACHE, bk, 16, 30.0, False))
-    cases.append(("flash_attention", "long", 1, 1024, 1024, None, None, None, True))
-    cases.append(("flash_decode", "long", 4, 1, 4096, None, None, None, True))
-    cases.append(("approx_attention_bitexact", "long", 1, 1024, 1024, 64, None, None, True))
-    cases.append(("approx_attention_lowrank", "long", 1, 1024, 1024, 128, None, None, True))
-    cases.append(("flash_attention", "train", TRAIN["batch"], TRAIN["seq"], TRAIN["seq"],
-                  None, None, None, True))
+        cases.append(AttnCase(name, "serve", b, s, CACHE, bk, timed=True))
+        cases.append(AttnCase(name, "window+softcap", b, s, CACHE, bk, 16, 30.0))
+    cases.append(AttnCase("flash_attention", "long", 1, 1024, 1024, timed=True))
+    cases.append(AttnCase("flash_decode", "long", 4, 1, 4096, timed=True))
+    cases.append(AttnCase("approx_attention_bitexact", "long", 1, 1024, 1024, 64, timed=True))
+    cases.append(AttnCase("approx_attention_lowrank", "long", 1, 1024, 1024, 128, timed=True))
+    cases.append(AttnCase("flash_attention", "train", TRAIN["batch"], TRAIN["seq"],
+                          TRAIN["seq"], timed=True))
     # the speculative verify forward under attn_impl="pallas": q (B, k+1) over the
     # whole pool cache, per-row starts, stale suffix slots, a dead lane parked
-    cases.append(("flash_attention", "verify", b, SPEC_K + 1, VERIFY_CACHE, None, None, None,
-                  False))
-    cases.append(("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
-                  TRAIN["seq"], 64, None, None, True))
-    return cases
+    cases.append(AttnCase("flash_attention", "verify", b, SPEC_K + 1, VERIFY_CACHE))
+    cases.append(AttnCase("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
+                          TRAIN["seq"], 64, timed=True))
+    return cases + wide_attention_cases()
 
 
-def attention_inputs(b, s, t, seed, label=None):
-    """bf16 q/k/v and positions.  Prefill over a cache (t > s): row 1 is
-    left-padded by 5, every row's slots past its prompt are an unwritten
-    (masked) tail.  Decode: row i has written t - 16 + 4i slots (32-44 of
-    the 48 at the serve shape, a nearly full cache at the long one).
-    Long prefill: no cache, positions 0..t-1.  Verify: ``verify_positions``."""
+def wide_attention_cases():
+    """Head width 256 and the new head groups, all timed: gemma2-9b's 16
+    query and 8 KV heads of 256 at the serve shape, with window 16 and
+    softcap 50, at S = T = 1024 (the decode over 4,096 slots) and a decode
+    over 8,192 slots under gemma2's own window of 4,096 (dead chunks);
+    gemma-7b's 16 / 16 (one query head per KV head) forward and decode;
+    yi-9b's 32 / 4 of 128 (eight per KV head) forward and decode; one
+    float32 forward at 256."""
+    b, p = SERVE["batch"], SERVE["prompt"]
+    cases = []
+    for name in ATTN_KERNELS:
+        s = 1 if name == "flash_decode" else p
+        bk = {"flash_decode": None, "flash_attention": None}.get(name, 16)
+        cases.append(AttnCase(name, "gemma2 serve", b, s, CACHE, bk, timed=True,
+                              **GEMMA2_HEADS))
+        cases.append(AttnCase(name, "gemma2 window+softcap", b, s, CACHE, bk, 16,
+                              GEMMA2_SOFTCAP, timed=True, **GEMMA2_HEADS))
+    return cases + [
+        AttnCase("flash_attention", "gemma2 long", 1, 1024, 1024, timed=True, **GEMMA2_HEADS),
+        AttnCase("flash_decode", "gemma2 long", 4, 1, 4096, timed=True, **GEMMA2_HEADS),
+        AttnCase("approx_attention_bitexact", "gemma2 long", 1, 1024, 1024, 64, timed=True,
+                 **GEMMA2_HEADS),
+        AttnCase("approx_attention_lowrank", "gemma2 long", 1, 1024, 1024, 128, timed=True,
+                 **GEMMA2_HEADS),
+        AttnCase("flash_decode", "gemma2 window 4096", 4, 1, 2 * GEMMA2_WINDOW, None,
+                 GEMMA2_WINDOW, GEMMA2_SOFTCAP, timed=True, **GEMMA2_HEADS),
+        AttnCase("flash_attention", "gemma-7b serve", b, p, CACHE, timed=True, **GEMMA7_HEADS),
+        AttnCase("flash_decode", "gemma-7b serve", b, 1, CACHE, timed=True, **GEMMA7_HEADS),
+        AttnCase("flash_attention", "yi-9b serve", b, p, CACHE, timed=True, **YI_HEADS),
+        AttnCase("flash_decode", "yi-9b serve", b, 1, CACHE, timed=True, **YI_HEADS),
+        AttnCase("flash_attention", "gemma2 f32 serve", b, p, CACHE, timed=True,
+                 dtype="float32", **GEMMA2_HEADS),
+    ]
+
+
+def attention_inputs(case: AttnCase, seed):
+    """q/k/v of the case's heads and dtype, and positions.  Prefill over a
+    cache (t > s): row 1 is left-padded by 5, every row's slots past its
+    prompt are an unwritten (masked) tail.  Decode: row i has written t -
+    16 + 4i slots (32-44 of the 48 at the serve shape, a nearly full cache
+    at the long ones).  Long prefill: no cache, positions 0..t-1.  Verify:
+    ``verify_positions``."""
     import torch
 
+    b, s, t = case.b, case.s, case.t
+    dtype = getattr(torch, case.dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, s, HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
-    k = torch.randn((b, t, KV_HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
-    v = torch.randn((b, t, KV_HEADS, HEAD_DIM), generator=g, device="cuda").to(torch.bfloat16)
-    q_pos, k_pos = verify_positions(b, s, t) if label == "verify" else positions(b, s, t)
+    q = torch.randn((b, s, case.h, case.hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, t, case.kv, case.hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, t, case.kv, case.hd), generator=g, device="cuda").to(dtype)
+    q_pos, k_pos = verify_positions(b, s, t) if case.label == "verify" else positions(b, s, t)
     return q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32)
 
 
@@ -740,10 +886,11 @@ def run_attention_case(card: Card, case, seed):
     from repro_torch.kernels import approx_attention as aa
     from repro_torch.kernels import flash_attention as fa
 
-    name, label, b, s, t, bk, window, softcap, timed = case
-    q, k, v, q_pos, k_pos = attention_inputs(b, s, t, seed, label)
-    scale = HEAD_DIM**-0.5
-    hd, h, kv = HEAD_DIM, HEADS, KV_HEADS
+    name, label, b, s, t = case.name, case.label, case.b, case.s, case.t
+    bk, window, softcap, timed = case.bk, case.window, case.softcap, case.timed
+    q, k, v, q_pos, k_pos = attention_inputs(case, seed)
+    hd, h, kv = case.hd, case.h, case.kv
+    scale = hd**-0.5
     # The work this run's data needs: a query row reads the slots it may
     # attend (a masked slot adds exactly 0); a row with none, a left pad,
     # averages every slot.  pairs: (query head, slot) pairs; slots: the
@@ -752,9 +899,11 @@ def run_attention_case(card: Card, case, seed):
     needed = allow | ~allow.any(-1, keepdim=True)
     pairs = h * needed.sum().item()
     slots = needed.any(1).sum().item()
-    # per needed slot, K and V of every KV head: bf16, or a magnitude and a
-    # sign byte each for bitexact (2 bytes per element either way)
-    kv_bytes = 2 * 2 * kv * hd * slots
+    # per needed slot, K and V of every KV head: bf16 (float32 in the f32
+    # row), or a magnitude and a sign byte each for the approximate kernels
+    # (2 bytes per element)
+    esize = 2 if name.startswith("approx") else q.element_size()
+    kv_bytes = 2 * esize * kv * hd * slots
     # positions read once, the f32 output written once
     io_bytes = 4 * (q_pos.numel() + k_pos.numel()) + 4 * q.numel()
     # the train rows return lse too (written once), as the train step's forward does
@@ -766,7 +915,7 @@ def run_attention_case(card: Card, case, seed):
         kern = lambda: fa.flash_decode(q[:, 0], k, v, q_pos, k_pos, **kw)
         plain = lambda: fa.flash_decode_plain(q[:, 0], k, v, q_pos, k_pos, **kw)
         # bytes-bound: float32 FMAs on the CUDA cores, QK and PV (4 hd FLOPs a pair)
-        bound = card.bound(2 * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
+        bound = card.bound(esize * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
                            card.f32_flops_per_s)
     elif name == "flash_attention":
         kw = dict(causal=True, window=window, softcap=softcap, scale=scale)
@@ -778,8 +927,11 @@ def run_attention_case(card: Card, case, seed):
             kern = lambda: fa.flash_attention(q, k, v, q_pos, k_pos, **kw)
             plain = lambda: fa.flash_attention_plain(q, k, v, q_pos, k_pos, **kw)
         # the products the kernel runs on the bf16 tensor cores: QK^T on bf16 q
-        # and k (2 hd FLOPs a pair) and P.V with p as two bf16 terms (4 hd)
-        bound = card.bound(2 * q.numel() + kv_bytes + io_bytes + lse_bytes, 6 * pairs * hd,
+        # and k (2 hd FLOPs a pair) and P.V with p as two bf16 terms (4 hd);
+        # float32 q, k, v and p as three bf16 terms each, six products a
+        # term product (12 hd each)
+        flops = 6 * hd if esize == 2 else 24 * hd
+        bound = card.bound(esize * q.numel() + kv_bytes + io_bytes + lse_bytes, flops * pairs,
                            BF16_TENSOR_FLOPS_PER_S)
     else:
         mode, rank = name.rsplit("_", 1)[1], 8
@@ -818,7 +970,8 @@ def run_attention_case(card: Card, case, seed):
     got = (wrapper if name.startswith("approx") else kern)()
     want = plain()
     torch.cuda.synchronize()
-    where = f"{name} {label} B={b} S={s} T={t} bk={bk} window={window} softcap={softcap}"
+    where = (f"{name} {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd} {case.dtype} bk={bk} "
+             f"window={window} softcap={softcap}")
     row = dict(name=name, label=label, shape=[b, s, t, h, kv, hd], bk=bk,
                bound_ms=bound[0], bound_by=bound[1])
     if name.startswith("approx"):
@@ -974,7 +1127,7 @@ def run_backward_case(card: Card, case, seed):
     from repro_torch.kernels import flash_attention as fa
 
     label, b, s, t, window, softcap = case
-    q, k, v, q_pos, k_pos = attention_inputs(b, s, t, seed)
+    q, k, v, q_pos, k_pos = attention_inputs(AttnCase("flash_attention", label, b, s, t), seed)
     do = torch.randn((b, s, HEADS, HEAD_DIM), device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(seed + 1))
     hd, h, kv = HEAD_DIM, HEADS, KV_HEADS
@@ -1316,8 +1469,6 @@ def phase_reference() -> None:
 
     from repro_torch import engine
     from repro_torch.configs.registry import apply_approx, get_config
-    from repro_torch.models.registry import build_model
-    from repro_torch.train.steps import make_prefill_step
 
     g = torch.Generator().manual_seed(7)
     x = torch.randn((16, 128), generator=g)
@@ -1351,34 +1502,144 @@ def phase_reference() -> None:
                        ("pallas exact", pallas),
                        ("pallas bitexact mlp+attn", apply_approx(
                            pallas, mode="bitexact", n=8, t=4, targets=("mlp", "attn")))):
-        model = build_model(cfg)
-        cpu_params = model.init_params(0, device="cpu")
-        gpu_params = model.init_params(0, device="cpu").cuda()
-        toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(3))
-        with torch.inference_mode():
-            _, want = make_prefill_step(model, 24)(cpu_params, {"tokens": toks})
-            _, got = make_prefill_step(model, 24)(gpu_params, {"tokens": toks.cuda()})
-        got = got.cpu()
+        hold_logits_on_card(f"reduced qwen3-0.6b {label}", cfg)
+
+
+@contextlib.contextmanager
+def approximate_inputs(recorded: list, label: str, *, record: bool):
+    """Record (``record``) the input of every approximate GEMM and the q, k
+    and v of every approximate attention call of the model, in call order;
+    or, on the card, check each call's own inputs against the recorded ones
+    (rtol/atol 1e-4) and hand it the recorded ones instead."""
+    import torch
+
+    import repro_torch.models.attention as attention
+    import repro_torch.models.layers as layers
+
+    gemm, attn = layers._approx_2d, attention.approx_flash_attention
+
+    def take(got: tuple) -> tuple:
+        want = recorded.pop(0)
+        for g, w in zip(got, want):
+            check(torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-4),
+                  f"{label}: an approximate call's input on the card is "
+                  f"{(g.cpu() - w).abs().max().item()} from the CPU's")
+        return tuple(w.to(g.device) for g, w in zip(got, want))
+
+    def gemm_hook(x2, w, ap, generator):
+        if record:
+            recorded.append((x2.clone(),))
+        else:
+            (x2,) = take((x2,))
+        return gemm(x2, w, ap, generator)
+
+    def attn_hook(q, k, v, *args, **kw):
+        if record:
+            recorded.append((q.clone(), k.clone(), v.clone()))
+        else:
+            q, k, v = take((q, k, v))
+        return attn(q, k, v, *args, **kw)
+
+    layers._approx_2d, attention.approx_flash_attention = gemm_hook, attn_hook
+    try:
+        yield
+    finally:
+        layers._approx_2d, attention.approx_flash_attention = gemm, attn
+
+
+def hold_logits_on_card(label: str, cfg, *, decode_steps: int = 0, prompt: int = 16,
+                        cache: int = 24, forced: bool = False) -> None:
+    """Prefill logits of ``cfg`` (seed-0 weights, two prompts of ``prompt``
+    tokens) and then ``decode_steps`` greedy decode steps on the card
+    against the port's CPU plain path, every step fed the CPU's token.
+    ``forced``: each approximate call on the card is first checked to get
+    the CPU's inputs within rtol/atol 1e-4 and then fed the CPU's inputs
+    themselves (``approximate_inputs``), as tests/test_torch_model.py
+    feeds the port the reference's: an input an ulp away can sit on the
+    other side of a rounding boundary of the 8-bit quantizer, and that moves
+    the layer's output by a quantum, far more than 1e-4."""
+    import torch
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    model = build_model(cfg)
+    cpu_params = model.init_params(0, device="cpu")
+    gpu_params = model.init_params(0, device="cpu").cuda()
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt),
+                         generator=torch.Generator().manual_seed(3))
+    recorded = []
+
+    def on_cpu():
+        return approximate_inputs(recorded, label, record=True) if forced else \
+            contextlib.nullcontext()
+
+    def on_card():
+        return approximate_inputs(recorded, label, record=False) if forced else \
+            contextlib.nullcontext()
+
+    with torch.inference_mode():
+        with on_cpu():
+            want_cache, want = make_prefill_step(model, cache)(cpu_params, {"tokens": toks})
+        with on_card():
+            got_cache, got = make_prefill_step(model, cache)(gpu_params, {"tokens": toks.cuda()})
+        steps = [("prefill", got.cpu(), want)]
+        decode = make_decode_step(model)
+        for i in range(decode_steps):
+            tok = want[:, -1].argmax(-1)[:, None]
+            at = torch.full((2,), prompt + i, dtype=torch.int32)
+            with on_cpu():
+                want, want_cache = decode(cpu_params, want_cache, tok, at, at)
+            with on_card():
+                got, got_cache = decode(gpu_params, got_cache, tok.cuda(), at.cuda(), at.cuda())
+            steps.append((f"decode step {i}", got.cpu(), want))
+    check(not recorded, f"{label}: the card made fewer approximate calls than the CPU")
+    errs = []
+    for what, got, want in steps:
         err = (got - want).abs().max().item()
-        check(bool(torch.isfinite(got).all()), f"reduced {label} prefill: non-finite logits")
+        errs.append(f"{what} {err:.3e}")
+        check(bool(torch.isfinite(got).all()), f"{label} {what}: non-finite logits")
         # All within rtol/atol 1e-4: the float sums (norms, attention, the
         # exact projections) run in another order on the card.  The bitexact
         # GEMMs are integer-exact on both sides, so they add nothing unless an
         # input lands on the other side of a quantizer rounding boundary,
-        # which moves a logit by far more than 1e-4 and fails here; so does
-        # a probability of the approximate attention that the card's expf
-        # moves across a boundary of p_int.
+        # which moves a logit by far more than 1e-4 and fails here (unless
+        # ``forced``); so does a probability of the approximate attention
+        # that the card's expf moves across a boundary of p_int.
         check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-              f"reduced {label} prefill: card vs CPU max |err| {err}")
-        print(f"reference: reduced qwen3-0.6b {label} prefill logits card vs CPU "
-              f"max |err| {err:.3e} (rtol/atol 1e-4)", flush=True)
+              f"{label} {what}: card vs CPU max |err| {err}")
+    print(f"reference: {label} logits card vs CPU max |err| {', '.join(errs)} "
+          f"(rtol/atol 1e-4{'; approximate calls fed the CPU inputs' if forced else ''})",
+          flush=True)
+
+
+def phase_reference_wide() -> None:
+    """gemma-7b, gemma2-9b and yi-9b at their plain ``.reduced()``, and
+    gemma2-9b at ``reduced(head_dim=256, attn_impl="pallas")`` at exact and
+    at bitexact on mlp and attn (the attention kernels at head width 256,
+    gemma2's window of 8 binding over the decode steps; the approximate
+    calls fed the CPU's inputs): prefill and four decode steps' logits on
+    the card against the CPU plain path."""
+    from repro_torch.configs.registry import apply_approx, get_config
+
+    for arch in ("gemma-7b", "gemma2-9b", "yi-9b"):
+        hold_logits_on_card(f"reduced {arch} exact", get_config(arch).reduced(), decode_steps=4)
+    wide = get_config("gemma2-9b").reduced(head_dim=256, attn_impl="pallas")
+    hold_logits_on_card("reduced gemma2-9b head_dim 256 pallas exact", wide, decode_steps=4)
+    # forced: unforced, the first attention call's q, k, v, an ulp from the
+    # CPU's, cross 8-bit quantizer boundaries at this seed (the card's kernel
+    # on the CPU's inputs is within 2.4e-7 of the plain version)
+    hold_logits_on_card(
+        "reduced gemma2-9b head_dim 256 pallas bitexact mlp+attn",
+        apply_approx(wide, mode="bitexact", n=8, t=4, targets=("mlp", "attn")), decode_steps=4,
+        forced=True)
 
 
 # ---------------------------------------------------------------- serve
 def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=("mlp",),
-                expect=(), forbid=(), requests: int):
+                expect=(), forbid=(), requests: int, profile_reps: int = 3):
     """One closed-loop run of the scheduler; every kernel in ``expect`` must
-    launch and none in ``forbid``."""
+    launch and none in ``forbid``; ``profile_reps`` decode steps profiled."""
     import torch
 
     from repro_torch import kernels
@@ -1429,10 +1690,77 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
     print(f"serve {label}: {st.summary()}; prefill {st.prefill_s:.3f}s decode "
           f"{st.decode_s:.3f}s over {st.decode_steps} steps; run incl. warmup {wall:.2f}s; "
           f"launches {counts}", flush=True)
-    steps = step_breakdown(label, sched, params)
+    steps = step_breakdown(label, sched, params, profile_reps)
     return dict(counts=counts, tok_s=st.tokens_per_s, wall_s=st.wall_s, queue=queue,
                 outputs=result.outputs, model=sched.model, modeled_cost=st.modeled_cost,
                 **steps)
+
+
+def wide_serve_runs(every: tuple) -> dict:
+    """arch -> its full-width serve runs: (label, attn_impl="pallas"?,
+    phase_serve's tier or mode, its requests, and the kernels it must and
+    must not launch)."""
+    few = dict(requests=WIDE_APPROX_REQUESTS)
+    exact = ("exact", False, dict(quality="exact", forbid=every, requests=WIDE_REQUESTS))
+    balanced = ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
+                                        forbid=ATTN_KERNELS, **few))
+    pallas_exact = ("pallas exact", True, dict(quality="exact",
+                                               expect=("flash_attention", "flash_decode"),
+                                               forbid=GEMM_KERNELS, requests=WIDE_REQUESTS))
+    return {
+        "gemma2-9b": [
+            exact, balanced,
+            ("draft", False, dict(quality="draft", expect=("packed_matmul",), **few)),
+            pallas_exact,
+            ("pallas balanced", True, dict(
+                quality="balanced",
+                expect=("approx_attention_bitexact", "flash_decode", "lut_matmul"), **few)),
+            ("pallas lowrank mlp+attn", True, dict(
+                mode="lowrank", targets=("mlp", "attn"),
+                expect=("lowrank_matmul", "approx_attention_lowrank", "flash_decode"), **few)),
+        ],
+        "gemma-7b": [exact, pallas_exact],
+        "yi-9b": [exact, balanced, pallas_exact],
+    }
+
+
+def phase_serve_wide(arch: str, runs: list) -> dict:
+    """The continuous scheduler on full-width ``arch`` (weights from seed 0,
+    bf16) at each of ``runs``, one profiled decode step a run; the model is
+    freed before the next arch."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    t0 = time.perf_counter()
+    params = model.init_params(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    print(f"serve: {arch} {cfg.num_layers} layers {list(cfg.layer_pattern)}, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, {cfg.dtype}: {n_params / 1e9:.3f}B params from seed 0 in "
+          f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"on the card", flush=True)
+    out = {}
+    for label, use_pallas, kw in runs:
+        t0 = time.perf_counter()
+        run = phase_serve(f"{arch} {label}", params, pallas if use_pallas else model,
+                          profile_reps=1, **kw)
+        busy = "not measured" if run["busy_share"] is None else f"{run['busy_share']:.3f}"
+        print(f"serve {arch} {label}: {n_params / 1e9:.3f}B params, {kw['requests']} requests, "
+              f"{run['tok_s']:.2f} tok/s, decode step {run['decode_ms']:.2f} ms, busy share "
+              f"{busy}, launches { {k: c for k, c in run['counts'].items() if c} }; "
+              f"{time.perf_counter() - t0:.1f}s wall with its step breakdown", flush=True)
+        out[label] = {k: run[k] for k in ("counts", "per_prefill", "per_decode", "decode_ms",
+                                          "prefill_ms", "busy_share", "tok_s")}
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def teacher_gaps(model, params, req, stream) -> list:
@@ -1663,7 +1991,7 @@ def phase_soak(params, model) -> dict:
     return row
 
 
-def step_breakdown(label: str, sched, params) -> dict:
+def step_breakdown(label: str, sched, params, profile_reps: int = 3) -> dict:
     """One pool prefill and one decode step of the pool's engine, outside
     the main path's count window: launches of each kernel per step, the
     host-clock time of each step, and a profiler pass over a few decode
@@ -1691,7 +2019,8 @@ def step_breakdown(label: str, sched, params) -> dict:
         eng.decode(params, caches, tok1, at, at)[0].cpu()
         decode_ms = (time.perf_counter() - t0) * 1e3
         per_decode = kernels.launch_counts()
-        busy_ms, kernel_ms, wall_ms, reps = profile_decode(eng, params, caches, tok1, at)
+        busy_ms, kernel_ms, wall_ms, reps = profile_decode(eng, params, caches, tok1, at,
+                                                           profile_reps)
     kernels.reset_launch_counts()
     share = (f"device busy {busy_ms / wall_ms:.3f} of {wall_ms / reps:.2f} ms/step, own "
              f"kernels {kernel_ms / max(busy_ms, 1e-9):.3f} of busy" if busy_ms else
@@ -1866,8 +2195,8 @@ def phase_train_cli() -> None:
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600,
                               env={**os.environ, "PYTHONPATH": str(SRC)})
-        # the CLI's "loss a -> b" averages the first and last ten steps, which
-        # over 8 steps are the same steps: the first and last losses say more
+        # the history holds one loss per step run, the repeated step 5 (after
+        # the restore from step 4) included: its first is step 1, its last step 8
         losses = ([h["loss"] for h in json.loads(history.read_text())]
                   if proc.returncode == 0 else [])
     finally:
@@ -1885,9 +2214,12 @@ def phase_train_cli() -> None:
           f"train CLI: {m.group(0)}")
     # a step between the restored checkpoint and the failure runs twice
     check(len(losses) >= 8 and all(map(math.isfinite, losses)), f"train CLI losses {losses}")
-    lines = [ln for ln in out.splitlines() if ln.startswith(("arch=", "recovered", "loss"))]
+    # the CLI's own "loss a -> b" is checked above but not printed: over 8
+    # steps both of its ten-step means average the same steps
+    lines = [ln for ln in out.splitlines() if ln.startswith(("arch=", "recovered"))]
     print(f"train CLI ({wall:.1f}s): " + " | ".join(lines)
-          + f" | losses of steps 1 and 8: {losses[0]:.6f}, {losses[-1]:.6f}", flush=True)
+          + f" | failures {failures} restarts {restarts} | loss of step 1 {losses[0]:.6f}, "
+          f"of step 8 {losses[-1]:.6f}", flush=True)
 
 
 def main() -> int:
@@ -1920,106 +2252,135 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels import build
 
-    t0 = time.perf_counter()
-    logs = build.build_all()
-    print(f"build: {sorted(logs) or 'all cached'} in {time.perf_counter() - t0:.1f}s", flush=True)
-    for name, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "Used" in line:
-                print(f"build: {name}: {line.strip()}", flush=True)
-    sass_checks = (("flash_attention", ("flash_attention_kernel",), ("flash_decode_kernel",)),
-                   ("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel"), ()),
-                   ("approx_attention", ("lowrank_kernel",), ("bitexact_kernel",)))
-    for source, names, without in sass_checks:
-        for kernel, count in sorted(tensor_core_instructions(source, names, without).items()):
-            print(f"build: {source} SASS: {kernel} HMMA/HGMMA/IMMA per instantiation {count}",
-                  flush=True)
+    with phase("build"):
+        t0 = time.perf_counter()
+        logs = build.build_all()
+        print(f"build: {sorted(logs) or 'all cached'} in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        for name, log in sorted(logs.items()):
+            report = ptxas_report(log)
+            for kernel, regs, spill_st, spill_ld in report:
+                print(f"build: {name}: {kernel}: {regs} registers, spill stores {spill_st} "
+                      f"bytes, spill loads {spill_ld} bytes", flush=True)
+            if name in WIDE_INSTANTIATIONS:
+                # every instantiation at head width 256 (demangled or mangled) spills nothing
+                wide = [r for r in report if re.search(r"[<,] ?256[,>]|Li256E", r[0])]
+                check(len(wide) == WIDE_INSTANTIATIONS[name],
+                      f"build: {name}: {len(wide)} head-width-256 instantiations in ptxas's "
+                      f"log, expected {WIDE_INSTANTIATIONS[name]}")
+                spilled = [r for r in wide if r[2:] != (0, 0)]
+                check(not spilled, f"build: {name}: spills at head width 256: {spilled}")
+        sass_checks = (("flash_attention", ("flash_attention_kernel",), ("flash_decode_kernel",)),
+                       ("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel"), ()),
+                       ("approx_attention", ("lowrank_kernel",), ("bitexact_kernel",)))
+        for source, names, without in sass_checks:
+            for kernel, count in sorted(tensor_core_instructions(source, names, without).items()):
+                print(f"build: {source} SASS: {kernel} HMMA/HGMMA/IMMA per instantiation {count}",
+                      flush=True)
 
     # 3. kernels
-    rows = (phase_kernels(card) + phase_attention(card) + phase_backward(card)
-            + phase_elementwise(card))
+    with phase("kernels: GEMMs"):
+        rows = phase_kernels(card)
+    with phase("kernels: attention"):
+        rows += phase_attention(card)
+    with phase("kernels: backward"):
+        rows += phase_backward(card)
+    with phase("kernels: elementwise"):
+        rows += phase_elementwise(card)
     kernels.reset_launch_counts()
 
     # 4. reference
-    phase_reference()
-    phase_train_reference()
+    with phase("reference"):
+        phase_reference()
+        phase_train_reference()
+    with phase("reference: gemma-7b, gemma2-9b, yi-9b"):
+        phase_reference_wide()
     kernels.reset_launch_counts()
 
     # 5. serve
     from repro_torch.configs.registry import get_config
     from repro_torch.models.registry import build_model
 
-    cfg = get_config("qwen3-0.6b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init_params(0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"serve: qwen3-0.6b {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-          f"{model.param_count(params) / 1e6:.1f}M params from seed 0 in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    every = tuple(kernels.ALL)
-    n_req = SERVE["requests"]
-    exact_run = phase_serve("exact", params, model, quality="exact", forbid=every,
-                            requests=n_req)
-    runs = {
-        "lut_matmul": phase_serve("balanced", params, model, quality="balanced",
-                                  expect=("lut_matmul",), forbid=ATTN_KERNELS,
-                                  requests=n_req),
-        "packed_matmul": phase_serve("draft", params, model, quality="draft",
-                                     expect=("packed_matmul",), requests=n_req),
-        "seqmul_matmul": phase_serve("seqmul", params, model, mode="seqmul",
-                                     expect=("seqmul_matmul",), requests=n_req // 2),
-    }
-    # attn_impl="pallas": the attention kernels on the same weights
-    pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
-    runs["flash_attention"] = runs["flash_decode"] = phase_serve(
-        "pallas exact", params, pallas, quality="exact",
-        expect=("flash_attention", "flash_decode"), forbid=GEMM_KERNELS, requests=n_req)
-    runs["approx_attention_bitexact"] = phase_serve(
-        "pallas balanced", params, pallas, quality="balanced",
-        expect=("approx_attention_bitexact", "flash_decode", "lut_matmul"), requests=n_req)
-    runs["lowrank_matmul"] = runs["approx_attention_lowrank"] = phase_serve(
-        "pallas lowrank mlp+attn", params, pallas, mode="lowrank", targets=("mlp", "attn"),
-        expect=("lowrank_matmul", "approx_attention_lowrank", "flash_decode"),
-        requests=n_req)
-    # the rest of serving: speculative rounds (draft proposals, one verify
-    # forward), the open loop with its policy, the static loop, the soak
-    spec_runs = {"packed_matmul": phase_serve_speculative(
-        "speculative", params, exact_run, expect=("packed_matmul",),
-        draft_run=runs["packed_matmul"])}
-    pallas_exact = runs["flash_attention"]
-    pallas_half = {**pallas_exact, "queue": pallas_exact["queue"][:n_req // 2]}
-    spec_runs["flash_attention"] = spec_runs["flash_decode"] = phase_serve_speculative(
-        "pallas speculative", params, pallas_half,
-        expect=("flash_decode", "flash_attention", "packed_matmul"))
-    phase_serve_open(params, model)
-    phase_serve_static(params, model)
-    phase_soak(params, model)
-    del params
-    torch.cuda.empty_cache()
+    with phase("serve: qwen3-0.6b"):
+        cfg = get_config("qwen3-0.6b")
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init_params(0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"serve: qwen3-0.6b {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+              f"{model.param_count(params) / 1e6:.1f}M params from seed 0 in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        every = tuple(kernels.ALL)
+        n_req = SERVE["requests"]
+        exact_run = phase_serve("exact", params, model, quality="exact", forbid=every,
+                                requests=n_req)
+        runs = {
+            "lut_matmul": phase_serve("balanced", params, model, quality="balanced",
+                                      expect=("lut_matmul",), forbid=ATTN_KERNELS,
+                                      requests=n_req),
+            "packed_matmul": phase_serve("draft", params, model, quality="draft",
+                                         expect=("packed_matmul",), requests=n_req),
+            "seqmul_matmul": phase_serve("seqmul", params, model, mode="seqmul",
+                                         expect=("seqmul_matmul",), requests=n_req // 2),
+        }
+        # attn_impl="pallas": the attention kernels on the same weights
+        pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+        runs["flash_attention"] = runs["flash_decode"] = phase_serve(
+            "pallas exact", params, pallas, quality="exact",
+            expect=("flash_attention", "flash_decode"), forbid=GEMM_KERNELS, requests=n_req)
+        runs["approx_attention_bitexact"] = phase_serve(
+            "pallas balanced", params, pallas, quality="balanced",
+            expect=("approx_attention_bitexact", "flash_decode", "lut_matmul"), requests=n_req)
+        runs["lowrank_matmul"] = runs["approx_attention_lowrank"] = phase_serve(
+            "pallas lowrank mlp+attn", params, pallas, mode="lowrank", targets=("mlp", "attn"),
+            expect=("lowrank_matmul", "approx_attention_lowrank", "flash_decode"),
+            requests=n_req)
+        # the rest of serving: speculative rounds (draft proposals, one verify
+        # forward), the open loop with its policy, the static loop, the soak
+        spec_runs = {"packed_matmul": phase_serve_speculative(
+            "speculative", params, exact_run, expect=("packed_matmul",),
+            draft_run=runs["packed_matmul"])}
+        pallas_exact = runs["flash_attention"]
+        pallas_half = {**pallas_exact, "queue": pallas_exact["queue"][:n_req // 2]}
+        spec_runs["flash_attention"] = spec_runs["flash_decode"] = phase_serve_speculative(
+            "pallas speculative", params, pallas_half,
+            expect=("flash_decode", "flash_attention", "packed_matmul"))
+        phase_serve_open(params, model)
+        phase_serve_static(params, model)
+        phase_soak(params, model)
+        del params
+        torch.cuda.empty_cache()
+    # gemma2-9b, gemma-7b and yi-9b at full width, one at a time
+    wide_runs = {}
+    for arch, arch_runs in wide_serve_runs(every).items():
+        with phase(f"serve: {arch}"):
+            wide_runs[arch] = phase_serve_wide(arch, arch_runs)
 
     # 6. train, full width, attn_impl="pallas" (set on the config; the CLI has no flag)
     from repro_torch.configs.registry import apply_approx
 
-    paper = build_model(dataclasses.replace(get_config("paper-multiplier"), attn_impl="pallas"))
-    train_runs = {"paper-multiplier": phase_train(
-        "paper-multiplier pallas", paper,
-        expect=("lut_matmul", "flash_attention", *BWD_KERNELS))}
-    bitexact = build_model(apply_approx(dataclasses.replace(cfg, attn_impl="pallas"),
-                                        mode="bitexact", n=8, t=4, targets=("mlp", "attn")))
-    train_runs["bitexact"] = phase_train(
-        "qwen3-0.6b bitexact mlp+attn pallas", bitexact,
-        expect=("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS))
-    for name in BWD_KERNELS:
-        runs[name] = dict(counts=train_runs["paper-multiplier"]["counts"],
-                          per_step=train_runs["paper-multiplier"]["per_step"])
+    with phase("train"):
+        paper = build_model(dataclasses.replace(get_config("paper-multiplier"), attn_impl="pallas"))
+        train_runs = {"paper-multiplier": phase_train(
+            "paper-multiplier pallas", paper,
+            expect=("lut_matmul", "flash_attention", *BWD_KERNELS))}
+        bitexact = build_model(apply_approx(dataclasses.replace(cfg, attn_impl="pallas"),
+                                            mode="bitexact", n=8, t=4, targets=("mlp", "attn")))
+        train_runs["bitexact"] = phase_train(
+            "qwen3-0.6b bitexact mlp+attn pallas", bitexact,
+            expect=("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS))
+        for name in BWD_KERNELS:
+            runs[name] = dict(counts=train_runs["paper-multiplier"]["counts"],
+                              per_step=train_runs["paper-multiplier"]["per_step"])
     torch.cuda.empty_cache()
-    phase_train_cli()
+    with phase("train CLI"):
+        phase_train_cli()
 
     # 7. the paper's simulated error analysis: engine.multiply through
     # seqmul_packed, the error reports up to n = 16 through seqmul_words
-    analysis = phase_error_analysis()
+    with phase("error analysis"):
+        analysis = phase_error_analysis()
     for name in ELEMENTWISE_KERNELS:
         runs[name] = analysis
 
@@ -2055,6 +2416,11 @@ def main() -> int:
             per_step["launches_per_spec_round"] = spec_runs[name]["per_round"].get(name, 0.0)
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
+        gemma2 = {label: run["counts"][name] for label, run in wide_runs["gemma2-9b"].items()
+                  if run["counts"].get(name)}
+        if gemma2:
+            # its launches in the full-width gemma2-9b serve runs that use it
+            per_step["gemma2_9b_serve_launches"] = gemma2
         table.append({
             "name": name,
             "route": "cuda",

@@ -1,8 +1,12 @@
 """Config registry: ``get_config("qwen3-0.6b")``, plus approx overrides.
 
-Only the architectures whose blocks the port runs are registered; the
-other configurations of ``repro/configs`` come over with the slice that
-ports their block kinds (ROADMAP.md, "Modules to port" item 10).
+Only the architectures whose blocks the port runs are registered: the
+dense attention decoders qwen3-0.6b, gemma-7b (head width 256, one query
+head per KV head), gemma2-9b (local and global layers in turn, both logit
+softcaps, post-norms) and yi-9b (eight query heads per KV head, an untied
+head), and the paper-multiplier model.  The other configurations of
+``repro/configs`` come over with the slice that ports their block kinds
+(ROADMAP.md, "Modules to port" item 10).
 ``apply_approx(cfg, ...)`` deploys the paper's technique onto a config."""
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ __all__ = ["ARCHS", "get_config", "apply_approx", "apply_quality"]
 # arch-id -> module name under repro_torch.configs
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "gemma-7b": "gemma_7b",
+    "gemma2-9b": "gemma2_9b",
+    "yi-9b": "yi_9b",
     "paper-multiplier": "paper_multiplier",
 }
 

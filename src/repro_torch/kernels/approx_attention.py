@@ -53,7 +53,7 @@ from repro_torch.core import quantization
 from repro_torch.engine import artifacts
 from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand, sm_count
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, NEG_INF, FlashBackward, allow_mask, fwd_tile_plan, needs_grad,
+    NEG_INF, FlashBackward, _check_width, allow_mask, fwd_tile_plan, needs_grad,
 )
 
 __all__ = [
@@ -70,8 +70,9 @@ BITEXACT_BK = 64  # the reference's VMEM-certified key block for bitexact
 MAX_ATTN_N = 8  # both modes gather (2^n, ...) tables
 MAX_BK = 128  # the kernels stage at most this many keys per block
 # csrc/approx_attention.cu: bitexact blocks of 512 threads staging 64 key
-# slots at a time; lowrank blocks of 256 threads, items of 32 row-heads
-_BITEXACT_THREADS, _CHUNK = 512, 64
+# slots at a time, items of 16 TM row-heads; lowrank blocks of 256 threads,
+# items of 32 row-heads
+_BITEXACT_THREADS, _CHUNK, _TMS = 512, 64, (4, 2, 1)
 _LOWRANK_THREADS, _LOWRANK_RH = 256, 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -359,17 +360,27 @@ def _geometry(b: int, s: int, h: int, kv: int, rh: int) -> tuple[int, int, int]:
     return b * kv * -(-g // heads) * -(-s // rows), rows, heads
 
 
+def _check_fits(mode: str, n: int, hd: int, rank: int) -> None:
+    """Raise unless a block of ``mode`` fits the shared memory at its least
+    (bitexact at TM = 1)."""
+    nbytes = smem_bytes(mode, n, hd, rank, tm=_TMS[-1])
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(f"approx attention ({mode}, n={n}, hd={hd}, rank={rank}) needs "
+                         f"{nbytes} bytes of shared memory, over {SMEM_PER_BLOCK}")
+
+
 def launch_plan(mode: str, b: int, s: int, t: int, h: int, kv: int, hd: int, n: int,
                 rank: int, sms: int) -> AttnPlan:
     """The launch of ``mode``'s kernel on q (b, s, h, hd), k/v (b, t, kv, hd)
     with ``sms`` SMs: a persistent grid of min(items, sms) blocks; bitexact
-    items hold 16 TM row-heads, TM = 4, 2 or 1 the largest that gives
-    every SM an item; lowrank items 32."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
+    items hold 16 TM row-heads, TM = 4, 2 or 1 the largest whose block fits
+    the shared memory (at hd 256 and n = 8 TM = 4 does not) and that gives
+    every SM an item, else the smallest that fits; lowrank items 32."""
+    _check_width(hd)
     validate_attn_mode(mode, n)
+    _check_fits(mode, n, hd, rank)
     if mode == "bitexact":
-        for tm in (4, 2, 1):
+        for tm in (tm for tm in _TMS if smem_bytes(mode, n, hd, rank, tm) <= SMEM_PER_BLOCK):
             items, rows, heads = _geometry(b, s, h, kv, _bitexact_rh(hd, tm))
             if items >= sms:
                 break
@@ -415,15 +426,11 @@ def kernel_operands(q, k, v, *, mode, n, t, fix_to_1, rank) -> KernelOperands:
     embeddings in shared memory, from the U and V tables)."""
     b, s, h, hd = q.shape
     tt, kv = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
+    _check_width(hd)
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not split into groups over {kv} KV heads")
     validate_attn_mode(mode, n)
-    nbytes = smem_bytes(mode, n, hd, rank)
-    if nbytes > SMEM_PER_BLOCK:
-        raise ValueError(f"approx attention ({mode}, n={n}, hd={hd}, rank={rank}) needs "
-                         f"{nbytes} bytes of shared memory, over {SMEM_PER_BLOCK}")
+    _check_fits(mode, n, hd, rank)
     dev = q.device
     # both kernels read magnitudes and signs: prepare's bitexact operands
     ops, (qk_scale, pv_scale) = prepare("bitexact", q, k, v, n=n, t=t, fix_to_1=fix_to_1,

@@ -73,9 +73,11 @@
 // AV: TM row-heads by HD / 32 columns (lanes across columns, p_int a
 // broadcast).  The scores go to shared memory, a warp per row-head takes
 // the softmax and writes p_int's table-row offset over its score.  RH is
-// 16 TM (32 TM at HD 16): the host picks TM = 4, 2 or 1, the largest that
-// still gives every SM an item.  Bound on the H100: 2 lookups per needed
-// (query head, slot) pair and d at the shared-memory rate.
+// 16 TM (32 TM at HD 16): the host picks TM = 4, 2 or 1, the largest whose
+// block fits the shared memory (at HD 256 and n = 8 TM = 4 needs 263,696
+// bytes, so TM <= 2 there) and that still gives every SM an item.  Bound on
+// the H100: 2 lookups per needed (query head, slot) pair and d at the
+// shared-memory rate.
 //
 // lowrank: both contractions as lowrank_matmul tiles (lowrank_tiles.cuh).
 // 256 threads, RH = 32 (two m16 tiles), the whole key block (up to 128
@@ -95,7 +97,11 @@
 // table entries in shared memory; no r-wide embedding reaches HBM.  Bound
 // on the H100: per needed pair, the exact products (2 hd) as int8 tensor-
 // core products, 4 each, and the corrections' 2 hd r as split TF32, 3
-// each, plus r lookups for U[p_int].
+// each, plus r lookups for U[p_int].  At HD 256 AV has eight column groups
+// of 32 for the four warp groups: each warp takes two (`kColGroups`), and
+// the tables fit beside the key block up to rank 8 (226,448 bytes at n =
+// 8; rank 24 would need 292,240, and the launch refuses it: the key block
+// is part of the function and is not shrunk to make room).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -636,6 +642,8 @@ approx_attention_lowrank_kernel(const uint8_t* __restrict__ mq, const int8_t* __
                                 float scale, int rank) {
   using L = LowrankLayout<HD>;
   constexpr int NT = kLowrankThreads, RH = kLowrankRH, HDP = L::HDP;
+  // AV's column groups of 32 per warp: grp, grp + 4, ... (two at HD 256)
+  constexpr int kColGroups = (HDP + 4 * 32 - 1) / (4 * 32);
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int side = 1 << n, qmax = side - 1, r8 = (rank + 7) & ~7, row_f = 2 * r8;
@@ -684,11 +692,14 @@ approx_attention_lowrank_kernel(const uint8_t* __restrict__ mq, const int8_t* __
       }
     }
     item_rows<NT>(e, it, st, q_pos, k_pos, causal, window);
-    float acc[4][4];  // AV: m16 tile mt by the four n8 tiles of column group grp
+    // AV: m16 tile mt by the four n8 tiles of each of this warp's column groups
+    float acc[kColGroups][4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int cg = 0; cg < kColGroups; ++cg)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[cg][j][c] = 0.f;
 
     for (int k0 = 0; k0 < e.T; k0 += bk) {
       if (!block_live<NT>(e, it, st, k_pos, k0, bk, causal, window)) continue;
@@ -816,10 +827,13 @@ approx_attention_lowrank_kernel(const uint8_t* __restrict__ mq, const int8_t* __
         }
       }
       __syncthreads();
-      // AV: warp (mt, grp) takes columns 32 grp .. 32 grp + 31, column
-      // 32 grp + 4 g + j being MMA column g of n-tile j
-      if (32 * grp < HDP) {
-        const int n0 = 32 * grp;
+      // AV: warp (mt, grp) takes columns 32 cgi .. 32 cgi + 31 of each of
+      // its column groups cgi = grp + 4 cg, column 32 cgi + 4 g + j being
+      // MMA column g of n-tile j
+#pragma unroll
+      for (int cg = 0; cg < kColGroups; ++cg) {
+        const int n0 = 32 * (grp + 4 * cg);
+        if (n0 >= HDP) continue;  // warp-uniform
         int iacc[4][4];
         float sum[4][4], part[4][4];
         zero(iacc, sum, part);
@@ -863,21 +877,24 @@ approx_attention_lowrank_kernel(const uint8_t* __restrict__ mq, const int8_t* __
           for (int c = 0; c < 4; ++c) {
             const float corr = st.c[m0 + g + 8 * (c >> 1)];
             const float av = __fadd_rn(__int2float_rn(iacc[j][c]), sum[j][c]);
-            acc[j][c] = __fadd_rn(__fmul_rn(acc[j][c], corr), __fmul_rn(av, pv));
+            acc[cg][j][c] = __fadd_rn(__fmul_rn(acc[cg][j][c], corr), __fmul_rn(av, pv));
           }
       }
     }
     __syncthreads();
-    if (32 * grp < HDP) {
+#pragma unroll
+    for (int cg = 0; cg < kColGroups; ++cg) {
+      const int n0 = 32 * (grp + 4 * cg);
+      if (n0 >= HDP) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int r = m0 + g + 8 * (c >> 1), col = 32 * grp + 4 * (2 * t + (c & 1)) + j;
+          const int r = m0 + g + 8 * (c >> 1), col = n0 + 4 * (2 * t + (c & 1)) + j;
           const RowHead rw = row_head(e, it, r);
           if (rw.valid && col < HD)
             out[((size_t(it.b) * e.S + rw.row) * e.H + rw.h) * HD + col] =
-                __fdiv_rn(acc[j][c], fmaxf(st.l[r], 1e-30f));
+                __fdiv_rn(acc[cg][j][c], fmaxf(st.l[r], 1e-30f));
         }
     }
     write_lse(e, it, st, lse, NT);
@@ -897,6 +914,7 @@ size_t lowrank_smem_of(int hd, int n, int rank) {
     case 32: return lowrank_smem<32>(n, rank);
     case 64: return lowrank_smem<64>(n, rank);
     case 128: return lowrank_smem<128>(n, rank);
+    case 256: return lowrank_smem<256>(n, rank);
     default: return 0;
   }
 }
@@ -905,15 +923,21 @@ size_t lowrank_smem_of(int hd, int n, int rank) {
 bool make_plan(int mode, int B, int S, int T, int H, int KV, int hd, int n, int rank, int sms,
                Plan* p) {
   if (B < 1 || S < 1 || T < 1 || KV < 1 || H < KV || H % KV != 0 || n < 1 || n > 8 || sms < 1 ||
-      (hd != 16 && hd != 32 && hd != 64 && hd != 128) || (mode == 1 && (rank < 1 || rank > 64)))
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256) ||
+      (mode == 1 && (rank < 1 || rank > 64)))
     return false;
   if (mode == 0) {
+    // TM = 4, 2, 1: the largest whose block fits the shared memory and that
+    // gives every SM an item, else the smallest that fits
     p->threads = kBitexactThreads;
+    p->tm = 0;
     for (int tm = 4; tm >= 1; tm /= 2) {
+      if (bitexact_smem(n, hd, bitexact_rh(hd, tm)) > size_t(kMaxSmem)) continue;
       p->tm = tm;
       p->e = geometry(B, S, T, H, KV, bitexact_rh(hd, tm));
       if (p->e.items >= sms) break;
     }
+    if (p->tm == 0) return false;
     p->smem = bitexact_smem(n, hd, p->e.rh);
   } else {
     p->threads = kLowrankThreads;
@@ -987,6 +1011,7 @@ cudaError_t launch_lowrank(const Plan& p, const void* const* ops, const void* ta
     case 32: return int(FN<32>(__VA_ARGS__));   \
     case 64: return int(FN<64>(__VA_ARGS__));   \
     case 128: return int(FN<128>(__VA_ARGS__)); \
+    case 256: return int(FN<256>(__VA_ARGS__)); \
     default: return int(cudaErrorInvalidValue); \
   }
 

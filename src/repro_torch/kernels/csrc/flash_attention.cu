@@ -83,6 +83,20 @@
 // read and split into planes tile by tile (one stage: six planes of 64
 // slots fill the shared memory).
 //
+// Head width 256 (gemma-7b, gemma2-9b).  A warp's 16 x 256 float32 output
+// tile alone would be 128 registers a thread, with bf16 q's fragments 64
+// more, and two items' planes need 338,976 bytes of shared memory.  So at
+// HD > 128 (`FwdLayout::kWide`) a group is eight warps: warps w and w + 4
+// take the same 16 row-heads, each computes the whole 16 x 64 score tile
+// and its softmax (the same instructions on the same data: the same bits,
+// so m and l agree) and then P.V for its half of the output columns; q's
+// fragments are read from shared memory at each k-step, as float32's are;
+// a block holds one item (169,488 bytes for bf16).  Float32 inputs walk
+// key tiles of 32 (`kKeys`): three planes of q and of 64-slot k and v
+// tiles need 304,400 bytes, of 32-slot tiles 202,896.  The QK^T of every
+// row runs twice, which the tensor cores have room for (P.V, two terms,
+// is the larger product); the tiles, masks and rule are the same.
+//
 // Decode, `flash_decode_kernel` (flash-decoding in one launch): T is cut
 // into chunks (`decode_split`, so that B x KV x chunks fills four blocks
 // per SM, at most 32 chunks); block (KV head, chunk, b) takes the group's
@@ -135,8 +149,8 @@ constexpr int kMaxDevices = 64;
 constexpr int kPlan = 8;  // flash_attention_plan's outputs
 // forward
 constexpr int kFwdRH = 64;       // row-heads per item: four warps of 16
-constexpr int kFwdKeys = 64;     // key slots per tile
-constexpr int kFwdThreads = 128;  // a group of four warps: one item
+constexpr int kFwdKeys = 64;     // key slots per tile (float32 at HD > 128: half)
+constexpr int kFwdThreads = 128;  // a group of four warps: one item (eight at HD > 128)
 constexpr int kFwdStages = 2;    // cp.async ring depth (bf16 inputs)
 constexpr int kFwdSplit = 3;     // bf16 terms of float32 q, k, v and of their p
 constexpr int kPTerms = 2;       // bf16 terms of p against bf16 v
@@ -175,36 +189,45 @@ struct FwdTerms<float> {
   static constexpr int kPlanes = kFwdSplit, kP = kFwdSplit, kN = kFwdSplit, kGroups = 1;
 };
 
-// Groups per block: 2 (where the type allows) when the items are more than
+// Groups per block: 2 (where the type and width allow) when the items are more than
 // one per SM but fit two per SM, so that one wave holds them and each SM a
 // long item and a short one; else 1 (one item per block: alone on an SM
 // for the least latency, or many waves that the card's scheduler evens).
 // (Two groups taking turns at one item's key tiles ran slower on the H100
 // at S = T = 1024 and at the train shape: each group stages q and the
 // mask, and the two add their partials at the end.)
-template <typename T>
-int fwd_groups(long long items, int sms) {
-  return FwdTerms<T>::kGroups > 1 && items > sms && items <= 2LL * sms ? 2 : 1;
-}
-
-// the named barrier of one group (barrier 0 is __syncthreads)
-__device__ __forceinline__ void group_sync(int grp) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(kFwdThreads) : "memory");
-}
-
-// Shared memory, in bytes; kept in step with kernels/flash_attention.py
-// `smem_bytes`.  A plane is one bf16 term of a tile, rows of HD + 8 values.
+// Shared memory, in bytes, and the group's shape; kept in step with
+// kernels/flash_attention.py `smem_bytes` and `launch_plan`.  A plane is
+// one bf16 term of a tile, rows of HD + 8 values.  At HD > 128 (kWide)
+// two warps share each 16 row-heads, a block holds one item, and float32
+// inputs walk key tiles of 32 (see the note at the top).
 template <typename T, int HD>
 struct FwdLayout {
   static constexpr int LD = HD + 8;
   static constexpr int P = FwdTerms<T>::kPlanes;
   static constexpr bool kRaw = P > 1;  // float32 k, v: read and split tile by tile
-  static constexpr int kPlaneQ = kFwdRH * LD, kPlaneK = kFwdKeys * LD;  // values
+  static constexpr bool kWide = HD > 128;
+  static constexpr int kHalves = kWide ? 2 : 1;  // warps per 16 row-heads (output column halves)
+  static constexpr int kThreads = kFwdThreads * kHalves;  // a group: one item
+  static constexpr int kGroups = kWide ? 1 : FwdTerms<T>::kGroups;
+  static constexpr int kKeys = kWide && kRaw ? kFwdKeys / 2 : kFwdKeys;  // slots per key tile
+  static constexpr int kPlaneQ = kFwdRH * LD, kPlaneK = kKeys * LD;  // values
   static constexpr int kQ = 2 * P * kPlaneQ;
-  static constexpr int kStage = 2 * 2 * P * kPlaneK + kFwdKeys * 4;  // k, v planes; positions
+  static constexpr int kStage = 2 * 2 * P * kPlaneK + kKeys * 4;  // k, v planes; positions
   static constexpr int kStages = kRaw ? 1 : kFwdStages;
   static constexpr int kFixed = kQ + kStages * kStage;
 };
+
+template <typename T, int HD>
+int fwd_groups(long long items, int sms) {
+  return FwdLayout<T, HD>::kGroups > 1 && items > sms && items <= 2LL * sms ? 2 : 1;
+}
+
+// the named barrier of one group of NT threads (barrier 0 is __syncthreads)
+template <int NT>
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(NT) : "memory");
+}
 
 // the live-tile bit mask, in whole 16-byte units (so the next group's area stays aligned)
 __host__ __device__ constexpr size_t mask_bytes(int tiles) { return 16 * size_t((tiles + 127) / 128); }
@@ -220,14 +243,14 @@ struct FwdGeometry {
   long long items;
 };
 
-__host__ __device__ FwdGeometry fwd_geometry(int B, int S, int T, int H, int KV) {
+__host__ __device__ FwdGeometry fwd_geometry(int B, int S, int T, int H, int KV, int keys) {
   FwdGeometry e;
   e.B = B, e.S = S, e.T = T, e.H = H, e.KV = KV, e.g = H / KV;
   e.heads = e.g < kFwdRH ? e.g : kFwdRH;
   e.rows = kFwdRH / e.heads;
   e.chunks = (e.g + e.heads - 1) / e.heads;
   e.tiles = (S + e.rows - 1) / e.rows;
-  e.ktiles = (T + kFwdKeys - 1) / kFwdKeys;
+  e.ktiles = (T + keys - 1) / keys;
   e.items = (long long)B * KV * e.chunks * e.tiles;
   return e;
 }
@@ -266,14 +289,14 @@ __device__ __forceinline__ Bounds bounds_of(int qp, int causal, int window) {
 // second copy without the masks, for the tiles a warp's rows may attend
 // whole, ran slower on the H100: the loop's code grew past what its cache
 // held.)
-template <bool kSoftcap>
-__device__ __forceinline__ void tile_scores(float (&sc)[kFwdKeys / 8][4], const int* kps, int k0,
+template <int KEYS, bool kSoftcap>
+__device__ __forceinline__ void tile_scores(float (&sc)[KEYS / 8][4], const int* kps, int k0,
                                             int T, int t4, Bounds b_lo, Bounds b_hi,
                                             float softcap, float scale, float& mx_lo,
                                             float& mx_hi) {
-  const bool ragged = k0 + kFwdKeys > T;
+  const bool ragged = k0 + KEYS > T;
 #pragma unroll
-  for (int j = 0; j < kFwdKeys / 8; ++j) {
+  for (int j = 0; j < KEYS / 8; ++j) {
     const int col = j * 8 + 2 * t4;
     const int2 kp = *reinterpret_cast<const int2*>(kps + col);
 #pragma unroll
@@ -295,7 +318,7 @@ __device__ __forceinline__ void tile_scores(float (&sc)[kFwdKeys / 8][4], const 
 }
 
 template <typename T, int HD, bool kSoftcap>
-__global__ void __launch_bounds__(FwdTerms<T>::kGroups * kFwdThreads)
+__global__ void __launch_bounds__(FwdLayout<T, HD>::kGroups * FwdLayout<T, HD>::kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
                        const int* __restrict__ k_pos, float* __restrict__ out,
@@ -303,13 +326,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int causal, int window, float softcap, float scale) {
   using L = FwdLayout<T, HD>;
   constexpr int LD = L::LD, P = L::P, PT = FwdTerms<T>::kP, N = FwdTerms<T>::kN;
+  // threads of a group, slots of a key tile, output columns of a warp
+  constexpr int NT = L::kThreads, KEYS = L::kKeys, HW = HD / L::kHalves;
   extern __shared__ __align__(16) unsigned char smem_all[];
-  __shared__ int red_all[FwdTerms<T>::kGroups][4];
+  __shared__ int red_all[L::kGroups][4];
 
   // group grp of block b takes item b (grp 0) or items - 1 - b (grp 1, in
   // a launch of two groups a block): the items go longest first, so each
   // block holds a long one and a short one
-  const int grp = threadIdx.x / kFwdThreads;
+  const int grp = threadIdx.x / NT;
   const long long idx = grp == 0 ? blockIdx.x : e.items - 1 - blockIdx.x;
   if (grp > 0 && idx <= blockIdx.x) return;  // an odd count: the middle item has one group
   const int words = (e.ktiles + 31) >> 5;
@@ -319,8 +344,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   uint32_t* mask = reinterpret_cast<uint32_t*>(ring + L::kStages * L::kStage);
   int* red = red_all[grp];  // least, greatest row position; every row has a slot; least slot
 
-  const int tid = threadIdx.x % kFwdThreads, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x % NT, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
+  // this warp's 16 row-heads (rw) and its first output column (c0: two
+  // warps share the rows at HD > 128, each taking HW columns)
+  const int rw = warp % (kFwdRH / 16), c0 = warp / (kFwdRH / 16) * HW;
   const FwdItem it = fwd_item(e, idx);
   const size_t k_row = size_t(e.KV) * HD;  // values between slots
   const int* qpos = q_pos + size_t(it.b) * e.S;
@@ -338,7 +366,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // q, once: as it is (bf16) or as P planes (float32); pad row-heads zero
   if constexpr (L::kRaw) {
     constexpr int C4 = HD / 4;
-    for (int c = tid; c < kFwdRH * C4; c += kFwdThreads) {
+    for (int c = tid; c < kFwdRH * C4; c += NT) {
       const int i = c / C4, col = (c % C4) * 4;
       const float4 x = rh_valid(i)
                            ? __ldg(reinterpret_cast<const float4*>(q + rh_off(i) + col))
@@ -347,7 +375,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   } else {
     constexpr int C8 = HD / 8;
-    for (int c = tid; c < kFwdRH * C8; c += kFwdThreads) {
+    for (int c = tid; c < kFwdRH * C8; c += NT) {
       const int i = c / C8, col = (c % C8) * 8;
       const bool ok = rh_valid(i);
       cp_async16(qs + i * LD + col, ok ? q + rh_off(i) + col : q, ok);
@@ -367,11 +395,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     red[2] = 1;
     red[3] = INT_MAX;
   }
-  for (int i = tid; i < words; i += kFwdThreads) mask[i] = 0;
-  group_sync(grp);
+  for (int i = tid; i < words; i += NT) mask[i] = 0;
+  group_sync<NT>(grp);
   {
     int mn = INT_MAX, mx = INT_MIN;
-    for (int r = tid; r < e.rows && it.q0 + r < e.S; r += kFwdThreads) {
+    for (int r = tid; r < e.rows && it.q0 + r < e.S; r += NT) {
       const int qp = qpos[it.q0 + r];
       mn = min(mn, qp);
       mx = max(mx, qp);
@@ -382,13 +410,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       atomicMax(red + 1, mx);
     }
   }
-  group_sync(grp);
+  group_sync<NT>(grp);
   const int qmin = red[0], qmax = red[1];
   int kmin = INT_MAX;
-  for (int kt = warp; kt < e.ktiles; kt += kFwdThreads / 32) {
+  for (int kt = warp; kt < e.ktiles; kt += NT / 32) {
     bool may = false;
-    for (int j = lane; j < kFwdKeys; j += 32) {
-      const int key = kt * kFwdKeys + j;
+    for (int j = lane; j < KEYS; j += 32) {
+      const int key = kt * KEYS + j;
       const int kp = key < e.T ? kpos[key] : -1;
       if (kp >= 0) kmin = min(kmin, kp);
       may |= kp >= 0 && (!causal || kp <= qmax) && (window < 0 || (long long)qmin - kp < window);
@@ -401,7 +429,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lane == 0) atomicMin(red + 3, kmin);
   }
   if (window >= 0) {
-    for (int r = warp; r < e.rows && it.q0 + r < e.S; r += kFwdThreads / 32) {
+    for (int r = warp; r < e.rows && it.q0 + r < e.S; r += NT / 32) {
       const int qp = qpos[it.q0 + r];
       bool any = false;
       for (int j0 = 0; j0 < e.T && !any; j0 += 32) {
@@ -411,14 +439,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (lane == 0 && !any) red[2] = 0;
     }
   }
-  group_sync(grp);
+  group_sync<NT>(grp);
   const bool every = window >= 0 ? red[2] != 0 : causal ? qmin >= red[3] : red[3] != INT_MAX;
   if (!every) {  // a row with no allowed slot: every key tile, for its uniform average
-    for (int w = tid; w < words; w += kFwdThreads)
+    for (int w = tid; w < words; w += NT)
       mask[w] = w < (e.ktiles >> 5) ? ~0u : (1u << (e.ktiles & 31)) - 1u;
   }
   if constexpr (!L::kRaw) cp_async_wait<0>();
-  group_sync(grp);
+  group_sync<NT>(grp);
   if (skipped != nullptr && tid == 0) {
     int live = 0;
     for (int w = 0; w < words; ++w) live += __popc(mask[w]);
@@ -426,44 +454,44 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // this thread's row-heads: gq and gq + 8 of its warp's 16
-  const int r_lo = warp * 16 + gq, r_hi = r_lo + 8;
+  const int r_lo = rw * 16 + gq, r_hi = r_lo + 8;
   const bool v_lo = rh_valid(r_lo), v_hi = rh_valid(r_hi);
   const int qp_lo = v_lo ? qpos[it.q0 + r_lo / e.heads] : 0;
   const int qp_hi = v_hi ? qpos[it.q0 + r_hi / e.heads] : 0;
   const Bounds b_lo = bounds_of(qp_lo, causal, window), b_hi = bounds_of(qp_hi, causal, window);
-  // bf16 q's A fragments stay in registers for the whole walk (float32's
-  // three planes are read from shared memory at each tile)
-  constexpr int QR = P == 1 ? HD / 16 : 1;
+  // bf16 q's A fragments stay in registers for the whole walk at HD <=
+  // 128 (float32's three planes, and bf16's at HD > 128, are read from
+  // shared memory at each tile)
+  constexpr bool kQReg = P == 1 && !L::kWide;
+  constexpr int QR = kQReg ? HD / 16 : 1;
   uint32_t qreg[QR][1][4];
-  if constexpr (P == 1) {
+  if constexpr (kQReg) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) load_a(qreg[kk][0], qs, LD, warp * 16, kk * 16, lane);
+    for (int kk = 0; kk < HD / 16; ++kk) load_a(qreg[kk][0], qs, LD, rw * 16, kk * 16, lane);
   }
 
   auto load_tile = [&](int kt, int st) {
     unsigned char* base = ring + st * L::kStage;
-    const int k0 = kt * kFwdKeys, nvalid = e.T - k0;
+    const int k0 = kt * KEYS, nvalid = e.T - k0;
     const size_t off = ((size_t(it.b) * e.T + k0) * e.KV + it.kvh) * HD;
     __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(base);
-    int* kps = reinterpret_cast<int*>(base + L::kStage - kFwdKeys * 4);
+    int* kps = reinterpret_cast<int*>(base + L::kStage - KEYS * 4);
     if constexpr (L::kRaw) {
-      load_split_rows<HD, P>(planes, L::kPlaneK, k + off, k_row, kFwdKeys, nvalid, tid,
-                             kFwdThreads);
-      load_split_rows<HD, P>(planes + P * L::kPlaneK, L::kPlaneK, v + off, k_row, kFwdKeys,
-                             nvalid, tid, kFwdThreads);
-      if (tid < kFwdKeys) kps[tid] = tid < nvalid ? kpos[k0 + tid] : -1;
+      load_split_rows<HD, P>(planes, L::kPlaneK, k + off, k_row, KEYS, nvalid, tid, NT);
+      load_split_rows<HD, P>(planes + P * L::kPlaneK, L::kPlaneK, v + off, k_row, KEYS, nvalid,
+                             tid, NT);
+      if (tid < KEYS) kps[tid] = tid < nvalid ? kpos[k0 + tid] : -1;
     } else {
-      copy_rows<T, HD, LD>(reinterpret_cast<T*>(planes), k + off, k_row, kFwdKeys, nvalid, tid,
-                           kFwdThreads);
-      copy_rows<T, HD, LD>(reinterpret_cast<T*>(planes + L::kPlaneK), v + off, k_row, kFwdKeys,
-                           nvalid, tid, kFwdThreads);
-      if (tid < kFwdKeys) cp_async4(kps + tid, kpos + (tid < nvalid ? k0 + tid : 0), tid < nvalid);
+      copy_rows<T, HD, LD>(reinterpret_cast<T*>(planes), k + off, k_row, KEYS, nvalid, tid, NT);
+      copy_rows<T, HD, LD>(reinterpret_cast<T*>(planes + L::kPlaneK), v + off, k_row, KEYS,
+                           nvalid, tid, NT);
+      if (tid < KEYS) cp_async4(kps + tid, kpos + (tid < nvalid ? k0 + tid : 0), tid < nvalid);
     }
   };
 
-  float acc[HD / 8][4];
+  float acc[HW / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < HW / 8; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
@@ -478,39 +506,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     int st = 0;
     if constexpr (L::kRaw) {
       load_tile(cur, 0);
-      group_sync(grp);
+      group_sync<NT>(grp);
     } else {
       if (nxt >= 0) load_tile(nxt, (iter + 1) & 1);
       cp_async_commit();
       cp_async_wait<1>();
-      group_sync(grp);  // this step's tile landed
+      group_sync<NT>(grp);  // this step's tile landed
       st = iter & 1;
     }
     const unsigned char* base = ring + st * L::kStage;
     const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(base);
     const __nv_bfloat16* vs = ks + P * L::kPlaneK;
-    const int* kps = reinterpret_cast<const int*>(base + L::kStage - kFwdKeys * 4);
-    const int k0 = cur * kFwdKeys;
+    const int* kps = reinterpret_cast<const int*>(base + L::kStage - KEYS * 4);
+    const int k0 = cur * KEYS;
 
-    // s = q k^T: 16 row-heads x 64 slots per warp
-    float sc[kFwdKeys / 8][4];
+    // s = q k^T: 16 row-heads x KEYS slots per warp
+    float sc[KEYS / 8][4];
 #pragma unroll
-    for (int j = 0; j < kFwdKeys / 8; ++j)
+    for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[P][4];  // float32 q's planes
-      if constexpr (P > 1) {
+      uint32_t qa[P][4];  // q's planes, when not held in registers
+      if constexpr (!kQReg) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) load_a(qa[p], qs + p * L::kPlaneQ, LD, warp * 16, kk * 16, lane);
+        for (int p = 0; p < P; ++p) load_a(qa[p], qs + p * L::kPlaneQ, LD, rw * 16, kk * 16, lane);
       }
 #pragma unroll
-      for (int np = 0; np < kFwdKeys / 16; ++np) {
+      for (int np = 0; np < KEYS / 16; ++np) {
         uint32_t kb[P][4];
 #pragma unroll
         for (int p = 0; p < P; ++p) load_b_nk(kb[p], ks + p * L::kPlaneK, LD, 16 * np, 16 * kk, lane);
-        if constexpr (P == 1) {
+        if constexpr (kQReg) {
           mma_terms<P, P, N>(sc[2 * np], qreg[kk], kb, 0);
           mma_terms<P, P, N>(sc[2 * np + 1], qreg[kk], kb, 1);
         } else {
@@ -521,7 +549,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     // scores and masks
     float mx_lo = minus_inf(), mx_hi = minus_inf();
-    tile_scores<kSoftcap>(sc, kps, k0, e.T, t4, b_lo, b_hi, softcap, scale, mx_lo, mx_hi);
+    tile_scores<KEYS, kSoftcap>(sc, kps, k0, e.T, t4, b_lo, b_hi, softcap, scale, mx_lo, mx_hi);
     // the online softmax: a row's four lanes share its max and sum
 #pragma unroll
     for (int o = 1; o <= 2; o <<= 1) {
@@ -531,7 +559,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-    for (int j = 0; j < kFwdKeys / 8; ++j)
+    for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const bool hi = c >= 2;
@@ -553,27 +581,28 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_lo = mn_lo;
     m_hi = mn_hi;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HW / 8; ++j) {
       acc[j][0] *= corr_lo;
       acc[j][1] *= corr_lo;
       acc[j][2] *= corr_hi;
       acc[j][3] *= corr_hi;
     }
-    // acc += p v, p as PT bf16 terms
+    // acc += p v over this warp's columns, p as PT bf16 terms
 #pragma unroll
-    for (int kq = 0; kq < kFwdKeys / 16; ++kq) {
+    for (int kq = 0; kq < KEYS / 16; ++kq) {
       uint32_t pa[PT][4];
       split_a(pa, sc[2 * kq], sc[2 * kq + 1]);
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
+      for (int np = 0; np < HW / 16; ++np) {
         uint32_t vb[P][4];
 #pragma unroll
-        for (int p = 0; p < P; ++p) load_b_kn(vb[p], vs + p * L::kPlaneK, LD, 16 * kq, 16 * np, lane);
+        for (int p = 0; p < P; ++p)
+          load_b_kn(vb[p], vs + p * L::kPlaneK, LD, 16 * kq, c0 + 16 * np, lane);
         mma_terms<PT, P, N>(acc[2 * np], pa, vb, 0);
         mma_terms<PT, P, N>(acc[2 * np + 1], pa, vb, 1);
       }
     }
-    group_sync(grp);  // this stage is consumed before it is refilled
+    group_sync<NT>(grp);  // this stage is consumed before it is refilled
     cur = nxt;
   }
   if constexpr (!L::kRaw) cp_async_wait<0>();
@@ -582,8 +611,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // row with no allowed slot: m = NEG_INF, l = T, so lse rounds to NEG_INF)
   const float lf_lo = fmaxf(l_lo, 1e-30f), lf_hi = fmaxf(l_hi, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int col = j * 8 + 2 * t4;
+  for (int j = 0; j < HW / 8; ++j) {
+    const int col = c0 + j * 8 + 2 * t4;
     if (v_lo)
       *reinterpret_cast<float2*>(out + rh_off(r_lo) + col) =
           make_float2(acc[j][0] / lf_lo, acc[j][1] / lf_lo);
@@ -591,7 +620,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float2*>(out + rh_off(r_hi) + col) =
           make_float2(acc[j][2] / lf_hi, acc[j][3] / lf_hi);
   }
-  if (lse != nullptr && t4 == 0) {
+  if (lse != nullptr && t4 == 0 && c0 == 0) {
     if (v_lo)
       lse[(size_t(it.b) * e.H + rh_head(r_lo)) * e.S + it.q0 + r_lo / e.heads] = m_lo + logf(lf_lo);
     if (v_hi)
@@ -907,15 +936,16 @@ struct Args {
 
 template <typename T, int HD>
 cudaError_t plan_fwd(const Args& a, Plan* p) {
-  const FwdGeometry e = fwd_geometry(a.B, a.S, a.T_len, a.H, a.KV);
+  using L = FwdLayout<T, HD>;
+  const FwdGeometry e = fwd_geometry(a.B, a.S, a.T_len, a.H, a.KV, L::kKeys);
   if (e.items > INT_MAX || a.sms < 1) return cudaErrorInvalidValue;
-  const int G = fwd_groups<T>(e.items, a.sms);
+  const int G = fwd_groups<T, HD>(e.items, a.sms);
   p->grid = dim3(unsigned((e.items + G - 1) / G), 1, 1);
-  p->threads = G * kFwdThreads;
-  p->smem = G * (FwdLayout<T, HD>::kFixed + mask_bytes(e.ktiles));
+  p->threads = G * L::kThreads;
+  p->smem = G * (L::kFixed + mask_bytes(e.ktiles));
   p->rows = e.rows;
   p->heads = e.heads;
-  p->keys = kFwdKeys;
+  p->keys = L::kKeys;
   return p->smem <= size_t(kMaxSmem) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -946,7 +976,7 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int*>(a.q_pos), static_cast<const int*>(a.k_pos),
       static_cast<float*>(a.out), static_cast<float*>(a.lse), static_cast<int*>(a.skipped),
-      fwd_geometry(a.B, a.S, a.T_len, a.H, a.KV), a.causal, a.window, a.softcap, a.scale);
+      fwd_geometry(a.B, a.S, a.T_len, a.H, a.KV, FwdLayout<T, HD>::kKeys), a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
@@ -981,6 +1011,8 @@ cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
     case 129: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                           \
     case 256: return FN<float, 128>(__VA_ARGS__);                                  \
     case 257: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                          \
+    case 512: return FN<float, 256>(__VA_ARGS__);                                  \
+    case 513: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                          \
     default: return cudaErrorInvalidValue;                                         \
   }
 

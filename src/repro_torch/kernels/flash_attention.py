@@ -54,7 +54,11 @@ __all__ = [
 NEG_INF = -2.3819763e38  # bf16-safe large negative (the reference's value)
 Q_CHUNK = 1024
 K_CHUNK = 1024
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)  # the head widths every attention kernel is built for
+# the serving kernels (the forward, the decode, the approximate attention)
+# are also built for gemma's 256; the backward pair is not yet (ROADMAP.md
+# queue 2: it waits for gemma training)
+FWD_HEAD_DIMS = HEAD_DIMS + (256,)
 MAX_GROUP = 16  # flash_decode: query heads per KV head
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -94,7 +98,9 @@ GROUP_THREADS, SPLIT, STAGES, ROW_PAD = 128, 2, 2, 8
 # 16: the group's query heads over its query rows) walking key tiles of
 # 64, two items to a bf16 block (a long one and a short one) where that
 # makes one wave, bf16 k and v through a two-stage cp.async ring, float32
-# q, k, v as FWD_SPLIT bf16 terms read tile by tile; decode blocks of 128 threads per
+# q, k, v as FWD_SPLIT bf16 terms read tile by tile; at head widths over
+# 128, two warps to each 16 row-heads (each half the output columns), one
+# item a block, and float32 key tiles of 32; decode blocks of 128 threads per
 # (KV head, cache chunk, batch), tiles of 32 slots in a two-stage ring,
 # chunks of whole DEC_STEP slots, about DEC_PER_SM blocks per SM, at most
 # DEC_MAX_CHUNKS of them
@@ -132,14 +138,27 @@ def _planes(dtype: torch.dtype) -> int:
     return 1 if dtype == torch.bfloat16 else SPLIT
 
 
-def _fwd_groups(dtype: torch.dtype, items: int = 0, sms: int = 1) -> int:
+def _fwd_groups(dtype: torch.dtype, hd: int, items: int = 0, sms: int = 1) -> int:
     """Items side by side in one forward block (a group of four warps
-    each): two where bf16 allows it and the items are more than one per
-    SM but fit two per SM (one wave, a long and a short item on each SM),
-    else one (``fwd_groups`` of ``csrc/flash_attention.cu``); ``items =
-    0``: the most there may be."""
-    most = 2 if _planes(dtype) == 1 else 1
+    each): two where bf16 at a head width up to 128 allows it and the items
+    are more than one per SM but fit two per SM (one wave, a long and a
+    short item on each SM), else one (``fwd_groups`` of
+    ``csrc/flash_attention.cu``); ``items = 0``: the most there may be."""
+    most = 2 if _planes(dtype) == 1 and hd <= 128 else 1
     return most if items == 0 or sms < items <= 2 * sms else 1
+
+
+def _fwd_halves(hd: int) -> int:
+    """Warps that share each 16 row-heads of the forward, each taking
+    ``hd / halves`` output columns: two past head width 128 (``kHalves``)."""
+    return 2 if hd > 128 else 1
+
+
+def _fwd_keys(dtype: torch.dtype, hd: int) -> int:
+    """Key slots per forward tile: 64, or 32 for float32 past head width
+    128, whose three planes of 64-slot tiles overflow the shared memory
+    (``kKeys``)."""
+    return FWD_KEYS // 2 if _planes(dtype) > 1 and hd > 128 else FWD_KEYS
 
 
 def _groups(dtype: torch.dtype) -> int:
@@ -159,11 +178,12 @@ def smem_bytes(kernel: str, hd: int, dtype: torch.dtype, s: int, t: int, group: 
     row = 2 * (hd + ROW_PAD)
     if kernel == "fwd":
         planes = 1 if _planes(dtype) == 1 else FWD_SPLIT
-        stage = 2 * planes * FWD_KEYS * row + FWD_KEYS * 4  # k, v planes; slot positions
+        keys = _fwd_keys(dtype, hd)
+        stage = 2 * planes * keys * row + keys * 4  # k, v planes; slot positions
         stages = FWD_STAGES if planes == 1 else 1
-        mask = 16 * -(-t // (FWD_KEYS * 128))  # live-tile bits in whole 16-byte units
-        return _fwd_groups(dtype, items, sms) * (planes * FWD_ROW_HEADS * row + stages * stage
-                                                 + mask)
+        mask = 16 * -(-t // (keys * 128))  # live-tile bits in whole 16-byte units
+        return _fwd_groups(dtype, hd, items, sms) * (planes * FWD_ROW_HEADS * row
+                                                     + stages * stage + mask)
     if kernel == "decode":
         size = 2 if _planes(dtype) == 1 else 4
         tile = DEC_TILE * (hd * size + 16)  # rows padded by 16 bytes
@@ -219,17 +239,16 @@ def launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
     (one block per one or two work items, a group of four warps each) and
     "decode" (one block per KV head, cache chunk and batch row), both on a
     card with ``sms`` SMs."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
+    _check_width(hd, backward=kernel in ("dq", "dkv"))
     if kernel in ("fwd", "decode") and sms is None:
         raise ValueError(f"the {kernel} plan needs the card's SM count (sms=)")
     if kernel == "fwd":
         rows, heads, chunks = _fwd_geometry(h, kv)
         items = b * kv * chunks * -(-s // rows)
-        groups = _fwd_groups(dtype, items, sms)
+        groups = _fwd_groups(dtype, hd, items, sms)
         smem = smem_bytes(kernel, hd, dtype, s, t, h // kv, items, sms)
-        return FwdPlan((-(-items // groups), 1, 1), groups * FWD_THREADS, smem, rows, heads,
-                       FWD_KEYS)
+        return FwdPlan((-(-items // groups), 1, 1), groups * FWD_THREADS * _fwd_halves(hd),
+                       smem, rows, heads, _fwd_keys(dtype, hd))
     smem = smem_bytes(kernel, hd, dtype, s, t, h // kv)
     if kernel == "decode":
         if h // kv > MAX_GROUP:
@@ -532,14 +551,22 @@ def flash_decode_plain(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
 
 
 # -------------------------------------------------------------- wrappers
-def _check_qkv(q, k, v, q_pos, k_pos, q_shape, k_shape, qp_shape):
+def _check_width(hd: int, *, backward: bool = False) -> None:
+    """Raise unless the kernels (the backward pair, or the forward and the
+    decode) are built for head width ``hd``."""
+    widths = HEAD_DIMS if backward else FWD_HEAD_DIMS
+    if hd not in widths:
+        later = (" (the backward pair at head width 256 waits for gemma training: "
+                 "ROADMAP.md queue 2)" if hd in FWD_HEAD_DIMS else "")
+        raise ValueError(f"head_dim {hd} is not one of the built widths {widths}{later}")
+
+
+def _check_qkv(q, k, v, q_pos, k_pos, q_shape, k_shape, qp_shape, *, backward=False):
     dev = q.device
     dtype = q.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"q has dtype {dtype}; the kernels take {list(_DTYPES)}")
-    hd = q_shape[-1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
+    _check_width(q_shape[-1], backward=backward)
     check_operand(q, "q", dtype, q_shape, dev)
     check_operand(k, "k", dtype, k_shape, dev)
     check_operand(v, "v", dtype, k_shape, dev)
@@ -622,7 +649,8 @@ def _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd):
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     q, k, v, q_pos, k_pos = q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos), _i32(k_pos)
-    dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s))
+    dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s),
+                       backward=True)
     do, lse, dd = (x.to(torch.float32).contiguous() for x in (do, lse, dd))
     check_operand(do, "do", torch.float32, (b, s, h, hd), q.device)
     check_operand(lse, "lse", torch.float32, (b, h, s), q.device)

@@ -229,3 +229,66 @@ def test_launch_plan_against_hand_worked_grids(mode, args, want):
     assert plan.smem == (smem if smem is not None else aa.smem_bytes(mode, 8, args[-1], 8))
     with pytest.raises(ValueError, match="head_dim"):
         aa.launch_plan(mode, *args[:-1], 48, 8, 8, SMS)
+
+
+# ------------------------------------------------------- head width 256
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_head_width_256_plans_fit_the_card(dtype, g):
+    """gemma's head width: bitexact's row tile is capped by the shared
+    memory (TM = 4 needs 263,696 bytes at n = 8, so it is never chosen
+    there), lowrank at the configs' rank 8 fits (226,448 bytes), and rank 24
+    (292,240) is refused by the plan and by ``kernel_operands``, whatever
+    the input dtype."""
+    h, kv = 16, 16 // g
+    wide = aa.smem_bytes("bitexact", 8, 256, 8, 4)
+    assert wide == 131_072 + 4 * 256 * 64 + 2 * 64 * 256 + 4 * 64 * 128 + 4 * (4 * 64 + 132) \
+        == 263_696 > SMEM_PER_BLOCK
+    assert aa.smem_bytes("lowrank", 8, 256, 8) == 226_448 <= SMEM_PER_BLOCK
+    assert aa.smem_bytes("lowrank", 8, 256, 24) == 292_240 > SMEM_PER_BLOCK
+    for b, s, t in ((4, 32, 48), (1, 1024, 1024), (8, 128, 128), (1, 5, 9)):
+        for sms in (SMS, 1, 4096):
+            plan = aa.launch_plan("bitexact", b, s, t, h, kv, 256, 8, 8, sms)
+            assert plan.smem <= SMEM_PER_BLOCK and plan.smem != wide
+            assert plan.smem in (aa.smem_bytes("bitexact", 8, 256, 8, tm) for tm in (2, 1))
+            plan = aa.launch_plan("lowrank", b, s, t, h, kv, 256, 8, 8, sms)
+            assert plan.smem == 226_448
+            with pytest.raises(ValueError, match="shared memory"):
+                aa.launch_plan("lowrank", b, s, t, h, kv, 256, 8, 24, sms)
+    # at n = 7 the table is a quarter as large, and TM = 4 fits again
+    assert aa.launch_plan("bitexact", 1, 1024, 1024, h, kv, 256, 7, 8, SMS).smem == \
+        aa.smem_bytes("bitexact", 7, 256, 8, 4)
+    x = torch.randn((1, 4, h, 256), generator=torch.Generator().manual_seed(0)).to(dtype)
+    kx = x[:, :, :kv].contiguous()
+    ops = aa.kernel_operands(x, kx, kx, mode="lowrank", n=8, t=4, fix_to_1=True, rank=8)
+    assert ops.table.shape == (2, 256, 8)
+    aa.kernel_operands(x, kx, kx, mode="bitexact", n=8, t=4, fix_to_1=True, rank=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        aa.kernel_operands(x, kx, kx, mode="lowrank", n=8, t=4, fix_to_1=True, rank=24)
+
+
+@pytest.mark.parametrize("mode", ["bitexact", "lowrank"])
+def test_head_width_256_plain_version_matches_reference(mode):
+    """``approx_attention_plain`` at head width 256 against the JAX
+    package's blockwise reference, with window, softcap, a masked key block
+    and left pads, within one probability quantum and 1e-5 for 99% of the
+    outputs (``tests/test_torch_attention.py`` says why)."""
+    rng = np.random.default_rng(257)
+    b, s, t, h, kv, hd = 2, 16, 32, 4, 2, 256
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    qp = np.tile(np.arange(s, dtype=np.int32) + (t - s), (b, 1))
+    kp = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+    kp[1, :8] = -1
+    kp[1, 8:] -= 8
+    qp[1] -= 8
+    qp[1, :3] = -1
+    kw = dict(mode=mode, n=8, t=4, rank=8, causal=True, window=12, softcap=50.0,
+              scale=hd**-0.5, bk=8)
+    want = np.asarray(jax_approx.approx_attention_reference(
+        *map(jnp.asarray, (q, k, v, qp, kp)), bq=8, **kw))
+    got = aa.approx_attention_plain(*(torch.from_numpy(x) for x in (q, k, v, qp, kp)),
+                                    **kw).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=np.abs(v).max() / 255)
+    assert (np.abs(got - want) <= 1e-5).mean() >= 0.99

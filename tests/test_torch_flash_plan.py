@@ -411,3 +411,85 @@ def test_launch_plans_against_hand_worked_grids():
         fa.launch_plan("decode", 4, 1, 48, 64, 1, 128, bf, sms=SMS)  # a group over 16
     with pytest.raises(ValueError):
         fa.launch_plan("fwd", 1, 8, 8, 2, 1, 48, bf, sms=SMS)  # not a built width
+
+
+# ------------------------------------------------------- head width 256
+WIDE_SHAPES = {  # (B, S, T): the serve prefill over its cache, S = T = 1024, train, decode
+    "serve": (4, 32, 48), "long": (1, 1024, 1024), "train": (8, 128, 128), "decode": (4, 1, 8192),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(WIDE_SHAPES))
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_head_width_256_plans_fit_the_card(dtype, g, shape):
+    """gemma's head width: the forward takes one item a block (eight warps,
+    two to each 16 row-heads), float32 key tiles of 32, and every plan's
+    shared memory fits a block at any SM count (two items a block would
+    not: 338,976 bytes for bf16); the decode fits; the backward pair is not
+    built for 256 and says where that is planned."""
+    b, s, t = WIDE_SHAPES[shape]
+    h, kv = 16, 16 // g
+    for sms in (SMS, 1, b * kv * 64):  # one wave, many, and items within (sms, 2 sms]
+        plan = fa.launch_plan("fwd", b, s, t, h, kv, 256, dtype, sms=sms)
+        items = b * kv * -(-s // (64 // min(g, 64)))
+        assert plan.grid == (items, 1, 1) and plan.threads == 256
+        assert plan.keys == (64 if dtype == torch.bfloat16 else 32)
+        assert plan.smem == fa.smem_bytes("fwd", 256, dtype, s, t, g, items, sms)
+        assert plan.smem <= SMEM_PER_BLOCK and plan.smem % 16 == 0
+        dec = fa.launch_plan("decode", b, 1, t, h, kv, 256, dtype, sms=sms)
+        assert dec.smem == fa.smem_bytes("decode", 256, dtype, 1, t, g) <= SMEM_PER_BLOCK
+    for kernel in ("dq", "dkv"):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            fa.launch_plan(kernel, b, s, t, h, kv, 256, dtype)
+    q = torch.zeros((b, s, h, 256), dtype=dtype)
+    k = torch.zeros((b, t, kv, 256), dtype=dtype)
+    pos = torch.zeros((b, s), dtype=torch.int32)
+    kpos = torch.zeros((b, t), dtype=torch.int32)
+    stats = torch.zeros((b, h, s))
+    for wrapper in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            wrapper(q, k, k, pos, kpos, q.float(), stats, stats)
+
+
+def test_head_width_256_hand_worked_shared_memory():
+    """bf16: one item of a q plane 64 x 264 and two stages of k, v planes
+    (64 x 264) and 64 positions, the mask in 16 bytes; float32: three planes
+    of q, one stage of three k and three v planes of 32 slots."""
+    assert fa.smem_bytes("fwd", 256, torch.bfloat16, 1024, 1024, 2) == \
+        33_792 + 2 * (2 * 33_792 + 256) + 16 == 169_488
+    assert fa.smem_bytes("fwd", 256, torch.float32, 1024, 1024, 2) == \
+        3 * 33_792 + 2 * 3 * 16_896 + 128 + 16 == 202_896
+    assert fa.launch_plan("fwd", 1, 1024, 1024, 16, 8, 256, torch.bfloat16, sms=SMS) == \
+        fa.FwdPlan((8 * 32, 1, 1), 256, 169_488, 32, 2, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_head_width_256_plain_forward_and_decode_match_reference(dtype):
+    """``flash_attention_plain`` and ``flash_decode_plain`` at head width
+    256 (gemma2-9b's 16 query and 8 KV heads cut to 4 and 2), window and
+    softcap, against the JAX kernels in interpret mode."""
+    from repro.kernels.flash_attention import flash_decode as jax_flash_decode
+
+    rng = np.random.default_rng(256)
+    b, s, t, h, kv, hd = 2, 16, 32, 4, 2, 256
+    q, k, v = ((rng.standard_normal(shape) * 0.5).astype(np.float32)
+               for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    if dtype == torch.bfloat16:  # the same bf16 values on both sides
+        q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16)).astype(np.float32)
+                   for x in (q, k, v))
+    qp = np.tile(np.arange(s, dtype=np.int32) + (t - s), (b, 1))
+    kp = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+    kw = dict(causal=True, window=8, softcap=50.0, scale=hd**-0.5)
+    want = jax_flash_attention(*map(jnp.asarray, (q, k, v, qp, kp)), kw["causal"], kw["window"],
+                               kw["softcap"], kw["scale"], 16, 16, True)
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    got = fa.flash_attention_plain(tq, tk, tv, torch.from_numpy(qp), torch.from_numpy(kp), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    want = jax_flash_decode(*map(jnp.asarray, (q[:, -1], k, v, qp[:, -1], kp)),
+                            window=kw["window"], softcap=kw["softcap"], scale=kw["scale"], bk=16,
+                            interpret=True)
+    got = fa.flash_decode_plain(tq[:, -1], tk, tv, torch.from_numpy(qp[:, -1]),
+                                torch.from_numpy(kp), window=kw["window"],
+                                softcap=kw["softcap"], scale=kw["scale"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

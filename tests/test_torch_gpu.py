@@ -343,6 +343,8 @@ def _flash_layout(card, layout, hd, dtype, seed):
     (128, None, None, "cache"), (64, 24, None, "cache"), (16, None, 30.0, "cache"),
     (128, None, None, "left-pad"), (32, None, 30.0, "left-pad"), (128, None, None, "causal-200"),
     (64, 24, None, "causal-200"), (128, None, None, "group-16"), (16, 24, 30.0, "group-16"),
+    (256, None, None, "cache"), (256, 24, 50.0, "left-pad"), (256, None, None, "causal-200"),
+    (256, 24, None, "group-16"),
 ])
 def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtype, card):
     """The forward kernel against the plain version within 2e-5, over a
@@ -372,46 +374,56 @@ def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtyp
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("h,kv,window,softcap,layout", [
-    (16, 8, None, None, "cache"), (8, 1, 20, None, "cache"), (4, 4, None, 30.0, "cache"),
-    (16, 1, None, None, "cache"), (16, 8, None, None, "empty-row"), (8, 2, 24, 30.0, "empty-row"),
-    (16, 8, None, None, "long"), (16, 1, 300, None, "long"),
+@pytest.mark.parametrize("hd,h,kv,t,window,softcap,empty_row", [
+    (128, 16, 8, 100, None, None, False), (128, 8, 1, 100, 20, None, False),
+    (128, 4, 4, 100, None, 30.0, False), (128, 16, 1, 100, None, None, False),
+    (128, 16, 8, 100, None, None, True), (128, 8, 2, 100, 24, 30.0, True),
+    (128, 16, 8, 2000, None, None, False), (128, 16, 1, 2000, 300, None, False),
+    (256, 16, 8, 100, None, None, True), (256, 16, 16, 100, 20, 50.0, True),
+    (256, 16, 8, 8192, 4096, 50.0, True), (256, 16, 1, 2000, None, None, True),
 ])
-def test_flash_decode_matches_plain_version(h, kv, window, softcap, layout, dtype, card):
+def test_flash_decode_matches_plain_version(hd, h, kv, t, window, softcap, empty_row, dtype,
+                                            card):
     """The decode kernel against the plain version within 2e-5, over 100
-    slots, with a row whose position allows no slot ("empty-row": the
+    slots, with a row whose position allows no slot (``empty_row``: the
     uniform average of all T slots), and over 2,000 slots (chunks of the
-    cache split across blocks), 16 query heads per KV head included; a
-    second launch gives the same bits, and a third, counting on the card
+    cache split across blocks), 16 query heads per KV head included; at
+    gemma's head width 256 too (gemma2-9b's 16 / 8 heads, gemma-7b's 16 /
+    16, and gemma2's own window of 4,096 over 8,192 slots, whose dead
+    chunks are skipped); a second launch gives the same bits, the launch
+    plan is the built library's, and a third launch, counting on the card
     the chunks it skips, skips those of ``decode_chunk_plan``."""
     from repro_torch.kernels import flash_attention as fa
 
-    t = 2000 if layout == "long" else 100
-    q, k, v, _, kp = _attn_inputs(card, 3, 1, t, h, kv, 128, dtype, seed=h + kv)
+    q, k, v, _, kp = _attn_inputs(card, 3, 1, t, h, kv, hd, dtype,
+                                  seed=h + kv if hd == 128 else t + kv)
     qp = kp.amax(dim=1)
-    if layout == "empty-row":
+    if empty_row:
         qp[1] = -1  # before every written slot: nothing is allowed
-    kw = dict(window=window, softcap=softcap, scale=128**-0.5)
+    kw = dict(window=window, softcap=softcap, scale=hd**-0.5)
     got = fa.flash_decode(q[:, 0], k, v, qp, kp, **kw)
     want = fa.flash_decode_plain(q[:, 0], k, v, qp, kp, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert torch.equal(got, fa.flash_decode(q[:, 0], k, v, qp, kp, **kw))
-    plan = fa.launch_plan("decode", 3, 1, t, h, kv, 128, dtype,
-                          sms=torch.cuda.get_device_properties(card).multi_processor_count)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = fa.launch_plan("decode", 3, 1, t, h, kv, hd, dtype, sms=sms)
+    assert plan == fa.built_launch_plan("decode", 3, 1, t, h, kv, hd, dtype, sms=sms)
     live = fa.decode_chunk_plan(qp, kp, chunk=plan.keys, window=window)
     counter = torch.zeros(1, dtype=torch.int32, device=card)
     counted = fa.launch_decode(q[:, 0], k, v, qp, kp, skipped=counter, **kw)
     assert torch.equal(counted, got)
     assert counter.item() == int((~live).sum()) * kv
-    if layout == "empty-row":
+    if empty_row:
         assert not bool(live[1].any())
         torch.testing.assert_close(got[1], v[1].float().mean(0).repeat_interleave(h // kv, 0),
                                    rtol=2e-5, atol=2e-5)
+    if window is not None and t >= 2 * window:  # the oldest chunks are out of the window
+        assert not bool(live[0].all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_flash_forward_launch_plan_is_the_kernels(hd, dtype, card):
     """``launch_plan`` and ``smem_bytes`` for "fwd" and "decode", which the
     CPU tests read, equal the launch that the built library makes, at the
@@ -472,6 +484,8 @@ def _padded_cache(card, b, s, t, h, kv, hd, seed):
     ("bitexact", 128, 8, 8, 128, None, None), ("bitexact", 32, 8, 8, 40, None, 30.0),
     ("lowrank", 16, 8, 4, 8, None, 30.0), ("lowrank", 64, 8, 24, 128, 24, None),
     ("lowrank", 128, 4, 8, 64, None, None), ("lowrank", 32, 8, 1, 100, None, None),
+    ("bitexact", 256, 8, 8, 64, 24, 50.0), ("bitexact", 256, 8, 8, 16, None, None),
+    ("lowrank", 256, 8, 8, 128, None, None), ("lowrank", 256, 8, 8, 16, 24, 50.0),
 ])
 def test_approx_attention_redesign_matches_plain_version(mode, hd, n, rank, bk, window, softcap,
                                                          card):
@@ -513,15 +527,22 @@ def test_approx_attention_redesign_matches_plain_version(mode, hd, n, rank, bk, 
 def test_approx_attention_launch_plan_is_the_kernels(mode, card):
     """``launch_plan`` (which the CPU tests read) equals the launch that the
     built library makes, at the serve, train and long shapes, every head
-    width, n = 4 and 8, ranks 1, 8 and 24, and a group wider than an item."""
+    width, n = 4 and 8, ranks 1, 8 and 24, and a group wider than an item;
+    where the block does not fit (lowrank rank 24 at head width 256) both
+    refuse the launch."""
     from repro_torch.kernels import approx_attention as aa
 
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     shapes = [(4, 32, 48, 16, 8), (8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8),
               (3, 72, 256, 8, 2), (2, 3, 7, 64, 1), (1, 10, 10, 6, 2)]
     for b, s, t, h, kv in shapes:
-        for hd in (16, 32, 64, 128):
+        for hd in (16, 32, 64, 128, 256):
             for n, rank in ((8, 8), (4, 1), (8, 24)):
+                if mode == "lowrank" and hd == 256 and rank == 24:
+                    for plan_of in (aa.launch_plan, aa.built_launch_plan):
+                        with pytest.raises(ValueError):
+                            plan_of(mode, b, s, t, h, kv, hd, n, rank, sms)
+                    continue
                 plan = aa.launch_plan(mode, b, s, t, h, kv, hd, n, rank, sms)
                 assert plan == aa.built_launch_plan(mode, b, s, t, h, kv, hd, n, rank, sms), \
                     (b, s, t, h, kv, hd, n, rank)

@@ -1,9 +1,14 @@
 """The port's decoder stack against the JAX package on the same weights.
 
-``qwen3-0.6b.reduced()`` is built in both packages; the JAX model's own
-parameters are turned into numpy and loaded into the port with
-``from_jax_params`` (scanned layer groups, stacked on a leading axis, are
-unstacked per layer).  Prefill logits over left-padded prompts with
+``qwen3-0.6b.reduced()`` is built in both packages, and so are gemma-7b,
+gemma2-9b and yi-9b (their ``reduced()``, plus gemma-7b with one query
+head per KV head, yi-9b with eight, and gemma2-9b at its full head width
+of 256 under the attention kernels); the JAX model's own parameters are
+turned into numpy and loaded into the port with ``from_jax_params``
+(scanned layer groups, stacked on a leading axis, are unstacked per
+layer).  The reduced gemma2-9b's window of 8 binds within the decode
+steps over S = 8, and its layers alternate local and global attention
+with both logit softcaps.  Prefill logits over left-padded prompts with
 per-row positions, then several decode steps with per-row positions and
 write slots, must agree in float32 within ``rtol=1e-5, atol=1e-5``: the
 sums inside matmul and softmax run in another order in the two
@@ -39,16 +44,19 @@ from repro.models.registry import build_model as jax_build_model
 from repro.train.steps import make_decode_step as jax_decode_step
 from repro.train.steps import make_prefill_step as jax_prefill_step
 from repro_torch.configs.registry import apply_approx, get_config
-from repro_torch.models.registry import build_model, from_jax_params
+from repro_torch.models.registry import (
+    build_model, from_jax_params, reference_leaves, to_jax_layout,
+)
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 B, S, T, STEPS = 2, 8, 16, 4
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _pair(approx, attn_impl="xla", targets=("mlp",), **over):
-    jcfg = jax_get_config("qwen3-0.6b").reduced(attn_impl=attn_impl, **over)
-    tcfg = get_config("qwen3-0.6b").reduced(attn_impl=attn_impl)
+def _pair(approx, attn_impl="xla", targets=("mlp",), arch="qwen3-0.6b", reduced=None, **over):
+    reduced = reduced or {}
+    jcfg = jax_get_config(arch).reduced(attn_impl=attn_impl, **reduced, **over)
+    tcfg = get_config(arch).reduced(attn_impl=attn_impl, **reduced)
     if approx is not None:
         mode, n, t = approx
         jcfg = jax_apply_approx(jcfg, mode=mode, n=n, t=t, targets=targets)
@@ -99,19 +107,40 @@ def _force_reference_inputs(monkeypatch):
     return recorded
 
 
-@pytest.mark.parametrize("approx", [None, ("bitexact", 8, 4)], ids=["exact", "bitexact-8-4"])
-def test_prefill_and_decode_logits_match_reference(approx, monkeypatch):
-    _check_prefill_and_decode(approx, monkeypatch)
+APPROX = {"exact": None, "bitexact-8-4": ("bitexact", 8, 4), "lowrank-8-4": ("lowrank", 8, 4)}
+NEW_ARCHS = ("gemma-7b", "gemma2-9b", "yi-9b")
+# shapes beyond reduced(): gemma-7b's one query head per KV head (its
+# reduced() has 2 KV heads of 4), yi-9b's eight, gemma2-9b's head width
+KV4, G8, HD256 = dict(num_kv_heads=4), dict(num_heads=16, num_kv_heads=2), dict(head_dim=256)
 
 
-@pytest.mark.parametrize("approx", [None, ("bitexact", 8, 4), ("lowrank", 8, 4)],
-                         ids=["exact", "bitexact-8-4", "lowrank-8-4"])
-def test_pallas_attention_logits_match_reference(approx, monkeypatch):
+def _cases(tiers, extra):
+    """(arch, reduced overrides, approx) cases: qwen3-0.6b under its tier
+    ids, each new arch at every tier, then ``extra`` (arch, label,
+    overrides, tier)."""
+    cases = [pytest.param("qwen3-0.6b", {}, APPROX[t], id=t) for t in tiers]
+    cases += [pytest.param(a, {}, APPROX[t], id=f"{a}-{t}") for a in NEW_ARCHS for t in tiers]
+    cases += [pytest.param(a, over, APPROX[t], id=f"{a}-{label}-{t}")
+              for a, label, over, t in extra]
+    return cases
+
+
+@pytest.mark.parametrize("arch,reduced,approx", _cases(
+    ("exact", "bitexact-8-4"), [("gemma-7b", "kv4", KV4, "exact")]))
+def test_prefill_and_decode_logits_match_reference(arch, reduced, approx, monkeypatch):
+    _check_prefill_and_decode(approx, monkeypatch, arch=arch, reduced=reduced)
+
+
+@pytest.mark.parametrize("arch,reduced,approx", _cases(
+    ("exact", "bitexact-8-4", "lowrank-8-4"),
+    [("gemma-7b", "kv4", KV4, "exact"), ("gemma2-9b", "hd256", HD256, "exact"),
+     ("yi-9b", "g8", G8, "exact")]))
+def test_pallas_attention_logits_match_reference(arch, reduced, approx, monkeypatch):
     """``attn_impl="pallas"``: prefill through flash_attention (exact) or
     approx_flash_attention (``targets=("mlp", "attn")``), every decode step
     through flash_decode, against the JAX kernels in interpret mode."""
     _check_prefill_and_decode(approx, monkeypatch, attn_impl="pallas",
-                              targets=("mlp", "attn"))
+                              targets=("mlp", "attn"), arch=arch, reduced=reduced)
 
 
 def _check_prefill_and_decode(approx, monkeypatch, **kw):
@@ -119,9 +148,10 @@ def _check_prefill_and_decode(approx, monkeypatch, **kw):
     # reference unscanned (lax.scan would hand it tracers)
     over = {} if approx is None else {"scan_layers": False}
     jmodel, jparams, tmodel, tparams = _pair(approx, **kw, **over)
+    vocab = tmodel.cfg.vocab_size
     recorded = _force_reference_inputs(monkeypatch) if approx is not None else []
     rng = np.random.default_rng(1)
-    toks = rng.integers(0, 256, (B, S)).astype(np.int32)
+    toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
     # row 1 is left-padded by 3: its pads carry negative positions
     pos = np.stack([np.arange(S), np.arange(S) - 3]).astype(np.int32)
     jcache, jlogits = jax_prefill_step(jmodel, T)(
@@ -186,3 +216,27 @@ def test_unported_block_kinds_raise():
         build_model(moe).init_params(0, device="cpu")
     with pytest.raises(KeyError, match="qwen3-0.6b"):
         get_config("recurrentgemma-2b")
+
+
+@pytest.mark.parametrize("arch,reduced", [("gemma2-9b", dict(num_layers=3)), ("yi-9b", {})],
+                         ids=["gemma2-9b-group-and-remainder", "yi-9b-untied"])
+def test_loader_round_trips_the_reference_tree(arch, reduced):
+    """gemma2-9b at three layers (one scanned group of its two kinds, one
+    remainder layer) and yi-9b (an untied ``lm_head``): the reference's
+    tree goes through ``from_jax_params`` and back through
+    ``to_jax_layout`` bit for bit, and ``reference_leaves`` names its leaves
+    in ``jax.tree_util.tree_leaves`` order."""
+    jcfg, tcfg = jax_get_config(arch).reduced(**reduced), get_config(arch).reduced(**reduced)
+    tree = jax.tree_util.tree_map(np.asarray, jax_build_model(jcfg).init_params(
+        jax.random.PRNGKey(0)))
+    assert ("rem" in tree) == (arch == "gemma2-9b") and ("lm_head" in tree) == (arch == "yi-9b")
+    params = from_jax_params(tree, tcfg, device="cpu")
+    back = to_jax_layout(dict(params.named_parameters()), params)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for got, want in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(tree)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    paths = [tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path) for path, _ in flat]
+    leaves = reference_leaves(params)
+    assert [leaf.path for leaf in leaves] == paths
+    assert [leaf.ndim for leaf in leaves] == [np.ndim(x) for _, x in flat]

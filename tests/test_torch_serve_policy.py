@@ -90,6 +90,25 @@ def pools():
     return jmodel, jparams, tmodel, tparams
 
 
+@pytest.fixture(scope="module")
+def wide_pools():
+    """arch -> (jmodel, jparams, tmodel, tparams) at the arch's reduced(),
+    each built once for the module."""
+    built = {}
+
+    def pools_of(arch):
+        if arch not in built:
+            jcfg, tcfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+            jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
+            jparams = jmodel.init_params(jax.random.PRNGKey(0))
+            tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg,
+                                      device="cpu")
+            built[arch] = jmodel, jparams, tmodel, tparams
+        return built[arch]
+
+    return pools_of
+
+
 def _policies(pkg, name):
     return {
         "static": lambda: pkg.StaticTier(),
@@ -259,6 +278,31 @@ def test_static_serve_loop_streams_equal_the_reference(pools, quality):
     assert serve.supports_continuous(tmodel.cfg)
 
 
+@pytest.mark.parametrize("quality", ["exact", "balanced"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "yi-9b"])
+def test_closed_loop_streams_of_gemma2_and_yi_equal_the_reference(wide_pools, arch, quality):
+    """Reduced gemma2-9b (local and global layers in turn, both softcaps,
+    post-norms; its window of 8 binds within prompt plus generation) and
+    yi-9b (an untied head): the closed loop's greedy streams equal the
+    reference scheduler's at the exact tier and at the balanced one."""
+    jmodel, jparams, tmodel, tparams = wide_pools(arch)
+    kw = dict(prompt_len=PROMPT, gen=GEN, vocab_size=256, seed=5, quality=quality)
+    want = jax_serve.ContinuousScheduler(
+        jmodel, jparams, batch_size=BATCH, prompt_len=PROMPT, max_new=GEN, quality=quality,
+    ).run(jax_serve.synth_requests(6, **kw), warmup=False)
+    with _Margins(tparams) as margins:
+        got = serve.ContinuousScheduler(
+            tmodel, tparams, batch_size=BATCH, prompt_len=PROMPT, max_new=GEN, quality=quality,
+        ).run(serve.synth_requests(6, **kw), warmup=False)
+    assert min(margins.seen) > MARGIN, "a greedy near-tie: streams may differ legitimately"
+    assert sorted(got.outputs) == sorted(want.outputs)
+    for rid, stream in got.outputs.items():
+        np.testing.assert_array_equal(stream, want.outputs[rid], err_msg=f"request {rid}")
+    for field in ("requests", "tokens_out", "decode_steps", "slot_utilization"):
+        assert getattr(got.stats, field) == getattr(want.stats, field), field
+    assert dataclasses.astuple(got.accounting) == dataclasses.astuple(want.accounting)
+
+
 def _run(*args):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     return subprocess.run([sys.executable, *args], capture_output=True, text=True, cwd=ROOT,
@@ -291,3 +335,11 @@ def test_cli_speculative_and_static_on_the_cpu():
                 "--gen", "4", "--prompt-len", "8")
     assert proc.returncode == 0, proc.stderr
     assert "[static] served 5 requests, 20 tokens" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "gemma2-9b", "yi-9b"])
+def test_cli_serves_the_wide_archs_on_the_cpu(arch):
+    proc = _run("-m", "repro_torch.launch.serve", "--arch", arch, "--reduced", "--device", "cpu",
+                "--requests", "4", "--batch", "2", "--gen", "4")
+    assert proc.returncode == 0, proc.stderr
+    assert "[continuous] served 4 requests, 16 tokens" in proc.stdout
