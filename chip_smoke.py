@@ -56,7 +56,9 @@ Phases, one line each (or a few):
    4,096 slots, a decode over 8,192 slots under gemma2's own window of
    4,096 (its dead chunks skipped and counted); gemma-7b's 16 / 16 heads
    (forward and decode), yi-9b's 32 / 4 heads of 128 (forward and decode
-   at the serve shape), and one float32 forward at 256.
+   at the serve shape), one float32 forward at 256, and the forward of
+   train (c) at gemma2's train shape with lse, with and without softcap
+   50, and bitexact there with lse (the approximate route's train forward).
    Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
    operands split into two bf16 terms, tiles with nothing to add skipped)
    against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
@@ -66,9 +68,13 @@ Phases, one line each (or a few):
    serve cache with masked slots and one left-padded row, each with
    ``launch_plan`` equal to the launch the built library makes, beside
    SDPA's backward by loop time and by device time (its forward and
-   backward replayed from one CUDA graph, less its forward alone); the
-   build phase checks that every instantiation of both kernels has
-   tensor-core instructions (HMMA) in its SASS.  Elementwise multiplier:
+   backward replayed from one CUDA graph, less its forward alone); then at
+   head width 256, gemma2-9b's 16 / 8 heads at each of those shapes (window
+   64 and softcap 50 at the train shape), gemma-7b's 16 / 16, gemma2's in
+   float32 and on the bitexact forward's (o, lse), and yi-9b's 32 / 4 of
+   128 (g = 8), all at the train shape; the build phase checks that every
+   instantiation of both kernels has tensor-core instructions (HMMA) in its
+   SASS, and that none of their four at head width 256 spills.  Elementwise multiplier:
    ``seqmul_packed`` at n in {4, 8, 12, 15} and ``seqmul_words`` at n in
    {8, 15, 16}, t in {1, n/2, n-1}, approx and fix_to_1 both ways, on
    every (a, b) pair (n <= 8, 12) or numpy draws (2^20 + 3 at n = 15, 2^24
@@ -107,6 +113,10 @@ Phases, one line each (or a few):
    pallas with the attention contractions approximated too); one train
    step's loss and gradients of reduced qwen3-0.6b (bitexact on mlp and
    attn, pallas) on the card against the CPU (rtol 1e-5; 1e-4 * max|want|);
+   the same of gemma2-9b at ``reduced(head_dim=256, attn_impl="pallas")``
+   (float32: the forward with lse and the backward pair at 256) on the
+   card against the same step with the plain attention on the card, from
+   the same parameters and batch (the same limits);
    then prefill and four decode steps' logits of reduced gemma-7b,
    gemma2-9b and yi-9b (exact), and of gemma2-9b at ``reduced(head_dim=256,
    attn_impl="pallas")`` at exact and at bitexact on mlp and attn (the
@@ -154,10 +164,16 @@ Phases, one line each (or a few):
    reference driver's schedule) for ``paper-multiplier`` with
    ``attn_impl="pallas"`` (lut_matmul on the MLPs, flash_attention with
    lse, the dq and dk/dv kernels) and qwen3-0.6b bitexact on mlp and attn
-   with ``attn_impl="pallas"`` (adds approx_attention_bitexact): the loss
-   must be finite and fall; each prints the means of its first and last
-   ten losses, its first two losses, step ms, train tokens/s, launches
-   per step and the busy share of one profiled step.  Then the train CLI
+   with ``attn_impl="pallas"`` (adds approx_attention_bitexact), and (c)
+   gemma2-9b at its published widths (d_model 3584, 16 / 8 heads of 256,
+   vocab 256,000, both softcaps, window 4,096, tied embeddings), its depth
+   cut to 4 layers (local, global, local, global), bf16, remat "full",
+   pallas (flash_attention, dq and dk/dv at head width 256): the loss must
+   be finite and fall, and each expected kernel must launch in every step;
+   each prints the means of its first and last ten losses, its first two
+   losses, step ms, train tokens/s, launches per step, peak device memory
+   and the busy share of one profiled step (with the device's top
+   kernels and each of the port's kernels' device time).  Then the train CLI
    on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
    injected at step 5, which it must recover from, with the losses of its
    steps 1 and 8 (its own "loss a -> b", which averages ten steps at each
@@ -252,8 +268,8 @@ ATTN_KERNELS = ("flash_attention", "flash_decode", "approx_attention_bitexact",
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # the head-width-256 instantiations of each attention library, which must not
 # spill: forward (bf16, float32) x (softcap or not) and decode (bf16, float32);
-# lowrank, and bitexact at 1, 2 and 4 rows a thread
-WIDE_INSTANTIATIONS = {"flash_attention": 6, "approx_attention": 4}
+# lowrank, and bitexact at 1, 2 and 4 rows a thread; dq and dk/dv (bf16, float32)
+WIDE_INSTANTIATIONS = {"flash_attention": 6, "approx_attention": 4, "flash_attention_bwd": 4}
 ELEMENTWISE_KERNELS = ("seqmul_packed", "seqmul_words")
 # the elementwise kernels' main rows: every (a, b) pair at n = 12 (packed)
 # and as many numpy draws at the paper's n = 16 (words), 2^24 elements each
@@ -261,6 +277,9 @@ ELEMENTWISE_MAIN = {"seqmul_packed": (12, 6), "seqmul_words": (16, 8)}
 ELEMENTWISE_RAGGED = [(), (0,), (1,), (127,), (129,), ((1 << 20) + 3,)]
 # the train runs: the reference driver's batch and sequence defaults
 TRAIN = dict(batch=8, seq=128, steps=16)
+# train (c): gemma2-9b at its published widths, its depth cut to two
+# (local, global) periods; the train CLI has no depth flag
+GEMMA2_TRAIN_LAYERS = 4
 REPLACES = {
     "lut_matmul": "src/repro/kernels/lut_matmul.py:30",
     "seqmul_matmul": "src/repro/kernels/seqmul_matmul.py:53",
@@ -796,7 +815,8 @@ def wide_attention_cases():
     over 8,192 slots under gemma2's own window of 4,096 (dead chunks);
     gemma-7b's 16 / 16 (one query head per KV head) forward and decode;
     yi-9b's 32 / 4 of 128 (eight per KV head) forward and decode; one
-    float32 forward at 256."""
+    float32 forward at 256; the forward of train (c) with lse, with and
+    without gemma2's softcap; bitexact's at that shape."""
     b, p = SERVE["batch"], SERVE["prompt"]
     cases = []
     for name in ATTN_KERNELS:
@@ -821,6 +841,17 @@ def wide_attention_cases():
         AttnCase("flash_decode", "yi-9b serve", b, 1, CACHE, timed=True, **YI_HEADS),
         AttnCase("flash_attention", "gemma2 f32 serve", b, p, CACHE, timed=True,
                  dtype="float32", **GEMMA2_HEADS),
+        # the forward of train (c), with lse: gemma2's heads at the train
+        # shape, plain and under gemma2's softcap (its window of 4,096 does
+        # not bind at seq 128)
+        AttnCase("flash_attention", "gemma2 train", TRAIN["batch"], TRAIN["seq"], TRAIN["seq"],
+                 timed=True, **GEMMA2_HEADS),
+        AttnCase("flash_attention", "gemma2 softcap train", TRAIN["batch"], TRAIN["seq"],
+                 TRAIN["seq"], None, None, GEMMA2_SOFTCAP, timed=True, **GEMMA2_HEADS),
+        # the approximate route's forward of a gemma2 train step, with lse (the
+        # backward pair then runs on its (o, lse): backward_cases)
+        AttnCase("approx_attention_bitexact", "gemma2 train", TRAIN["batch"], TRAIN["seq"],
+                 TRAIN["seq"], 64, timed=True, **GEMMA2_HEADS),
     ]
 
 
@@ -907,7 +938,7 @@ def run_attention_case(card: Card, case, seed):
     # positions read once, the f32 output written once
     io_bytes = 4 * (q_pos.numel() + k_pos.numel()) + 4 * q.numel()
     # the train rows return lse too (written once), as the train step's forward does
-    with_lse = label == "train"
+    with_lse = label.split()[-1] == "train"
     lse_bytes = 4 * b * h * s if with_lse else 0
     library = None
     if name == "flash_decode":
@@ -1106,33 +1137,73 @@ def phase_attention(card: Card) -> list:
 
 
 # ------------------------------------------------------------ backward
+@dataclasses.dataclass(frozen=True)
+class BwdCase:
+    """One backward row: a label, q (b, s) over t slots, window, softcap,
+    the heads (query, KV, width), the dtype of q, k, v, and the forward
+    whose (o, lse) the pair runs on: ``flash``, or ``bitexact``, the
+    approximate forward (straight-through)."""
+
+    label: str
+    b: int
+    s: int
+    t: int
+    window: int = None
+    softcap: float = None
+    h: int = HEADS
+    kv: int = KV_HEADS
+    hd: int = HEAD_DIM
+    dtype: str = "bfloat16"
+    forward: str = "flash"
+
+
 def backward_cases():
-    """(label, B, S, T, window, softcap): the train shape, one long shape, a
-    window + softcap variant, and the serve shape's cache with masked slots
-    and one left-padded row (its pad queries see no slot)."""
+    """The train shape, one long shape, a window + softcap variant, and the
+    serve shape's cache with masked slots and one left-padded row (its pad
+    queries see no slot); then head width 256: gemma2-9b's 16 / 8 heads at
+    each of those (window 64 and gemma2's softcap 50 at the train shape),
+    gemma-7b's 16 / 16, gemma2's heads in float32 and on the approximate
+    bitexact forward's (o, lse); and yi-9b's 32 / 4 of 128 (eight query
+    heads to a KV head in dk/dv), all at the train shape."""
     b, s = TRAIN["batch"], TRAIN["seq"]
-    return [("train", b, s, s, None, None),
-            ("long", 1, 1024, 1024, None, None),
-            ("window+softcap", b, s, s, 64, 30.0),
-            ("masked+pad", SERVE["batch"], SERVE["prompt"], CACHE, None, None)]
+    serve = (SERVE["batch"], SERVE["prompt"], CACHE)
+    return [BwdCase("train", b, s, s),
+            BwdCase("long", 1, 1024, 1024),
+            BwdCase("window+softcap", b, s, s, 64, 30.0),
+            BwdCase("masked+pad", *serve),
+            BwdCase("gemma2 train", b, s, s, **GEMMA2_HEADS),
+            BwdCase("gemma2 long", 1, 1024, 1024, **GEMMA2_HEADS),
+            BwdCase("gemma2 window+softcap", b, s, s, 64, GEMMA2_SOFTCAP, **GEMMA2_HEADS),
+            BwdCase("gemma2 masked+pad", *serve, **GEMMA2_HEADS),
+            BwdCase("gemma-7b train", b, s, s, **GEMMA7_HEADS),
+            BwdCase("yi-9b train", b, s, s, **YI_HEADS),
+            BwdCase("gemma2 f32 train", b, s, s, dtype="float32", **GEMMA2_HEADS),
+            BwdCase("gemma2 bitexact train", b, s, s, forward="bitexact", **GEMMA2_HEADS)]
 
 
-def run_backward_case(card: Card, case, seed):
+def run_backward_case(card: Card, case: BwdCase, seed):
     """dq and dk/dv kernels against flash_attention_bwd_plain on the forward
     kernel's (o, lse), float32 before the cast; two launches must give the
     same bits."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import approx_attention as aa
     from repro_torch.kernels import flash_attention as fa
 
-    label, b, s, t, window, softcap = case
-    q, k, v, q_pos, k_pos = attention_inputs(AttnCase("flash_attention", label, b, s, t), seed)
-    do = torch.randn((b, s, HEADS, HEAD_DIM), device="cuda",
+    label, b, s, t, window, softcap = (case.label, case.b, case.s, case.t, case.window,
+                                       case.softcap)
+    hd, h, kv = case.hd, case.h, case.kv
+    q, k, v, q_pos, k_pos = attention_inputs(
+        AttnCase("flash_attention", label, b, s, t, h=h, kv=kv, hd=hd, dtype=case.dtype), seed)
+    do = torch.randn((b, s, h, hd), device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(seed + 1))
-    hd, h, kv = HEAD_DIM, HEADS, KV_HEADS
     kw = dict(causal=True, window=window, softcap=softcap, scale=hd**-0.5)
-    o, lse = fa.flash_attention_fwd(q, k, v, q_pos, k_pos, **kw, with_lse=True)
+    if case.forward == "bitexact":
+        ops = aa.kernel_operands(q, k, v, mode="bitexact", n=8, t=4, fix_to_1=True, rank=8)
+        o, lse = aa.launch_kernel(ops, q_pos, k_pos, bk=64, with_lse=True, **kw)
+    else:
+        o, lse = fa.flash_attention_fwd(q, k, v, q_pos, k_pos, **kw, with_lse=True)
     dd = torch.einsum("bshd,bshd->bhs", do, o)
     dq_fn = lambda: fa.flash_attention_bwd_dq(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
     dkv_fn = lambda: fa.flash_attention_bwd_dkv(q, k, v, q_pos, k_pos, do, lse, dd, **kw)
@@ -1140,11 +1211,14 @@ def run_backward_case(card: Card, case, seed):
     got, again = (dq_fn(), *dkv_fn()), (dq_fn(), *dkv_fn())
     want = plain()
     torch.cuda.synchronize()
-    where = f"backward {label} B={b} S={s} T={t} window={window} softcap={softcap}"
+    where = (f"backward {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd} {case.dtype} "
+             f"window={window} softcap={softcap} on the {case.forward} forward")
+    plans = {}
     for kernel in ("dq", "dkv"):
         plan = fa.launch_plan(kernel, b, s, t, h, kv, hd, q.dtype)
         built = fa.built_launch_plan(kernel, b, s, t, h, kv, hd, q.dtype)
         check(plan == built, f"{where}: launch_plan {plan} but the kernel launches {built}")
+        plans[kernel] = dict(grid=list(plan.grid), threads=plan.threads, smem=plan.smem)
     errs, ratios = [], []
     for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
         check(bool(torch.isfinite(a).all()), f"{where}: non-finite {name}")
@@ -1156,35 +1230,41 @@ def run_backward_case(card: Card, case, seed):
         ratios.append(err / limit)
     # The work this run's data needs, on the bf16 tensor cores as the kernels
     # split it (csrc/flash_attention_bwd.cu): per allowed (query head, slot)
-    # pair, 2*hd FLOPs per product, 5 products in dq (q k^T; do v^T with do
-    # as two bf16 terms; ds k, ds as two terms) and 8 in dk/dv (the same
-    # 3 for s and dp; ds^T q, 2; p^T do, both split, 3); a query with no
-    # allowed slot (a pad) adds p^T do at every slot to dv.  Bytes: q, k, v
-    # (bf16), do, lse, dd read once; dq or dk and dv (float32) written once.
+    # pair, 2*hd FLOPs per product.  bf16 q, k, v: 5 products in dq (q k^T;
+    # do v^T with do as two bf16 terms; ds k, ds as two terms) and 8 in dk/dv
+    # (the same 3 for s and dp; ds^T q, 2; p^T do, both split, 3); float32 q,
+    # k, v as two terms too: 3 products for each of dq's 3 and dk/dv's 4 (9,
+    # 12).  A query with no allowed slot (a pad) adds p^T do at every slot to
+    # dv (3).  Bytes: q, k, v, do, lse, dd read once; dq or dk and dv
+    # (float32) written once.
+    dq_products, dkv_products = (5, 8) if q.dtype == torch.bfloat16 else (9, 12)
     allow = fa.allow_mask(q_pos, k_pos, causal=True, window=window)
     pairs = h * allow.sum().item()
     pad_pairs = h * t * (~allow.any(-1)).sum().item()
-    inputs = 2 * (q.numel() + k.numel() + v.numel()) + 4 * (do.numel() + lse.numel() + dd.numel())
-    inputs += 4 * (q_pos.numel() + k_pos.numel())
+    inputs = q.element_size() * (q.numel() + k.numel() + v.numel())
+    inputs += 4 * (do.numel() + lse.numel() + dd.numel() + q_pos.numel() + k_pos.numel())
     bf16 = BF16_TENSOR_FLOPS_PER_S
     bounds = {
-        "flash_attention_bwd_dq": card.bound(inputs + 4 * q.numel(), 2 * hd * 5 * pairs, bf16),
+        "flash_attention_bwd_dq": card.bound(inputs + 4 * q.numel(),
+                                             2 * hd * dq_products * pairs, bf16),
         "flash_attention_bwd_dkv": card.bound(inputs + 8 * k.numel(),
-                                              2 * hd * (8 * pairs + 3 * pad_pairs), bf16),
+                                              2 * hd * (dkv_products * pairs + 3 * pad_pairs),
+                                              bf16),
     }
     total = card.bound(inputs + 4 * q.numel() + 8 * k.numel(),
-                       2 * hd * (13 * pairs + 3 * pad_pairs), bf16)
+                       2 * hd * ((dq_products + dkv_products) * pairs + 3 * pad_pairs), bf16)
     rows = []
-    for name, err, ratio in (("flash_attention_bwd_dq", errs[0], ratios[0]),
-                             ("flash_attention_bwd_dkv", max(errs[1:]), max(ratios[1:]))):
-        rows.append(dict(name=name, label=label, shape=[b, s, t, h, kv, hd], max_abs_err=err,
-                         err_over_limit=ratio, bound_ms=bounds[name][0],
-                         bound_by=bounds[name][1]))
-    reps = 5 if label == "long" else 20
+    for name, kernel, err, ratio in (("flash_attention_bwd_dq", "dq", errs[0], ratios[0]),
+                                     ("flash_attention_bwd_dkv", "dkv", max(errs[1:]),
+                                      max(ratios[1:]))):
+        rows.append(dict(name=name, label=label, shape=[b, s, t, h, kv, hd], dtype=case.dtype,
+                         max_abs_err=err, err_over_limit=ratio, bound_ms=bounds[name][0],
+                         bound_by=bounds[name][1], plan=plans[kernel]))
+    reps = 5 if label.endswith("long") else 20
     plain_ms = cuda_ms(plain, reps=2)
     library_ms = library_device_ms = None
     if softcap is None:  # SDPA has no softcap
-        # the backward alone of SDPA on the same bf16 q/k/v and boolean mask,
+        # the backward alone of SDPA on the same q/k/v and boolean mask,
         # its forward outside the timing; heads before the sequence
         leaves = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, attn_mask=allow[:, None],
@@ -1222,9 +1302,10 @@ def run_backward_case(card: Card, case, seed):
                 if library_ms is not None else "none"))
     print(f"kernel {where}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
           f"over the limit 1e-4 * max|want|: dq {ratios[0]:.4f} dk {ratios[1]:.4f} dv "
-          f"{ratios[2]:.4f}; two launches bit-identical, launch_plan as built;{times} bound_ms dq "
-          f"{rows[0]['bound_ms']:.5f} ({rows[0]['bound_by']}) dkv {rows[1]['bound_ms']:.5f} "
-          f"({rows[1]['bound_by']}) whole backward {total[0]:.5f} ({total[1]})", flush=True)
+          f"{ratios[2]:.4f}; two launches bit-identical, launch_plan as built dq "
+          f"{plans['dq']} dkv {plans['dkv']};{times} bound_ms dq {rows[0]['bound_ms']:.5f} "
+          f"({rows[0]['bound_by']}) dkv {rows[1]['bound_ms']:.5f} ({rows[1]['bound_by']}) "
+          f"whole backward {total[0]:.5f} ({total[1]})", flush=True)
     return rows
 
 
@@ -2054,7 +2135,7 @@ def profile_fn(fn, reps: int, what: str):
             fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us = kernel_us = 0.0
-    host = []
+    host, device, own = [], [], []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) is not None and "CUDA" not in str(ev.device_type):
             host.append((ev.self_cpu_time_total, ev.count, ev.key))
@@ -2063,13 +2144,20 @@ def profile_fn(fn, reps: int, what: str):
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         busy_us += dev_us
+        device.append((dev_us, ev.count, ev.key))
         if any(f"{name}_kernel" in ev.key for name in kernels.ALL):
             kernel_us += dev_us
+            own.append((dev_us, ev.count, ev.key))
     launches = sum(c for _, c, k in host if k.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     top = ", ".join(f"{k} {us / 1e3 / reps:.2f} ms x{c // reps}"
                     for us, c, k in sorted(host, reverse=True)[:6])
+    top_device = ", ".join(f"{k[:60]} {us / 1e3 / reps:.2f} ms x{c // reps}"
+                           for us, c, k in sorted(device, reverse=True)[:5])
+    own_device = ", ".join(f"{k[:70]} {us / 1e3 / reps:.4f} ms x{c // reps}"
+                           for us, c, k in sorted(own, reverse=True)) or "none"
     print(f"profile: per {what} {launches / reps:.0f} launches through the CUDA runtime "
-          f"seen; host self time by op: {top}", flush=True)
+          f"seen; host self time by op: {top}; device time by kernel: {top_device}; the "
+          f"port's kernels: {own_device}", flush=True)
     return busy_us / 1e3, kernel_us / 1e3, wall_ms, reps
 
 
@@ -2077,8 +2165,9 @@ def profile_fn(fn, reps: int, what: str):
 def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
     """``TRAIN["steps"]`` steps of ``make_train_step`` through ``run_loop`` at
     full width from seed-0 weights and ``SyntheticLM`` data: the loss must
-    be finite and fall, every kernel in ``expect`` must launch.  Then one
-    more step under the profiler for the device's busy share."""
+    be finite and fall, every kernel in ``expect`` must launch in every
+    step.  Then one more step under the profiler for the device's busy
+    share."""
     import numpy as np
     import torch
 
@@ -2093,6 +2182,7 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
     # the reference driver's TrainConfig for --steps n
     tcfg = TrainConfig(learning_rate=3e-4, total_steps=n, warmup_steps=max(10, n // 20),
                        seed=seed)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(model, tcfg, seed, device="cuda")
     torch.cuda.synchronize()
@@ -2104,25 +2194,31 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
         return {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(step).items()}
 
     step_fn = make_train_step(model, tcfg)
-    times = []
+    times, step_counts = [], []
 
     def timed(state, batch):
+        before = kernels.launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = step_fn(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
+        after = kernels.launch_counts()
+        step_counts.append({k: after[k] - before[k] for k in after})
         return out
 
     kernels.reset_launch_counts()
     result = run_loop(state, timed, batch_fn, total_steps=n)
     counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in result.metrics_history]
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     check(len(losses) == n and all(np.isfinite(losses)), f"train {label}: losses {losses}")
     check(last < first, f"train {label}: loss did not fall ({first} -> {last}): {losses}")
     for name in expect:
-        check(counts[name] > 0, f"train {label}: {name} was never launched ({counts})")
+        missed = [i + 1 for i, c in enumerate(step_counts[:n]) if not c[name]]
+        check(counts[name] > 0 and not missed,
+              f"train {label}: {name} not launched in steps {missed} ({counts})")
     step_ms = float(np.median(times[1:])) * 1e3
     per_step = {k: v / n for k, v in counts.items() if v}
     busy_ms, kernel_ms, wall_ms, _ = profile_fn(lambda: timed(result.state, batch_fn(n)), 1,
@@ -2130,51 +2226,67 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
     share = (f"device busy {busy_ms / wall_ms:.3f} of {wall_ms:.1f} ms, own kernels "
              f"{kernel_ms / max(busy_ms, 1e-9):.3f} of busy" if busy_ms else
              "device busy share not measured (the profiler saw no device time)")
-    print(f"train {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}, batch {b} x seq {seq}, {n} steps "
+    print(f"train {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"{model.param_count(state.params) / 1e6:.1f}M params, {cfg.dtype}, remat "
+          f"{cfg.remat}, batch {b} x seq {seq}, {n} steps "
           f"(init {init_s:.1f}s): loss {first:.4f} -> {last:.4f} (steps 1 and 2: "
           f"{losses[0]:.6f}, {losses[1]:.6f}); step {step_ms:.1f} ms "
           f"(first {times[0] * 1e3:.1f} ms), {b * seq / step_ms * 1e3:.0f} train tokens/s; "
-          f"launches per step {per_step}; {share}", flush=True)
+          f"launches per step {per_step}; peak device memory {peak_gb:.2f} GB; {share}",
+          flush=True)
     return dict(counts=counts, per_step=per_step, step_ms=step_ms, first=first, last=last,
                 losses=losses, busy_share=busy_ms / wall_ms if busy_ms else None)
 
 
-def phase_train_reference() -> None:
-    """One train step's loss and gradients of reduced qwen3-0.6b, bitexact on
-    mlp and attn with attn_impl="pallas", on the card against the CPU, from
-    the same seeded weights and batch: loss within rtol 1e-5 and every
-    gradient within 1e-4 * max|want| (the CPU tests' tolerances against the
-    JAX package; float32 sums run in another order on the card)."""
+def phase_train_reference(label: str, sides: tuple, *, expect: tuple = ()) -> None:
+    """One train step's loss and gradients (``loss_fn`` and ``.backward()``,
+    what ``make_train_step`` runs at ``grad_accum`` 1) of two (config,
+    device) sides from the same seeded weights and batch: the loss within
+    rtol 1e-5 and every gradient within 1e-4 * max|want| of the first side's
+    (the CPU tests' tolerances against the JAX package; float32 sums run in
+    another order on the card).  Every kernel in ``expect`` must launch on
+    the second side and not on the first.  The first side is this check's
+    reference, never a fallback."""
     import torch
 
-    from repro_torch.configs.registry import apply_approx, get_config
+    from repro_torch import kernels
     from repro_torch.models.registry import build_model
     from repro_torch.train.steps import loss_fn
 
-    cfg = apply_approx(get_config("qwen3-0.6b").reduced(attn_impl="pallas"), mode="bitexact",
-                       n=8, t=4, targets=("mlp", "attn"))
-    model = build_model(cfg)
-    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(5))
+    vocab = sides[0][0].vocab_size
+    toks = torch.randint(0, vocab, (2, 33), generator=torch.Generator().manual_seed(5))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     results = []
-    for device in ("cpu", "cuda"):
-        params = model.init_params(0, device="cpu").to(device)
+    for cfg, device in sides:
+        model = build_model(cfg)
+        params = model.init_params(0, device="cpu")
+        if results:
+            check(all(torch.equal(p, q) for p, q in zip(params.parameters(), first)),
+                  f"{label}: the two sides start from other parameters")
+        first = [p.detach().clone() for p in params.parameters()]
+        params = params.to(device)
+        kernels.reset_launch_counts()
         loss, _ = loss_fn(params, {k: v.to(device) for k, v in batch.items()}, 0, model)
         loss.backward()
-        results.append((loss.item(), {n: p.grad.cpu() for n, p in params.named_parameters()}))
-    (want_loss, want), (got_loss, got) = results
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in params.named_parameters()},
+                        kernels.launch_counts()))
+    (want_loss, want, plain_counts), (got_loss, got, counts) = results
+    for name in expect:
+        check(counts[name] > 0 and not plain_counts[name],
+              f"{label}: {name} launches {counts[name]} (reference side: "
+              f"{plain_counts[name]})")
     check(abs(got_loss - want_loss) <= 1e-5 * abs(want_loss),
-          f"reduced train step: card loss {got_loss} vs CPU {want_loss}")
+          f"{label}: loss {got_loss} vs the reference side's {want_loss}")
     worst = 0.0
     for name, w in want.items():
         err = (got[name] - w).abs().max().item()
         limit = 1e-4 * w.abs().max().item()
-        check(err <= limit, f"reduced train step: {name} gradient max |err| {err} over {limit}")
+        check(err <= limit, f"{label}: {name} gradient max |err| {err} over {limit}")
         worst = max(worst, err / max(w.abs().max().item(), 1e-30))
-    print(f"reference: reduced qwen3-0.6b train step (bitexact mlp+attn, pallas) card vs CPU: "
-          f"loss {got_loss:.6f} vs {want_loss:.6f}, worst gradient max |err| / max|want| "
-          f"{worst:.3e} over {len(want)} tensors (limits rtol 1e-5, 1e-4)", flush=True)
+    print(f"reference: {label}: loss {got_loss:.6f} vs {want_loss:.6f}, worst gradient "
+          f"max |err| / max|want| {worst:.3e} over {len(want)} tensors (limits rtol 1e-5, "
+          f"1e-4); launches { {n: counts[n] for n in expect} }", flush=True)
 
 
 def phase_train_cli() -> None:
@@ -2290,17 +2402,31 @@ def main() -> int:
     kernels.reset_launch_counts()
 
     # 4. reference
+    from repro_torch.configs.registry import apply_approx, get_config
+    from repro_torch.models.registry import build_model
+
     with phase("reference"):
         phase_reference()
-        phase_train_reference()
+        # reduced qwen3-0.6b, bitexact mlp+attn, pallas: the card against the CPU
+        qwen3 = apply_approx(get_config("qwen3-0.6b").reduced(attn_impl="pallas"),
+                             mode="bitexact", n=8, t=4, targets=("mlp", "attn"))
+        phase_train_reference("reduced qwen3-0.6b train step (bitexact mlp+attn, pallas) "
+                              "card vs CPU", ((qwen3, "cpu"), (qwen3, "cuda")))
+        # gemma2-9b at head width 256 (float32: the flash forward with lse and
+        # the pair at 256, window 8 binding at seq 32, both softcaps): the
+        # kernels against the plain attention, both on the card
+        gemma2 = get_config("gemma2-9b").reduced(head_dim=256)
+        phase_train_reference(
+            f"reduced gemma2-9b (hd 256, {gemma2.num_layers} layers, window "
+            f"{gemma2.local_window}, {gemma2.dtype}) train step, pallas attention vs plain on "
+            f"the card", tuple((dataclasses.replace(gemma2, attn_impl=impl), "cuda")
+                               for impl in ("xla", "pallas")),
+            expect=("flash_attention", *BWD_KERNELS))
     with phase("reference: gemma-7b, gemma2-9b, yi-9b"):
         phase_reference_wide()
     kernels.reset_launch_counts()
 
     # 5. serve
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models.registry import build_model
-
     with phase("serve: qwen3-0.6b"):
         cfg = get_config("qwen3-0.6b")
         model = build_model(cfg)
@@ -2358,8 +2484,6 @@ def main() -> int:
             wide_runs[arch] = phase_serve_wide(arch, arch_runs)
 
     # 6. train, full width, attn_impl="pallas" (set on the config; the CLI has no flag)
-    from repro_torch.configs.registry import apply_approx
-
     with phase("train"):
         paper = build_model(dataclasses.replace(get_config("paper-multiplier"), attn_impl="pallas"))
         train_runs = {"paper-multiplier": phase_train(
@@ -2373,6 +2497,14 @@ def main() -> int:
         for name in BWD_KERNELS:
             runs[name] = dict(counts=train_runs["paper-multiplier"]["counts"],
                               per_step=train_runs["paper-multiplier"]["per_step"])
+        del paper, bitexact
+        torch.cuda.empty_cache()
+        # (c) gemma2-9b at full width, its depth cut: the pair at head width 256
+        gemma2 = dataclasses.replace(get_config("gemma2-9b"), num_layers=GEMMA2_TRAIN_LAYERS,
+                                     attn_impl="pallas")
+        train_runs["gemma2-9b"] = phase_train(
+            f"(c) gemma2-9b pallas, {GEMMA2_TRAIN_LAYERS} of 42 layers", build_model(gemma2),
+            expect=("flash_attention", *BWD_KERNELS))
     torch.cuda.empty_cache()
     with phase("train CLI"):
         phase_train_cli()
@@ -2398,7 +2530,9 @@ def main() -> int:
         else:
             main_row = next(r for r in mine if r["label"] == "serve")
         if name in BWD_KERNELS:
-            per_step = dict(launches_per_train_step=runs[name]["per_step"][name])
+            per_step = dict(launches_per_train_step=runs[name]["per_step"][name],
+                            gemma2_9b_train_launches_per_step=train_runs["gemma2-9b"][
+                                "per_step"][name])
         elif name in ELEMENTWISE_KERNELS:
             per_step = dict(n=main_row["n"], t=main_row["t"])
         else:

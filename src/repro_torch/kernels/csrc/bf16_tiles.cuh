@@ -150,12 +150,13 @@ __device__ void split_rows(__nv_bfloat16* planes, int plane, const float* raw, i
   }
 }
 
-// rows x HD float32 read from device memory (rows past nvalid as zeros) -> N planes
-template <int HD, int N = 2>
+// rows x HD float32 read from device memory (rows past nvalid as zeros) -> N planes;
+// UNROLL 16-byte chunks in flight a thread
+template <int HD, int N = 2, int UNROLL = 4>
 __device__ void load_split_rows(__nv_bfloat16* planes, int plane, const float* src,
                                 size_t stride, int rows, int nvalid, int tid, int nthreads) {
   constexpr int C4 = HD / 4;
-#pragma unroll 4
+#pragma unroll (UNROLL)
   for (int i = tid; i < rows * C4; i += nthreads) {
     const int r = i / C4, c = (i % C4) * 4;
     const float4 x = r < nvalid ? __ldg(reinterpret_cast<const float4*>(src + r * stride + c))

@@ -34,7 +34,9 @@
 // at the train shape (B 8, S = T = 128, causal, 16 query and 8 KV heads of
 // 128), 3.6 us at 989 TFLOP/s, against 34 MB of operands and outputs read
 // or written once (10 us at 3.35 TB/s): bytes bound it there.  At S = T =
-// 1024 (B 1) the products take 28 us and the same bytes 10 us.
+// 1024 (B 1) the products take 28 us and the same bytes 10 us.  At head
+// width 256 (gemma2-9b's 16 / 8 heads) both double: 7.0 GFLOP (7.1 us)
+// against 67 MB (20 us) at the train shape, 56 us against 20 us at 1024.
 //
 // Tensor cores with float32-accurate products.  The reference computes the
 // backward in float32; one bf16 rounding of a float32 operand (2^-8
@@ -49,10 +51,14 @@
 //     the product); a float32 x float32 product runs x1 y1 + x1 y2 + x2 y1
 //     (3 MMAs; the dropped x2 y2 and the two residuals: <= 3 * 2^-16).
 // Per product:
-//   QK^T    bf16 q, k: exact (float32 inputs: 3 MMAs, <= 3 * 2^-16).  An
-//           error e in s moves p by a factor exp(e): |e| <= 3 * 2^-16 *
-//           scale * sum_d |q_d k_d|, about 5e-5 at unit-variance q, k and
-//           hd = 128, and far less on the main path.
+//   QK^T    bf16 q, k: exact (float32 inputs: 3 MMAs, <= 3 * 2^-16 per
+//           term).  An error e in s moves p by a factor exp(e).  At worst
+//           |e| <= 3 * 2^-16 * scale * sum_d |q_d k_d|, which grows as
+//           sqrt(hd): about 0.64 sqrt(hd) * 4.6e-5 at unit-variance q, k,
+//           3.3e-4 at hd = 128 and 4.7e-4 (sqrt(2) times) at hd = 256.  The
+//           terms' errors have no common sign, so e is about 4.6e-5 *
+//           scale * sqrt(sum_d (q_d k_d)^2), some 5e-5 at either width;
+//           on the main path (bf16 inputs) it is 0.
 //   dO.V^T  do split, v exact: <= 2^-16 per term (float32 v: 3 * 2^-16).
 //   dS.K    ds split, k exact: <= 2^-16 per term.
 //   dS^T.Q  ds split, q exact: <= 2^-16 per term.
@@ -62,9 +68,14 @@
 // times one term: the outputs' error stays near 2^-16 to 3 * 2^-16 of their
 // size, against a limit of 1e-4 = 6.6 * 2^-16 of the largest.  The tensor
 // core's float32 sum truncates, adding at most an ulp of the partial per
-// MMA (up to 2 * T / 16 MMAs into one dq, 3 * g * S / 16 into one dv: at
-// S = T = 1024, g = 2, 384 ulps = 4.6e-5 of the partial, seldom all of one
-// sign).  chip_smoke.py prints max|err| / limit for each output.
+// MMA.  The sums into one output run over slots and rows, not over hd, so
+// their MMA counts do not change with the head width: up to 2 * T / 16
+// (bf16; float32 inputs 3 * T / 16) into one dq, 3 * g * S / 16 into one
+// dv: at S = T = 1024, g = 2, 384 ulps = 4.6e-5 of the partial, seldom all
+// of one sign.  The sums into one s or dp run over hd: hd / 16 MMAs (three
+// times that for float32 inputs), 16 (48) at hd = 256, each adding at most
+// an ulp of its partial: under 6e-6 of the partials' size.
+// chip_smoke.py prints max|err| / limit for each output.
 //
 // Skipped tiles, decided from the data (positions and lse, never assuming
 // that positions are monotone).  dq: a key tile none of whose (row, slot)
@@ -85,6 +96,10 @@
 //       positions), the next live tile's copy in flight while this one
 //       computes.  Grid (S/64) H B: 256 blocks at the train shape and at
 //       S = T = 1024, two resident per SM (85 KiB of shared memory each).
+//       At hd = 256 a warp's dq tile is 128 floats a thread and a bf16
+//       block takes 165 KiB, one per SM; float32 inputs (kDirect) split
+//       k and v straight from device memory into one step's planes (198
+//       KiB), as a two-stage raw ring would need 326 KiB.
 //   dk/dv: one block per (64 key slots, KV head, batch); k and v are staged
 //       once.  The walk over the group's g query heads and the query tiles
 //       of 32 is split between two warp groups of four warps (bf16
@@ -95,6 +110,15 @@
 //       the split each SM would hold four warps; with it, eight.  At the
 //       end the second group hands its dk/dv partials to the first through
 //       shared memory, which adds them in that fixed order.
+//       At hd > 128 (KvLayout::kWide) a warp's dk and dv over the whole
+//       width would be 256 floats a thread, more than its registers, and
+//       two groups would need 328 KiB: one group of eight warps, warps w
+//       and w + 4 on the same 16 slots, each summing half of dk's and dv's
+//       columns (2 x 64 accumulators a thread).  Both compute the whole s,
+//       p, dp, ds tile from the same shared memory with the same
+//       instructions, so they hold the same bits.  bf16: 197 KiB; float32
+//       (kDirect): q and do split straight from device memory into one
+//       step's planes, 198 KiB.
 //   Per step each warp recomputes its 16 x 32 tile of s and dp on the
 //   tensor cores, forms p and ds in the accumulator registers, and feeds
 //   them (split) as the A operand of the next products: the C fragment of
@@ -121,7 +145,7 @@ constexpr int kDqKeys = 32;   // dq: key slots per step
 constexpr int kDqThreads = 128;
 constexpr int kKvKeys = 64;   // dk/dv: key slots per block (four warps of 16)
 constexpr int kKvRows = 32;   // dk/dv: query rows per step
-constexpr int kGroupThreads = 128;
+constexpr int kGroupWarps = 4;  // dk/dv: warps of a group, 16 slots each
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxDevices = 64;
 static_assert(kDqKeys == 32 && kKvRows == 32, "a warp judges one tile, a lane per row or slot");
@@ -145,34 +169,50 @@ struct DqLayout {
   static constexpr int LD = HD + 8;
   static constexpr int P = Input<T>::kPlanes;
   static constexpr bool kRaw = P > 1;  // float32 k, v: staged raw, then split
+  // float32 past head width 128: k and v split straight from device memory
+  // into one step's planes, no ring (two raw stages would not fit)
+  static constexpr bool kDirect = kRaw && HD > 128;
   static constexpr int kRow = 2 * LD;
   static constexpr int kQ = P * kDqRows * kRow;
   static constexpr int kDo = kSplit * kDqRows * kRow;
   static constexpr int kKvPlanes = 2 * P * kDqKeys * kRow;  // k and v of one step
   static constexpr int kStage = (kRaw ? 2 * kDqKeys * HD * 4 : kKvPlanes) + kDqKeys * 4;
-  static constexpr int kFixed = kQ + kDo + kStages * kStage + (kRaw ? kKvPlanes : 0);
+  static constexpr int kFixed = kDirect ? kQ + kDo + kKvPlanes + kDqKeys * 4
+                                        : kQ + kDo + kStages * kStage + (kRaw ? kKvPlanes : 0);
 };
 
 template <typename T, int HD>
 struct KvLayout {
   static constexpr int LD = HD + 8;
   static constexpr int P = Input<T>::kPlanes;
-  static constexpr int G = Input<T>::kGroups;
   static constexpr bool kRaw = P > 1;  // float32 q: staged raw, then split
+  // past head width 128 two warps share each 16 slots, each half of dk's
+  // and dv's columns, in one group of eight warps; float32 q and do are
+  // then split straight from device memory into one step's planes, no ring
+  static constexpr bool kWide = HD > 128;
+  static constexpr bool kDirect = kRaw && kWide;
+  static constexpr int kHalves = kWide ? 2 : 1;
+  static constexpr int G = kWide ? 1 : Input<T>::kGroups;
+  static constexpr int kGroupThreads = kHalves * kGroupWarps * 32;
+  static constexpr int kThreads = G * kGroupThreads;
   static constexpr int kRow = 2 * LD;
   static constexpr int kKv = 2 * P * kKvKeys * kRow;
   static constexpr int kQStage = kRaw ? kKvRows * HD * 4 : kKvRows * kRow;
   // q, raw do, then the rows' positions, lse and dd
   static constexpr int kStage = kQStage + kKvRows * HD * 4 + 3 * kKvRows * 4;
-  static constexpr int kGroup = kStages * kStage + kSplit * kKvRows * kRow + (kRaw ? P * kKvRows * kRow : 0);
+  static constexpr int kStats = 3 * kKvRows * 4;
+  static constexpr int kGroup =
+      kDirect ? (kSplit + P) * kKvRows * kRow + kStats
+              : kStages * kStage + kSplit * kKvRows * kRow + (kRaw ? P * kKvRows * kRow : 0);
   static constexpr int kFixed = kKv + G * kGroup;
   static_assert(G <= 2, "two warp groups at most");
   static_assert(G == 1 || kGroup >= 2 * kKvKeys * HD * 4, "a group's area holds its dk/dv partials");
 };
 
-// the named barrier of one warp group (barrier 0 is __syncthreads)
+// the named barrier of one warp group of N threads (barrier 0 is __syncthreads)
+template <int N>
 __device__ __forceinline__ void group_sync(int grp) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(kGroupThreads) : "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(N) : "memory");
 }
 
 // `n` live tiles on from `pos` (-1: before the first), or -1
@@ -218,9 +258,11 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);           // [P][64][LD]
   __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);  // [kSplit][64][LD]
   unsigned char* ring = smem + L::kQ + L::kDo;                          // kStages x (k, v, slots)
-  __nv_bfloat16* kv_split = reinterpret_cast<__nv_bfloat16*>(ring + kStages * L::kStage);
-  uint32_t* mask = reinterpret_cast<uint32_t*>(ring + kStages * L::kStage +
-                                               (L::kRaw ? L::kKvPlanes : 0));
+  // the split k and v planes: after the ring, or in its place (kDirect)
+  __nv_bfloat16* kv_split =
+      reinterpret_cast<__nv_bfloat16*>(L::kDirect ? ring : ring + kStages * L::kStage);
+  int* direct_kps = reinterpret_cast<int*>(ring + L::kKvPlanes);  // kDirect: the step's slots
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem + L::kFixed);
   __shared__ int red[8];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -299,27 +341,42 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
   int cur = next_live(mask, words, 0);
-  if (cur >= 0) load_tile(cur, 0);
-  cp_async_commit();
+  if constexpr (!L::kDirect) {
+    if (cur >= 0) load_tile(cur, 0);
+    cp_async_commit();
+  }
   for (int it = 0; cur >= 0; ++it) {
     const int nxt = next_live(mask, words, cur + 1);
-    if (nxt >= 0) load_tile(nxt, (it + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this step's tile landed
-    unsigned char* base = ring + (it & 1) * L::kStage;
-    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(base);
-    if constexpr (L::kRaw) {
-      const float* raw = reinterpret_cast<const float*>(base);
-      split_rows<HD>(kv_split, kPlaneK, raw, kDqKeys, tid, kDqThreads);
-      split_rows<HD>(kv_split + P * kPlaneK, kPlaneK, raw + kDqKeys * HD, kDqKeys, tid,
-                     kDqThreads);
-      __syncthreads();
-      ks = kv_split;
+    const int k0 = cur * kDqKeys;
+    const __nv_bfloat16* ks = kv_split;
+    const int* kps = direct_kps;
+    if constexpr (L::kDirect) {
+      // float32 k, v split as they are read; the previous step is consumed
+      const int nvalid = T_len - k0;
+      const size_t off = ((size_t(b) * T_len + k0) * KV + kvh) * HD;
+      load_split_rows<HD>(kv_split, kPlaneK, k + off, k_row, kDqKeys, nvalid, tid, kDqThreads);
+      load_split_rows<HD>(kv_split + P * kPlaneK, kPlaneK, v + off, k_row, kDqKeys, nvalid, tid,
+                          kDqThreads);
+      if (tid < kDqKeys) direct_kps[tid] = tid < nvalid ? kpos[k0 + tid] : 0;
+      __syncthreads();  // this step's planes are written
+    } else {
+      if (nxt >= 0) load_tile(nxt, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // this step's tile landed
+      unsigned char* base = ring + (it & 1) * L::kStage;
+      ks = reinterpret_cast<const __nv_bfloat16*>(base);
+      if constexpr (L::kRaw) {
+        const float* raw = reinterpret_cast<const float*>(base);
+        split_rows<HD>(kv_split, kPlaneK, raw, kDqKeys, tid, kDqThreads);
+        split_rows<HD>(kv_split + P * kPlaneK, kPlaneK, raw + kDqKeys * HD, kDqKeys, tid,
+                       kDqThreads);
+        __syncthreads();
+        ks = kv_split;
+      }
+      kps = reinterpret_cast<const int*>(base + L::kStage - kDqKeys * 4);
     }
     const __nv_bfloat16* vs = ks + P * kPlaneK;
-    const int* kps = reinterpret_cast<const int*>(base + L::kStage - kDqKeys * 4);
-    const int k0 = cur * kDqKeys;
 
     // s = q k^T and dp = do v^T: 16 rows x 32 slots per warp
     float sc[4][4], dp[4][4];
@@ -396,7 +453,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(Input<T>::kGroups * kGroupThreads, 1)
+__global__ void __launch_bounds__(KvLayout<T, HD>::kThreads, 1)
 flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const float* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ dd,
@@ -406,7 +463,8 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                float scale) {
   using L = KvLayout<T, HD>;
   constexpr int LD = L::LD, P = L::P, G = L::G;
-  constexpr int kThreads = G * kGroupThreads;
+  constexpr int kThreads = L::kThreads, kGT = L::kGroupThreads;
+  constexpr int kCols = HD / L::kHalves;  // columns of dk and dv a warp sums
   constexpr int kPlaneK = kKvKeys * LD, kPlaneQ = kKvRows * LD;  // values per plane
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [P][64][LD]
@@ -415,10 +473,14 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ int red[4];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int grp = tid / kGroupThreads, gtid = tid % kGroupThreads, wg = warp % 4;
+  const int grp = tid / kGT, gtid = tid % kGT, wg = warp % kGroupWarps;
+  const int c0 = L::kWide ? warp / kGroupWarps * kCols : 0;  // this warp's first column
   unsigned char* area = smem + L::kKv + grp * L::kGroup;  // this group's ring and planes
-  __nv_bfloat16* do_split = reinterpret_cast<__nv_bfloat16*>(area + kStages * L::kStage);
+  // the split do (and float32 q) planes: after the ring, or in its place (kDirect)
+  __nv_bfloat16* do_split =
+      reinterpret_cast<__nv_bfloat16*>(area + (L::kDirect ? 0 : kStages * L::kStage));
   __nv_bfloat16* q_split = do_split + kSplit * kPlaneQ;  // float32 q only
+  int* direct_stats = reinterpret_cast<int*>(area + L::kGroup - L::kStats);  // kDirect
 
   const int k0 = blockIdx.x * kKvKeys, kvh = blockIdx.y, b = blockIdx.z;
   const int group = H / KV;
@@ -485,12 +547,12 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = ((size_t(b) * S + r0) * H + hh) * HD;
     if constexpr (L::kRaw)
       copy_rows<T, HD, HD>(reinterpret_cast<T*>(base), q + off, q_row, kKvRows, nvalid, gtid,
-                           kGroupThreads);
+                           kGT);
     else
       copy_rows<T, HD, LD>(reinterpret_cast<T*>(base), q + off, q_row, kKvRows, nvalid, gtid,
-                           kGroupThreads);
+                           kGT);
     copy_rows<float, HD, HD>(reinterpret_cast<float*>(base + L::kQStage), dout + off, q_row,
-                             kKvRows, nvalid, gtid, kGroupThreads);
+                             kKvRows, nvalid, gtid, kGT);
     int* qps = reinterpret_cast<int*>(base + L::kQStage + kKvRows * HD * 4);
     if (gtid < 3 * kKvRows) {
       const int which = gtid / kKvRows, i = gtid % kKvRows;
@@ -504,33 +566,57 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+  float dk_acc[kCols / 8][4], dv_acc[kCols / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < kCols / 8; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
 
   // the live tiles in turn: group 0 takes the first, group 1 the second, ...
   int cur = advance_live(mask, words, -1, grp + 1);
-  if (cur >= 0) load_entry(cur, 0);
-  cp_async_commit();
+  if constexpr (!L::kDirect) {
+    if (cur >= 0) load_entry(cur, 0);
+    cp_async_commit();
+  }
   for (int it = 0; cur >= 0; ++it) {
     const int nxt = advance_live(mask, words, cur, G);
-    if (nxt >= 0) load_entry(nxt, (it + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    group_sync(grp);  // this step's tile landed
-    const unsigned char* base = area + (it & 1) * L::kStage;
-    split_rows<HD>(do_split, kPlaneQ, reinterpret_cast<const float*>(base + L::kQStage), kKvRows,
-                   gtid, kGroupThreads);
-    const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(base);
-    if constexpr (L::kRaw) {
-      split_rows<HD>(q_split, kPlaneQ, reinterpret_cast<const float*>(base), kKvRows, gtid,
-                     kGroupThreads);
-      qs = q_split;
+    const __nv_bfloat16* qs = q_split;
+    const int* qps = direct_stats;
+    if constexpr (L::kDirect) {
+      // float32 q, do split as they are read (one 16-byte chunk in flight:
+      // four beside the 128 accumulators spill), and the rows' positions,
+      // lse and dd; the previous step is consumed
+      const int gi = cur / q_tiles, qt = cur - gi * q_tiles;
+      const int hh = kvh * group + gi, r0 = qt * kKvRows, nvalid = S - r0;
+      const size_t off = ((size_t(b) * S + r0) * H + hh) * HD;
+      load_split_rows<HD, 2, 1>(q_split, kPlaneQ, q + off, q_row, kKvRows, nvalid, gtid, kGT);
+      load_split_rows<HD, 2, 1>(do_split, kPlaneQ, dout + off, q_row, kKvRows, nvalid, gtid,
+                                kGT);
+      if (gtid < kKvRows) {
+        const bool ok = gtid < nvalid;
+        const size_t stat = (size_t(b) * H + hh) * S + r0 + gtid;
+        direct_stats[gtid] = ok ? q_pos[size_t(b) * S + r0 + gtid] : 0;
+        reinterpret_cast<float*>(direct_stats)[kKvRows + gtid] = ok ? lse[stat] : 0.f;
+        reinterpret_cast<float*>(direct_stats)[2 * kKvRows + gtid] = ok ? dd[stat] : 0.f;
+      }
+      group_sync<kGT>(grp);  // this step's planes are written
+    } else {
+      if (nxt >= 0) load_entry(nxt, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      group_sync<kGT>(grp);  // this step's tile landed
+      const unsigned char* base = area + (it & 1) * L::kStage;
+      split_rows<HD>(do_split, kPlaneQ, reinterpret_cast<const float*>(base + L::kQStage),
+                     kKvRows, gtid, kGT);
+      qs = reinterpret_cast<const __nv_bfloat16*>(base);
+      if constexpr (L::kRaw) {
+        split_rows<HD>(q_split, kPlaneQ, reinterpret_cast<const float*>(base), kKvRows, gtid,
+                       kGT);
+        qs = q_split;
+      }
+      group_sync<kGT>(grp);
+      qps = reinterpret_cast<const int*>(base + L::kQStage + kKvRows * HD * 4);
     }
-    group_sync(grp);
-    const int* qps = reinterpret_cast<const int*>(base + L::kQStage + kKvRows * HD * 4);
     const float* lses = reinterpret_cast<const float*>(qps + kKvRows);
     const float* dds = lses + kKvRows;
     const int r0 = (cur % q_tiles) * kKvRows;
@@ -588,20 +674,21 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       split_a(pa, st[2 * kq], st[2 * kq + 1]);
       split_a(sa, dpt[2 * kq], dpt[2 * kq + 1]);
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
+      for (int np = 0; np < kCols / 16; ++np) {
         uint32_t db[kSplit][4], qb[P][4];
 #pragma unroll
         for (int s = 0; s < kSplit; ++s)
-          load_b_kn(db[s], do_split + s * kPlaneQ, LD, 16 * kq, 16 * np, lane);
+          load_b_kn(db[s], do_split + s * kPlaneQ, LD, 16 * kq, c0 + 16 * np, lane);
 #pragma unroll
-        for (int p = 0; p < P; ++p) load_b_kn(qb[p], qs + p * kPlaneQ, LD, 16 * kq, 16 * np, lane);
+        for (int p = 0; p < P; ++p)
+          load_b_kn(qb[p], qs + p * kPlaneQ, LD, 16 * kq, c0 + 16 * np, lane);
         mma_terms<kSplit, kSplit>(dv_acc[2 * np], pa, db, 0);
         mma_terms<kSplit, kSplit>(dv_acc[2 * np + 1], pa, db, 1);
         mma_terms<kSplit, P>(dk_acc[2 * np], sa, qb, 0);
         mma_terms<kSplit, P>(dk_acc[2 * np + 1], sa, qb, 1);
       }
     }
-    group_sync(grp);  // this stage and the planes are consumed before they are refilled
+    group_sync<kGT>(grp);  // this stage and the planes are consumed before they are refilled
     cur = nxt;
   }
   cp_async_wait<0>();
@@ -610,32 +697,32 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // group 1's partials, through its own area, added by group 0 in that order
     __syncthreads();
     float* part = reinterpret_cast<float*>(smem + L::kKv + L::kGroup);
-    constexpr int kRegs = HD / 8 * 4;
+    constexpr int kRegs = kCols / 8 * 4;
     if (grp == 1) {
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < kCols / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          part[(j * 4 + c) * kGroupThreads + gtid] = dk_acc[j][c];
-          part[(kRegs + j * 4 + c) * kGroupThreads + gtid] = dv_acc[j][c];
+          part[(j * 4 + c) * kGT + gtid] = dk_acc[j][c];
+          part[(kRegs + j * 4 + c) * kGT + gtid] = dv_acc[j][c];
         }
     }
     __syncthreads();
     if (grp == 1) return;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < kCols / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        dk_acc[j][c] += part[(j * 4 + c) * kGroupThreads + gtid];
-        dv_acc[j][c] += part[(kRegs + j * 4 + c) * kGroupThreads + gtid];
+        dk_acc[j][c] += part[(j * 4 + c) * kGT + gtid];
+        dv_acc[j][c] += part[(kRegs + j * 4 + c) * kGT + gtid];
       }
   }
 
   float* dko = dk + k_off;
   float* dvo = dv + k_off;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int col = j * 8 + 2 * t;
+  for (int j = 0; j < kCols / 8; ++j) {
+    const int col = c0 + j * 8 + 2 * t;
     if (live_lo) {
       *reinterpret_cast<float2*>(dko + s_lo * k_row + col) =
           make_float2(dk_acc[j][0] * scale, dk_acc[j][1] * scale);
@@ -691,7 +778,7 @@ cudaError_t plan_dq(int B, int S, int T_len, int H, int KV, Plan* p) {
 template <typename T, int HD>
 cudaError_t plan_dkv(int B, int S, int T_len, int H, int KV, Plan* p) {
   p->grid = dim3((T_len + kKvKeys - 1) / kKvKeys, KV, B);
-  p->threads = Input<T>::kGroups * kGroupThreads;
+  p->threads = KvLayout<T, HD>::kThreads;
   p->smem = KvLayout<T, HD>::kFixed + mask_bytes((H / KV) * ((S + kKvRows - 1) / kKvRows));
   return cudaSuccess;
 }
@@ -743,6 +830,8 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
     case 129: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                           \
     case 256: return FN<float, 128>(__VA_ARGS__);                                  \
     case 257: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                          \
+    case 512: return FN<float, 256>(__VA_ARGS__);                                  \
+    case 513: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                          \
     default: return cudaErrorInvalidValue;                                         \
   }
 

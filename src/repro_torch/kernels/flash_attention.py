@@ -54,11 +54,7 @@ __all__ = [
 NEG_INF = -2.3819763e38  # bf16-safe large negative (the reference's value)
 Q_CHUNK = 1024
 K_CHUNK = 1024
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths every attention kernel is built for
-# the serving kernels (the forward, the decode, the approximate attention)
-# are also built for gemma's 256; the backward pair is not yet (ROADMAP.md
-# queue 2: it waits for gemma training)
-FWD_HEAD_DIMS = HEAD_DIMS + (256,)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths every attention kernel is built for
 MAX_GROUP = 16  # flash_decode: query heads per KV head
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -91,7 +87,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # stepping over 32 key slots; dk/dv blocks of 64 slots stepping over 32
 # query rows, in two warp groups of four warps for bf16 inputs (one for
 # float32); a float32 operand enters the bf16 tensor cores as SPLIT terms,
-# a bf16 one as it is; cp.async rings of STAGES steps; bf16 rows padded by 8
+# a bf16 one as it is; cp.async rings of STAGES steps; bf16 rows padded by
+# 8.  Past head width 128 dk/dv takes one group of eight warps, two to each
+# 16 slots (each half of dk's and dv's columns), and float32 operands are
+# split straight from device memory into one step's planes, in both
+# kernels, with no ring
 DQ_ROWS, DQ_KEYS, KV_KEYS, KV_ROWS = 64, 32, 64, 32
 GROUP_THREADS, SPLIT, STAGES, ROW_PAD = 128, 2, 2, 8
 # csrc/flash_attention.cu: forward items of 64 row-heads (four warps of
@@ -148,9 +148,10 @@ def _fwd_groups(dtype: torch.dtype, hd: int, items: int = 0, sms: int = 1) -> in
     return most if items == 0 or sms < items <= 2 * sms else 1
 
 
-def _fwd_halves(hd: int) -> int:
-    """Warps that share each 16 row-heads of the forward, each taking
-    ``hd / halves`` output columns: two past head width 128 (``kHalves``)."""
+def _halves(hd: int) -> int:
+    """Warps that share each 16 row-heads of the forward, or each 16 slots
+    of dk/dv, each taking ``hd / halves`` output columns: two past head
+    width 128 (``kHalves`` of both)."""
     return 2 if hd > 128 else 1
 
 
@@ -161,9 +162,17 @@ def _fwd_keys(dtype: torch.dtype, hd: int) -> int:
     return FWD_KEYS // 2 if _planes(dtype) > 1 and hd > 128 else FWD_KEYS
 
 
-def _groups(dtype: torch.dtype) -> int:
-    """Warp groups of the dk/dv kernel: two for bf16, one for float32."""
-    return 2 if _planes(dtype) == 1 else 1
+def _groups(dtype: torch.dtype, hd: int) -> int:
+    """Warp groups of the dk/dv kernel: two for bf16 up to head width 128,
+    else one."""
+    return 2 if _planes(dtype) == 1 and hd <= 128 else 1
+
+
+def _direct(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the backward splits its streamed float32 operands straight
+    from device memory into one step's planes (``kDirect``): past head
+    width 128, where a two-stage ring of them overflows the shared memory."""
+    return _planes(dtype) > 1 and hd > 128
 
 
 def smem_bytes(kernel: str, hd: int, dtype: torch.dtype, s: int, t: int, group: int,
@@ -192,17 +201,21 @@ def smem_bytes(kernel: str, hd: int, dtype: torch.dtype, s: int, t: int, group: 
         return (-(-group * hd * 4 // 16) * 16 + DEC_STAGES * (2 * tile + DEC_TILE * 4)
                 + group * (DEC_TILE + 3) * 4)
     planes = _planes(dtype)
-    raw = planes > 1
+    raw, direct = planes > 1, _direct(dtype, hd)
     if kernel == "dq":
         kv_planes = 2 * planes * DQ_KEYS * row
         stage = (2 * DQ_KEYS * hd * 4 if raw else kv_planes) + DQ_KEYS * 4
-        fixed = (planes + SPLIT) * DQ_ROWS * row + STAGES * stage + (kv_planes if raw else 0)
+        # the ring, or (direct) one step's planes and slot positions
+        streamed = kv_planes + DQ_KEYS * 4 if direct else \
+            STAGES * stage + (kv_planes if raw else 0)
+        fixed = (planes + SPLIT) * DQ_ROWS * row + streamed
         entries = -(-t // DQ_KEYS)
     elif kernel == "dkv":
         q_stage = KV_ROWS * hd * 4 if raw else KV_ROWS * row
         stage = q_stage + KV_ROWS * hd * 4 + 3 * KV_ROWS * 4
-        area = STAGES * stage + (SPLIT + (planes if raw else 0)) * KV_ROWS * row
-        fixed = 2 * planes * KV_KEYS * row + _groups(dtype) * area
+        planes_q = (SPLIT + (planes if raw else 0)) * KV_ROWS * row  # split do (and q)
+        area = planes_q + (3 * KV_ROWS * 4 if direct else STAGES * stage)
+        fixed = 2 * planes * KV_KEYS * row + _groups(dtype, hd) * area
         entries = group * -(-s // KV_ROWS)
     else:
         raise ValueError(f"kernel must be 'fwd', 'decode', 'dq' or 'dkv', got {kernel!r}")
@@ -239,7 +252,7 @@ def launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
     (one block per one or two work items, a group of four warps each) and
     "decode" (one block per KV head, cache chunk and batch row), both on a
     card with ``sms`` SMs."""
-    _check_width(hd, backward=kernel in ("dq", "dkv"))
+    _check_width(hd)
     if kernel in ("fwd", "decode") and sms is None:
         raise ValueError(f"the {kernel} plan needs the card's SM count (sms=)")
     if kernel == "fwd":
@@ -247,7 +260,7 @@ def launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
         items = b * kv * chunks * -(-s // rows)
         groups = _fwd_groups(dtype, hd, items, sms)
         smem = smem_bytes(kernel, hd, dtype, s, t, h // kv, items, sms)
-        return FwdPlan((-(-items // groups), 1, 1), groups * FWD_THREADS * _fwd_halves(hd),
+        return FwdPlan((-(-items // groups), 1, 1), groups * FWD_THREADS * _halves(hd),
                        smem, rows, heads, _fwd_keys(dtype, hd))
     smem = smem_bytes(kernel, hd, dtype, s, t, h // kv)
     if kernel == "decode":
@@ -257,7 +270,8 @@ def launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
         return FwdPlan((kv, chunks, b), DEC_THREADS, smem, 1, h // kv, chunk)
     if kernel == "dq":
         return BwdPlan((-(-s // DQ_ROWS), h, b), DQ_ROWS // 16 * 32, smem)  # a warp per 16 rows
-    return BwdPlan((-(-t // KV_KEYS), kv, b), _groups(dtype) * GROUP_THREADS, smem)
+    return BwdPlan((-(-t // KV_KEYS), kv, b), _groups(dtype, hd) * GROUP_THREADS * _halves(hd),
+                   smem)
 
 
 def built_launch_plan(kernel: str, b: int, s: int, t: int, h: int, kv: int, hd: int,
@@ -551,22 +565,18 @@ def flash_decode_plain(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
 
 
 # -------------------------------------------------------------- wrappers
-def _check_width(hd: int, *, backward: bool = False) -> None:
-    """Raise unless the kernels (the backward pair, or the forward and the
-    decode) are built for head width ``hd``."""
-    widths = HEAD_DIMS if backward else FWD_HEAD_DIMS
-    if hd not in widths:
-        later = (" (the backward pair at head width 256 waits for gemma training: "
-                 "ROADMAP.md queue 2)" if hd in FWD_HEAD_DIMS else "")
-        raise ValueError(f"head_dim {hd} is not one of the built widths {widths}{later}")
+def _check_width(hd: int) -> None:
+    """Raise unless the attention kernels are built for head width ``hd``."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of the built widths {HEAD_DIMS}")
 
 
-def _check_qkv(q, k, v, q_pos, k_pos, q_shape, k_shape, qp_shape, *, backward=False):
+def _check_qkv(q, k, v, q_pos, k_pos, q_shape, k_shape, qp_shape):
     dev = q.device
     dtype = q.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"q has dtype {dtype}; the kernels take {list(_DTYPES)}")
-    _check_width(q_shape[-1], backward=backward)
+    _check_width(q_shape[-1])
     check_operand(q, "q", dtype, q_shape, dev)
     check_operand(k, "k", dtype, k_shape, dev)
     check_operand(v, "v", dtype, k_shape, dev)
@@ -649,8 +659,7 @@ def _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd):
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     q, k, v, q_pos, k_pos = q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos), _i32(k_pos)
-    dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s),
-                       backward=True)
+    dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s))
     do, lse, dd = (x.to(torch.float32).contiguous() for x in (do, lse, dd))
     check_operand(do, "do", torch.float32, (b, s, h, hd), q.device)
     check_operand(lse, "lse", torch.float32, (b, h, s), q.device)

@@ -179,10 +179,12 @@ def test_plan_skips_at_the_chip_smoke_shapes(mode, shape, bk):
 
 # ------------------------------------------------------------ launch plan
 def test_shared_memory_fits_every_accepted_width():
-    """Every (mode, n <= 8, hd, rank <= 24) fits a block's shared memory,
-    in whole 16-byte words (bitexact at each row-tile factor)."""
+    """Every (mode, n <= 8, hd <= 128, rank <= 24) fits a block's shared
+    memory, in whole 16-byte words (bitexact at each row-tile factor); head
+    width 256, where lowrank takes ranks up to 8 and bitexact TM up to 2 at
+    n = 8: ``test_head_width_256_plans_fit_the_card``."""
     for n in range(1, 9):
-        for hd in HEAD_DIMS:
+        for hd in (w for w in HEAD_DIMS if w <= 128):
             for tm in (1, 2, 4):
                 nbytes = aa.smem_bytes("bitexact", n, hd, 8, tm)
                 assert nbytes <= SMEM_PER_BLOCK and nbytes % 16 == 0, (n, hd, tm)

@@ -112,6 +112,15 @@ def test_flash_attention_grads_bf16_within_one_ulp(variant):
     _check_flash(*_inputs(seed=7), dtype="bfloat16", **VARIANTS[variant])
 
 
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+def test_flash_attention_grads_at_head_width_256(variant, dtype):
+    """gemma's head width, gemma2-9b's 16 query and 8 KV heads cut to 4 and
+    2: the port's autograd (the backward pair's plain version on the CPU)
+    against the reference's custom_vjp in interpret mode."""
+    _check_flash(*_inputs(h=4, kv=2, hd=256, seed=256), dtype=dtype, **VARIANTS[variant])
+
+
 def test_flash_attention_grads_with_masked_cache_slots():
     """Keys are a 48-slot cache of which the 32 prompt slots are written."""
     _check_flash(*_inputs(t=48, seed=3))

@@ -426,8 +426,9 @@ def test_head_width_256_plans_fit_the_card(dtype, g, shape):
     """gemma's head width: the forward takes one item a block (eight warps,
     two to each 16 row-heads), float32 key tiles of 32, and every plan's
     shared memory fits a block at any SM count (two items a block would
-    not: 338,976 bytes for bf16); the decode fits; the backward pair is not
-    built for 256 and says where that is planned."""
+    not: 338,976 bytes for bf16); the decode fits; so do the backward
+    pair's (dq four warps, dk/dv one group of eight warps, two to each 16
+    slots), and the CPU backward at 256 is the plain version."""
     b, s, t = WIDE_SHAPES[shape]
     h, kv = 16, 16 // g
     for sms in (SMS, 1, b * kv * 64):  # one wave, many, and items within (sms, 2 sms]
@@ -439,17 +440,20 @@ def test_head_width_256_plans_fit_the_card(dtype, g, shape):
         assert plan.smem <= SMEM_PER_BLOCK and plan.smem % 16 == 0
         dec = fa.launch_plan("decode", b, 1, t, h, kv, 256, dtype, sms=sms)
         assert dec.smem == fa.smem_bytes("decode", 256, dtype, 1, t, g) <= SMEM_PER_BLOCK
-    for kernel in ("dq", "dkv"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            fa.launch_plan(kernel, b, s, t, h, kv, 256, dtype)
+    dq = fa.launch_plan("dq", b, s, t, h, kv, 256, dtype)
+    assert dq == fa.BwdPlan((-(-s // 64), h, b), 128, fa.smem_bytes("dq", 256, dtype, s, t, g))
+    dkv = fa.launch_plan("dkv", b, s, t, h, kv, 256, dtype)
+    assert dkv == fa.BwdPlan((-(-t // 64), kv, b), 256, fa.smem_bytes("dkv", 256, dtype, s, t, g))
+    for plan in (dq, dkv):
+        assert plan.smem <= SMEM_PER_BLOCK and plan.smem % 4 == 0
     q = torch.zeros((b, s, h, 256), dtype=dtype)
     k = torch.zeros((b, t, kv, 256), dtype=dtype)
-    pos = torch.zeros((b, s), dtype=torch.int32)
-    kpos = torch.zeros((b, t), dtype=torch.int32)
-    stats = torch.zeros((b, h, s))
-    for wrapper in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            wrapper(q, k, k, pos, kpos, q.float(), stats, stats)
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s) + (t - s)
+    kpos = torch.arange(t, dtype=torch.int32).expand(b, t)
+    o, lse = fa.flash_attention_fwd(q, k, k, pos, kpos, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, k, pos, kpos, o, lse, o)
+    assert [tuple(x.shape) for x in got] == [(b, s, h, 256), (b, t, kv, 256), (b, t, kv, 256)]
+    assert all(x.dtype == torch.float32 and not bool(x.any()) for x in got)
 
 
 def test_head_width_256_hand_worked_shared_memory():
@@ -462,6 +466,34 @@ def test_head_width_256_hand_worked_shared_memory():
         3 * 33_792 + 2 * 3 * 16_896 + 128 + 16 == 202_896
     assert fa.launch_plan("fwd", 1, 1024, 1024, 16, 8, 256, torch.bfloat16, sms=SMS) == \
         fa.FwdPlan((8 * 32, 1, 1), 256, 169_488, 32, 2, 64)
+
+
+def test_head_width_256_backward_hand_worked_shared_memory():
+    """The backward pair at 256, planes of rows of 264 bf16 (528 bytes), the
+    live-tile mask in whole words.  dq, bf16: q (one plane of 64 rows), do
+    (two), two ring stages of k and v (32 rows each) and 32 slot positions;
+    float32: q and do two planes each, k and v split straight into two
+    planes each, one step's 32 positions, no ring.  dk/dv, bf16: k and v
+    (64 rows), one group's two ring stages of q (a plane of 32 rows), raw
+    do (32 x 256 float32) and 3 x 32 stats, and the split do (two planes);
+    float32: k and v two planes each, then split q and do (two planes
+    each) and the 3 x 32 stats of one step."""
+    row, bf, f32 = 528, torch.bfloat16, torch.float32
+    assert fa.smem_bytes("dq", 256, bf, 128, 128, 2) == \
+        64 * row + 2 * 64 * row + 2 * (2 * 32 * row + 128) + 4 == 169_220
+    assert fa.smem_bytes("dq", 256, f32, 128, 128, 2) == \
+        2 * 64 * row + 2 * 64 * row + 2 * 2 * 32 * row + 128 + 4 == 202_884
+    assert fa.smem_bytes("dkv", 256, bf, 128, 128, 2) == \
+        2 * 64 * row + 2 * (32 * row + 32 * 1024 + 384) + 2 * 32 * row + 4 == 201_476
+    assert fa.smem_bytes("dkv", 256, f32, 128, 128, 2) == \
+        2 * 2 * 64 * row + (2 + 2) * 32 * row + 384 + 4 == 203_140
+    # S = T = 1024: 32 key tiles (dq), 2 heads x 32 query tiles (dk/dv) in the mask
+    assert fa.smem_bytes("dq", 256, bf, 1024, 1024, 2) == 169_216 + 4
+    assert fa.smem_bytes("dkv", 256, bf, 1024, 1024, 2) == 201_472 + 8
+    assert fa.launch_plan("dkv", 8, 128, 128, 16, 8, 256, bf) == \
+        fa.BwdPlan((2, 8, 8), 256, 201_476)
+    assert fa.launch_plan("dq", 8, 128, 128, 16, 8, 256, f32) == \
+        fa.BwdPlan((2, 16, 8), 128, 202_884)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

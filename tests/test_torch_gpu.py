@@ -569,6 +569,10 @@ def _bwd_inputs(card, b, s, h, kv, hd, dtype, seed, pad=0):
     (16, 8, 128, None, None, 0, 72, True), (8, 2, 64, 24, 30.0, 0, 72, True),
     (4, 4, 16, None, None, 5, 72, True), (16, 8, 128, None, None, 0, 200, True),
     (4, 2, 32, 24, None, 0, 200, False),
+    # head width 256: gemma2-9b's heads (16 / 8) plain, window + softcap and a
+    # pad row, ragged tiles; gemma-7b's 16 / 16
+    (16, 8, 256, None, None, 0, 72, True), (16, 8, 256, 24, 50.0, 5, 200, True),
+    (16, 16, 256, None, None, 0, 200, True),
 ])
 def test_flash_backward_kernels_match_plain_version(h, kv, hd, window, softcap, pad, s, causal,
                                                     dtype, card):
@@ -603,7 +607,7 @@ def test_flash_backward_kernels_match_plain_version(h, kv, hd, window, softcap, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_flash_backward_launch_plan_is_the_kernels(hd, dtype, card):
     """``launch_plan`` and ``smem_bytes``, which the CPU tests read, equal
     the grid, block and shared memory that the built library launches

@@ -143,9 +143,15 @@ def _assert_moments_equal(port_opt, ref_opt, bits):
                 assert err <= 1e-6 * np.abs(b).max(), (err, np.abs(b).max())
 
 
+# the reduced trees: qwen3-0.6b's one stacked group; gemma2-9b's period-2
+# (local, global) group with a remainder layer, and its post-norms
+ADAMW_TREES = {"qwen3-0.6b": {}, "gemma2-9b": dict(num_layers=3)}
+
+
+@pytest.mark.parametrize("arch", sorted(ADAMW_TREES))
 @pytest.mark.parametrize("bits", [32, 8])
 @pytest.mark.parametrize("grad_scale", [1e-3, 1.0], ids=["unclipped", "clipped"])
-def test_adamw_matches_reference_on_a_stacked_tree(bits, grad_scale):
+def test_adamw_matches_reference_on_a_stacked_tree(bits, grad_scale, arch):
     """Three steps on the reduced model's stacked tree (norms random, so
     their weight decay shows), identical gradients.  The port starts its
     second step from the reference's state (``from_reference``).  With
@@ -153,9 +159,9 @@ def test_adamw_matches_reference_on_a_stacked_tree(bits, grad_scale):
     sum over leaves in another order; in 8-bit a moment that sits a hair
     from a rounding boundary then moves by one code and moves its parameter
     in the next step, so 8-bit with clipping is compared over one step."""
-    cfg = jax_get_config("qwen3-0.6b").reduced()
+    cfg = jax_get_config(arch).reduced(**ADAMW_TREES[arch])
     tree = _random_tree(cfg, seed=bits)
-    tparams = from_jax_params(tree, get_config("qwen3-0.6b").reduced(), device="cpu")
+    tparams = from_jax_params(tree, get_config(arch).reduced(**ADAMW_TREES[arch]), device="cpu")
     leaves = reference_leaves(tparams)
     named = dict(tparams.named_parameters())
     jtcfg = JaxTrainConfig(learning_rate=1e-2, warmup_steps=2, total_steps=6, opt_state_bits=bits)
@@ -279,9 +285,24 @@ def _force_port_inputs(monkeypatch, recorded):
     monkeypatch.setattr(port_attention, "approx_flash_attention", forced_attn)
 
 
+# gemma2-9b: period-2 (local, global) groups and a remainder layer, both
+# softcaps, post-norms, tied embeddings, the reduced window of 8 binding at
+# seq 16, under the Pallas-path attention (the flash forward with lse and
+# the backward pair); unscanned, as the reference's train driver runs a
+# remainder; also at gemma's head width 256
+GEMMA2_STEP = dict(num_layers=3, attn_impl="pallas", scan_layers=False)
+EXACT_STEPS = {
+    "exact": ("qwen3-0.6b", {}),
+    "gemma2-9b-pallas": ("gemma2-9b", GEMMA2_STEP),
+    "gemma2-9b-pallas-hd256": ("gemma2-9b", dict(GEMMA2_STEP, head_dim=256)),
+    "yi-9b": ("yi-9b", {}),  # an untied lm_head
+}
+
+
 def _step_configs(case):
-    if case == "exact":
-        return jax_get_config("qwen3-0.6b").reduced(), get_config("qwen3-0.6b").reduced()
+    if case in EXACT_STEPS:
+        arch, over = EXACT_STEPS[case]
+        return jax_get_config(arch).reduced(**over), get_config(arch).reduced(**over)
     if case == "paper-multiplier":
         # unscanned: the recorder reads concrete inputs, which lax.scan does not give
         return (jax_get_config("paper-multiplier").reduced(scan_layers=False),
@@ -292,14 +313,15 @@ def _step_configs(case):
             apply_approx(get_config("qwen3-0.6b").reduced(**over), **kw))
 
 
-@pytest.mark.parametrize("case", ["exact", "paper-multiplier", "bitexact-mlp+attn-pallas"])
+@pytest.mark.parametrize("case", ["exact", "paper-multiplier", "bitexact-mlp+attn-pallas",
+                                  "gemma2-9b-pallas", "gemma2-9b-pallas-hd256", "yi-9b"])
 def test_train_step_loss_and_gradients_match_reference(case, monkeypatch):
     jcfg, tcfg = _step_configs(case)
     jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
     toks = np.random.default_rng(4).integers(0, 256, (2, 17)).astype(np.int32)
     jbatch = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
-    if case != "exact":
+    if case not in EXACT_STEPS:
         _force_port_inputs(monkeypatch,
                            _record_reference_inputs(monkeypatch, jcfg, jparams, jbatch))
     (want_loss, _), jgrads = jax.value_and_grad(jax_loss_fn, has_aux=True)(
@@ -432,14 +454,15 @@ def test_training_lowers_the_loss(bits, comp, lr):
         assert np.isfinite(float(m["compress_residual_sq"]))
 
 
-def test_cpu_train_cli_lowers_the_loss():
+@pytest.mark.parametrize("arch", ["paper-multiplier", "gemma2-9b"])
+def test_cpu_train_cli_lowers_the_loss(arch):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "paper-multiplier",
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
          "--reduced", "--device", "cpu", "--steps", "16", "--batch", "2", "--seq", "32"],
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert re.search(r"arch=paper-multiplier-smoke params=[\d.]+M devices=1", proc.stdout)
+    assert re.search(rf"arch={arch}-smoke params=[\d.]+M devices=1", proc.stdout)
     m = re.search(r"loss ([\d.]+) -> ([\d.]+)", proc.stdout)
     assert m, proc.stdout
     assert float(m.group(2)) < float(m.group(1)), proc.stdout
