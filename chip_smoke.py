@@ -59,6 +59,12 @@ Phases, one line each (or a few):
    at the serve shape), one float32 forward at 256, and the forward of
    train (c) at gemma2's train shape with lse, with and without softcap
    50, and bitexact there with lse (the approximate route's train forward).
+   Query groups of 7 and head width 64, every row timed and held as above:
+   qwen2-vl-7b's 28 query heads over 4 KV heads of 128 (the forward at the
+   serve shape, at S = T = 1024 and at the train shape with lse, the decode
+   at the serve shape and over 4,096 slots, bitexact and lowrank at the
+   serve shape) and granite-moe-1b-a400m's 16 / 8 of 64 (the forward at
+   the serve and train shapes, the decode at the serve shape).
    Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
    operands split into two bf16 terms, tiles with nothing to add skipped)
    against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
@@ -72,7 +78,8 @@ Phases, one line each (or a few):
    head width 256, gemma2-9b's 16 / 8 heads at each of those shapes (window
    64 and softcap 50 at the train shape), gemma-7b's 16 / 16, gemma2's in
    float32 and on the bitexact forward's (o, lse), and yi-9b's 32 / 4 of
-   128 (g = 8), all at the train shape; the build phase checks that every
+   128 (g = 8), qwen2-vl-7b's 28 / 4 of 128 (g = 7) and granite's 16 / 8
+   of 64, all at the train shape; the build phase checks that every
    instantiation of both kernels has tensor-core instructions (HMMA) in its
    SASS, and that none of their four at head width 256 spills.  Elementwise multiplier:
    ``seqmul_packed`` at n in {4, 8, 12, 15} and ``seqmul_words`` at n in
@@ -123,6 +130,12 @@ Phases, one line each (or a few):
    attention kernels at head width 256; each approximate call fed the
    CPU's inputs after its own are held to 1e-4, since an ulp can cross an
    8-bit quantizer boundary), card against CPU within rtol/atol 1e-4;
+   then reduced qwen2-vl-7b with 7 query heads on one KV head of 128 (g =
+   7), fed patch embeddings at distinct t/h/w ids: prefill and four decode
+   steps through flash_attention and flash_decode against the plain
+   attention on the card (rtol/atol 1e-4), and reduced granite-moe-1b-a400m
+   at the balanced tier (bitexact experts and attention projections),
+   card against CPU, the approximate calls fed the CPU's inputs;
 5. serve: the continuous scheduler on full-width qwen3-0.6b (28 layers,
    d_model 1024, vocab 151936, bf16, weights from a seed) at tier
    ``exact`` (no kernel: the yardstick), tier ``balanced`` (lut_matmul),
@@ -130,15 +143,15 @@ Phases, one line each (or a few):
    (seqmul_matmul); then with ``attn_impl="pallas"`` at tier ``exact``
    (flash_attention, flash_decode), tier ``balanced`` (adds
    approx_attention_bitexact and lut_matmul) and ``lowrank`` on mlp and
-   attn (lowrank_matmul, approx_attention_lowrank, flash_decode); four
-   batches of requests per run (two for seqmul).  Every launch count is
+   attn (lowrank_matmul, approx_attention_lowrank, flash_decode); two
+   batches of requests per run (one for seqmul).  Every launch count is
    set to 0 just before each run and read just after.
    After each run, one pool prefill and one decode step give the
-   launches and host time per step, and a profiler pass over three
-   decode steps the device's busy share.  Then the rest of serving:
+   launches and host time per step, and a profiler pass over one
+   decode step the device's busy share.  Then the rest of serving:
    ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over the
-   exact run's 16 requests (packed_matmul) and on the pallas exact pool
-   over 8 of its requests (flash_decode, flash_attention, packed_matmul),
+   exact run's 8 requests (packed_matmul) and on the pallas exact pool
+   over 4 of its requests (flash_decode, flash_attention, packed_matmul),
    their streams held against the greedy runs' by the margin rule (equal
    up to each request's first greedy step whose top-2 logit gap, by
    teacher forcing, is under ``STREAM_MARGIN``), with accept rate, rounds,
@@ -155,10 +168,21 @@ Phases, one line each (or a few):
    layers, 32 / 4 heads of 128, an untied head), bf16 weights from seed 0,
    one model on the card at a time, 8 requests (two batches) a run at the
    exact tiers and 4 (one batch) at the approximate ones, with the same
-   checks and launch counts (one profiled decode step a run): gemma2-9b at exact, balanced, draft,
+   checks and launch counts (one profiled decode step a run, none for
+   granite's draft run): gemma2-9b at exact, balanced, draft,
    pallas exact, pallas balanced and pallas lowrank on mlp and attn;
    gemma-7b at exact and pallas exact; yi-9b at exact, balanced and pallas
-   exact, each with its parameter count, decode step ms and busy share;
+   exact; qwen2-vl-7b (28 layers, d_model 3584, 28 / 4 heads of 128, M-RoPE,
+   d_ff 18944, vocab 152064, untied, 7.62B params; served on text tokens,
+   t = h = w) at exact, balanced, pallas exact and pallas balanced
+   (approx_attention_bitexact at g = 7); granite-moe-1b-a400m (24 layers,
+   32 experts top-8 of moe_d_ff 512, 16 / 8 heads of 64, vocab 49155, tied,
+   1.335B params) at exact, balanced (lut_matmul on every expert GEMM and
+   attention projection), draft (packed_matmul per expert; these two at 8
+   tokens a request) and pallas exact, each MoE run also printing the kernel launches inside the
+   expert GEMMs per decode step and the share of routed assignments that
+   capacity dropped, counted in the run; each with its parameter count,
+   decode step ms and busy share;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
@@ -168,10 +192,14 @@ Phases, one line each (or a few):
    gemma2-9b at its published widths (d_model 3584, 16 / 8 heads of 256,
    vocab 256,000, both softcaps, window 4,096, tied embeddings), its depth
    cut to 4 layers (local, global, local, global), bf16, remat "full",
-   pallas (flash_attention, dq and dk/dv at head width 256): the loss must
-   be finite and fall, and each expected kernel must launch in every step;
-   each prints the means of its first and last ten losses, its first two
-   losses, step ms, train tokens/s, launches per step, peak device memory
+   pallas (flash_attention, dq and dk/dv at head width 256), and (d)
+   granite-moe-1b-a400m at its published widths and depth (24 layers, 32
+   experts top-8, capacity 1.25, bf16, remat "full", pallas: the forward
+   and the pair at head width 64, the MoE aux loss in the loss): the loss
+   must be finite and fall (and (d)'s aux positive at every step), and
+   each expected kernel must launch in every step; each prints the means
+   of its first and last ten losses, its first two losses ((d) also its CE
+   and aux at steps 1 and 16), step ms, train tokens/s, launches per step, peak device memory
    and the busy share of one profiled step (with the device's top
    kernels and each of the port's kernels' device time).  Then the train CLI
    on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
@@ -228,7 +256,10 @@ F32_LANES_PER_CLK_PER_SM = 128  # Hopper SM: 4 partitions x 32 FP32 lanes, one F
 
 # qwen3-0.6b projections (K, N): q, k/v, o, mlp up/gate, mlp down
 PROJECTIONS = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
-SERVE = dict(requests=16, batch=4, prompt=32, gen=16)  # four batches per run
+SERVE = dict(requests=16, batch=4, prompt=32, gen=16)
+# the qwen3-0.6b tier runs serve two batches (the open loop 32 requests, the
+# static loop 16, the soak 64): the script's time limit
+QWEN3_REQUESTS = SERVE["requests"] // 2
 MAIN_SHAPE = (SERVE["batch"] * SERVE["prompt"], 1024, 3072)  # reported in the JSON
 # qwen3-0.6b attention: query heads, KV heads, head width; the serve cache length
 HEADS, KV_HEADS, HEAD_DIM = 16, 8, 128
@@ -238,12 +269,20 @@ CACHE = SERVE["prompt"] + SERVE["gen"]
 GEMMA2_HEADS = dict(h=16, kv=8, hd=256)
 GEMMA7_HEADS = dict(h=16, kv=16, hd=256)
 YI_HEADS = dict(h=32, kv=4, hd=128)
+# qwen2-vl-7b's 28 query heads over 4 KV heads (g = 7), granite-moe-1b-a400m's
+# 16 over 8 of head width 64
+QWEN2VL_HEADS = dict(h=28, kv=4, hd=128)
+GRANITE_HEADS = dict(h=16, kv=8, hd=64)
 GEMMA2_WINDOW, GEMMA2_SOFTCAP = 4096, 50.0
 # gemma2-9b's MLP projections (K, N): up/gate, down; its attention
 # projections: q, k/v, o; yi-9b's: q and o, k/v, MLP up/gate, down
 GEMMA2_MLP = [(3584, 14336), (14336, 3584)]
 GEMMA2_ATTN_PROJECTIONS = [(3584, 4096), (3584, 2048), (4096, 3584)]
 YI_PROJECTIONS = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096)]
+# granite-moe-1b-a400m's expert GEMMs (K, N): up/gate (also its k/v
+# projection), down; qwen2-vl-7b's projections: q and o, k/v, MLP up/gate, down
+GRANITE_EXPERT_GEMMS = [(1024, 512), (512, 1024)]
+QWEN2VL_PROJECTIONS = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
 # the full-width serve runs of the three wide models: two batches at the
 # exact tiers, one at the approximate ones (their steps are device-bound)
 WIDE_REQUESTS = 2 * SERVE["batch"]
@@ -468,7 +507,11 @@ def operands(m, k, n, bits, seed):
 def kernel_cases():
     """(kernel, M, K, N, n, t, timed) at the main-path shapes plus the
     sweep, and the GEMMs of the serve tiers at every projection of
-    gemma2-9b and yi-9b (timed at gemma2's MLP)."""
+    gemma2-9b and yi-9b (timed at gemma2's MLP), of qwen2-vl-7b, and at
+    granite-moe-1b-a400m's k/v projection and expert GEMMs (untimed)."""
+    from repro_torch.configs.granite_moe_1b import CONFIG as granite
+    from repro_torch.models.moe import capacity
+
     ms = (SERVE["batch"], SERVE["prompt"], SERVE["batch"] * SERVE["prompt"])
     cases = []
     for name in ("lut_matmul", "seqmul_matmul", "packed_matmul"):
@@ -497,6 +540,18 @@ def kernel_cases():
             for k, n in GEMMA2_MLP:
                 cases.append((name, m, k, n, 8, 4, True))
             for k, n in GEMMA2_ATTN_PROJECTIONS + YI_PROJECTIONS:
+                cases.append((name, m, k, n, 8, 4, False))
+    # qwen2-vl-7b balanced and granite's k/v projection at the same M
+    for m in (SERVE["batch"], SERVE["batch"] * SERVE["prompt"]):
+        for k, n in QWEN2VL_PROJECTIONS + GRANITE_EXPERT_GEMMS[:1]:
+            cases.append(("lut_matmul", m, k, n, 8, 4, False))
+    # an expert's rows: its capacity at a decode step, a request's admission
+    # prefill and the pool prefill (1, 10, 40); balanced and draft
+    for tokens in (SERVE["batch"], SERVE["prompt"], SERVE["batch"] * SERVE["prompt"]):
+        m = capacity(tokens, granite.num_experts_per_tok, granite.num_experts,
+                     granite.capacity_factor)
+        for name in ("lut_matmul", "packed_matmul"):
+            for k, n in GRANITE_EXPERT_GEMMS:
                 cases.append((name, m, k, n, 8, 4, False))
     return cases
 
@@ -805,7 +860,33 @@ def attention_cases():
     cases.append(AttnCase("flash_attention", "verify", b, SPEC_K + 1, VERIFY_CACHE))
     cases.append(AttnCase("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
                           TRAIN["seq"], 64, timed=True))
-    return cases + wide_attention_cases()
+    return cases + wide_attention_cases() + vl_moe_attention_cases()
+
+
+def vl_moe_attention_cases():
+    """qwen2-vl-7b's 28 query heads over 4 KV heads of 128 (g = 7: a forward
+    item holds 7 heads x 9 rows, 63 of its 64 row-heads; bitexact's the
+    same, lowrank's 7 x 4 of 32): the forward at the serve shape, at S = T
+    = 1024 and at the train shape with lse, the decode at the serve shape
+    and over 4,096 slots, bitexact and lowrank at the serve shape; then
+    granite-moe-1b-a400m's 16 / 8 of 64: the forward at the serve and train
+    shapes, the decode at the serve shape.  All timed."""
+    b, p = SERVE["batch"], SERVE["prompt"]
+    tb, ts = TRAIN["batch"], TRAIN["seq"]
+    return [
+        AttnCase("flash_attention", "qwen2-vl serve", b, p, CACHE, timed=True, **QWEN2VL_HEADS),
+        AttnCase("flash_attention", "qwen2-vl long", 1, 1024, 1024, timed=True, **QWEN2VL_HEADS),
+        AttnCase("flash_attention", "qwen2-vl train", tb, ts, ts, timed=True, **QWEN2VL_HEADS),
+        AttnCase("flash_decode", "qwen2-vl serve", b, 1, CACHE, timed=True, **QWEN2VL_HEADS),
+        AttnCase("flash_decode", "qwen2-vl long", 4, 1, 4096, timed=True, **QWEN2VL_HEADS),
+        AttnCase("approx_attention_bitexact", "qwen2-vl serve", b, p, CACHE, 16, timed=True,
+                 **QWEN2VL_HEADS),
+        AttnCase("approx_attention_lowrank", "qwen2-vl serve", b, p, CACHE, 16, timed=True,
+                 **QWEN2VL_HEADS),
+        AttnCase("flash_attention", "granite serve", b, p, CACHE, timed=True, **GRANITE_HEADS),
+        AttnCase("flash_attention", "granite train", tb, ts, ts, timed=True, **GRANITE_HEADS),
+        AttnCase("flash_decode", "granite serve", b, 1, CACHE, timed=True, **GRANITE_HEADS),
+    ]
 
 
 def wide_attention_cases():
@@ -1164,7 +1245,8 @@ def backward_cases():
     each of those (window 64 and gemma2's softcap 50 at the train shape),
     gemma-7b's 16 / 16, gemma2's heads in float32 and on the approximate
     bitexact forward's (o, lse); and yi-9b's 32 / 4 of 128 (eight query
-    heads to a KV head in dk/dv), all at the train shape."""
+    heads to a KV head in dk/dv), qwen2-vl-7b's 28 / 4 of 128 (seven) and
+    granite-moe-1b-a400m's 16 / 8 of 64, all at the train shape."""
     b, s = TRAIN["batch"], TRAIN["seq"]
     serve = (SERVE["batch"], SERVE["prompt"], CACHE)
     return [BwdCase("train", b, s, s),
@@ -1178,7 +1260,9 @@ def backward_cases():
             BwdCase("gemma-7b train", b, s, s, **GEMMA7_HEADS),
             BwdCase("yi-9b train", b, s, s, **YI_HEADS),
             BwdCase("gemma2 f32 train", b, s, s, dtype="float32", **GEMMA2_HEADS),
-            BwdCase("gemma2 bitexact train", b, s, s, forward="bitexact", **GEMMA2_HEADS)]
+            BwdCase("gemma2 bitexact train", b, s, s, forward="bitexact", **GEMMA2_HEADS),
+            BwdCase("qwen2-vl train", b, s, s, **QWEN2VL_HEADS),
+            BwdCase("granite train", b, s, s, **GRANITE_HEADS)]
 
 
 def run_backward_case(card: Card, case: BwdCase, seed):
@@ -1588,16 +1672,18 @@ def phase_reference() -> None:
 
 @contextlib.contextmanager
 def approximate_inputs(recorded: list, label: str, *, record: bool):
-    """Record (``record``) the input of every approximate GEMM and the q, k
-    and v of every approximate attention call of the model, in call order;
-    or, on the card, check each call's own inputs against the recorded ones
-    (rtol/atol 1e-4) and hand it the recorded ones instead."""
+    """Record (``record``) the input of every approximate GEMM, the (E, C, d)
+    input of every MoE expert GEMM and the q, k and v of every approximate
+    attention call of the model, in call order; or, on the card, check each
+    call's own inputs against the recorded ones (rtol/atol 1e-4) and hand it
+    the recorded ones instead."""
     import torch
 
     import repro_torch.models.attention as attention
     import repro_torch.models.layers as layers
+    import repro_torch.models.moe as moe
 
-    gemm, attn = layers._approx_2d, attention.approx_flash_attention
+    gemm, attn, experts = layers._approx_2d, attention.approx_flash_attention, moe.expert_gemm
 
     def take(got: tuple) -> tuple:
         want = recorded.pop(0)
@@ -1621,11 +1707,20 @@ def approximate_inputs(recorded: list, label: str, *, record: bool):
             q, k, v = take((q, k, v))
         return attn(q, k, v, *args, **kw)
 
+    def experts_hook(x, w, ctx):
+        if record:
+            recorded.append((x.clone(),))
+        else:
+            (x,) = take((x,))
+        return experts(x, w, ctx)
+
     layers._approx_2d, attention.approx_flash_attention = gemm_hook, attn_hook
+    moe.expert_gemm = experts_hook
     try:
         yield
     finally:
         layers._approx_2d, attention.approx_flash_attention = gemm, attn
+        moe.expert_gemm = experts
 
 
 def hold_logits_on_card(label: str, cfg, *, decode_steps: int = 0, prompt: int = 16,
@@ -1716,11 +1811,121 @@ def phase_reference_wide() -> None:
         forced=True)
 
 
+def phase_reference_vl_moe() -> None:
+    """Reduced qwen2-vl-7b with seven query heads on one KV head of 128 (the
+    published M-RoPE sections (16, 24, 24)): patch embeddings from a seed at
+    t/h/w ids that differ (a frame of 3 x 4 patches after two text tokens)
+    into a prefill over a 24-slot cache, then four decode steps of seeded
+    tokens; the logits through the attention kernels (``flash_attention``
+    at g = 7, ``flash_decode``) against the plain attention, both on the
+    card, from the same weights, within rtol/atol 1e-4.  Then reduced
+    granite-moe-1b-a400m at the ``balanced`` tier (bitexact expert GEMMs
+    and attention projections; capacity 1.25, so prefill and decode drop
+    assignments), prefill and four decode steps card vs CPU, the approximate
+    calls fed the CPU's inputs."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import apply_quality, get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_decode_step
+
+    cfg = get_config("qwen2-vl-7b").reduced(num_heads=7, num_kv_heads=1, head_dim=128,
+                                             mrope_sections=(16, 24, 24))
+    b, s, steps, cache = 2, 14, 4, 24
+    g = torch.Generator().manual_seed(11)
+    embeds = torch.randn((b, s, cfg.d_model), generator=g).cuda()
+    toks = torch.randint(0, cfg.vocab_size, (b, steps), generator=g).cuda()
+    j = torch.arange(s) - 2
+    t = torch.where(j < 0, torch.arange(s), torch.full_like(j, 2))
+    pos = torch.stack([t, torch.where(j < 0, t, 2 + j // 4), torch.where(j < 0, t, 2 + j % 4)])
+    check(len({tuple(r.tolist()) for r in pos}) == 3, "the t/h/w streams must differ")
+    pos = pos[:, None].expand(3, b, s).cuda()
+    params = build_model(cfg).init_params(0, device="cuda")
+    sides = {}
+    for impl in ("xla", "pallas"):
+        model = build_model(dataclasses.replace(cfg, attn_impl=impl))
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            caches = model.init_caches(b, cache, torch.float32, "cuda")
+            hidden, caches, _ = model.forward(params, None, pos, model.ctx(), embeds=embeds,
+                                              caches=caches, cache_pos=0)
+            logits = [model.lm_head(params, hidden)]
+            decode = make_decode_step(model)
+            for i in range(steps):
+                out, caches = decode(params, caches, toks[:, i:i + 1], s + i)
+                logits.append(out)
+        torch.cuda.synchronize()
+        sides[impl] = logits, kernels.launch_counts()
+    (want, plain_counts), (got, counts) = sides["xla"], sides["pallas"]
+    check(counts["flash_attention"] == cfg.num_layers and
+          counts["flash_decode"] == steps * cfg.num_layers and
+          not any(plain_counts.values()),
+          f"reduced qwen2-vl g = 7: launches {counts}, plain side {plain_counts}")
+    errs = []
+    for i, (a, w) in enumerate(zip(got, want)):
+        err = (a - w).abs().max().item()
+        errs.append(f"{'prefill' if i == 0 else f'decode step {i - 1}'} {err:.3e}")
+        check(bool(torch.isfinite(a).all()) and torch.allclose(a, w, rtol=1e-4, atol=1e-4),
+              f"reduced qwen2-vl g = 7 {errs[-1]}: pallas vs plain attention")
+    print(f"reference: reduced qwen2-vl-7b, 7 / 1 heads of 128, patch embeds at distinct "
+          f"t/h/w, pallas vs plain attention on the card, max |err| {', '.join(errs)} "
+          f"(rtol/atol 1e-4); launches flash_attention {counts['flash_attention']}, "
+          f"flash_decode {counts['flash_decode']}", flush=True)
+    granite = apply_quality(get_config("granite-moe-1b-a400m").reduced(), "balanced")
+    hold_logits_on_card("reduced granite-moe-1b-a400m balanced (moe + attn bitexact)", granite,
+                        decode_steps=4, forced=True)
+
+
+@contextlib.contextmanager
+def moe_counters():
+    """Count, over the calls made inside, the MoE layers' routed assignments
+    and those dropped by capacity, and the kernel launches inside the expert
+    GEMMs, each by the tokens of the forward (a decode step routes one token
+    per row of the pool).  The dropped counts are summed on the device, so
+    counting adds no sync; read them after the run."""
+    import torch
+
+    import repro_torch.models.moe as moe
+    from repro_torch import kernels
+
+    route, experts = moe.route, moe.expert_gemm
+    by_tokens, tokens_now = {}, [0]
+
+    def entry(tokens):
+        return by_tokens.setdefault(tokens, dict(
+            layers=0, assignments=0, launches=0,
+            dropped=torch.zeros((), dtype=torch.int64, device="cuda")))
+
+    def route_hook(router, x2, cfg):
+        r = route(router, x2, cfg)
+        tokens_now[0] = x2.shape[0]
+        e = entry(x2.shape[0])
+        e["layers"] += 1
+        e["assignments"] += r.keep.numel()
+        e["dropped"] += (~r.keep).sum()
+        return r
+
+    def experts_hook(x, w, ctx):
+        before = sum(kernels.launch_counts().values())
+        out = experts(x, w, ctx)
+        entry(tokens_now[0])["launches"] += sum(kernels.launch_counts().values()) - before
+        return out
+
+    moe.route, moe.expert_gemm = route_hook, experts_hook
+    try:
+        yield by_tokens
+    finally:
+        moe.route, moe.expert_gemm = route, experts
+
+
 # ---------------------------------------------------------------- serve
 def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=("mlp",),
-                expect=(), forbid=(), requests: int, profile_reps: int = 3):
-    """One closed-loop run of the scheduler; every kernel in ``expect`` must
-    launch and none in ``forbid``; ``profile_reps`` decode steps profiled."""
+                expect=(), forbid=(), requests: int, profile_reps: int = 1,
+                gen: int = SERVE["gen"]):
+    """One closed-loop run of the scheduler, ``gen`` tokens a request; every
+    kernel in ``expect`` must launch and none in ``forbid``; ``profile_reps``
+    decode steps profiled."""
     import torch
 
     from repro_torch import kernels
@@ -1731,12 +1936,11 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
     if mode is not None:
         model = build_model(apply_approx(model.cfg, mode=mode, targets=targets))
     cfg = model.cfg
-    queue = synth_requests(requests, prompt_len=SERVE["prompt"], gen=SERVE["gen"],
+    queue = synth_requests(requests, prompt_len=SERVE["prompt"], gen=gen,
                            vocab_size=cfg.vocab_size, seed=0, vary_budget=False,
                            quality=quality)
     sched = ContinuousScheduler(model, params, batch_size=SERVE["batch"],
-                                prompt_len=SERVE["prompt"], max_new=SERVE["gen"],
-                                quality=quality)
+                                prompt_len=SERVE["prompt"], max_new=gen, quality=quality)
     bad_logits = []
     lm_head = params.lm_head
 
@@ -1802,12 +2006,29 @@ def wide_serve_runs(every: tuple) -> dict:
         ],
         "gemma-7b": [exact, pallas_exact],
         "yi-9b": [exact, balanced, pallas_exact],
+        # bitexact attention at g = 7
+        "qwen2-vl-7b": [exact, balanced, pallas_exact, ("pallas balanced", True, dict(
+            quality="balanced", expect=("approx_attention_bitexact", "flash_decode",
+                                        "lut_matmul"), **few))],
+        # the balanced tier approximates the expert GEMMs and the attention
+        # projections (lut_matmul), the draft tier the expert GEMMs
+        # (packed_matmul), one launch per expert and projection: host-bound
+        # steps of 1.7 and 2.9 s, so 8 tokens a request, and no profiled step
+        # in draft (the profiler's pass over its 131,000 launches took 90 s)
+        "granite-moe-1b-a400m": [
+            exact,
+            ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
+                                     forbid=ATTN_KERNELS, gen=SERVE["gen"] // 2, **few)),
+            ("draft", False, dict(quality="draft", expect=("packed_matmul",), profile_reps=0,
+                                  gen=SERVE["gen"] // 2, **few)),
+            pallas_exact],
     }
 
 
 def phase_serve_wide(arch: str, runs: list) -> dict:
     """The continuous scheduler on full-width ``arch`` (weights from seed 0,
-    bf16) at each of ``runs``, one profiled decode step a run; the model is
+    bf16) at each of ``runs``, one profiled decode step a run (none where
+    the run says ``profile_reps=0``); the model is
     freed before the next arch."""
     import torch
 
@@ -1821,17 +2042,22 @@ def phase_serve_wide(arch: str, runs: list) -> dict:
     params = model.init_params(0, device="cuda")
     torch.cuda.synchronize()
     n_params = model.param_count(params)
+    ffn = (f"{cfg.num_experts} experts, top-{cfg.num_experts_per_tok}, moe_d_ff "
+           f"{cfg.moe_d_ff}, capacity factor {cfg.capacity_factor}" if cfg.num_experts
+           else f"d_ff {cfg.d_ff}")
+    rope = f", M-RoPE sections {cfg.mrope_sections}" if cfg.use_mrope else ""
     print(f"serve: {arch} {cfg.num_layers} layers {list(cfg.layer_pattern)}, d_model "
           f"{cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV heads of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.head_dim}{rope}, {ffn}, vocab {cfg.vocab_size}, tied "
           f"{cfg.tie_embeddings}, {cfg.dtype}: {n_params / 1e9:.3f}B params from seed 0 in "
           f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           f"on the card", flush=True)
     out = {}
     for label, use_pallas, kw in runs:
         t0 = time.perf_counter()
-        run = phase_serve(f"{arch} {label}", params, pallas if use_pallas else model,
-                          profile_reps=1, **kw)
+        with moe_counters() if cfg.num_experts else contextlib.nullcontext() as experts:
+            run = phase_serve(f"{arch} {label}", params, pallas if use_pallas else model,
+                              **kw)
         busy = "not measured" if run["busy_share"] is None else f"{run['busy_share']:.3f}"
         print(f"serve {arch} {label}: {n_params / 1e9:.3f}B params, {kw['requests']} requests, "
               f"{run['tok_s']:.2f} tok/s, decode step {run['decode_ms']:.2f} ms, busy share "
@@ -1839,25 +2065,34 @@ def phase_serve_wide(arch: str, runs: list) -> dict:
               f"{time.perf_counter() - t0:.1f}s wall with its step breakdown", flush=True)
         out[label] = {k: run[k] for k in ("counts", "per_prefill", "per_decode", "decode_ms",
                                           "prefill_ms", "busy_share", "tok_s")}
+        if experts is not None:
+            out[label]["experts"] = report_experts(f"{arch} {label}", cfg, experts)
     del params
     torch.cuda.empty_cache()
     return out
 
 
-def teacher_gaps(model, params, req, stream) -> list:
-    """The top-2 logit gap of each greedy step of ``stream``, by one forward
-    of the prompt and the stream (teacher forcing) at batch 1, unpadded."""
-    import numpy as np
-    import torch
-
-    toks = np.concatenate([req.tokens, stream[:-1]]).astype(np.int64)
-    with torch.inference_mode():
-        x = torch.as_tensor(toks[None], device="cuda")
-        pos = torch.arange(len(toks), device="cuda")[None]
-        hidden, _ = model.forward(params, x, pos, model.ctx())
-        logits = model.lm_head(params, hidden[:, req.prompt_len - 1:])[0]
-        top2 = torch.topk(logits, 2, dim=-1).values
-    return (top2[:, 0] - top2[:, 1]).tolist()
+def report_experts(label: str, cfg, by_tokens: dict) -> dict:
+    """Print what ``moe_counters`` counted over one serve run: the kernel
+    launches inside the expert GEMMs per decode step (a forward over one
+    token per pool row) and the share of routed assignments that capacity
+    dropped, in decode steps and over the whole run."""
+    dec = by_tokens.get(SERVE["batch"])
+    check(dec is not None and dec["layers"] > 0, f"{label}: no decode step was routed")
+    steps = dec["layers"] / cfg.num_layers
+    total = sum(e["assignments"] for e in by_tokens.values())
+    dropped = sum(int(e["dropped"]) for e in by_tokens.values())
+    row = dict(expert_launches_per_decode_step=dec["launches"] / steps,
+               decode_dropped_share=int(dec["dropped"]) / dec["assignments"],
+               dropped_share=dropped / total, assignments=total)
+    check(0 <= dropped <= total, f"{label}: dropped {dropped} of {total}")
+    print(f"serve {label}: experts: {row['expert_launches_per_decode_step']:.1f} kernel "
+          f"launches in the expert GEMMs per decode step ({steps:.0f} decode steps routed); "
+          f"dropped by capacity {int(dec['dropped'])} of {dec['assignments']} decode "
+          f"assignments ({row['decode_dropped_share']:.4f}), {dropped} of {total} in the run "
+          f"({row['dropped_share']:.4f}); tokens per routed forward "
+          f"{sorted(by_tokens)}", flush=True)
+    return row
 
 
 def hold_streams(label: str, queue, got: dict, want: dict, model, params) -> str:
@@ -1865,6 +2100,8 @@ def hold_streams(label: str, queue, got: dict, want: dict, model, params) -> str
     up to the request's first greedy step whose top-2 gap is under
     ``STREAM_MARGIN``; past it, agreement is reported, not required."""
     import numpy as np
+
+    from repro_torch.serve.soak import teacher_gaps
 
     equal, after_tie = 0, []
     for r in queue:
@@ -2072,11 +2309,12 @@ def phase_soak(params, model) -> dict:
     return row
 
 
-def step_breakdown(label: str, sched, params, profile_reps: int = 3) -> dict:
+def step_breakdown(label: str, sched, params, profile_reps: int) -> dict:
     """One pool prefill and one decode step of the pool's engine, outside
     the main path's count window: launches of each kernel per step, the
-    host-clock time of each step, and a profiler pass over a few decode
-    steps for the device's busy share and the kernels' share of it."""
+    host-clock time of each step, and a profiler pass over
+    ``profile_reps`` decode steps (none at 0) for the device's busy share
+    and the kernels' share of it."""
     import torch
 
     from repro_torch import kernels
@@ -2100,12 +2338,14 @@ def step_breakdown(label: str, sched, params, profile_reps: int = 3) -> dict:
         eng.decode(params, caches, tok1, at, at)[0].cpu()
         decode_ms = (time.perf_counter() - t0) * 1e3
         per_decode = kernels.launch_counts()
-        busy_ms, kernel_ms, wall_ms, reps = profile_decode(eng, params, caches, tok1, at,
-                                                           profile_reps)
+        busy_ms, kernel_ms, wall_ms, reps = (
+            profile_decode(eng, params, caches, tok1, at, profile_reps) if profile_reps
+            else (0.0, 0.0, 0.0, 0))
     kernels.reset_launch_counts()
     share = (f"device busy {busy_ms / wall_ms:.3f} of {wall_ms / reps:.2f} ms/step, own "
              f"kernels {kernel_ms / max(busy_ms, 1e-9):.3f} of busy" if busy_ms else
-             "device busy share not measured (the profiler saw no device time)")
+             "device busy share not measured (" + (
+                 "the profiler saw no device time)" if reps else "no profiled step)"))
     print(f"serve {label}: pool prefill (M={b * p}) {prefill_ms:.2f} ms, launches "
           f"{per_prefill}; decode step (M={b}) {decode_ms:.2f} ms, launches {per_decode}; "
           f"{share}", flush=True)
@@ -2212,8 +2452,10 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
     counts = kernels.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in result.metrics_history]
+    auxes = [h["aux"] for h in result.metrics_history]
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    check(len(losses) == n and all(np.isfinite(losses)), f"train {label}: losses {losses}")
+    check(len(losses) == n and all(np.isfinite(losses + auxes)),
+          f"train {label}: losses {losses}, aux {auxes}")
     check(last < first, f"train {label}: loss did not fall ({first} -> {last}): {losses}")
     for name in expect:
         missed = [i + 1 for i, c in enumerate(step_counts[:n]) if not c[name]]
@@ -2231,12 +2473,15 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
           f"{model.param_count(state.params) / 1e6:.1f}M params, {cfg.dtype}, remat "
           f"{cfg.remat}, batch {b} x seq {seq}, {n} steps "
           f"(init {init_s:.1f}s): loss {first:.4f} -> {last:.4f} (steps 1 and 2: "
-          f"{losses[0]:.6f}, {losses[1]:.6f}); step {step_ms:.1f} ms "
+          f"{losses[0]:.6f}, {losses[1]:.6f}"
+          + (f"; ce and aux at step 1: {losses[0]:.6f}, {auxes[0]:.6f}, at step {n}: "
+             f"{losses[-1]:.6f}, {auxes[-1]:.6f}" if cfg.num_experts else "")
+          + f"); step {step_ms:.1f} ms "
           f"(first {times[0] * 1e3:.1f} ms), {b * seq / step_ms * 1e3:.0f} train tokens/s; "
           f"launches per step {per_step}; peak device memory {peak_gb:.2f} GB; {share}",
           flush=True)
     return dict(counts=counts, per_step=per_step, step_ms=step_ms, first=first, last=last,
-                losses=losses, busy_share=busy_ms / wall_ms if busy_ms else None)
+                losses=losses, aux=auxes, busy_share=busy_ms / wall_ms if busy_ms else None)
 
 
 def phase_train_reference(label: str, sides: tuple, *, expect: tuple = ()) -> None:
@@ -2424,6 +2669,8 @@ def main() -> int:
             expect=("flash_attention", *BWD_KERNELS))
     with phase("reference: gemma-7b, gemma2-9b, yi-9b"):
         phase_reference_wide()
+    with phase("reference: qwen2-vl-7b, granite-moe-1b-a400m"):
+        phase_reference_vl_moe()
     kernels.reset_launch_counts()
 
     # 5. serve
@@ -2438,7 +2685,7 @@ def main() -> int:
               f"{model.param_count(params) / 1e6:.1f}M params from seed 0 in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         every = tuple(kernels.ALL)
-        n_req = SERVE["requests"]
+        n_req = QWEN3_REQUESTS
         exact_run = phase_serve("exact", params, model, quality="exact", forbid=every,
                                 requests=n_req)
         runs = {
@@ -2477,7 +2724,8 @@ def main() -> int:
         phase_soak(params, model)
         del params
         torch.cuda.empty_cache()
-    # gemma2-9b, gemma-7b and yi-9b at full width, one at a time
+    # gemma2-9b, gemma-7b, yi-9b, qwen2-vl-7b and granite-moe-1b-a400m at full
+    # width, one at a time
     wide_runs = {}
     for arch, arch_runs in wide_serve_runs(every).items():
         with phase(f"serve: {arch}"):
@@ -2505,6 +2753,15 @@ def main() -> int:
         train_runs["gemma2-9b"] = phase_train(
             f"(c) gemma2-9b pallas, {GEMMA2_TRAIN_LAYERS} of 42 layers", build_model(gemma2),
             expect=("flash_attention", *BWD_KERNELS))
+        torch.cuda.empty_cache()
+        # (d) granite-moe-1b-a400m at full width and depth: the routed experts
+        # and their aux loss, the forward and the pair at head width 64
+        granite = dataclasses.replace(get_config("granite-moe-1b-a400m"), attn_impl="pallas")
+        train_runs["granite-moe"] = phase_train(
+            "(d) granite-moe-1b-a400m pallas", build_model(granite),
+            expect=("flash_attention", *BWD_KERNELS))
+        check(all(a > 0 for a in train_runs["granite-moe"]["aux"]),
+              f"train (d): aux {train_runs['granite-moe']['aux']}")
     torch.cuda.empty_cache()
     with phase("train CLI"):
         phase_train_cli()
@@ -2550,11 +2807,12 @@ def main() -> int:
             per_step["launches_per_spec_round"] = spec_runs[name]["per_round"].get(name, 0.0)
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
-        gemma2 = {label: run["counts"][name] for label, run in wide_runs["gemma2-9b"].items()
-                  if run["counts"].get(name)}
-        if gemma2:
-            # its launches in the full-width gemma2-9b serve runs that use it
-            per_step["gemma2_9b_serve_launches"] = gemma2
+        for arch in ("gemma2-9b", "qwen2-vl-7b", "granite-moe-1b-a400m"):
+            used = {label: run["counts"][name] for label, run in wide_runs[arch].items()
+                    if run["counts"].get(name)}
+            if used:
+                # its launches in the arch's full-width serve runs that use it
+                per_step[f"{arch.replace('-', '_')}_serve_launches"] = used
         table.append({
             "name": name,
             "route": "cuda",

@@ -4,9 +4,13 @@ Only the architectures whose blocks the port runs are registered: the
 dense attention decoders qwen3-0.6b, gemma-7b (head width 256, one query
 head per KV head), gemma2-9b (local and global layers in turn, both logit
 softcaps, post-norms) and yi-9b (eight query heads per KV head, an untied
-head), and the paper-multiplier model.  The other configurations of
-``repro/configs`` come over with the slice that ports their block kinds
-(ROADMAP.md, "Modules to port" item 10).
+head); qwen2-vl-7b (M-RoPE over (3, B, S) t/h/w positions, patch
+embeddings in place of tokens, seven query heads per KV head); the MoE
+models granite-moe-1b-a400m and kimi-k2-1t-a32b (the latter at
+``.reduced()`` only: its published widths need sharding); and the
+paper-multiplier model.  The other configurations of ``repro/configs``
+come over with the slice that ports their block kinds (ROADMAP.md,
+"Modules to port" item 10).
 ``apply_approx(cfg, ...)`` deploys the paper's technique onto a config."""
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ ARCHS = {
     "gemma-7b": "gemma_7b",
     "gemma2-9b": "gemma2_9b",
     "yi-9b": "yi_9b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
     "paper-multiplier": "paper_multiplier",
 }
 

@@ -20,8 +20,11 @@ batched forward); ``--scheduler static`` runs the static-batch loop:
       --device cpu --loop open --workload bursty --policy slo-adaptive \
       --slo-ttft-ms 50 --requests 64 --batch 4 --gen 8
 
-``--data-parallel`` raises ``NotImplementedError`` (ROADMAP.md, 'Modules
-to port' item 11).
+Every ``--arch`` of ``configs.registry`` serves, qwen2-vl-7b (on text
+tokens, t = h = w) and the MoE models granite-moe-1b-a400m and
+kimi-k2-1t-a32b included; kimi-k2 only with ``--reduced``, its published
+widths needing the sharding of item 11.  ``--data-parallel`` raises
+``NotImplementedError`` (ROADMAP.md, 'Modules to port' item 11).
 """
 
 from __future__ import annotations

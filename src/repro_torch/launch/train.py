@@ -12,6 +12,11 @@ data are made from ``--seed``.
   # the reduced configuration on the CPU (the plain versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-multiplier \
       --reduced --device cpu --steps 16 --batch 2 --seq 32
+
+Every ``--arch`` of ``configs.registry`` trains: qwen2-vl-7b on text
+tokens (t = h = w), the MoE models granite-moe-1b-a400m and
+kimi-k2-1t-a32b with their load-balance loss in the loss (kimi-k2 only
+with ``--reduced``).
 """
 
 from __future__ import annotations

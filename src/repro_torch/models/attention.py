@@ -1,4 +1,4 @@
-"""Multi-head attention: GQA, RoPE, qk-norm, softcap, sliding window, KV cache.
+"""Multi-head attention: GQA, RoPE/M-RoPE, qk-norm, softcap, sliding window, KV cache.
 
 Counterpart of ``repro/models/attention.py``.  ``attn_impl`` picks the
 path, as in the reference:
@@ -15,7 +15,11 @@ path, as in the reference:
               ``flash_decode``.  On CPU tensors each kernel wrapper runs its
               plain version.
 
-Decode reads the cache with per-row positions on both paths.
+Decode reads the cache with per-row positions on both paths.  Under
+M-RoPE (``cfg.use_mrope``) positions are (3, B, S) t/h/w ids: q and k
+rotate by all three, and everything positional besides (the masks, the
+per-row pad offset, the ``q_pos``/``k_pos`` of every kernel) reads the
+t-ids, as the reference's ``mpos`` does.
 
 The cache is written in place (an indexed write into the row's slots)
 where the reference returns an updated copy: JAX arrays are immutable,
@@ -114,7 +118,8 @@ def attention(
     cache: Optional[KVCache] = None,
     cache_pos=None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """Self-attention over ``x`` (B, S, D) at ``positions`` (B, S).
+    """Self-attention over ``x`` (B, S, D) at ``positions`` (B, S), or (3,
+    B, S) t/h/w ids under M-RoPE (the masks and caches read the t-ids).
 
     With a cache, ``cache_pos`` is the write offset: a scalar (every row
     writes at the same slot) or a per-row (B,) tensor, in which case
@@ -133,8 +138,13 @@ def attention(
     if cfg.use_qk_norm and "q_norm_scale" in params:
         q = layers.rms_norm(q, params["q_norm_scale"], cfg.norm_eps)
         k = layers.rms_norm(k, params["k_norm_scale"], cfg.norm_eps)
-    q = layers.rope(q, positions, cfg.rope_theta)
-    k = layers.rope(k, positions, cfg.rope_theta)
+    if cfg.use_mrope:
+        q = layers.mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = layers.mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        positions = positions[0]  # masks, pad offsets and kernels read the t-ids
+    else:
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
 
     decode = s == 1 and cache is not None
     if cache is not None:

@@ -1,4 +1,4 @@
-"""Shared layers: RMSNorm, RoPE, dense (with the paper's multiplier), gated MLP.
+"""Shared layers: RMSNorm, RoPE and M-RoPE, dense (with the paper's multiplier), gated MLP.
 
 Counterpart of ``repro/models/layers.py``.  Layers are plain functions
 over parameter tensors; ``Ctx`` threads the config and the noise
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ApproxConfig, ModelConfig
 from repro_torch.engine import dispatch as _engine, modes as _engine_modes
 
-__all__ = ["Ctx", "fold_seed", "rms_norm", "rope", "dense", "mlp", "normal_init"]
+__all__ = ["Ctx", "fold_seed", "rms_norm", "rope", "mrope", "dense", "mlp", "normal_init"]
 
 
 @dataclasses.dataclass
@@ -77,11 +77,36 @@ def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tens
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S).  Rotates the two halves of D."""
     freqs = _rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions.to(torch.float32)[..., None] * freqs  # (B, S, D/2)
+    return _rotate(x, positions.to(torch.float32)[..., None] * freqs)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotates the two halves of x (B, S, H, D) by the angles (B, S, D/2), in f32."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections: tuple) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions: (3, B, S), the
+    t/h/w ids.  The D/2 frequency bands are cut into ``sections`` in order,
+    and each section rotates with its own stream of positions (in float32,
+    as ``rope``).  With t = h = w it is ``rope`` bit for bit: every angle
+    is the same product."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {half}")
+    if positions.shape[0] != len(sections):
+        raise ValueError(f"mrope takes {len(sections)} position streams, got "
+                         f"{positions.shape[0]}")
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    pos = positions.to(torch.float32)  # (3, B, S)
+    bands, lo = [], 0
+    for stream, width in enumerate(sections):
+        bands.append(pos[stream][..., None] * freqs[lo:lo + width])
+        lo += width
+    return _rotate(x, torch.cat(bands, dim=-1))
 
 
 # -------------------------------------------------------- approximate dense

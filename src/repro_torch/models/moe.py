@@ -1,0 +1,170 @@
+"""Mixture-of-Experts feed-forward: top-k routing, capacity, sort-based dispatch.
+
+Counterpart of ``repro/models/moe.py``, its single-device path (``moe_ffn``
+after the sharded branch).  The (T, k) expert assignments are flattened
+and sorted by expert id, stably; each assignment's rank within its
+expert's run is its slot, and slots at or past the capacity are dropped
+(scattered to a dummy row that is cut off).  The tokens go into an (E, C,
+d) buffer, the gated expert FFN runs on it, and the rows come back to
+their tokens weighted by the normalised router gates.
+
+What the port does on purpose:
+
+- **The router is exact and float32**, its weight too, in a bf16 model
+  (the paper keeps the multiplier's controller exact).
+- **top-k** is a stable descending sort: on equal probabilities the lower
+  expert id comes first, as ``jax.lax.top_k`` orders them (``torch.topk``
+  promises no order among ties).
+- **capacity** is ``int(max(1, round(tokens * k / e * cf)))`` with
+  Python's round (half to even), capped at the token count.
+- **The combine sums in a fixed order**: each token adds its kept rows in
+  the order of their slots in the sorted assignments (ascending expert id)
+  into a float32 zero, the order in which the reference's scatter-add
+  visits them.  No atomics, so two runs on the same inputs give the same
+  bits (``index_add_`` on CUDA would not).
+- **Expert GEMMs** (:func:`expert_gemm`): a batched product in the
+  working dtype when ``moe`` is not approximated.  When it is, one engine
+  ``matmul`` per expert with ``approx.for_target("moe")``, in expert
+  order, with the straight-through gradient; stochastic modes draw each
+  expert's noise from one generator in that order.  The reference pins
+  these calls to its reference backend because Pallas bodies do not batch
+  under its ``vmap``; the port keeps the config's backend, so on the card
+  they run the hand-written GEMM kernels (``lut_matmul``,
+  ``packed_matmul``, ...), E launches per projection.
+
+The reference's ``_moe_sharded`` (expert parallelism: local dispatch per
+data shard, experts over the model axis, a psum to combine) needs a model
+axis larger than one device; it comes with the sharding of ROADMAP.md,
+"Modules to port" item 11.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.engine import dispatch as _engine, modes as _engine_modes
+from repro_torch.models import layers
+from repro_torch.models.layers import Ctx
+
+__all__ = ["Routing", "capacity", "expert_gemm", "init_moe", "moe_ffn", "route"]
+
+
+def init_moe(cfg: ModelConfig, dtype, device, generator) -> dict:
+    """Seeded expert weights with the reference's scales; the router is
+    drawn in the working dtype and kept float32, as ``init_moe`` does."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    nrm = lambda shape, s: layers.normal_init(shape, s, dtype, device, generator)
+    return {
+        "router": nrm((d, e), d**-0.5).to(torch.float32),
+        "we1": nrm((e, d, f), d**-0.5),
+        "we3": nrm((e, d, f), d**-0.5),
+        "we2": nrm((e, f, d), f**-0.5),
+    }
+
+
+def capacity(tokens: int, k: int, e: int, capacity_factor: float) -> int:
+    """Slots per expert: ``round(tokens * k / e * cf)`` (half to even), at
+    least 1 and at most ``tokens``."""
+    return min(int(max(1, round(tokens * k / e * capacity_factor))), tokens)
+
+
+class Routing(NamedTuple):
+    """One batch's routing; assignments are flattened token-major (T * k)."""
+
+    expert: torch.Tensor  # (T, k) expert ids, largest probability first
+    gate: torch.Tensor  # (T, k) float32 gates, normalised over the k
+    order: torch.Tensor  # (T*k,) the stable sort of the assignments by expert
+    dest: torch.Tensor  # (T*k,) sorted assignment -> buffer row; E*cap if dropped
+    keep: torch.Tensor  # (T*k,) sorted assignment within its expert's capacity
+    token: torch.Tensor  # (T*k,) sorted assignment -> its token
+    cap: int
+    aux: torch.Tensor  # the Switch-style load-balance loss, float32 0-d
+
+
+def route(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """Router logits in float32, softmax, top-k, the aux loss and the
+    sort-based dispatch with capacity (``moe_ffn``'s first half)."""
+    tokens = x2.shape[0]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    logits = x2.to(torch.float32) @ router.to(torch.float32)  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    expert = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[:, :k]
+    gate = torch.gather(probs, -1, expert)
+    gate = gate / torch.clamp_min(gate.sum(dim=-1, keepdim=True), 1e-9)
+
+    flat_e = expert.reshape(-1)
+    me = probs.mean(dim=0)
+    # a 0-d divisor on the device: CUDA divides by a host scalar as a
+    # multiply by its reciprocal
+    ce = torch.bincount(flat_e, minlength=e).to(torch.float32) / torch.full(
+        (), float(tokens * k), device=x2.device)
+    aux = e * torch.sum(me * ce)
+
+    cap = capacity(tokens, k, e, cfg.capacity_factor)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    # rank within the expert's contiguous run of the sorted assignments
+    pos = torch.arange(tokens * k, device=x2.device) - torch.searchsorted(
+        sorted_e, sorted_e, side="left")
+    keep = pos < cap
+    dest = torch.where(keep, sorted_e * cap + pos, e * cap)
+    return Routing(expert, gate, order, dest, keep, order // k, cap, aux)
+
+
+def expert_gemm(x: torch.Tensor, w: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """(E, C, a) @ (E, a, b) -> (E, C, b), through the multiplier when
+    ``moe`` is targeted (see the module's note)."""
+    ap = ctx.cfg.approx
+    if not ap.enabled or "moe" not in ap.targets:
+        return torch.bmm(x, w.to(x.dtype))
+    ap = ap.for_target("moe")
+    generator = _engine_modes.default_generator(ap.mode, ctx.generator, x.device)
+    outs = [
+        _engine.matmul(x[i].to(torch.float32), w[i].to(torch.float32), n=ap.n, t=ap.t,
+                       fix_to_1=ap.fix_to_1, mode=ap.mode, rank=ap.rank,
+                       generator=generator, backend=ap.backend)
+        for i in range(x.shape[0])
+    ]
+    return torch.stack(outs).to(x.dtype)
+
+
+def _combine(y: torch.Tensor, r: Routing, tokens: int) -> torch.Tensor:
+    """(E, C, d) expert outputs -> (T, d) float32: each token's kept rows,
+    times their gates, added in slot order (ascending expert id)."""
+    e_cap, d = y.shape[0] * y.shape[1], y.shape[2]
+    y_flat = torch.cat([y.reshape(e_cap, d), y.new_zeros((1, d))])
+    w_tok = (r.gate.reshape(-1)[r.order] * r.keep).to(torch.float32)[:, None]
+    rows = y_flat[r.dest].to(torch.float32) * w_tok  # (T*k, d), sorted order
+    k = r.order.numel() // tokens
+    # each token's k sorted positions, ascending: the scatter-add's visiting order
+    slot_of = torch.empty_like(r.order)
+    slot_of[r.order] = torch.arange(r.order.numel(), device=r.order.device)
+    slots = torch.sort(slot_of.view(tokens, k), dim=1).values
+    out = rows.new_zeros((tokens, d))
+    for j in range(k):
+        out = out + rows[slots[:, j]]
+    return out
+
+
+def moe_ffn(params, x: torch.Tensor, ctx: Ctx) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss float32 0-d)."""
+    cfg = ctx.cfg
+    b, s, d = x.shape
+    tokens = b * s
+    e = cfg.num_experts
+    x2 = x.reshape(tokens, d)
+    r = route(params["router"], x2, cfg)
+
+    xs = torch.where(r.keep[:, None], x2[r.token], x2.new_zeros(()))
+    buf = x2.new_zeros((e * r.cap + 1, d)).index_put((r.dest,), xs)
+    buf = buf[: e * r.cap].reshape(e, r.cap, d)
+
+    act = F.silu if cfg.ffn_activation == "silu" else layers._gelu_tanh
+    h = act(expert_gemm(buf, params["we1"], ctx)) * expert_gemm(buf, params["we3"], ctx)
+    y = expert_gemm(h, params["we2"], ctx)  # (E, C, d)
+    out = _combine(y, r, tokens)
+    return out.reshape(b, s, d).to(x.dtype), r.aux

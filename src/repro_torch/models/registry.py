@@ -49,10 +49,12 @@ class Model:
             seed: Optional[int] = None) -> Ctx:
         return Ctx(cfg=self.cfg, generator=generator, seed=seed)
 
-    def forward(self, params: Transformer, tokens, positions, ctx: Ctx, *, caches=None,
-                cache_pos=None):
-        """Returns (hidden (B, S, D), caches)."""
-        return params(tokens, positions, ctx, caches=caches, cache_pos=cache_pos)
+    def forward(self, params: Transformer, tokens, positions, ctx: Ctx, *, embeds=None,
+                caches=None, cache_pos=None):
+        """Returns (hidden (B, S, D), caches, aux loss); ``embeds`` take the
+        place of ``tokens`` when given."""
+        return params(tokens, positions, ctx, embeds=embeds, caches=caches,
+                      cache_pos=cache_pos)
 
     def lm_head(self, params: Transformer, hidden: torch.Tensor) -> torch.Tensor:
         return params.lm_head(hidden)
@@ -71,11 +73,15 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg)
 
 
-def _tensor_tree(tree, dtype, device):
+def _tensor_tree(tree, dtype, device, key=None):
+    """numpy leaves as tensors in ``dtype``, but the MoE router, which stays
+    float32 in every model (``moe.init_moe``)."""
     if isinstance(tree, dict):
-        return {k: _tensor_tree(v, dtype, device) for k, v in tree.items()}
+        return {k: _tensor_tree(v, dtype, device, k) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tensor_tree(v, dtype, device) for v in tree]
+    if key == "router":
+        dtype = torch.float32
     arr = np.array(tree, copy=True)
     if arr.dtype.kind not in "biuf":  # e.g. ml_dtypes bfloat16: widen losslessly first
         arr = arr.astype(np.float32)

@@ -1,14 +1,19 @@
-"""Decoder-only transformer stack (dense attention blocks).
+"""Decoder-only transformer stack: attention blocks, dense or MoE feed-forwards.
 
 Counterpart of ``repro/models/transformer.py``.  The reference scans
 stacked layer groups with ``lax.scan``; here the layers are an
 ``nn.ModuleList`` run in a Python loop, and the caches are a list with
 one :class:`~repro_torch.models.attention.KVCache` per layer.  Block
-kinds other than ``attn_global`` / ``attn_local`` (RG-LRU, SSD) and MoE
-feed-forwards raise and name the slice that ports them.
+kinds other than ``attn_global`` / ``attn_local`` (RG-LRU, SSD) and
+encoder-decoder models raise and name the slice that ports them.  A
+block's feed-forward is the gated MLP (``ffn``) or, in an MoE model, the
+routed experts (``ffn_moe``, ``models/moe.py``), whose load-balance loss
+each block returns.
 
-``forward`` returns the final hidden states; ``lm_head`` turns them into
-logits.
+``forward`` takes tokens, or precomputed embeddings (``embeds``, the
+stubbed vision frontend's patch embeddings) in their place, and returns
+the final hidden states, the caches and the blocks' aux loss summed in
+layer order; ``lm_head`` turns the hidden states into logits.
 
 The parameters are trainable ``nn.Parameter`` s; serving runs under
 ``torch.inference_mode()`` so that no step records a graph.  ``cfg.remat``
@@ -33,7 +38,7 @@ from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import Ctx
 
 __all__ = ["Block", "Transformer", "block_kinds", "check_supported"]
@@ -47,23 +52,23 @@ def block_kinds(cfg: ModelConfig) -> list[str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
+    """Raise for what the port does not run yet: RG-LRU and SSD blocks, and
+    encoder-decoder models."""
     other = sorted({k for k in block_kinds(cfg) if k not in _ATTN_KINDS})
     if other:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {other} are not ported yet "
             f"(ROADMAP.md, 'Modules to port' item 10)"
         )
-    if cfg.num_experts > 0:
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: MoE feed-forwards are not ported yet "
+            f"{cfg.name}: encoder-decoder models are not ported yet "
             f"(ROADMAP.md, 'Modules to port' item 10)"
         )
-    if cfg.is_encdec or cfg.use_mrope or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder, M-RoPE and frontend models are not "
-            f"ported yet (ROADMAP.md, 'Modules to port' item 10)"
-        )
+
+
+def _has_ffn(cfg: ModelConfig) -> bool:
+    return cfg.d_ff > 0 or cfg.num_experts > 0
 
 
 # the reference's checkpoint_dots_with_no_batch_dims: 2-D products, not batched ones
@@ -90,7 +95,8 @@ def _remat(fn, remat: str):
 
 
 class Block(nn.Module):
-    """One pre-norm decoder block: attention, then the gated MLP."""
+    """One pre-norm decoder block: attention, then the gated MLP or the
+    routed experts."""
 
     def __init__(self, cfg: ModelConfig, kind: str, tensors: dict, index: int):
         super().__init__()
@@ -101,12 +107,14 @@ class Block(nn.Module):
         for name in ("post_ln1", "ln2", "post_ln2"):
             if name in tensors:
                 setattr(self, name, nn.Parameter(tensors[name]))
-        self.ffn = (
-            nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors["ffn"].items()})
-            if "ffn" in tensors else None
-        )
+        for name in ("ffn", "ffn_moe"):
+            setattr(self, name, nn.ParameterDict(
+                {k: nn.Parameter(v) for k, v in tensors[name].items()})
+                if name in tensors else None)
 
     def forward(self, x, positions, ctx: Ctx, cache, cache_pos):
+        """Returns (x, cache, aux): aux is the MoE load-balance loss, float32
+        0-d, or None without experts."""
         ctx = ctx.for_block(self.index, x.device)
         cfg = ctx.cfg
         h = layers.rms_norm(x, self.ln1, cfg.norm_eps)
@@ -117,12 +125,17 @@ class Block(nn.Module):
         if cfg.use_post_norm:
             out = layers.rms_norm(out, self.post_ln1, cfg.norm_eps)
         x = x + out
-        if self.ffn is not None:
-            out2 = layers.mlp(self.ffn, layers.rms_norm(x, self.ln2, cfg.norm_eps), ctx)
+        aux = None
+        if self.ffn is not None or self.ffn_moe is not None:
+            h2 = layers.rms_norm(x, self.ln2, cfg.norm_eps)
+            if self.ffn_moe is not None:
+                out2, aux = moe.moe_ffn(self.ffn_moe, h2, ctx)
+            else:
+                out2 = layers.mlp(self.ffn, h2, ctx)
             if cfg.use_post_norm:
                 out2 = layers.rms_norm(out2, self.post_ln2, cfg.norm_eps)
             x = x + out2
-        return x, new_cache
+        return x, new_cache, aux
 
 
 def init_block_tensors(cfg: ModelConfig, dtype, device, generator) -> dict:
@@ -131,14 +144,17 @@ def init_block_tensors(cfg: ModelConfig, dtype, device, generator) -> dict:
     p = {"ln1": zeros(), "attn": attention.init_attn(cfg, dtype, device, generator)}
     if cfg.use_post_norm:
         p["post_ln1"] = zeros()
-    if cfg.d_ff > 0:
+    if _has_ffn(cfg):
         d, f = cfg.d_model, cfg.d_ff
         p["ln2"] = zeros()
-        p["ffn"] = {
-            "w1": layers.normal_init((d, f), d**-0.5, dtype, device, generator),
-            "w3": layers.normal_init((d, f), d**-0.5, dtype, device, generator),
-            "w2": layers.normal_init((f, d), f**-0.5, dtype, device, generator),
-        }
+        if cfg.num_experts > 0:
+            p["ffn_moe"] = moe.init_moe(cfg, dtype, device, generator)
+        else:
+            p["ffn"] = {
+                "w1": layers.normal_init((d, f), d**-0.5, dtype, device, generator),
+                "w3": layers.normal_init((d, f), d**-0.5, dtype, device, generator),
+                "w2": layers.normal_init((f, d), f**-0.5, dtype, device, generator),
+            }
         if cfg.use_post_norm:
             p["post_ln2"] = zeros()
     return p
@@ -178,21 +194,28 @@ class Transformer(nn.Module):
             )
         return cls(cfg, tensors)
 
-    def forward(self, tokens, positions, ctx: Ctx, *, caches: Optional[list] = None,
-                cache_pos=None):
-        """Returns (hidden (B, S, D), caches); dense blocks have no aux loss."""
+    def forward(self, tokens, positions, ctx: Ctx, *, embeds: Optional[torch.Tensor] = None,
+                caches: Optional[list] = None, cache_pos=None):
+        """Returns (hidden (B, S, D), caches, aux): ``embeds`` (B, S, D), when
+        given, take the place of the token lookup; aux is the blocks' MoE
+        load-balance losses summed in layer order (float32 0-d)."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        x = self.embed[tokens] if embeds is None else embeds.to(self.embed.dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
         remat = cfg.remat if caches is None and torch.is_grad_enabled() else "none"
+        aux = None
         for i, block in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
-            x, nc = _remat(block, remat)(x, positions, ctx, cache, cache_pos)
+            x, nc, a = _remat(block, remat)(x, positions, ctx, cache, cache_pos)
+            if a is not None:
+                aux = a if aux is None else aux + a
             if caches is not None:
                 caches[i] = nc
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
-        return x, caches
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, caches, aux
 
     def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
         """Full logits (B, S, V) in f32."""

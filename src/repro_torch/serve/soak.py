@@ -40,6 +40,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.serve.policy import AdmissionPolicy, StaticTier, get_policy
 from repro_torch.serve.scheduler import (
@@ -49,8 +50,23 @@ from repro_torch.serve.scheduler import (
 )
 from repro_torch.serve.stats import percentile
 from repro_torch.serve.workload import WorkloadSpec, iter_requests, iter_windows, tier_mix_label
+from repro_torch.train.steps import mrope_positions
 
-__all__ = ["WindowAudit", "SoakReport", "probe_eos_id", "run_soak"]
+__all__ = ["WindowAudit", "SoakReport", "probe_eos_id", "run_soak", "teacher_gaps"]
+
+
+def teacher_gaps(model, params, req, stream) -> list:
+    """The top-2 logit gap of each greedy step of ``stream``, by one forward
+    of the prompt and the stream (teacher forcing) at batch 1, unpadded."""
+    toks = np.concatenate([req.tokens, stream[:-1]]).astype(np.int64)
+    dev = params.embed.device
+    with torch.inference_mode():
+        x = torch.as_tensor(toks[None], device=dev)
+        pos = mrope_positions(model.cfg, torch.arange(len(toks), device=dev)[None])
+        hidden, _, _ = model.forward(params, x, pos, model.ctx())
+        logits = model.lm_head(params, hidden[:, req.prompt_len - 1:])[0]
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).tolist()
 
 
 def probe_eos_id(
@@ -505,11 +521,20 @@ def run_soak(
             model, params, [req], batch_size=1, prompt_len=req.prompt_len,
             gen=req.max_new, warmup=False, quality=quality,
         )
-        if not np.array_equal(alone.outputs[rid], stream):
+        want = np.asarray(alone.outputs[rid])
+        if not np.array_equal(want, stream):
             failures += 1
+            # where the streams part, and how near a tie the oracle's
+            # greedy choices were up to there (its own logits, teacher forced)
+            got = np.asarray(stream)
+            n = min(len(got), len(want))
+            diff = np.flatnonzero(got[:n] != want[:n])
+            j = int(diff[0]) if len(diff) else n
+            gaps = teacher_gaps(model, params, req, want)[:j + 1]
             violations.append(
                 f"spot-check: request {rid} soak stream diverged from the "
-                f"unpadded single-request oracle"
+                f"unpadded single-request oracle at step {j} (top-2 logit gap "
+                f"there {gaps[-1]:.6g}, least up to it {min(gaps):.6g})"
             )
 
     return SoakReport(

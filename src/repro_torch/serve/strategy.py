@@ -24,7 +24,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.train.steps import make_decode_step, make_prefill_step, mrope_positions
 
 __all__ = [
     "TierEngine",
@@ -52,8 +52,9 @@ def make_verify_step(model):
     """
 
     def verify(params, caches, tokens, positions, starts):
-        hidden, caches = model.forward(params, tokens, positions.to(torch.int64), model.ctx(),
-                                       caches=caches, cache_pos=starts.to(torch.int64))
+        pos = mrope_positions(model.cfg, positions.to(torch.int64))
+        hidden, caches, _ = model.forward(params, tokens, pos, model.ctx(), caches=caches,
+                                          cache_pos=starts.to(torch.int64))
         return torch.argmax(model.lm_head(params, hidden), -1), caches
 
     return verify

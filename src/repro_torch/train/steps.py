@@ -14,6 +14,8 @@ with its new optimizer state and step.
 builds fresh caches and writes positions [0, S) (or, given per-row true
 positions of left-padded prompts, masks the pads out of the cache);
 decode consumes one token per row at a scalar or per-row position.
+Under M-RoPE every step broadcasts its (B, S) positions to the (3, B, S)
+t/h/w streams of a text-only sequence (t = h = w), as the reference does.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.train.losses import chunked_cross_entropy
 
 __all__ = [
     "AUX_COEF", "TrainState", "init_train_state", "loss_fn", "make_decode_step",
-    "make_prefill_step", "make_train_step",
+    "make_prefill_step", "make_train_step", "mrope_positions",
 ]
 
 AUX_COEF = 0.01
@@ -59,10 +61,16 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int, *, device=None)
                       torch.zeros((), dtype=torch.int64))
 
 
-def _positions(batch: dict) -> torch.Tensor:
+def mrope_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions as the model takes them: under M-RoPE the text-only
+    streams (3, B, S) with t = h = w, else unchanged."""
+    return pos[None].expand(3, *pos.shape) if cfg.use_mrope else pos
+
+
+def _positions(cfg: ModelConfig, batch: dict) -> torch.Tensor:
     tokens = batch["tokens"]
     b, s = tokens.shape
-    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    return mrope_positions(cfg, torch.arange(s, device=tokens.device)[None, :].expand(b, s))
 
 
 def _head_matrix(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
@@ -70,24 +78,37 @@ def _head_matrix(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
 
 
 def loss_fn(params: Transformer, batch: dict, seed: Optional[int], model: Model):
-    """(loss, {"loss": ce, "aux": aux}); ``seed`` seeds the stochastic modes'
-    noise (``Ctx.seed``).  Dense blocks have no aux loss; MoE feed-forwards
-    and encoder-decoder models raise in ``check_supported``."""
+    """(loss, {"loss": ce, "aux": aux}): CE plus ``AUX_COEF`` times the MoE
+    load-balance loss (0 without experts); ``seed`` seeds the stochastic
+    modes' noise (``Ctx.seed``).  A frontend model takes ``batch["embeds"]``
+    (B, S, D) in place of the token lookup when the batch has them; the
+    positions are ``arange(S)`` per row (t = h = w under M-RoPE).
+    Encoder-decoder models raise in ``check_supported``."""
     cfg = model.cfg
     check_supported(cfg)
     ctx = model.ctx(seed=seed)
-    hidden, _ = model.forward(params, batch["tokens"], _positions(batch), ctx)
+    embeds = batch.get("embeds") if cfg.frontend else None
+    hidden, _, aux = model.forward(params, batch["tokens"], _positions(cfg, batch), ctx,
+                                   embeds=embeds)
     ce = chunked_cross_entropy(hidden, _head_matrix(params, cfg), batch["labels"],
                                softcap=cfg.final_logit_softcap)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + AUX_COEF * aux
     return loss, {"loss": ce, "aux": aux}
 
 
-def _grads(params: Transformer, leaves) -> list:
-    """The parameters' gradients, one flat tensor per reference leaf."""
-    named = dict(params.named_parameters())
-    return adamw.flatten_leaves(leaves, {n: p.grad for n, p in named.items()})
+def _grads(params: Transformer, leaves, batch: dict) -> list:
+    """The parameters' gradients, one flat tensor per reference leaf.  Only
+    the token table of a frontend model fed ``batch["embeds"]`` may miss
+    the loss (untied: nothing reads it); it gets a zero gradient, as
+    ``jax.grad`` gives it.  Any other parameter without a gradient is cut
+    off the loss by a fault, and raises."""
+    may_miss = {"embed"} if params.cfg.frontend and "embeds" in batch else set()
+    grads = {}
+    for n, p in params.named_parameters():
+        if p.grad is None and n not in may_miss:
+            raise RuntimeError(f"parameter {n!r} has no gradient: the loss does not reach it")
+        grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
+    return adamw.flatten_leaves(leaves, grads)
 
 
 def make_train_step(model: Model, tcfg: TrainConfig):
@@ -104,7 +125,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             params.zero_grad(set_to_none=True)
             loss, parts = loss_fn(params, batch, seed, model)
             loss.backward()
-            grads = _grads(params, leaves)
+            grads = _grads(params, leaves, batch)
             loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
         else:
             b = batch["tokens"].shape[0]
@@ -117,7 +138,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                 params.zero_grad(set_to_none=True)
                 l, _ = loss_fn(params, micro, seed, model)
                 l.backward()
-                g = _grads(params, leaves)
+                g = _grads(params, leaves, micro)
                 grads = ([x.to(torch.float32) for x in g] if grads is None
                          else [a + x for a, x in zip(grads, g)])
                 loss = l.detach() if loss is None else loss + l.detach()
@@ -158,8 +179,8 @@ def make_prefill_step(model: Model, max_seq: int):
         else:
             pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
             cache_pos = 0
-        hidden, caches = model.forward(params, tokens, pos, ctx, caches=caches,
-                                       cache_pos=cache_pos)
+        hidden, caches, _ = model.forward(params, tokens, mrope_positions(cfg, pos), ctx,
+                                          caches=caches, cache_pos=cache_pos)
         return caches, model.lm_head(params, hidden[:, -1:, :])
 
     return prefill
@@ -173,6 +194,8 @@ def make_decode_step(model: Model):
     ``write_pos`` (default ``pos``) each row's physical write slot.
     """
 
+    cfg = model.cfg
+
     def decode(params, caches, token: torch.Tensor, pos, write_pos=None):
         b = token.shape[0]
         ctx = model.ctx()
@@ -183,8 +206,8 @@ def make_decode_step(model: Model):
         else:
             p = torch.full((b, 1), int(pos), dtype=torch.int64, device=token.device)
             cache_pos = int(pos)
-        hidden, caches = model.forward(params, token, p, ctx, caches=caches,
-                                       cache_pos=cache_pos)
+        hidden, caches, _ = model.forward(params, token, mrope_positions(cfg, p), ctx,
+                                          caches=caches, cache_pos=cache_pos)
         return model.lm_head(params, hidden), caches
 
     return decode

@@ -31,7 +31,8 @@ Tolerances (kernel against plain version, both on the card):
 - the flash backward (dq, dk/dv kernels): within 1e-4 * max|want| per
   output, float32 before the cast (sums of up to T terms in another order);
 - the elementwise multiplier (``seqmul_packed``, ``seqmul_words``):
-  bit-equal.
+  bit-equal;
+- ``moe_ffn`` at granite-moe-1b-a400m's widths: two launches bit-identical.
 """
 
 from __future__ import annotations
@@ -128,6 +129,10 @@ PACKED_EDGES = [
     ("extreme mixed", 4, 3072, 1024, 8), ("extreme alike", 4, 3072, 1024, 8),
     ("extreme mixed", 128, 3072, 1024, 15), ("extreme alike", 4, 3072, 1024, 15),
     ("random", 4, 301, 64, 12), ("random", 1, 1024, 3072, 8), ("random", 33, 300, 70, 15),
+    # granite-moe-1b-a400m's expert GEMMs (draft tier): one slot per expert in
+    # a decode step, 40 in a pool prefill; up/gate (1024, 512), down (512, 1024)
+    ("random", 1, 1024, 512, 8), ("random", 40, 1024, 512, 8), ("random", 1, 512, 1024, 8),
+    ("random", 40, 512, 1024, 8),
 ]
 
 
@@ -215,6 +220,10 @@ APPROX_GEMM_SHAPES = [
     (33, 301, 70, "random"), (128, 301, 70, "random"), (1024, 301, 70, "random"),
     (4, 1024, 3072, "random"), (4, 3072, 1024, "random"), (128, 1024, 3072, "random"),
     (4, 3072, 1024, "extreme"), (33, 1024, 256, "extreme"),
+    # granite-moe-1b-a400m's expert GEMMs (balanced tier): M = 1 (decode) and
+    # 40 (pool prefill) on up/gate (1024, 512) and down (512, 1024)
+    (1, 1024, 512, "random"), (40, 1024, 512, "random"), (1, 512, 1024, "random"),
+    (40, 512, 1024, "random"),
 ]
 
 
@@ -318,18 +327,24 @@ def _flash_layout(card, layout, hd, dtype, seed):
     S = 72 over T = 200 (not a multiple of the key tile) with rows 1 and 2
     left-padded by 5 and 40 (their first queries see no slot) and a masked
     tail; "causal-200" S = T = 200; "group-16" the cache layout with 16
-    query heads on one KV head."""
-    if layout == "cache":
-        return (*_attn_inputs(card, 2, 40, 72, 8, 2, hd, dtype, seed), (2, 40, 72, 8, 2))
-    if layout == "group-16":
-        return (*_attn_inputs(card, 2, 40, 72, 16, 1, hd, dtype, seed), (2, 40, 72, 16, 1))
-    b, s, t, h, kv = (3, 72, 200, 8, 2) if layout == "left-pad" else (2, 200, 200, 4, 2)
+    query heads on one KV head; "group-7" with qwen2-vl-7b's 28 query heads
+    over 4 KV heads (an item of 7 heads x 9 rows, 63 of its 64 row-heads);
+    "group-2" with granite-moe-1b-a400m's 16 over 8; "train-g7" and
+    "train-g2" their train shape, S = T = 128 causal, batch 8; "left-pad-g7"
+    the left-pad layout with qwen2-vl's heads."""
+    heads = {"cache": (8, 2), "group-16": (16, 1), "group-7": (28, 4), "group-2": (16, 8)}
+    if layout in heads:
+        h, kv = heads[layout]
+        return (*_attn_inputs(card, 2, 40, 72, h, kv, hd, dtype, seed), (2, 40, 72, h, kv))
+    b, s, t, h, kv = {"left-pad": (3, 72, 200, 8, 2), "left-pad-g7": (3, 72, 200, 28, 4),
+                      "causal-200": (2, 200, 200, 4, 2), "train-g7": (8, 128, 128, 28, 4),
+                      "train-g2": (8, 128, 128, 16, 8)}[layout]
     g = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn((b, s, h, hd), generator=g, device=card).to(dtype)
     k = torch.randn((b, t, kv, hd), generator=g, device=card).to(dtype)
     v = torch.randn((b, t, kv, hd), generator=g, device=card).to(dtype)
     jj = torch.arange(t, device=card).expand(b, t)
-    if layout == "causal-200":
+    if s == t:
         return q, k, v, jj[:, :s].int(), jj.int(), (b, s, t, h, kv)
     pad = torch.zeros((b, 1), dtype=torch.int64, device=card)
     pad[1], pad[2] = 5, 40
@@ -345,6 +360,9 @@ def _flash_layout(card, layout, hd, dtype, seed):
     (64, 24, None, "causal-200"), (128, None, None, "group-16"), (16, 24, 30.0, "group-16"),
     (256, None, None, "cache"), (256, 24, 50.0, "left-pad"), (256, None, None, "causal-200"),
     (256, 24, None, "group-16"),
+    # qwen2-vl-7b's g = 7 (28 / 4 of 128) and granite-moe-1b-a400m's head width 64, g = 2
+    (128, None, None, "group-7"), (128, 24, 30.0, "group-7"), (128, None, None, "left-pad-g7"),
+    (128, None, None, "train-g7"), (64, None, None, "group-2"), (64, None, None, "train-g2"),
 ])
 def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtype, card):
     """The forward kernel against the plain version within 2e-5, over a
@@ -381,6 +399,10 @@ def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtyp
     (128, 16, 8, 2000, None, None, False), (128, 16, 1, 2000, 300, None, False),
     (256, 16, 8, 100, None, None, True), (256, 16, 16, 100, 20, 50.0, True),
     (256, 16, 8, 8192, 4096, 50.0, True), (256, 16, 1, 2000, None, None, True),
+    # qwen2-vl-7b's g = 7 (28 / 4 of 128); granite-moe-1b-a400m's 16 / 8 of 64
+    (128, 28, 4, 100, None, None, True), (128, 28, 4, 2000, None, None, False),
+    (128, 28, 4, 4096, 300, None, True), (64, 16, 8, 100, None, None, True),
+    (64, 16, 8, 2000, 24, 30.0, False),
 ])
 def test_flash_decode_matches_plain_version(hd, h, kv, t, window, softcap, empty_row, dtype,
                                             card):
@@ -433,7 +455,8 @@ def test_flash_forward_launch_plan_is_the_kernels(hd, dtype, card):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     for b, s, t, h, kv in ((4, 32, 48, 16, 8), (8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8),
                            (1, 4096, 4096, 16, 8), (2, 200, 200, 4, 2), (3, 72, 256, 16, 1),
-                           (2, 3, 7, 64, 1)):
+                           (2, 3, 7, 64, 1), (4, 32, 48, 28, 4), (8, 128, 128, 28, 4),
+                           (1, 1024, 1024, 28, 4), (4, 1, 4096, 28, 4)):
         for kernel in ("fwd", "decode"):
             if kernel == "decode" and h // kv > fa.MAX_GROUP:
                 continue
@@ -479,25 +502,32 @@ def _padded_cache(card, b, s, t, h, kv, hd, seed):
     return q, k, v, q_pos, k_pos
 
 
-@pytest.mark.parametrize("mode,hd,n,rank,bk,window,softcap", [
-    ("bitexact", 16, 8, 8, 16, None, None), ("bitexact", 64, 4, 8, 64, 24, 30.0),
-    ("bitexact", 128, 8, 8, 128, None, None), ("bitexact", 32, 8, 8, 40, None, 30.0),
-    ("lowrank", 16, 8, 4, 8, None, 30.0), ("lowrank", 64, 8, 24, 128, 24, None),
-    ("lowrank", 128, 4, 8, 64, None, None), ("lowrank", 32, 8, 1, 100, None, None),
-    ("bitexact", 256, 8, 8, 64, 24, 50.0), ("bitexact", 256, 8, 8, 16, None, None),
-    ("lowrank", 256, 8, 8, 128, None, None), ("lowrank", 256, 8, 8, 16, 24, 50.0),
+@pytest.mark.parametrize("mode,hd,n,rank,bk,window,softcap,h,kv", [
+    ("bitexact", 16, 8, 8, 16, None, None, 8, 2), ("bitexact", 64, 4, 8, 64, 24, 30.0, 8, 2),
+    ("bitexact", 128, 8, 8, 128, None, None, 8, 2), ("bitexact", 32, 8, 8, 40, None, 30.0, 8, 2),
+    ("lowrank", 16, 8, 4, 8, None, 30.0, 8, 2), ("lowrank", 64, 8, 24, 128, 24, None, 8, 2),
+    ("lowrank", 128, 4, 8, 64, None, None, 8, 2), ("lowrank", 32, 8, 1, 100, None, None, 8, 2),
+    ("bitexact", 256, 8, 8, 64, 24, 50.0, 8, 2), ("bitexact", 256, 8, 8, 16, None, None, 8, 2),
+    ("lowrank", 256, 8, 8, 128, None, None, 8, 2), ("lowrank", 256, 8, 8, 16, 24, 50.0, 8, 2),
+    # qwen2-vl-7b's g = 7 (28 / 4 of 128): bitexact's items of 64 row-heads
+    # hold 7 x 9, lowrank's of 32 hold 7 x 4
+    ("bitexact", 128, 8, 8, 16, None, None, 28, 4), ("bitexact", 128, 8, 8, 64, 24, None, 28, 4),
+    ("lowrank", 128, 8, 8, 16, None, None, 28, 4), ("lowrank", 128, 8, 8, 128, None, 30.0, 28, 4),
+    # granite-moe-1b-a400m's 16 / 8 of 64
+    ("bitexact", 64, 8, 8, 16, None, None, 16, 8), ("lowrank", 64, 8, 8, 16, None, None, 16, 8),
 ])
 def test_approx_attention_redesign_matches_plain_version(mode, hd, n, rank, bk, window, softcap,
-                                                         card):
+                                                         h, kv, card):
     """Left pads and a masked tail over T = 256 (pairs the kernels skip, and
     tiles that must walk every block), at every head width, n = 4, ranks 1
-    and 24, ragged key blocks: within one probability quantum max|v| /
-    (2^n - 1), 99% within 1e-5, lse within 1e-5; two launches give the same
-    bits, and a third, counting on the card the pairs it skips, skips the
-    pairs of ``approx_tile_plan`` (some, not all) and gives the same bits."""
+    and 24, ragged key blocks, and query groups of 4, 7 and 2: within one
+    probability quantum max|v| / (2^n - 1), 99% within 1e-5, lse within
+    1e-5; two launches give the same bits, and a third, counting on the
+    card the pairs it skips, skips the pairs of ``approx_tile_plan`` (some,
+    not all) and gives the same bits."""
     from repro_torch.kernels import approx_attention as aa
 
-    b, s, t, h, kv = 3, 72, 256, 8, 2
+    b, s, t = 3, 72, 256
     q, k, v, qp, kp = _padded_cache(card, b, s, t, h, kv, hd, seed=hd + n + rank)
     kw = dict(causal=True, window=window, softcap=softcap, scale=hd**-0.5)
     ops = aa.kernel_operands(q, k, v, mode=mode, n=n, t=n // 2, fix_to_1=True, rank=rank)
@@ -534,7 +564,8 @@ def test_approx_attention_launch_plan_is_the_kernels(mode, card):
 
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     shapes = [(4, 32, 48, 16, 8), (8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8),
-              (3, 72, 256, 8, 2), (2, 3, 7, 64, 1), (1, 10, 10, 6, 2)]
+              (3, 72, 256, 8, 2), (2, 3, 7, 64, 1), (1, 10, 10, 6, 2), (4, 32, 48, 28, 4),
+              (1, 1024, 1024, 28, 4)]
     for b, s, t, h, kv in shapes:
         for hd in (16, 32, 64, 128, 256):
             for n, rank in ((8, 8), (4, 1), (8, 24)):
@@ -573,6 +604,10 @@ def _bwd_inputs(card, b, s, h, kv, hd, dtype, seed, pad=0):
     # pad row, ragged tiles; gemma-7b's 16 / 16
     (16, 8, 256, None, None, 0, 72, True), (16, 8, 256, 24, 50.0, 5, 200, True),
     (16, 16, 256, None, None, 0, 200, True),
+    # qwen2-vl-7b's g = 7 (28 / 4 of 128) at its train shape's length, and
+    # with a window, softcap and pad row; granite-moe-1b-a400m's 16 / 8 of 64
+    (28, 4, 128, None, None, 0, 128, True), (28, 4, 128, 24, 30.0, 5, 200, True),
+    (16, 8, 64, None, None, 0, 128, True), (16, 8, 64, None, None, 3, 200, True),
 ])
 def test_flash_backward_kernels_match_plain_version(h, kv, hd, window, softcap, pad, s, causal,
                                                     dtype, card):
@@ -615,7 +650,7 @@ def test_flash_backward_launch_plan_is_the_kernels(hd, dtype, card):
     from repro_torch.kernels import flash_attention as fa
 
     for b, s, t, h, kv in ((8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8), (4, 32, 48, 16, 8),
-                           (2, 200, 200, 4, 2)):
+                           (2, 200, 200, 4, 2), (8, 128, 128, 28, 4), (1, 1024, 1024, 28, 4)):
         for kernel in ("dq", "dkv"):
             plan = fa.launch_plan(kernel, b, s, t, h, kv, hd, dtype)
             assert plan == fa.built_launch_plan(kernel, b, s, t, h, kv, hd, dtype), \
@@ -679,6 +714,47 @@ def test_full_width_train_step_is_finite(card):
         assert counts[name] > 0, counts
     assert all(bool(torch.isfinite(m).all()) for m in state.opt.mu)
     assert isinstance(state.opt, adamw.OptState)
+
+
+@pytest.mark.parametrize("tier,kernel", [("exact", None), ("balanced", "lut_matmul"),
+                                         ("draft", "packed_matmul")])
+def test_moe_ffn_is_bit_identical_over_two_launches(tier, kernel, card):
+    """granite-moe-1b-a400m's expert layer at its published widths (32
+    experts, top-8, ``moe_d_ff`` 512, d_model 1024, bf16) over a pool
+    prefill's 4 x 32 tokens, at capacity 40: two launches on the same
+    inputs give the same bits, since the combine adds each token's rows in
+    a fixed order (no atomics); at ``balanced`` and ``draft`` the expert
+    GEMMs run ``lut_matmul`` / ``packed_matmul``, one launch per expert and
+    projection (``draft``'s noise drawn from a generator seeded alike)."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import apply_quality, get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Ctx
+
+    cfg = get_config("granite-moe-1b-a400m")
+    if tier != "exact":
+        cfg = apply_quality(cfg, tier)
+    g = torch.Generator(device=card).manual_seed(0)
+    params = moe.init_moe(cfg, torch.bfloat16, card, g)
+    x = torch.randn((4, 32, cfg.d_model), generator=g, device=card).to(torch.bfloat16)
+
+    def run():
+        ctx = Ctx(cfg=cfg, generator=torch.Generator(device=card).manual_seed(1))
+        with torch.inference_mode():
+            return moe.moe_ffn(params, x, ctx)
+
+    kernels.reset_launch_counts()
+    (out, aux), (again, aux2) = run(), run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(aux, aux2)
+    r = moe.route(params["router"], x.reshape(-1, cfg.d_model), cfg)
+    assert r.cap == 40
+    if kernel is not None:
+        assert counts[kernel] == 2 * 3 * cfg.num_experts, counts
+    assert sum(counts.values()) == (0 if kernel is None else counts[kernel])
 
 
 def _u32_operands(shape, n, seed, card):

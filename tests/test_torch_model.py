@@ -18,7 +18,7 @@ With ``bitexact`` at an explicit (n=8, t=4), each approximate GEMM of the
 port is checked to receive the reference's input within that tolerance
 and is then fed the reference's input itself; under ``attn_impl="pallas"``
 with ``attn`` targeted, so is each approximate attention call (its q, k
-and v).  The reason: an input that
+and v), and with ``moe`` targeted each layer's (E, C, d) expert-GEMM input.  The reason: an input that
 differs in the last bit can sit on the other side of a rounding boundary
 of the 8-bit quantizer, which moves its integer by one and the layer's
 output by far more than 1e-5.  That is a property of quantization, met
@@ -73,13 +73,16 @@ def _force_reference_inputs(monkeypatch):
     port's matching call, after checking the port's own inputs."""
     import repro.kernels.approx_attention as jax_approx_attention
     import repro.models.layers as jax_layers
+    import repro.models.moe as jax_moe
     import repro_torch.models.attention as port_attention
     import repro_torch.models.layers as port_layers
+    import repro_torch.models.moe as port_moe
 
     recorded = []
     jax_approx_2d, port_approx_2d = jax_layers._approx_2d, port_layers._approx_2d
     jax_attn = jax_approx_attention.approx_flash_attention
     port_attn = port_attention.approx_flash_attention
+    jax_experts, port_experts = jax_moe._expert_gemm, port_moe.expert_gemm
 
     def record(x2, w, ap, key):
         recorded.append(np.array(x2))  # a writable copy
@@ -100,6 +103,17 @@ def _force_reference_inputs(monkeypatch):
             np.testing.assert_allclose(got.numpy(), w, **TOL)
         return port_attn(*(torch.from_numpy(w) for w in want), *args, **kw)
 
+    def record_experts(x, w, ctx):
+        recorded.append(np.array(x))
+        return jax_experts(x, w, ctx)
+
+    def forced_experts(x, w, ctx):
+        want = recorded.pop(0)
+        np.testing.assert_allclose(x.numpy(), want, **TOL)
+        return port_experts(torch.from_numpy(want), w, ctx)
+
+    monkeypatch.setattr(jax_moe, "_expert_gemm", record_experts)
+    monkeypatch.setattr(port_moe, "expert_gemm", forced_experts)
     monkeypatch.setattr(jax_layers, "_approx_2d", record)
     monkeypatch.setattr(port_layers, "_approx_2d", forced)
     monkeypatch.setattr(jax_approx_attention, "approx_flash_attention", record_attn)
@@ -141,6 +155,98 @@ def test_pallas_attention_logits_match_reference(arch, reduced, approx, monkeypa
     through flash_decode, against the JAX kernels in interpret mode."""
     _check_prefill_and_decode(approx, monkeypatch, attn_impl="pallas",
                               targets=("mlp", "attn"), arch=arch, reduced=reduced)
+
+
+# qwen2-vl-7b, granite-moe-1b-a400m and kimi-k2-1t-a32b at reduced(): the MoE
+# capacity lifted to 8.0 for prefill and decode (capacity dropping depends on
+# the batch, so a prefill and a step see other capacities), as
+# tests/test_decode_parity.py does; qwen2-vl also with seven query heads per
+# KV head at head width 128 (the published M-RoPE sections), as the card runs it
+CF8 = dict(capacity_factor=8.0)
+G7 = dict(num_heads=7, num_kv_heads=1, head_dim=128, mrope_sections=(16, 24, 24))
+VL_MOE_ARCHS = ("qwen2-vl-7b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b")
+
+
+@pytest.mark.parametrize("arch,reduced,attn_impl,approx,targets", [
+    pytest.param("qwen2-vl-7b", {}, "xla", None, (), id="qwen2-vl-exact"),
+    pytest.param("qwen2-vl-7b", {}, "xla", APPROX["bitexact-8-4"], ("mlp",),
+                 id="qwen2-vl-bitexact-mlp"),
+    pytest.param("qwen2-vl-7b", {}, "pallas", None, (), id="qwen2-vl-pallas-exact"),
+    pytest.param("qwen2-vl-7b", {}, "pallas", APPROX["bitexact-8-4"], ("mlp", "attn"),
+                 id="qwen2-vl-pallas-bitexact-mlp-attn"),
+    pytest.param("qwen2-vl-7b", G7, "pallas", None, (), id="qwen2-vl-g7-hd128-pallas-exact"),
+    pytest.param("granite-moe-1b-a400m", CF8, "xla", None, (), id="granite-exact"),
+    pytest.param("granite-moe-1b-a400m", CF8, "xla", APPROX["bitexact-8-4"], ("moe", "attn"),
+                 id="granite-bitexact-moe-attn"),
+    pytest.param("granite-moe-1b-a400m", CF8, "xla", APPROX["lowrank-8-4"], ("moe",),
+                 id="granite-lowrank-moe"),
+    pytest.param("granite-moe-1b-a400m", CF8, "pallas", None, (), id="granite-pallas-exact"),
+    pytest.param("granite-moe-1b-a400m", CF8, "pallas", APPROX["bitexact-8-4"],
+                 ("moe", "attn"), id="granite-pallas-bitexact-moe-attn"),
+    pytest.param("kimi-k2-1t-a32b", CF8, "xla", None, (), id="kimi-exact"),
+    pytest.param("kimi-k2-1t-a32b", CF8, "pallas", APPROX["bitexact-8-4"], ("moe",),
+                 id="kimi-pallas-bitexact-moe"),
+])
+def test_vl_and_moe_prefill_and_decode_logits_match_reference(arch, reduced, attn_impl, approx,
+                                                              targets, monkeypatch):
+    _check_prefill_and_decode(approx, monkeypatch, attn_impl=attn_impl, targets=targets,
+                              arch=arch, reduced=reduced)
+
+
+def _full_forward_logits(jmodel, jparams, tmodel, tparams, toks, pos, embeds=None):
+    """Logits of one forward over the whole sequence (no cache) in both
+    packages, and both aux losses."""
+    kw = {} if embeds is None else dict(embeds=embeds)
+    jtoks = None if toks is None else jnp.asarray(toks)
+    jhidden, _, jaux = jmodel.forward(jparams, jtoks, jnp.asarray(pos), jmodel.ctx(),
+                                      **{k: jnp.asarray(v) for k, v in kw.items()})
+    with torch.inference_mode():
+        ttoks = None if toks is None else torch.from_numpy(toks).long()
+        thidden, _, taux = tmodel.forward(tparams, ttoks, torch.from_numpy(pos), tmodel.ctx(),
+                                          **{k: torch.from_numpy(v) for k, v in kw.items()})
+        tlogits = tmodel.lm_head(tparams, thidden)
+    return (np.asarray(jmodel.lm_head(jparams, jhidden)), float(jaux), tlogits.numpy(),
+            float(taux))
+
+
+@pytest.mark.parametrize("arch", VL_MOE_ARCHS)
+def test_full_forward_at_the_configs_own_capacity_matches_reference(arch):
+    """One forward over B 2 x S 12 at the config's own capacity factor
+    (granite 1.25, kimi-k2 1.0: assignments dropped), logits within
+    ``TOL`` and the summed aux loss within 1e-6."""
+    jmodel, jparams, tmodel, tparams = _pair(None, arch=arch)
+    s = 12
+    toks = np.random.default_rng(3).integers(0, 256, (B, s)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (B, s))
+    if tmodel.cfg.use_mrope:
+        pos = np.broadcast_to(pos, (3, B, s))
+    pos = np.ascontiguousarray(pos)
+    jl, jaux, tl, taux = _full_forward_logits(jmodel, jparams, tmodel, tparams, toks, pos)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert abs(taux - jaux) <= 1e-6 and (taux > 0) == (tmodel.cfg.num_experts > 0)
+
+
+@pytest.mark.parametrize("attn_impl,reduced", [("xla", {}), ("pallas", {}), ("pallas", G7)],
+                         ids=["xla", "pallas", "pallas-g7-hd128"])
+def test_forward_with_patch_embeds_and_distinct_streams_matches_reference(attn_impl, reduced):
+    """qwen2-vl's vision stream: patch embeddings in place of tokens, at
+    t/h/w ids that differ (a frame of 3 x 4 patches after 2 text tokens),
+    through the full forward in both packages."""
+    jmodel, jparams, tmodel, tparams = _pair(None, attn_impl=attn_impl, arch="qwen2-vl-7b",
+                                             reduced=reduced)
+    s = 14
+    embeds = np.random.default_rng(4).standard_normal((B, s, tmodel.cfg.d_model)).astype(
+        np.float32)
+    j = np.arange(s) - 2
+    t = np.where(j < 0, np.arange(s), 2)
+    pos = np.stack([t, np.where(j < 0, t, 2 + j // 4), np.where(j < 0, t, 2 + j % 4)])
+    pos = np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, B, s))).astype(np.int32)
+    jl, _, tl, _ = _full_forward_logits(jmodel, jparams, tmodel, tparams, None, pos, embeds)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    # the streams matter: the text-only positions give other logits
+    flat = np.ascontiguousarray(np.broadcast_to(pos[:1], pos.shape))
+    _, _, tl_text, _ = _full_forward_logits(jmodel, jparams, tmodel, tparams, None, flat, embeds)
+    assert not np.allclose(tl_text, tl, **TOL)
 
 
 def _check_prefill_and_decode(approx, monkeypatch, **kw):
@@ -207,19 +313,28 @@ def test_seeded_init_has_the_reference_scales():
 
 
 def test_unported_block_kinds_raise():
+    """RG-LRU / SSD blocks and encoder-decoder models raise and name the
+    ROADMAP item; MoE feed-forwards (ported since) build."""
     base = get_config("qwen3-0.6b").reduced()
     hybrid = dataclasses.replace(base, layer_pattern=("rglru", "rglru", "attn_local"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(hybrid).init_params(0, device="cpu")
-    moe = dataclasses.replace(base, num_experts=4, num_experts_per_tok=2, moe_d_ff=32)
+    encdec = dataclasses.replace(base, encoder_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe).init_params(0, device="cpu")
+        build_model(encdec).init_params(0, device="cpu")
+    moe = dataclasses.replace(base, num_experts=4, num_experts_per_tok=2, moe_d_ff=32)
+    params = build_model(moe).init_params(0, device="cpu")
+    assert all(b.ffn is None and b.ffn_moe["we1"].shape == (4, 64, 32) for b in params.layers)
     with pytest.raises(KeyError, match="qwen3-0.6b"):
         get_config("recurrentgemma-2b")
 
 
-@pytest.mark.parametrize("arch,reduced", [("gemma2-9b", dict(num_layers=3)), ("yi-9b", {})],
-                         ids=["gemma2-9b-group-and-remainder", "yi-9b-untied"])
+@pytest.mark.parametrize("arch,reduced", [("gemma2-9b", dict(num_layers=3)), ("yi-9b", {}),
+                                          ("granite-moe-1b-a400m", {}), ("kimi-k2-1t-a32b", {}),
+                                          ("qwen2-vl-7b", {})],
+                         ids=["gemma2-9b-group-and-remainder", "yi-9b-untied",
+                              "granite-stacked-experts", "kimi-k2-stacked-experts-untied",
+                              "qwen2-vl-untied"])
 def test_loader_round_trips_the_reference_tree(arch, reduced):
     """gemma2-9b at three layers (one scanned group of its two kinds, one
     remainder layer) and yi-9b (an untied ``lm_head``): the reference's
@@ -229,7 +344,8 @@ def test_loader_round_trips_the_reference_tree(arch, reduced):
     jcfg, tcfg = jax_get_config(arch).reduced(**reduced), get_config(arch).reduced(**reduced)
     tree = jax.tree_util.tree_map(np.asarray, jax_build_model(jcfg).init_params(
         jax.random.PRNGKey(0)))
-    assert ("rem" in tree) == (arch == "gemma2-9b") and ("lm_head" in tree) == (arch == "yi-9b")
+    assert ("rem" in tree) == (arch == "gemma2-9b")
+    assert ("lm_head" in tree) == (not tcfg.tie_embeddings)
     params = from_jax_params(tree, tcfg, device="cpu")
     back = to_jax_layout(dict(params.named_parameters()), params)
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
@@ -240,3 +356,29 @@ def test_loader_round_trips_the_reference_tree(arch, reduced):
     leaves = reference_leaves(params)
     assert [leaf.path for leaf in leaves] == paths
     assert [leaf.ndim for leaf in leaves] == [np.ndim(x) for _, x in flat]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+def test_loader_keeps_the_router_float32_in_a_bf16_model(arch):
+    """In a bfloat16 model the reference keeps each router float32; the
+    loader does too, its stacked experts are (L, E, d, f) in the
+    reference's layout, and the tree comes back with the same values."""
+    jcfg = jax_get_config(arch).reduced(dtype="bfloat16", num_layers=3)
+    tcfg = get_config(arch).reduced(dtype="bfloat16", num_layers=3)
+    tree = jax.tree_util.tree_map(np.asarray, jax_build_model(jcfg).init_params(
+        jax.random.PRNGKey(1)))
+    stacked = tree["scan"]["sub0"]["ffn_moe"]
+    assert stacked["router"].dtype == np.float32 and stacked["we1"].shape == (3, 4, 64, 32)
+    params = from_jax_params(tree, tcfg, device="cpu")
+    for block in params.layers:
+        assert block.ffn_moe["router"].dtype == torch.float32
+        assert block.ffn_moe["we1"].dtype == block.attn["wq"].dtype == torch.bfloat16
+    back = to_jax_layout(dict(params.named_parameters()), params)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for got, want in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+    leaves = {leaf.path: leaf for leaf in reference_leaves(params)}
+    assert leaves[("scan", "sub0", "ffn_moe", "we1")].ndim == 4
+    assert leaves[("scan", "sub0", "ffn_moe", "router")].ndim == 3
+    own = build_model(tcfg).init_params(0, device="cpu")
+    assert own.layers[0].ffn_moe["router"].dtype == torch.float32

@@ -54,7 +54,23 @@ def test_synth_requests_copy_draws_the_same_queue():
 
 
 def test_exact_pool_streams_match_the_jax_scheduler(pools):
-    jmodel, jparams, tmodel, tparams = pools
+    _check_exact_pool(*pools)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+def test_exact_pool_streams_of_vl_and_moe_archs_match_the_jax_scheduler(arch):
+    """Reduced qwen2-vl-7b (M-RoPE, the t-ids masking the padded admission),
+    granite-moe-1b-a400m and kimi-k2-1t-a32b (experts at their own
+    capacity over each admission and decode batch, kimi-k2's factor of 1.0
+    dropping assignments)."""
+    jcfg, tcfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
+    _check_exact_pool(jmodel, jparams, tmodel, tparams)
+
+
+def _check_exact_pool(jmodel, jparams, tmodel, tparams):
     queue = synth_requests(6, prompt_len=PROMPT, gen=GEN, vocab_size=256, seed=0)
     assert len({r.prompt_len for r in queue}) > 1 and len({r.max_new for r in queue}) > 1
     want = JaxScheduler(

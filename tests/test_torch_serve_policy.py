@@ -279,12 +279,16 @@ def test_static_serve_loop_streams_equal_the_reference(pools, quality):
 
 
 @pytest.mark.parametrize("quality", ["exact", "balanced"])
-@pytest.mark.parametrize("arch", ["gemma2-9b", "yi-9b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "yi-9b", "qwen2-vl-7b", "granite-moe-1b-a400m"])
 def test_closed_loop_streams_of_gemma2_and_yi_equal_the_reference(wide_pools, arch, quality):
     """Reduced gemma2-9b (local and global layers in turn, both softcaps,
-    post-norms; its window of 8 binds within prompt plus generation) and
-    yi-9b (an untied head): the closed loop's greedy streams equal the
-    reference scheduler's at the exact tier and at the balanced one."""
+    post-norms; its window of 8 binds within prompt plus generation),
+    yi-9b (an untied head), qwen2-vl-7b (M-RoPE on text-only streams) and
+    granite-moe-1b-a400m (the routed experts at their own capacity, which
+    the admission prefill and the pool's decode steps apply to their own
+    batches; at balanced the expert GEMMs are approximated too): the
+    closed loop's greedy streams equal the reference scheduler's at the
+    exact tier and at the balanced one."""
     jmodel, jparams, tmodel, tparams = wide_pools(arch)
     kw = dict(prompt_len=PROMPT, gen=GEN, vocab_size=256, seed=5, quality=quality)
     want = jax_serve.ContinuousScheduler(
@@ -337,7 +341,8 @@ def test_cli_speculative_and_static_on_the_cpu():
     assert "[static] served 5 requests, 20 tokens" in proc.stdout
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "gemma2-9b", "yi-9b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "gemma2-9b", "yi-9b", "qwen2-vl-7b",
+                                  "granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
 def test_cli_serves_the_wide_archs_on_the_cpu(arch):
     proc = _run("-m", "repro_torch.launch.serve", "--arch", arch, "--reduced", "--device", "cpu",
                 "--requests", "4", "--batch", "2", "--gen", "4")

@@ -179,3 +179,34 @@ def test_soak_cli_on_the_cpu():
     assert "# window    1: 24 reqs" in proc.stdout
     assert "[soak bursty/continuous] 48 requests in 2 windows of 24" in proc.stdout
     assert "PASS" in proc.stdout
+
+
+def test_failed_spot_check_names_its_step_and_gap(pools, monkeypatch):
+    """A sampled stream that parts from its unpadded oracle is reported with
+    the step where they part and the oracle's top-2 logit gap there (its
+    own logits, teacher forced), so a near tie shows in the violation."""
+    _, _, tmodel, tparams = pools
+    spec = wl.preset_spec("steady", requests=8, prompt_len=8, max_new=6, vocab_size=256)
+    oracles = {}
+    orig = soak.static_serve_loop
+
+    def oracle_off_from_step_2(model, params, reqs, **kw):
+        result = orig(model, params, reqs, **kw)
+        if len(reqs) == 1:  # the spot-check's re-serve: change its stream from step 2 on
+            out = np.array(result.outputs[reqs[0].id])
+            out[2:] = (out[2:] + 1) % 256
+            result.outputs[reqs[0].id] = oracles[reqs[0].id] = out
+        return result
+
+    monkeypatch.setattr(soak, "static_serve_loop", oracle_off_from_step_2)
+    with torch.inference_mode():
+        report = soak.run_soak(tmodel, tparams, spec, batch_size=4, window_size=8, spot_check=2)
+    row = report.summary_row()
+    assert row["spot_checks"] == row["spot_check_failures"] == 2 and not report.ok
+    reqs = {r.id: r for r, _ in wl.iter_requests(spec, 0)}
+    for rid, want in sorted(oracles.items()):
+        gaps = soak.teacher_gaps(tmodel, tparams, reqs[rid], want)
+        assert len(gaps) == len(want) and min(gaps) >= 0
+        assert (f"spot-check: request {rid} soak stream diverged from the unpadded "
+                f"single-request oracle at step 2 (top-2 logit gap there {gaps[2]:.6g}, least up to it "
+                f"{min(gaps[:3]):.6g})") in report.violations

@@ -146,10 +146,17 @@ def _jax_layer_caches(caches) -> list:
     return [(np.asarray(k), np.asarray(v)) for k, v in zip(sub.k, sub.v)]
 
 
-@pytest.mark.parametrize("approx", [None, ("bitexact", 8, 4)], ids=["exact", "bitexact-8-4"])
-def test_verify_step_matches_reference(approx, monkeypatch):
-    jcfg = jax_get_config("qwen3-0.6b").reduced(scan_layers=approx is None)
-    tcfg = get_config("qwen3-0.6b").reduced()
+@pytest.mark.parametrize("arch,approx", [
+    pytest.param("qwen3-0.6b", None, id="exact"),
+    pytest.param("qwen3-0.6b", ("bitexact", 8, 4), id="bitexact-8-4"),
+    # M-RoPE: the verify positions broadcast to t = h = w, the masks on the t-ids
+    pytest.param("qwen2-vl-7b", None, id="qwen2-vl-exact"),
+    # routed experts over the (B, k+1) window at the config's own capacity
+    pytest.param("granite-moe-1b-a400m", None, id="granite-moe-exact"),
+])
+def test_verify_step_matches_reference(arch, approx, monkeypatch):
+    jcfg = jax_get_config(arch).reduced(scan_layers=approx is None)
+    tcfg = get_config(arch).reduced()
     if approx is not None:
         mode, n, t = approx
         jcfg = jax_apply_approx(jcfg, mode=mode, n=n, t=t, targets=("mlp", "attn"))

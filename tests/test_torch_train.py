@@ -16,8 +16,12 @@ counterpart in ``repro_torch``:
   bit-equal and their scales at rtol 1e-6;
 - compression: bit-equal (elementwise float32 with true divisions);
 - one train step of reduced qwen3-0.6b from converted parameters (exact;
-  paper-multiplier; bitexact on mlp+attn with ``attn_impl="pallas"``): loss
-  at rtol 1e-5 and every gradient within 1e-4 * max|want| of
+  paper-multiplier; bitexact on mlp+attn with ``attn_impl="pallas"``), and
+  of reduced qwen2-vl-7b (M-RoPE; also on patch embeddings),
+  granite-moe-1b-a400m and kimi-k2-1t-a32b (the MoE aux loss in the loss,
+  assignments dropped at their own capacity; granite also bitexact on
+  moe+attn under the Pallas path): loss at rtol 1e-5, aux within 1e-6 and
+  every gradient within 1e-4 * max|want| of
   ``jax.value_and_grad(repro.train.steps.loss_fn)``.  In the approximate
   cases every approximate GEMM (and attention) call of the port is first
   checked to receive the reference's input within 1e-5 and then fed that
@@ -144,8 +148,10 @@ def _assert_moments_equal(port_opt, ref_opt, bits):
 
 
 # the reduced trees: qwen3-0.6b's one stacked group; gemma2-9b's period-2
-# (local, global) group with a remainder layer, and its post-norms
-ADAMW_TREES = {"qwen3-0.6b": {}, "gemma2-9b": dict(num_layers=3)}
+# (local, global) group with a remainder layer, and its post-norms;
+# granite-moe-1b-a400m's experts stacked (L, E, d, f) beside the router
+ADAMW_TREES = {"qwen3-0.6b": {}, "gemma2-9b": dict(num_layers=3),
+               "granite-moe-1b-a400m": {}}
 
 
 @pytest.mark.parametrize("arch", sorted(ADAMW_TREES))
@@ -244,9 +250,11 @@ def _record_reference_inputs(monkeypatch, jcfg, jparams, jbatch):
     input (and each approximate attention's q, k, v)."""
     import repro.kernels.approx_attention as jax_approx_attention
     import repro.models.layers as jax_layers
+    import repro.models.moe as jax_moe
 
     recorded = []
     orig_2d, orig_attn = jax_layers._approx_2d, jax_approx_attention.approx_flash_attention
+    orig_experts = jax_moe._expert_gemm
 
     def record(x2, w, ap, key):
         recorded.append(np.array(x2))
@@ -256,9 +264,14 @@ def _record_reference_inputs(monkeypatch, jcfg, jparams, jbatch):
         recorded.append(tuple(np.array(a) for a in (q, k, v)))
         return orig_attn(q, k, v, *args)
 
+    def record_experts(x, w, ctx):
+        recorded.append(np.array(x))
+        return orig_experts(x, w, ctx)
+
     with monkeypatch.context() as m:
         m.setattr(jax_layers, "_approx_2d", record)
         m.setattr(jax_approx_attention, "approx_flash_attention", record_attn)
+        m.setattr(jax_moe, "_expert_gemm", record_experts)
         jax_loss_fn(jparams, jbatch, jax.random.PRNGKey(1), jax_build_model(jcfg))
     return recorded
 
@@ -266,8 +279,10 @@ def _record_reference_inputs(monkeypatch, jcfg, jparams, jbatch):
 def _force_port_inputs(monkeypatch, recorded):
     import repro_torch.models.attention as port_attention
     import repro_torch.models.layers as port_layers
+    import repro_torch.models.moe as port_moe
 
     orig_2d, orig_attn = port_layers._approx_2d, port_attention.approx_flash_attention
+    orig_experts = port_moe.expert_gemm
 
     def forced(x2, w, ap, generator):
         want = recorded.pop(0)
@@ -281,8 +296,14 @@ def _force_port_inputs(monkeypatch, recorded):
         qkv = [_Replace.apply(a, torch.from_numpy(w)) for a, w in zip((q, k, v), want)]
         return orig_attn(*qkv, *args, **kw)
 
+    def forced_experts(x, w, ctx):
+        want = recorded.pop(0)
+        np.testing.assert_allclose(_np(x), want, rtol=1e-5, atol=1e-5)
+        return orig_experts(_Replace.apply(x, torch.from_numpy(want)), w, ctx)
+
     monkeypatch.setattr(port_layers, "_approx_2d", forced)
     monkeypatch.setattr(port_attention, "approx_flash_attention", forced_attn)
+    monkeypatch.setattr(port_moe, "expert_gemm", forced_experts)
 
 
 # gemma2-9b: period-2 (local, global) groups and a remainder layer, both
@@ -296,6 +317,12 @@ EXACT_STEPS = {
     "gemma2-9b-pallas": ("gemma2-9b", GEMMA2_STEP),
     "gemma2-9b-pallas-hd256": ("gemma2-9b", dict(GEMMA2_STEP, head_dim=256)),
     "yi-9b": ("yi-9b", {}),  # an untied lm_head
+    # M-RoPE over text-only streams; then on patch embeddings (below)
+    "qwen2-vl": ("qwen2-vl-7b", {}),
+    "qwen2-vl-embeds": ("qwen2-vl-7b", {}),
+    # the aux loss; capacity 1.25 and 1.0 drop assignments at 2 x 16 tokens
+    "granite-moe": ("granite-moe-1b-a400m", {}),
+    "kimi-k2": ("kimi-k2-1t-a32b", {}),
 }
 
 
@@ -308,23 +335,34 @@ def _step_configs(case):
         return (jax_get_config("paper-multiplier").reduced(scan_layers=False),
                 get_config("paper-multiplier").reduced(scan_layers=False))
     over = dict(attn_impl="pallas", scan_layers=False)
-    kw = dict(mode="bitexact", n=8, t=4, targets=("mlp", "attn"))
-    return (jax_apply_approx(jax_get_config("qwen3-0.6b").reduced(**over), **kw),
-            apply_approx(get_config("qwen3-0.6b").reduced(**over), **kw))
+    arch, targets = {"bitexact-mlp+attn-pallas": ("qwen3-0.6b", ("mlp", "attn")),
+                     "granite-bitexact-moe+attn-pallas": ("granite-moe-1b-a400m",
+                                                          ("moe", "attn"))}[case]
+    kw = dict(mode="bitexact", n=8, t=4, targets=targets)
+    return (jax_apply_approx(jax_get_config(arch).reduced(**over), **kw),
+            apply_approx(get_config(arch).reduced(**over), **kw))
 
 
 @pytest.mark.parametrize("case", ["exact", "paper-multiplier", "bitexact-mlp+attn-pallas",
-                                  "gemma2-9b-pallas", "gemma2-9b-pallas-hd256", "yi-9b"])
+                                  "gemma2-9b-pallas", "gemma2-9b-pallas-hd256", "yi-9b",
+                                  "qwen2-vl", "qwen2-vl-embeds", "granite-moe", "kimi-k2",
+                                  "granite-bitexact-moe+attn-pallas"])
 def test_train_step_loss_and_gradients_match_reference(case, monkeypatch):
     jcfg, tcfg = _step_configs(case)
     jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
     toks = np.random.default_rng(4).integers(0, 256, (2, 17)).astype(np.int32)
     jbatch = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+             "labels": torch.from_numpy(toks[:, 1:]).long()}
+    if case.endswith("-embeds"):
+        embeds = np.random.default_rng(5).standard_normal((2, 16, tcfg.d_model)).astype(
+            np.float32)
+        jbatch["embeds"], batch["embeds"] = jnp.asarray(embeds), torch.from_numpy(embeds)
     if case not in EXACT_STEPS:
         _force_port_inputs(monkeypatch,
                            _record_reference_inputs(monkeypatch, jcfg, jparams, jbatch))
-    (want_loss, _), jgrads = jax.value_and_grad(jax_loss_fn, has_aux=True)(
+    (want_loss, want_parts), jgrads = jax.value_and_grad(jax_loss_fn, has_aux=True)(
         jparams, jbatch, jax.random.PRNGKey(1), jmodel)
 
     tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
@@ -341,10 +379,13 @@ def test_train_step_loss_and_gradients_match_reference(case, monkeypatch):
     state = state._replace(params=tparams, opt=adamw.init(reference_leaves(tparams),
                                                           dict(tparams.named_parameters()),
                                                           ttcfg))
-    batch = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
-             "labels": torch.from_numpy(toks[:, 1:]).long()}
     state, metrics = steps.make_train_step(tmodel, ttcfg)(state, batch)
-    np.testing.assert_allclose(float(metrics["loss"]), float(want_loss), rtol=1e-5)
+    # in both packages the metrics' "loss" is the CE (the parts override it)
+    np.testing.assert_allclose(float(metrics["loss"]), float(want_parts["loss"]), rtol=1e-5)
+    assert abs(float(metrics["aux"]) - float(want_parts["aux"])) <= 1e-6
+    total = float(metrics["loss"]) + steps.AUX_COEF * float(metrics["aux"])
+    np.testing.assert_allclose(total, float(want_loss), rtol=1e-5)
+    assert (float(metrics["aux"]) > 0) == (tcfg.num_experts > 0)
     want = [np.asarray(g).reshape(-1) for g in jax.tree_util.tree_leaves(jgrads)]
     assert len(want) == len(seen["grads"]) == len(reference_leaves(tparams))
     for leaf, got, w in zip(reference_leaves(tparams), seen["grads"], want):
@@ -454,7 +495,8 @@ def test_training_lowers_the_loss(bits, comp, lr):
         assert np.isfinite(float(m["compress_residual_sq"]))
 
 
-@pytest.mark.parametrize("arch", ["paper-multiplier", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["paper-multiplier", "gemma2-9b", "qwen2-vl-7b",
+                                  "granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
 def test_cpu_train_cli_lowers_the_loss(arch):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run(
@@ -466,3 +508,31 @@ def test_cpu_train_cli_lowers_the_loss(arch):
     m = re.search(r"loss ([\d.]+) -> ([\d.]+)", proc.stdout)
     assert m, proc.stdout
     assert float(m.group(2)) < float(m.group(1)), proc.stdout
+
+
+@pytest.mark.parametrize("arch,name,embeds,raises", [
+    ("qwen3-0.6b", "final_norm", False, True),
+    ("qwen3-0.6b", "embed", False, True),
+    ("qwen2-vl-7b", "embed", False, True),
+    ("qwen2-vl-7b", "embed", True, False),
+], ids=["final-norm", "embed-without-frontend", "embed-of-tokens", "embed-fed-embeds"])
+def test_only_a_table_fed_embeddings_may_miss_the_loss(arch, name, embeds, raises):
+    """A parameter the loss does not reach raises in ``_grads``, except the
+    token table of a frontend model fed ``embeds``, whose gradient is zero."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init_params(0, device="cpu")
+    batch = _batch(cfg, b=2, s=8)
+    if embeds:
+        batch["embeds"] = torch.zeros((2, 8, cfg.d_model))
+    leaves = reference_leaves(params)
+    loss, _ = steps.loss_fn(params, batch, 0, model)
+    loss.backward()
+    getattr(params, name).grad = None
+    if raises:
+        with pytest.raises(RuntimeError, match=f"parameter '{name}' has no gradient"):
+            steps._grads(params, leaves, batch)
+    else:
+        flat = steps._grads(params, leaves, batch)
+        at = [leaf.path for leaf in leaves].index(("embed",))
+        assert not flat[at].any()
