@@ -23,8 +23,10 @@ Phases, one line each (or a few):
    (33, 300, 70) and rank 24; lut and seqmul with every magnitude 2^n - 1
    and mixed signs, M = 1, (33, 301, 70), n = 1 and int64 sums; lut, packed
    and lowrank also at every projection of gemma2-9b (q, k/v, o, MLP up and
-   down; the MLP rows timed) and of yi-9b at M = 4 and 128.  Attention: the
-   serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
+   down; the MLP rows timed) and of yi-9b at M = 4 and 128, and untimed
+   at the projections of mamba2-130m (lut, packed and seqmul at in_proj 768
+   -> 3352, N not a multiple of 16, and out_proj 1536 -> 768) and of
+   recurrentgemma-2b (lut), M = 4 and 128.  Attention: the serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
    prefill q (4, 32) over a 48-slot cache with a masked tail, key block
    16; decode batch 4 over 48 slots), a window + softcap case each, and
    one long shape each, and flash_attention and approx_attention_bitexact
@@ -65,6 +67,11 @@ Phases, one line each (or a few):
    at the serve shape and over 4,096 slots, bitexact and lowrank at the
    serve shape) and granite-moe-1b-a400m's 16 / 8 of 64 (the forward at
    the serve and train shapes, the decode at the serve shape).
+   Query groups of 10, every row timed and held as above: recurrentgemma-2b's
+   10 query heads over one KV head of 256 (the forward at the serve shape
+   and at S = T = 4,096 under its window of 2,048, the decode at the serve
+   shape and over 4,096 slots under the window, bitexact at the serve
+   shape).
    Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
    operands split into two bf16 terms, tiles with nothing to add skipped)
    against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
@@ -135,7 +142,10 @@ Phases, one line each (or a few):
    steps through flash_attention and flash_decode against the plain
    attention on the card (rtol/atol 1e-4), and reduced granite-moe-1b-a400m
    at the balanced tier (bitexact experts and attention projections),
-   card against CPU, the approximate calls fed the CPU's inputs;
+   card against CPU, the approximate calls fed the CPU's inputs; then
+   reduced mamba2-130m and recurrentgemma-2b (four layers, pallas) at the
+   balanced tier, prefill and four decode steps card against CPU, the
+   approximate calls fed the CPU's inputs;
 5. serve: the continuous scheduler on full-width qwen3-0.6b (28 layers,
    d_model 1024, vocab 151936, bf16, weights from a seed) at tier
    ``exact`` (no kernel: the yardstick), tier ``balanced`` (lut_matmul),
@@ -181,8 +191,23 @@ Phases, one line each (or a few):
    attention projection), draft (packed_matmul per expert; these two at 8
    tokens a request) and pallas exact, each MoE run also printing the kernel launches inside the
    expert GEMMs per decode step and the share of routed assignments that
-   capacity dropped, counted in the run; each with its parameter count,
-   decode step ms and busy share;
+   capacity dropped, counted in the run (balanced and draft unprofiled);
+   recurrentgemma-2b (26 layers of (rglru, rglru, attn_local), d_model
+   2560, RG-LRU width 2560, 10 / 1 heads of 256, window 2,048, GeGLU d_ff
+   7680, vocab 256,000, tied, 2.89B params) at exact, balanced, pallas
+   exact and pallas balanced (the attention kernels at g = 10) and
+   mamba2-130m (24 SSD layers, d_inner 1536, 24 heads of 64, state 128,
+   chunk 256, vocab 50,280, tied) at exact, balanced, draft and seqmul,
+   both on prompts of the bucket's full length (their recurrent state
+   refuses left pads), each then through the static loop at exact (held
+   against the continuous streams by the margin rule) and the long-prompt
+   check: a prompt of 4,096 at batch 1 prefilled and 8 teacher-forced
+   decode steps against one forward over 4,104 tokens (argmax equal
+   wherever that forward's top-2 gap is at least ``STREAM_MARGIN``; the
+   largest logit difference printed), mamba2 at exact, recurrentgemma at
+   exact and pallas exact; each run with its parameter count, decode step
+   and pool prefill ms, busy share, launches per decode step by kernel and
+   peak device memory;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
@@ -283,6 +308,18 @@ YI_PROJECTIONS = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096)]
 # projection), down; qwen2-vl-7b's projections: q and o, k/v, MLP up/gate, down
 GRANITE_EXPERT_GEMMS = [(1024, 512), (512, 1024)]
 QWEN2VL_PROJECTIONS = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
+# recurrentgemma-2b's 10 query heads over one KV head of 256 (MQA, g = 10) and its
+# local window; its projections (K, N): in_x, in_gate, q and o (also the
+# RG-LRU's gates, which stay exact float32), k/v, MLP up/gate, down;
+# mamba2-130m's in_proj (768 -> 3352: N not a multiple of 16) and out_proj
+RECURRENTGEMMA_HEADS = dict(h=10, kv=1, hd=256)
+RECURRENTGEMMA_WINDOW = 2048
+RECURRENTGEMMA_PROJECTIONS = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560)]
+MAMBA2_PROJECTIONS = [(768, 3352), (1536, 768)]
+# the long-prompt check of the recurrent families: a prompt of 4,096 at batch
+# 1 (mamba2's SSD over 16 chunks of 256, recurrentgemma's window of 2,048
+# binding), then teacher-forced decode steps, against one full forward
+LONG_PROMPT, LONG_STEPS = 4096, 8
 # the full-width serve runs of the three wide models: two batches at the
 # exact tiers, one at the approximate ones (their steps are device-bound)
 WIDE_REQUESTS = 2 * SERVE["batch"]
@@ -507,8 +544,9 @@ def operands(m, k, n, bits, seed):
 def kernel_cases():
     """(kernel, M, K, N, n, t, timed) at the main-path shapes plus the
     sweep, and the GEMMs of the serve tiers at every projection of
-    gemma2-9b and yi-9b (timed at gemma2's MLP), of qwen2-vl-7b, and at
-    granite-moe-1b-a400m's k/v projection and expert GEMMs (untimed)."""
+    gemma2-9b and yi-9b (timed at gemma2's MLP), of qwen2-vl-7b, at
+    granite-moe-1b-a400m's k/v projection and expert GEMMs, and at the
+    projections of mamba2-130m and recurrentgemma-2b (untimed)."""
     from repro_torch.configs.granite_moe_1b import CONFIG as granite
     from repro_torch.models.moe import capacity
 
@@ -553,6 +591,14 @@ def kernel_cases():
         for name in ("lut_matmul", "packed_matmul"):
             for k, n in GRANITE_EXPERT_GEMMS:
                 cases.append((name, m, k, n, 8, 4, False))
+    # mamba2-130m's projections at balanced, draft and seqmul, recurrentgemma-2b's
+    # at balanced, at the decode batch and the pool prefill
+    for m in (SERVE["batch"], SERVE["batch"] * SERVE["prompt"]):
+        for name in ("lut_matmul", "packed_matmul", "seqmul_matmul"):
+            for k, n in MAMBA2_PROJECTIONS:
+                cases.append((name, m, k, n, 8, 4, False))
+        for k, n in RECURRENTGEMMA_PROJECTIONS:
+            cases.append(("lut_matmul", m, k, n, 8, 4, False))
     return cases
 
 
@@ -860,7 +906,29 @@ def attention_cases():
     cases.append(AttnCase("flash_attention", "verify", b, SPEC_K + 1, VERIFY_CACHE))
     cases.append(AttnCase("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
                           TRAIN["seq"], 64, timed=True))
-    return cases + wide_attention_cases() + vl_moe_attention_cases()
+    return (cases + wide_attention_cases() + vl_moe_attention_cases()
+            + recurrent_attention_cases())
+
+
+def recurrent_attention_cases():
+    """recurrentgemma-2b's 10 query heads over one KV head of 256 (g = 10: a
+    forward item holds 10 heads x 6 rows, 60 of its 64 row-heads): the
+    forward at the serve shape and at S = T = 4,096 under its window of
+    2,048 (key tiles skipped), the decode at the serve shape and over 4,096
+    slots under the window (dead chunks), bitexact at the serve shape.  All
+    timed."""
+    b, p, w = SERVE["batch"], SERVE["prompt"], RECURRENTGEMMA_WINDOW
+    heads = RECURRENTGEMMA_HEADS
+    return [
+        AttnCase("flash_attention", "recurrentgemma serve", b, p, CACHE, timed=True, **heads),
+        AttnCase("flash_attention", "recurrentgemma window 2048", 1, LONG_PROMPT, LONG_PROMPT,
+                 window=w, timed=True, **heads),
+        AttnCase("flash_decode", "recurrentgemma serve", b, 1, CACHE, timed=True, **heads),
+        AttnCase("flash_decode", "recurrentgemma window 2048", b, 1, LONG_PROMPT, window=w,
+                 timed=True, **heads),
+        AttnCase("approx_attention_bitexact", "recurrentgemma serve", b, p, CACHE, 16,
+                 timed=True, **heads),
+    ]
 
 
 def vl_moe_attention_cases():
@@ -1877,6 +1945,29 @@ def phase_reference_vl_moe() -> None:
                         decode_steps=4, forced=True)
 
 
+def phase_reference_recurrent() -> None:
+    """Reduced mamba2-130m (four SSD layers, chunks of 8) and
+    recurrentgemma-2b (one scanned (rglru, rglru, attn_local) group and a
+    remainder RG-LRU layer, window 8), ``attn_impl="pallas"``, at the
+    ``balanced`` tier (bitexact on the projections; recurrentgemma's
+    attention through approx_attention_bitexact and flash_decode): prefill
+    of 16 tokens (two chunks) and four decode steps' logits on the card
+    against the CPU, the approximate calls fed the CPU's inputs."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import apply_quality, get_config
+
+    for arch, expect in (("mamba2-130m", ("lut_matmul",)),
+                         ("recurrentgemma-2b", ("lut_matmul", "approx_attention_bitexact",
+                                                "flash_decode"))):
+        cfg = apply_quality(get_config(arch).reduced(num_layers=4, attn_impl="pallas"),
+                            "balanced")
+        kernels.reset_launch_counts()
+        hold_logits_on_card(f"reduced {arch} pallas balanced", cfg, decode_steps=4, forced=True)
+        counts = kernels.launch_counts()
+        check(all(counts[name] > 0 for name in expect),
+              f"reduced {arch} pallas balanced: launches {counts}")
+
+
 @contextlib.contextmanager
 def moe_counters():
     """Count, over the calls made inside, the MoE layers' routed assignments
@@ -1922,10 +2013,12 @@ def moe_counters():
 # ---------------------------------------------------------------- serve
 def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=("mlp",),
                 expect=(), forbid=(), requests: int, profile_reps: int = 1,
-                gen: int = SERVE["gen"]):
-    """One closed-loop run of the scheduler, ``gen`` tokens a request; every
-    kernel in ``expect`` must launch and none in ``forbid``; ``profile_reps``
-    decode steps profiled."""
+                gen: int = SERVE["gen"], full_length: bool = False):
+    """One closed-loop run of the scheduler, ``gen`` tokens a request (prompts
+    of 4 to 32 tokens, or all of 32 with ``full_length``, as the recurrent
+    families take them); every kernel in ``expect`` must launch and none in
+    ``forbid``; ``profile_reps`` decode steps profiled; the run's peak device
+    memory."""
     import torch
 
     from repro_torch import kernels
@@ -1938,7 +2031,8 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
     cfg = model.cfg
     queue = synth_requests(requests, prompt_len=SERVE["prompt"], gen=gen,
                            vocab_size=cfg.vocab_size, seed=0, vary_budget=False,
-                           quality=quality)
+                           quality=quality, **(dict(min_prompt=SERVE["prompt"])
+                                               if full_length else {}))
     sched = ContinuousScheduler(model, params, batch_size=SERVE["batch"],
                                 prompt_len=SERVE["prompt"], max_new=gen, quality=quality)
     bad_logits = []
@@ -1952,12 +2046,14 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
 
     params.lm_head = checked_lm_head
     try:
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         result = sched.run(queue)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         del params.lm_head
     st, acc = result.stats, result.accounting
@@ -1974,11 +2070,11 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
     check(not any(bool(b) for b in bad_logits), f"{label}: NaN logits")
     print(f"serve {label}: {st.summary()}; prefill {st.prefill_s:.3f}s decode "
           f"{st.decode_s:.3f}s over {st.decode_steps} steps; run incl. warmup {wall:.2f}s; "
-          f"launches {counts}", flush=True)
+          f"peak device memory {peak_gb:.2f} GB; launches {counts}", flush=True)
     steps = step_breakdown(label, sched, params, profile_reps)
     return dict(counts=counts, tok_s=st.tokens_per_s, wall_s=st.wall_s, queue=queue,
                 outputs=result.outputs, model=sched.model, modeled_cost=st.modeled_cost,
-                **steps)
+                peak_gb=peak_gb, **steps)
 
 
 def wide_serve_runs(every: tuple) -> dict:
@@ -2014,26 +2110,44 @@ def wide_serve_runs(every: tuple) -> dict:
         # projections (lut_matmul), the draft tier the expert GEMMs
         # (packed_matmul), one launch per expert and projection: host-bound
         # steps of 1.7 and 2.9 s, so 8 tokens a request, and no profiled step
-        # in draft (the profiler's pass over its 131,000 launches took 90 s)
+        # (the profiler's pass over draft's 131,000 launches took 90 s, over
+        # balanced's 78,880 about 60)
         "granite-moe-1b-a400m": [
             exact,
             ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
-                                     forbid=ATTN_KERNELS, gen=SERVE["gen"] // 2, **few)),
+                                     forbid=ATTN_KERNELS, gen=SERVE["gen"] // 2, profile_reps=0,
+                                     **few)),
             ("draft", False, dict(quality="draft", expect=("packed_matmul",), profile_reps=0,
                                   gen=SERVE["gen"] // 2, **few)),
             pallas_exact],
+        # the recurrent families take only full-length prompts; recurrentgemma's
+        # attention kernels at g = 10, mamba2's GEMMs at its in_proj width 3352
+        "recurrentgemma-2b": [(label, use_pallas, {**kw, "full_length": True})
+                              for label, use_pallas, kw in (
+            exact, balanced, pallas_exact,
+            ("pallas balanced", True, dict(
+                quality="balanced",
+                expect=("approx_attention_bitexact", "flash_decode", "lut_matmul"), **few)))],
+        "mamba2-130m": [(label, use_pallas, {**kw, "full_length": True})
+                        for label, use_pallas, kw in (
+            exact, balanced,
+            ("draft", False, dict(quality="draft", expect=("packed_matmul",), **few)),
+            ("seqmul", False, dict(mode="seqmul", expect=("seqmul_matmul",), **few)))],
     }
 
 
 def phase_serve_wide(arch: str, runs: list) -> dict:
     """The continuous scheduler on full-width ``arch`` (weights from seed 0,
     bf16) at each of ``runs``, one profiled decode step a run (none where
-    the run says ``profile_reps=0``); the model is
-    freed before the next arch."""
+    the run says ``profile_reps=0``); for the recurrent families then the
+    static loop at exact (``phase_serve_static_recurrent``) and the
+    long-prompt check (``phase_long_prompt``, at exact and, with attention
+    layers, pallas exact); the model is freed before the next arch."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models.registry import build_model
+    from repro_torch.serve.scheduler import has_recurrent_state
 
     cfg = get_config(arch)
     model = build_model(cfg)
@@ -2046,30 +2160,139 @@ def phase_serve_wide(arch: str, runs: list) -> dict:
            f"{cfg.moe_d_ff}, capacity factor {cfg.capacity_factor}" if cfg.num_experts
            else f"d_ff {cfg.d_ff}")
     rope = f", M-RoPE sections {cfg.mrope_sections}" if cfg.use_mrope else ""
+    mixers = []
+    if "ssd" in cfg.layer_pattern:
+        mixers.append(f"SSD d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+                      f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+                      f"conv {cfg.conv_width}")
+    if "rglru" in cfg.layer_pattern:
+        mixers.append(f"RG-LRU width {cfg.lru_width}, conv {cfg.conv_width}")
+    if any(k.startswith("attn") for k in cfg.layer_pattern):
+        window = (f", window {cfg.local_window}" if "attn_local" in cfg.layer_pattern
+                  else "")
+        mixers.append(f"{cfg.num_heads} query / {cfg.num_kv_heads} KV heads of "
+                      f"{cfg.head_dim}{window}{rope}")
     print(f"serve: {arch} {cfg.num_layers} layers {list(cfg.layer_pattern)}, d_model "
-          f"{cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV heads of "
-          f"{cfg.head_dim}{rope}, {ffn}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.d_model}, {'; '.join(mixers)}, {ffn}, vocab {cfg.vocab_size}, tied "
           f"{cfg.tie_embeddings}, {cfg.dtype}: {n_params / 1e9:.3f}B params from seed 0 in "
           f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           f"on the card", flush=True)
-    out = {}
+    out, full = {}, {}
     for label, use_pallas, kw in runs:
         t0 = time.perf_counter()
         with moe_counters() if cfg.num_experts else contextlib.nullcontext() as experts:
-            run = phase_serve(f"{arch} {label}", params, pallas if use_pallas else model,
-                              **kw)
+            run = full[label] = phase_serve(f"{arch} {label}", params,
+                                            pallas if use_pallas else model, **kw)
         busy = "not measured" if run["busy_share"] is None else f"{run['busy_share']:.3f}"
         print(f"serve {arch} {label}: {n_params / 1e9:.3f}B params, {kw['requests']} requests, "
-              f"{run['tok_s']:.2f} tok/s, decode step {run['decode_ms']:.2f} ms, busy share "
-              f"{busy}, launches { {k: c for k, c in run['counts'].items() if c} }; "
+              f"{run['tok_s']:.2f} tok/s, decode step {run['decode_ms']:.2f} ms, pool "
+              f"prefill {run['prefill_ms']:.2f} ms, busy share {busy}, peak device memory "
+              f"{run['peak_gb']:.2f} GB, launches { {k: c for k, c in run['counts'].items() if c} }"
+              f" (per decode step { {k: c for k, c in run['per_decode'].items() if c} }); "
               f"{time.perf_counter() - t0:.1f}s wall with its step breakdown", flush=True)
         out[label] = {k: run[k] for k in ("counts", "per_prefill", "per_decode", "decode_ms",
-                                          "prefill_ms", "busy_share", "tok_s")}
+                                          "prefill_ms", "busy_share", "tok_s", "peak_gb")}
         if experts is not None:
             out[label]["experts"] = report_experts(f"{arch} {label}", cfg, experts)
+    if has_recurrent_state(cfg):
+        out["static"] = phase_serve_static_recurrent(arch, params, model, full["exact"])
+        long_runs = [("exact", model)]
+        if any(k.startswith("attn") for k in cfg.layer_pattern):
+            long_runs.append(("pallas exact", pallas))
+        for label, m in long_runs:
+            out[f"long prompt {label}"] = phase_long_prompt(f"{arch} {label}", params, m)
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def phase_serve_static_recurrent(arch: str, params, model, exact_run: dict) -> dict:
+    """The static loop at ``exact`` on the exact run's queue (full-length
+    prompts), held against the continuous scheduler's streams by the margin
+    rule."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serve import static_serve_loop
+
+    queue = exact_run["queue"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = static_serve_loop(model, params, queue, batch_size=SERVE["batch"],
+                               prompt_len=SERVE["prompt"], gen=SERVE["gen"], quality="exact")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"serve {arch} static: a kernel ran at exact ({counts})")
+    st = result.stats
+    check(st.requests == len(queue) and st.tokens_out == len(queue) * SERVE["gen"],
+          f"serve {arch} static: {st}")
+    agree = hold_streams(f"serve {arch} static", queue, result.outputs, exact_run["outputs"],
+                         exact_run["model"], params)
+    print(f"serve {arch} static: {st.summary()}; {st.decode_steps} decode steps (continuous "
+          f"{exact_run['tok_s']:.2f} tok/s); against the continuous scheduler: {agree}; run "
+          f"incl. warmup {wall:.2f}s", flush=True)
+    return dict(counts=counts, tok_s=st.tokens_per_s)
+
+
+def phase_long_prompt(label: str, params, model) -> dict:
+    """Batch 1: a prompt of ``LONG_PROMPT`` seeded tokens prefilled, then
+    ``LONG_STEPS`` teacher-forced decode steps, against one forward over all
+    ``LONG_PROMPT + LONG_STEPS`` tokens: wherever the full forward's top-2
+    logit gap is at least ``STREAM_MARGIN``, the step's argmax must be the
+    full forward's.  Prints the largest |logit difference|."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    total = LONG_PROMPT + LONG_STEPS
+    toks = torch.randint(0, model.cfg.vocab_size, (1, total),
+                         generator=torch.Generator().manual_seed(5)).cuda()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        hidden, _, _ = model.forward(params, toks, torch.arange(total, device="cuda")[None],
+                                     model.ctx())
+        # the logits at the positions the prefill and the decode steps predict from
+        want = model.lm_head(params, hidden[:, LONG_PROMPT - 1:])[0]
+        del hidden
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        caches, first = make_prefill_step(model, total)(params, {"tokens": toks[:, :LONG_PROMPT]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got, decode = [first[0, -1]], make_decode_step(model)
+        t0 = time.perf_counter()
+        for i in range(LONG_STEPS):
+            logits, caches = decode(params, caches, toks[:, LONG_PROMPT + i:LONG_PROMPT + i + 1],
+                                    LONG_PROMPT + i)
+            got.append(logits[0, -1])
+        got = torch.stack(got)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if model.cfg.attn_impl == "pallas":
+        check(counts["flash_attention"] > 0 and counts["flash_decode"] > 0,
+              f"long prompt {label}: launches {counts}")
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          f"long prompt {label}: non-finite logits")
+    top2 = torch.topk(want, 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    held = [i for i, g in enumerate(gaps) if g >= STREAM_MARGIN]
+    bad = [i for i in held if not same[i]]
+    check(not bad, f"long prompt {label}: argmax differs from the full forward at steps {bad} "
+                   f"(top-2 gaps {[round(gaps[i], 4) for i in bad]})")
+    err = (got - want).abs().max().item()
+    print(f"long prompt {label}: prompt {LONG_PROMPT} prefilled ({prefill_s:.2f}s) and "
+          f"{LONG_STEPS} teacher-forced decode steps ({1e3 * decode_s / LONG_STEPS:.2f} ms a "
+          f"step) against one forward over {total} tokens ({full_s:.2f}s): argmax equal at "
+          f"{sum(same)} of {len(same)} positions, held at the {len(held)} with a top-2 gap >= "
+          f"{STREAM_MARGIN} (gaps {[round(g, 4) for g in gaps]}); max |logit diff| {err:.3e}; "
+          f"launches { {k: c for k, c in counts.items() if c} }", flush=True)
+    return dict(counts=counts, max_abs_logit_diff=err, held=len(held))
 
 
 def report_experts(label: str, cfg, by_tokens: dict) -> dict:
@@ -2671,6 +2894,8 @@ def main() -> int:
         phase_reference_wide()
     with phase("reference: qwen2-vl-7b, granite-moe-1b-a400m"):
         phase_reference_vl_moe()
+    with phase("reference: mamba2-130m, recurrentgemma-2b"):
+        phase_reference_recurrent()
     kernels.reset_launch_counts()
 
     # 5. serve
@@ -2724,8 +2949,8 @@ def main() -> int:
         phase_soak(params, model)
         del params
         torch.cuda.empty_cache()
-    # gemma2-9b, gemma-7b, yi-9b, qwen2-vl-7b and granite-moe-1b-a400m at full
-    # width, one at a time
+    # gemma2-9b, gemma-7b, yi-9b, qwen2-vl-7b, granite-moe-1b-a400m,
+    # recurrentgemma-2b and mamba2-130m at full width, one at a time
     wide_runs = {}
     for arch, arch_runs in wide_serve_runs(every).items():
         with phase(f"serve: {arch}"):
@@ -2807,7 +3032,8 @@ def main() -> int:
             per_step["launches_per_spec_round"] = spec_runs[name]["per_round"].get(name, 0.0)
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
-        for arch in ("gemma2-9b", "qwen2-vl-7b", "granite-moe-1b-a400m"):
+        for arch in ("gemma2-9b", "qwen2-vl-7b", "granite-moe-1b-a400m", "recurrentgemma-2b",
+                     "mamba2-130m"):
             used = {label: run["counts"][name] for label, run in wide_runs[arch].items()
                     if run["counts"].get(name)}
             if used:

@@ -7,10 +7,11 @@ softcaps, post-norms) and yi-9b (eight query heads per KV head, an untied
 head); qwen2-vl-7b (M-RoPE over (3, B, S) t/h/w positions, patch
 embeddings in place of tokens, seven query heads per KV head); the MoE
 models granite-moe-1b-a400m and kimi-k2-1t-a32b (the latter at
-``.reduced()`` only: its published widths need sharding); and the
-paper-multiplier model.  The other configurations of ``repro/configs``
-come over with the slice that ports their block kinds (ROADMAP.md,
-"Modules to port" item 10).
+``.reduced()`` only: its published widths need sharding); the
+sub-quadratic models mamba2-130m (SSD blocks only) and recurrentgemma-2b
+(RG-LRU blocks and local MQA attention, 2:1); and the paper-multiplier
+model.  seamless-m4t-large-v2, the encoder-decoder, comes over with the
+slice that ports it (ROADMAP.md, "Modules to port" item 10e).
 ``apply_approx(cfg, ...)`` deploys the paper's technique onto a config."""
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ ARCHS = {
     "qwen2-vl-7b": "qwen2_vl_7b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "paper-multiplier": "paper_multiplier",
 }
 

@@ -36,6 +36,7 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import (
     SMEM_PER_BLOCK, CudaKernel, check_operand, float_scratch, sm_count, tile_counters,
@@ -356,23 +357,35 @@ def _attend_direct(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale, wit
 
 def _attend_flash(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale,
                   q_chunk=Q_CHUNK, k_chunk=K_CHUNK, with_lse=False):
-    """Blockwise online softmax over (q_chunk, k_chunk) tiles."""
+    """Blockwise online softmax over (q_chunk, k_chunk) tiles.  Lengths that
+    are not multiples of the chunks (the reference asserts that they are)
+    end in a short tile: its missing query rows are zeros whose output is
+    dropped, its missing key slots score -inf, so they add nothing to any
+    row, not even to one with no allowed slot (its running max stays
+    ``NEG_INF``, and it averages its T real slots)."""
     b, s, h, hd = q.shape
     t = k.shape[1]
     q_chunk, k_chunk = min(q_chunk, s), min(k_chunk, t)
-    if s % q_chunk or t % k_chunk:
-        raise ValueError(f"sequence lengths ({s}, {t}) must divide the chunks")
+    s_pad, t_pad = -(-s // q_chunk) * q_chunk, -(-t // k_chunk) * k_chunk
+    if s_pad > s:
+        q = F.pad(q, (0, 0, 0, 0, 0, s_pad - s))
+        q_pos = F.pad(q_pos, (0, s_pad - s), value=-1)
+    if t_pad > t:
+        k, v = (F.pad(x, (0, 0, 0, 0, 0, t_pad - t)) for x in (k, v))
+        k_pos = F.pad(k_pos, (0, t_pad - t), value=-1)
     outs, lses = [], []
-    for q0 in range(0, s, q_chunk):
+    for q0 in range(0, s_pad, q_chunk):
         qb, qpb = q[:, q0:q0 + q_chunk], q_pos[:, q0:q0 + q_chunk]
         m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32, device=q.device)
-        for k0 in range(0, t, k_chunk):
+        for k0 in range(0, t_pad, k_chunk):
             kb, vb = k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk]
             logits = _scores(qb, kb, softcap, scale)
             allow = allow_mask(qpb, k_pos[:, k0:k0 + k_chunk], causal=causal, window=window)
             logits = torch.where(allow[:, None, :, :], logits, NEG_INF)
+            if k0 + k_chunk > t:
+                logits[..., t - k0:] = -torch.inf
             m_new = torch.maximum(m, logits.amax(dim=-1))
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -382,8 +395,8 @@ def _attend_flash(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale,
         l = torch.clamp(l, min=1e-30)
         outs.append((acc / l[..., None]).transpose(1, 2))  # (B, qc, H, hd)
         lses.append(m + torch.log(l))
-    out = torch.cat(outs, dim=1)
-    return (out, torch.cat(lses, dim=-1)) if with_lse else out
+    out = torch.cat(outs, dim=1)[:, :s]
+    return (out, torch.cat(lses, dim=-1)[..., :s]) if with_lse else out
 
 
 def attend(q, k, v, q_pos, k_pos, *, causal, window, softcap, scale, decode=False,

@@ -21,10 +21,18 @@ batched forward); ``--scheduler static`` runs the static-batch loop:
       --slo-ttft-ms 50 --requests 64 --batch 4 --gen 8
 
 Every ``--arch`` of ``configs.registry`` serves, qwen2-vl-7b (on text
-tokens, t = h = w) and the MoE models granite-moe-1b-a400m and
-kimi-k2-1t-a32b included; kimi-k2 only with ``--reduced``, its published
-widths needing the sharding of item 11.  ``--data-parallel`` raises
-``NotImplementedError`` (ROADMAP.md, 'Modules to port' item 11).
+tokens, t = h = w), the MoE models granite-moe-1b-a400m and
+kimi-k2-1t-a32b, and the recurrent-state models mamba2-130m and
+recurrentgemma-2b included; kimi-k2 only with ``--reduced``, its published
+widths needing the sharding of item 11.  For the recurrent-state models
+``--scheduler`` defaults to ``static`` (the continuous scheduler refuses
+their padded admission), as the reference's CLI does:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced \
+      --device cpu --requests 4 --batch 2 --gen 4
+
+``--data-parallel`` raises ``NotImplementedError`` (ROADMAP.md, 'Modules
+to port' item 11).
 """
 
 from __future__ import annotations
@@ -123,7 +131,7 @@ def main(argv=None) -> None:
     if scheduler is None:
         scheduler = "continuous" if supports_continuous(cfg) else "static"
         if scheduler == "static":
-            print(f"# {cfg.name}: auto-selected --scheduler static "
+            print(f"# {args.arch}: auto-selected --scheduler static "
                   f"(continuous supports attention-only decoder stacks)")
     if args.loop == "open" and scheduler != "continuous":
         ap.error("--loop open requires --scheduler continuous")

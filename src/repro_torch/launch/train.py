@@ -13,10 +13,12 @@ data are made from ``--seed``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-multiplier \
       --reduced --device cpu --steps 16 --batch 2 --seq 32
 
-Every ``--arch`` of ``configs.registry`` trains: qwen2-vl-7b on text
-tokens (t = h = w), the MoE models granite-moe-1b-a400m and
-kimi-k2-1t-a32b with their load-balance loss in the loss (kimi-k2 only
-with ``--reduced``).
+Every ``--arch`` of ``configs.registry`` trains but the recurrent ones:
+qwen2-vl-7b on text tokens (t = h = w), the MoE models
+granite-moe-1b-a400m and kimi-k2-1t-a32b with their load-balance loss in
+the loss (kimi-k2 only with ``--reduced``).  mamba2-130m and
+recurrentgemma-2b raise ``NotImplementedError`` before any weight is made
+(ROADMAP.md, 'Modules to port' item 10d').
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import modes as engine_modes
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.fault import FailureInjector, StragglerMonitor, run_loop
-from repro_torch.train.steps import init_train_state, make_train_step
+from repro_torch.train.steps import check_trainable, init_train_state, make_train_step
 
 __all__ = ["main"]
 
@@ -87,6 +89,7 @@ def main(argv=None) -> None:
     elif args.quality_tier:
         cfg = apply_quality(cfg, args.quality_tier, n=args.approx_n)
     cfg = dataclasses.replace(cfg, scan_layers=True)
+    check_trainable(cfg)
 
     tcfg = TrainConfig(
         learning_rate=args.lr,

@@ -10,7 +10,9 @@ scheduler read the same in both packages.
 to nested dicts of numpy arrays by the caller, into the port.  The
 reference stacks each layer group on a leading axis for ``lax.scan``
 (``params["scan"]["sub<i>"]``, remainder layers in ``params["rem"]``);
-the loader unstacks them into one block per layer.
+the loader unstacks them into one block per layer, whatever the period:
+recurrentgemma's (rglru, rglru, attn_local) groups with their remainder
+layers, or mamba2's period of one.
 
 :func:`reference_leaves` names, for each leaf of that tree in
 ``jax.tree_util.tree_leaves`` order, the port's parameters it holds (one
@@ -30,9 +32,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention
 from repro_torch.models.layers import Ctx
-from repro_torch.models.transformer import Transformer, block_kinds
+from repro_torch.models.transformer import Transformer, block_kinds, init_cache
 
 __all__ = ["Leaf", "Model", "build_model", "from_jax_params", "reference_leaves", "to_jax_layout"]
 
@@ -60,10 +61,10 @@ class Model:
         return params.lm_head(hidden)
 
     def init_caches(self, batch: int, max_seq: int, dtype, device) -> list:
-        return [
-            attention.init_kv_cache(self.cfg, batch, max_seq, dtype, device)
-            for _ in range(self.cfg.num_layers)
-        ]
+        """One zero cache per layer, by its kind: KV (B, max_seq, KV, hd) for
+        attention, conv inputs and a float32 state for RG-LRU and SSD."""
+        return [init_cache(self.cfg, kind, batch, max_seq, dtype, device)
+                for kind in block_kinds(self.cfg)]
 
     def param_count(self, params: Transformer) -> int:
         return sum(p.numel() for p in params.parameters())
@@ -73,14 +74,18 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg)
 
 
+# leaves the reference keeps float32 in every model: the MoE router
+# (``moe.init_moe``), the RG-LRU's Lambda and the SSD's A, D and dt bias
+_FLOAT32_LEAVES = ("router", "lru_a", "ssm_a", "ssm_d", "dt_bias")
+
+
 def _tensor_tree(tree, dtype, device, key=None):
-    """numpy leaves as tensors in ``dtype``, but the MoE router, which stays
-    float32 in every model (``moe.init_moe``)."""
+    """numpy leaves as tensors in ``dtype``, but ``_FLOAT32_LEAVES``."""
     if isinstance(tree, dict):
         return {k: _tensor_tree(v, dtype, device, k) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tensor_tree(v, dtype, device) for v in tree]
-    if key == "router":
+    if key in _FLOAT32_LEAVES:
         dtype = torch.float32
     arr = np.array(tree, copy=True)
     if arr.dtype.kind not in "biuf":  # e.g. ml_dtypes bfloat16: widen losslessly first

@@ -1,14 +1,18 @@
-"""Decoder-only transformer stack: attention blocks, dense or MoE feed-forwards.
+"""Decoder-only stack: attention, RG-LRU and SSD blocks, dense or MoE feed-forwards.
 
 Counterpart of ``repro/models/transformer.py``.  The reference scans
 stacked layer groups with ``lax.scan``; here the layers are an
 ``nn.ModuleList`` run in a Python loop, and the caches are a list with
-one :class:`~repro_torch.models.attention.KVCache` per layer.  Block
-kinds other than ``attn_global`` / ``attn_local`` (RG-LRU, SSD) and
-encoder-decoder models raise and name the slice that ports them.  A
+one cache per layer, by its kind: a
+:class:`~repro_torch.models.attention.KVCache` for ``attn_global`` /
+``attn_local``, an :class:`~repro_torch.models.rglru.RGLRUCache` for
+``rglru`` (recurrentgemma's Griffin blocks) and an
+:class:`~repro_torch.models.ssd.SSDCache` for ``ssd`` (mamba2).
+Encoder-decoder models raise and name the slice that ports them.  A
 block's feed-forward is the gated MLP (``ffn``) or, in an MoE model, the
 routed experts (``ffn_moe``, ``models/moe.py``), whose load-balance loss
-each block returns.
+each block returns; an ``ssd`` block has one only when ``d_ff > 0``, as
+in the reference.
 
 ``forward`` takes tokens, or precomputed embeddings (``embeds``, the
 stubbed vision frontend's patch embeddings) in their place, and returns
@@ -38,12 +42,14 @@ from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, rglru, ssd
 from repro_torch.models.layers import Ctx
 
-__all__ = ["Block", "Transformer", "block_kinds", "check_supported"]
+__all__ = ["Block", "Transformer", "block_kinds", "check_supported", "has_recurrent_state",
+           "init_cache"]
 
 _ATTN_KINDS = ("attn_global", "attn_local")
+_RECURRENT_KINDS = ("rglru", "ssd")  # block kinds with a recurrent state, which takes in pads
 
 
 def block_kinds(cfg: ModelConfig) -> list[str]:
@@ -51,24 +57,34 @@ def block_kinds(cfg: ModelConfig) -> list[str]:
     return [pat[i % len(pat)] for i in range(cfg.num_layers)]
 
 
+def has_recurrent_state(cfg: ModelConfig) -> bool:
+    return any(k in _RECURRENT_KINDS for k in cfg.layer_pattern)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: RG-LRU and SSD blocks, and
-    encoder-decoder models."""
-    other = sorted({k for k in block_kinds(cfg) if k not in _ATTN_KINDS})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {other} are not ported yet "
-            f"(ROADMAP.md, 'Modules to port' item 10)"
-        )
+    """Raise for what the port does not run yet: encoder-decoder models."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP.md, 'Modules to port' item 10)"
+            f"(ROADMAP.md, 'Modules to port' item 10e)"
         )
 
 
-def _has_ffn(cfg: ModelConfig) -> bool:
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    if kind == "ssd":
+        return cfg.d_ff > 0
     return cfg.d_ff > 0 or cfg.num_experts > 0
+
+
+def init_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device):
+    """A zero cache for one layer of ``kind``."""
+    if kind in _ATTN_KINDS:
+        return attention.init_kv_cache(cfg, batch, max_seq, dtype, device)
+    if kind == "rglru":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "ssd":
+        return ssd.init_ssd_cache(cfg, batch, dtype, device)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # the reference's checkpoint_dots_with_no_batch_dims: 2-D products, not batched ones
@@ -94,20 +110,22 @@ def _remat(fn, remat: str):
     raise ValueError(f"unknown remat policy {remat!r}; expected none, dots or full")
 
 
+_MIXERS = ("attn", "rglru", "ssd")
+
+
 class Block(nn.Module):
-    """One pre-norm decoder block: attention, then the gated MLP or the
-    routed experts."""
+    """One pre-norm decoder block: its mixer (attention, RG-LRU or SSD), then
+    the gated MLP or the routed experts, where the block has one."""
 
     def __init__(self, cfg: ModelConfig, kind: str, tensors: dict, index: int):
         super().__init__()
         self.kind = kind
         self.index = index
         self.ln1 = nn.Parameter(tensors["ln1"])
-        self.attn = nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors["attn"].items()})
         for name in ("post_ln1", "ln2", "post_ln2"):
             if name in tensors:
                 setattr(self, name, nn.Parameter(tensors[name]))
-        for name in ("ffn", "ffn_moe"):
+        for name in _MIXERS + ("ffn", "ffn_moe"):
             setattr(self, name, nn.ParameterDict(
                 {k: nn.Parameter(v) for k, v in tensors[name].items()})
                 if name in tensors else None)
@@ -118,10 +136,15 @@ class Block(nn.Module):
         ctx = ctx.for_block(self.index, x.device)
         cfg = ctx.cfg
         h = layers.rms_norm(x, self.ln1, cfg.norm_eps)
-        out, new_cache = attention.attention(
-            self.attn, h, positions, ctx,
-            local=(self.kind == "attn_local"), cache=cache, cache_pos=cache_pos,
-        )
+        if self.kind == "rglru":
+            out, new_cache = rglru.rglru_block(self.rglru, h, ctx, cache=cache)
+        elif self.kind == "ssd":
+            out, new_cache = ssd.ssd_block(self.ssd, h, ctx, cache=cache)
+        else:
+            out, new_cache = attention.attention(
+                self.attn, h, positions, ctx,
+                local=(self.kind == "attn_local"), cache=cache, cache_pos=cache_pos,
+            )
         if cfg.use_post_norm:
             out = layers.rms_norm(out, self.post_ln1, cfg.norm_eps)
         x = x + out
@@ -138,13 +161,22 @@ class Block(nn.Module):
         return x, new_cache, aux
 
 
-def init_block_tensors(cfg: ModelConfig, dtype, device, generator) -> dict:
-    """Seeded block tensors with the reference's scales and zero-init norms."""
+def init_block_tensors(cfg: ModelConfig, kind: str, dtype, device, generator) -> dict:
+    """Seeded tensors of one block of ``kind`` with the reference's scales
+    and zero-init norms."""
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-    p = {"ln1": zeros(), "attn": attention.init_attn(cfg, dtype, device, generator)}
+    p = {"ln1": zeros()}
+    if kind in _ATTN_KINDS:
+        p["attn"] = attention.init_attn(cfg, dtype, device, generator)
+    elif kind == "rglru":
+        p["rglru"] = rglru.init_rglru(cfg, dtype, device, generator)
+    elif kind == "ssd":
+        p["ssd"] = ssd.init_ssd(cfg, dtype, device, generator)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     if cfg.use_post_norm:
         p["post_ln1"] = zeros()
-    if _has_ffn(cfg):
+    if _has_ffn(cfg, kind):
         d, f = cfg.d_model, cfg.d_ff
         p["ln2"] = zeros()
         if cfg.num_experts > 0:
@@ -186,7 +218,8 @@ class Transformer(nn.Module):
                 (cfg.vocab_size, cfg.d_model), cfg.d_model**-0.5, dtype, device, gen
             ),
             "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
-            "blocks": [init_block_tensors(cfg, dtype, device, gen) for _ in range(cfg.num_layers)],
+            "blocks": [init_block_tensors(cfg, kind, dtype, device, gen)
+                       for kind in block_kinds(cfg)],
         }
         if not cfg.tie_embeddings:
             tensors["lm_head"] = layers.normal_init(

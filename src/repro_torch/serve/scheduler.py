@@ -16,8 +16,12 @@ admission policy of :mod:`repro_torch.serve.policy` choosing admission and
 the serving tier once per tick and a virtual (modeled) or wall clock.
 ``static_serve_loop`` is the static-batch loop, the baseline and oracle.
 
-Decoder-only attention families (``supports_continuous``); data-parallel
-meshes are ROADMAP.md's 'Modules to port' item 11.
+Decoder-only families.  Attention-only stacks take mixed-length prompts
+(``supports_continuous``); the recurrent-state families (RG-LRU, SSD:
+recurrentgemma-2b, mamba2-130m) take only prompts of the bucket's
+length, since left pads would flow into their state, and padded
+admission raises, as the reference's does.  Data-parallel meshes are
+ROADMAP.md's 'Modules to port' item 11.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import has_recurrent_state
 from repro_torch.serve.policy import AdmissionPolicy, LoadSnapshot, StaticTier, get_policy
 from repro_torch.serve.request import Request, RequestStats
 from repro_torch.serve.stats import ServeResult, ServeStats, SlotAccounting
@@ -43,12 +48,6 @@ __all__ = [
     "static_serve_loop",
     "supports_continuous",
 ]
-
-RECURRENT_KINDS = ("rglru", "ssd")  # layer kinds with pad-absorbing state
-
-
-def has_recurrent_state(cfg) -> bool:
-    return any(k in RECURRENT_KINDS for k in cfg.layer_pattern)
 
 
 def supports_continuous(cfg) -> bool:
@@ -93,10 +92,11 @@ def _check_request_quality(req: Request, pool_tier) -> None:
 
 def _scatter_row(big: list, small: list, row: int) -> list:
     """Write the single-row caches ``small`` into row ``row`` of ``big``,
-    in place (the reference returns an updated copy)."""
+    every field of every kind of cache (KV, RG-LRU, SSD), in place (the
+    reference returns an updated copy)."""
     for b, s in zip(big, small):
-        b.k[row] = s.k[0]
-        b.v[row] = s.v[0]
+        for b_field, s_field in zip(b, s):
+            b_field[row] = s_field[0]
     return big
 
 
@@ -166,9 +166,14 @@ class ContinuousScheduler:
         if batch_size < 1 or prompt_len < 1 or max_new < 1:
             raise ValueError("batch_size, prompt_len and max_new must be >= 1")
         model, self.quality = _apply_pool_quality(model, quality)
+        # recurrent-state layers integrate left pads into their state
+        # (positions cannot mask them out), so padded admission would be
+        # silently wrong: enforced per request in _pad
+        self._recurrent = has_recurrent_state(model.cfg)
         self.model, self.params = model, params
         self.batch_size, self.prompt_len, self.max_new = batch_size, prompt_len, max_new
         self.strategy = get_strategy(strategy)
+        self.strategy.check_config(model.cfg)
         self.capacity = prompt_len + max_new + self.strategy.extra_capacity
         self.device = params.embed.device
         self._cache_dtype = getattr(torch, model.cfg.dtype)
@@ -201,6 +206,13 @@ class ContinuousScheduler:
             raise ValueError(
                 f"request {req.id}: budget {req.max_new} exceeds slot capacity {self.max_new}"
             )
+        if self._recurrent and ln < self.prompt_len:
+            raise ValueError(
+                f"request {req.id}: prompt length {ln} < bucket {self.prompt_len}, "
+                f"but {self.model.cfg.name} has recurrent-state layers that would "
+                f"integrate the left pads (positions cannot mask recurrent state); "
+                f"use a bucket equal to the prompt length, or pad prompts upstream"
+            )
         toks = np.zeros((self.prompt_len,), np.int64)
         toks[self.prompt_len - ln:] = req.tokens
         pos = np.arange(self.prompt_len, dtype=np.int64) - (self.prompt_len - ln)
@@ -219,14 +231,16 @@ class ContinuousScheduler:
 
     def warmup(self) -> None:
         """Run the pool prefill, an admission, a pool decode and the
-        strategy's own steps once."""
+        strategy's own steps once.  The admission's prompt is one token, or
+        the bucket's length in a recurrent-state pool, which refuses pads."""
         B = self.batch_size
         eng = self._base_engine
         with torch.inference_mode():
             toks = np.zeros((B, self.prompt_len), np.int64)
             pos = np.tile(np.arange(self.prompt_len, dtype=np.int64), (B, 1))
             caches, _ = eng.prefill_pool(self.params, self._tensor(toks), self._tensor(pos))
-            req = Request(id=-1, tokens=np.zeros(1, np.int32), max_new=1)
+            ln = self.prompt_len if self._recurrent else 1
+            req = Request(id=-1, tokens=np.zeros(ln, np.int32), max_new=1)
             caches, _ = self._prefill_row(req, caches, 0, eng)
             zeros = self._tensor(np.zeros((B,), np.int64))
             nxt, _ = eng.decode(self.params, caches, self._tensor(np.zeros((B, 1), np.int64)),

@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import has_recurrent_state
 from repro_torch.train.steps import make_decode_step, make_prefill_step, mrope_positions
 
 __all__ = [
@@ -79,7 +80,8 @@ class TierEngine:
 
 def build_tier_engine(model, capacity: int, *, name, key, scatter_row) -> TierEngine:
     """The (admit, pool-prefill, decode, verify) bundle for one tier;
-    ``scatter_row(big, small, row)`` writes a single-row cache into the pool.
+    ``scatter_row(big, small, row)`` writes a single-row cache, every kind
+    (KV, RG-LRU, SSD), into the pool.
     Each step runs under ``torch.inference_mode()``: the parameters are
     trainable, and a served step must record no autograd graph."""
     prefill = make_prefill_step(model, capacity)
@@ -147,6 +149,9 @@ class DecodeStrategy:
     def admission_key(self, policy_key):
         """Engine key admissions run at (greedy: the serving tier)."""
         return policy_key
+
+    def check_config(self, cfg) -> None:
+        """Raise if this strategy cannot serve ``cfg`` (greedy serves all)."""
 
     def warmup(self, pool) -> None:
         """Run any strategy-specific steps once outside the timed region."""
@@ -222,6 +227,17 @@ class SelfSpeculative(DecodeStrategy):
 
     def admission_key(self, policy_key):
         return self.verify_tier if self.verify_tier is not None else policy_key
+
+    def check_config(self, cfg) -> None:
+        """Recurrent-state configs are refused: a verify forward writes k + 1
+        steps into an RG-LRU or SSD state that no rollback can undo, and the
+        reference's ``ssd_block`` even takes a carried cache as fresh at S > 1."""
+        if has_recurrent_state(cfg):
+            raise ValueError(
+                f"{cfg.name}: self-speculative decoding cannot roll back recurrent "
+                f"state; serve it greedy (ROADMAP.md, section 3, a reference fault "
+                f"side-stepped)"
+            )
 
     def wants_speculation(self, rows: Sequence[RowView]) -> bool:
         tags = [r.strategy for r in rows if r.strategy is not None]

@@ -11,9 +11,14 @@ an update in place saves a copy of them per step), returning the state
 with its new optimizer state and step.
 
 ``make_prefill_step`` / ``make_decode_step`` are the serving pair: prefill
-builds fresh caches and writes positions [0, S) (or, given per-row true
-positions of left-padded prompts, masks the pads out of the cache);
-decode consumes one token per row at a scalar or per-row position.
+builds fresh caches, one per layer by its kind (KV, or RG-LRU / SSD
+conv inputs and float32 state), and writes positions [0, S) (or, given
+per-row true positions of left-padded prompts, masks the pads out of the
+KV cache; a recurrent state takes every token in, pads included);
+decode consumes one token per row at a scalar or per-row position and
+carries every cache, recurrent ones by their single-step update.
+Training the RG-LRU and SSD families is not ported yet
+(``check_trainable``).
 Under M-RoPE every step broadcasts its (B, S) positions to the (3, B, S)
 t/h/w streams of a text-only sequence (t = h = w), as the reference does.
 """
@@ -27,13 +32,13 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.layers import fold_seed
 from repro_torch.models.registry import Model, reference_leaves
-from repro_torch.models.transformer import Transformer, check_supported
+from repro_torch.models.transformer import Transformer, check_supported, has_recurrent_state
 from repro_torch.optim import adamw, compress
 from repro_torch.train.losses import chunked_cross_entropy
 
 __all__ = [
-    "AUX_COEF", "TrainState", "init_train_state", "loss_fn", "make_decode_step",
-    "make_prefill_step", "make_train_step", "mrope_positions",
+    "AUX_COEF", "TrainState", "check_trainable", "init_train_state", "loss_fn",
+    "make_decode_step", "make_prefill_step", "make_train_step", "mrope_positions",
 ]
 
 AUX_COEF = 0.01
@@ -111,10 +116,21 @@ def _grads(params: Transformer, leaves, batch: dict) -> list:
     return adamw.flatten_leaves(leaves, grads)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for what the port cannot train yet: the RG-LRU and SSD families
+    (and what ``check_supported`` refuses)."""
+    check_supported(cfg)
+    if has_recurrent_state(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training RG-LRU and SSD blocks is not ported yet (ROADMAP.md, "
+            f"'Modules to port' item 10d')"
+        )
+
+
 def make_train_step(model: Model, tcfg: TrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` (B, S) on the parameters' device."""
-    check_supported(model.cfg)
+    check_trainable(model.cfg)
     accum = max(1, tcfg.grad_accum)
 
     def step_fn(state: TrainState, batch: dict):

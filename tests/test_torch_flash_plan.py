@@ -151,6 +151,28 @@ def test_skipping_loop_is_the_plain_blockwise_loop_and_matches_the_reference(row
     np.testing.assert_allclose(o.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("rows,keys", [(24, 40), (16, 48), (48, 24)])
+@pytest.mark.parametrize("case", CASES)
+def test_blockwise_path_takes_lengths_the_chunks_do_not_divide(case, rows, keys):
+    """The plain blockwise path at lengths that are not multiples of its
+    chunks (a prompt of 4,096 over a cache of 4,104, say): the short last
+    tiles' missing rows and slots add nothing, so (o, lse) stay within 2e-5
+    of the direct softmax and of the loop over short tiles, and a row with
+    no allowed slot averages its T real slots (lse NEG_INF)."""
+    q, k, v, qp, kp, window, softcap = _layout(case, seed=rows + keys + 1, dtype=torch.float32)
+    assert q.shape[1] % rows or k.shape[1] % keys
+    kw = dict(causal=True, window=window, softcap=softcap, scale=0.25)
+    o, lse = fa._attend_flash(q, k, v, qp, kp, q_chunk=rows, k_chunk=keys, with_lse=True, **kw)
+    assert o.shape == q.shape and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    want_o, want_lse = fa._attend_direct(q, k, v, qp, kp, with_lse=True, **kw)
+    torch.testing.assert_close(o, want_o, **TOL)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+    assert torch.equal(lse == fa.NEG_INF, want_lse == fa.NEG_INF)
+    loop_o, loop_lse = _online(q, k, v, qp, kp, rows=rows, keys=keys, **kw)
+    torch.testing.assert_close(o, loop_o, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, loop_lse, rtol=1e-6, atol=1e-6)
+
+
 def _rule_by_slot(q_pos, k_pos, *, rows, keys, causal, window):
     """The masked-block rule worked out pair by pair in plain Python: a
     (query tile, key tile) pair is live when some slot of the key tile is
@@ -420,7 +442,7 @@ WIDE_SHAPES = {  # (B, S, T): the serve prefill over its cache, S = T = 1024, tr
 
 
 @pytest.mark.parametrize("shape", sorted(WIDE_SHAPES))
-@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("g", [1, 2, 8, 10])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_head_width_256_plans_fit_the_card(dtype, g, shape):
     """gemma's head width: the forward takes one item a block (eight warps,
@@ -430,7 +452,7 @@ def test_head_width_256_plans_fit_the_card(dtype, g, shape):
     pair's (dq four warps, dk/dv one group of eight warps, two to each 16
     slots), and the CPU backward at 256 is the plain version."""
     b, s, t = WIDE_SHAPES[shape]
-    h, kv = 16, 16 // g
+    h, kv = (10, 1) if g == 10 else (16, 16 // g)  # g = 10: recurrentgemma-2b's MQA
     for sms in (SMS, 1, b * kv * 64):  # one wave, many, and items within (sms, 2 sms]
         plan = fa.launch_plan("fwd", b, s, t, h, kv, 256, dtype, sms=sms)
         items = b * kv * -(-s // (64 // min(g, 64)))

@@ -224,6 +224,8 @@ APPROX_GEMM_SHAPES = [
     # 40 (pool prefill) on up/gate (1024, 512) and down (512, 1024)
     (1, 1024, 512, "random"), (40, 1024, 512, "random"), (1, 512, 1024, "random"),
     (40, 512, 1024, "random"),
+    # mamba2-130m's in_proj (768 -> 3352: N not a multiple of 16) and out_proj
+    (4, 768, 3352, "random"), (128, 768, 3352, "random"), (4, 1536, 768, "random"),
 ]
 
 
@@ -331,12 +333,16 @@ def _flash_layout(card, layout, hd, dtype, seed):
     over 4 KV heads (an item of 7 heads x 9 rows, 63 of its 64 row-heads);
     "group-2" with granite-moe-1b-a400m's 16 over 8; "train-g7" and
     "train-g2" their train shape, S = T = 128 causal, batch 8; "left-pad-g7"
-    the left-pad layout with qwen2-vl's heads."""
-    heads = {"cache": (8, 2), "group-16": (16, 1), "group-7": (28, 4), "group-2": (16, 8)}
+    the left-pad layout with qwen2-vl's heads; "group-10" and "left-pad-g10"
+    with recurrentgemma-2b's 10 query heads on one KV head (an item of 10
+    heads x 6 rows, 60 of its 64 row-heads)."""
+    heads = {"cache": (8, 2), "group-16": (16, 1), "group-7": (28, 4), "group-2": (16, 8),
+             "group-10": (10, 1)}
     if layout in heads:
         h, kv = heads[layout]
         return (*_attn_inputs(card, 2, 40, 72, h, kv, hd, dtype, seed), (2, 40, 72, h, kv))
     b, s, t, h, kv = {"left-pad": (3, 72, 200, 8, 2), "left-pad-g7": (3, 72, 200, 28, 4),
+                      "left-pad-g10": (3, 72, 200, 10, 1),
                       "causal-200": (2, 200, 200, 4, 2), "train-g7": (8, 128, 128, 28, 4),
                       "train-g2": (8, 128, 128, 16, 8)}[layout]
     g = torch.Generator(device=card).manual_seed(seed)
@@ -363,6 +369,8 @@ def _flash_layout(card, layout, hd, dtype, seed):
     # qwen2-vl-7b's g = 7 (28 / 4 of 128) and granite-moe-1b-a400m's head width 64, g = 2
     (128, None, None, "group-7"), (128, 24, 30.0, "group-7"), (128, None, None, "left-pad-g7"),
     (128, None, None, "train-g7"), (64, None, None, "group-2"), (64, None, None, "train-g2"),
+    # recurrentgemma-2b's g = 10 (10 / 1 of 256, MQA)
+    (256, None, None, "group-10"), (256, 24, None, "group-10"), (256, None, None, "left-pad-g10"),
 ])
 def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtype, card):
     """The forward kernel against the plain version within 2e-5, over a
@@ -403,6 +411,9 @@ def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtyp
     (128, 28, 4, 100, None, None, True), (128, 28, 4, 2000, None, None, False),
     (128, 28, 4, 4096, 300, None, True), (64, 16, 8, 100, None, None, True),
     (64, 16, 8, 2000, 24, 30.0, False),
+    # recurrentgemma-2b's g = 10 (10 / 1 of 256); its window of 2,048 over 4,096 slots
+    (256, 10, 1, 100, None, None, True), (256, 10, 1, 2000, None, None, False),
+    (256, 10, 1, 4096, 2048, None, True),
 ])
 def test_flash_decode_matches_plain_version(hd, h, kv, t, window, softcap, empty_row, dtype,
                                             card):
@@ -456,7 +467,8 @@ def test_flash_forward_launch_plan_is_the_kernels(hd, dtype, card):
     for b, s, t, h, kv in ((4, 32, 48, 16, 8), (8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8),
                            (1, 4096, 4096, 16, 8), (2, 200, 200, 4, 2), (3, 72, 256, 16, 1),
                            (2, 3, 7, 64, 1), (4, 32, 48, 28, 4), (8, 128, 128, 28, 4),
-                           (1, 1024, 1024, 28, 4), (4, 1, 4096, 28, 4)):
+                           (1, 1024, 1024, 28, 4), (4, 1, 4096, 28, 4), (4, 32, 48, 10, 1),
+                           (1, 4096, 4096, 10, 1), (4, 1, 4096, 10, 1)):
         for kernel in ("fwd", "decode"):
             if kernel == "decode" and h // kv > fa.MAX_GROUP:
                 continue
@@ -515,6 +527,8 @@ def _padded_cache(card, b, s, t, h, kv, hd, seed):
     ("lowrank", 128, 8, 8, 16, None, None, 28, 4), ("lowrank", 128, 8, 8, 128, None, 30.0, 28, 4),
     # granite-moe-1b-a400m's 16 / 8 of 64
     ("bitexact", 64, 8, 8, 16, None, None, 16, 8), ("lowrank", 64, 8, 8, 16, None, None, 16, 8),
+    # recurrentgemma-2b's g = 10 (10 / 1 of 256)
+    ("bitexact", 256, 8, 8, 16, None, None, 10, 1), ("bitexact", 256, 8, 8, 64, 24, None, 10, 1),
 ])
 def test_approx_attention_redesign_matches_plain_version(mode, hd, n, rank, bk, window, softcap,
                                                          h, kv, card):
@@ -565,7 +579,7 @@ def test_approx_attention_launch_plan_is_the_kernels(mode, card):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     shapes = [(4, 32, 48, 16, 8), (8, 128, 128, 16, 8), (1, 1024, 1024, 16, 8),
               (3, 72, 256, 8, 2), (2, 3, 7, 64, 1), (1, 10, 10, 6, 2), (4, 32, 48, 28, 4),
-              (1, 1024, 1024, 28, 4)]
+              (1, 1024, 1024, 28, 4), (4, 32, 48, 10, 1)]
     for b, s, t, h, kv in shapes:
         for hd in (16, 32, 64, 128, 256):
             for n, rank in ((8, 8), (4, 1), (8, 24)):

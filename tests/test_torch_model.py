@@ -313,12 +313,20 @@ def test_seeded_init_has_the_reference_scales():
 
 
 def test_unported_block_kinds_raise():
-    """RG-LRU / SSD blocks and encoder-decoder models raise and name the
-    ROADMAP item; MoE feed-forwards (ported since) build."""
+    """Encoder-decoder models raise and name the ROADMAP item; the hybrid
+    (RG-LRU + local attention) and SSD patterns and MoE feed-forwards, ported
+    since, build."""
     base = get_config("qwen3-0.6b").reduced()
-    hybrid = dataclasses.replace(base, layer_pattern=("rglru", "rglru", "attn_local"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(hybrid).init_params(0, device="cpu")
+    hybrid = dataclasses.replace(base, layer_pattern=("rglru", "rglru", "attn_local"),
+                                 lru_width=64)
+    params = build_model(hybrid).init_params(0, device="cpu")
+    assert [b.kind for b in params.layers] == ["rglru", "rglru"]
+    assert all(b.attn is None and b.rglru["lru_gate_w"].shape == (64, 64) for b in params.layers)
+    ssm = dataclasses.replace(base, layer_pattern=("ssd",), d_ff=0, d_inner=128, ssm_heads=8,
+                              ssm_head_dim=16, ssm_state=16)
+    params = build_model(ssm).init_params(0, device="cpu")
+    assert all(b.ffn is None and b.ssd["in_proj"].shape == (64, 2 * 128 + 2 * 16 + 8)
+               for b in params.layers)
     encdec = dataclasses.replace(base, encoder_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(encdec).init_params(0, device="cpu")
@@ -326,25 +334,30 @@ def test_unported_block_kinds_raise():
     params = build_model(moe).init_params(0, device="cpu")
     assert all(b.ffn is None and b.ffn_moe["we1"].shape == (4, 64, 32) for b in params.layers)
     with pytest.raises(KeyError, match="qwen3-0.6b"):
-        get_config("recurrentgemma-2b")
+        get_config("seamless-m4t-large-v2")
 
 
 @pytest.mark.parametrize("arch,reduced", [("gemma2-9b", dict(num_layers=3)), ("yi-9b", {}),
                                           ("granite-moe-1b-a400m", {}), ("kimi-k2-1t-a32b", {}),
-                                          ("qwen2-vl-7b", {})],
+                                          ("qwen2-vl-7b", {}),
+                                          ("recurrentgemma-2b", dict(num_layers=5)),
+                                          ("mamba2-130m", dict(num_layers=4))],
                          ids=["gemma2-9b-group-and-remainder", "yi-9b-untied",
                               "granite-stacked-experts", "kimi-k2-stacked-experts-untied",
-                              "qwen2-vl-untied"])
+                              "qwen2-vl-untied", "recurrentgemma-period-3-two-remainders",
+                              "mamba2-period-1"])
 def test_loader_round_trips_the_reference_tree(arch, reduced):
     """gemma2-9b at three layers (one scanned group of its two kinds, one
-    remainder layer) and yi-9b (an untied ``lm_head``): the reference's
-    tree goes through ``from_jax_params`` and back through
+    remainder layer), yi-9b (an untied ``lm_head``), recurrentgemma-2b at
+    five layers (one (rglru, rglru, attn_local) group, two remainder RG-LRU
+    layers, as the published 26 layers leave) and mamba2-130m (period one):
+    the reference's tree goes through ``from_jax_params`` and back through
     ``to_jax_layout`` bit for bit, and ``reference_leaves`` names its leaves
     in ``jax.tree_util.tree_leaves`` order."""
     jcfg, tcfg = jax_get_config(arch).reduced(**reduced), get_config(arch).reduced(**reduced)
     tree = jax.tree_util.tree_map(np.asarray, jax_build_model(jcfg).init_params(
         jax.random.PRNGKey(0)))
-    assert ("rem" in tree) == (arch == "gemma2-9b")
+    assert ("rem" in tree) == (tcfg.num_layers % len(tcfg.layer_pattern) > 0)
     assert ("lm_head" in tree) == (not tcfg.tie_embeddings)
     params = from_jax_params(tree, tcfg, device="cpu")
     back = to_jax_layout(dict(params.named_parameters()), params)
