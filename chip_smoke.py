@@ -26,7 +26,9 @@ Phases, one line each (or a few):
    down; the MLP rows timed) and of yi-9b at M = 4 and 128, and untimed
    at the projections of mamba2-130m (lut, packed and seqmul at in_proj 768
    -> 3352, N not a multiple of 16, and out_proj 1536 -> 768) and of
-   recurrentgemma-2b (lut), M = 4 and 128.  Attention: the serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
+   recurrentgemma-2b (lut), and of seamless-m4t-large-v2 (lut, packed and
+   seqmul at (1024, 1024), (1024, 8192) and (8192, 1024)), M = 4 and 128.
+   Attention: the serve shapes of qwen3-0.6b (16 query and 8 KV heads of 128, bf16;
    prefill q (4, 32) over a 48-slot cache with a masked tail, key block
    16; decode batch 4 over 48 slots), a window + softcap case each, and
    one long shape each, and flash_attention and approx_attention_bitexact
@@ -72,6 +74,13 @@ Phases, one line each (or a few):
    and at S = T = 4,096 under its window of 2,048, the decode at the serve
    shape and over 4,096 slots under the window, bitexact at the serve
    shape).
+   Query groups of 1 at head width 64, causal and not, every row timed and
+   held as above: seamless-m4t-large-v2's 16 query heads over 16 KV heads of
+   64 (the forward non-causal, as its encoder runs it, at the serve shape
+   S = T = 32, at the train shape with lse and at S = T = 1024; causal over
+   the serve cache, as its decoder's prefill; the decode at the serve shape
+   and over 4,096 slots; bitexact and lowrank non-causal at the serve shape,
+   key block as the reference computes it, and at S = T = 1024).
    Backward: the dq and dk/dv kernels (bf16 tensor cores, float32
    operands split into two bf16 terms, tiles with nothing to add skipped)
    against ``flash_attention_bwd_plain`` on the forward kernel's (o, lse),
@@ -86,7 +95,9 @@ Phases, one line each (or a few):
    64 and softcap 50 at the train shape), gemma-7b's 16 / 16, gemma2's in
    float32 and on the bitexact forward's (o, lse), and yi-9b's 32 / 4 of
    128 (g = 8), qwen2-vl-7b's 28 / 4 of 128 (g = 7) and granite's 16 / 8
-   of 64, all at the train shape; the build phase checks that every
+   of 64, all at the train shape; seamless's 16 / 16 of 64 non-causal and
+   causal and recurrentgemma-2b's 10 / 1 of 256 (g = 10) under its window
+   of 2,048, at the train shape and at S = T = 1024; the build phase checks that every
    instantiation of both kernels has tensor-core instructions (HMMA) in its
    SASS, and that none of their four at head width 256 spills.  Elementwise multiplier:
    ``seqmul_packed`` at n in {4, 8, 12, 15} and ``seqmul_words`` at n in
@@ -145,7 +156,16 @@ Phases, one line each (or a few):
    card against CPU, the approximate calls fed the CPU's inputs; then
    reduced mamba2-130m and recurrentgemma-2b (four layers, pallas) at the
    balanced tier, prefill and four decode steps card against CPU, the
-   approximate calls fed the CPU's inputs;
+   approximate calls fed the CPU's inputs; one train step each of reduced
+   mamba2-130m and recurrentgemma-2b (pallas: the pair at its local
+   attention) card against CPU; reduced seamless-m4t-large-v2 under pallas
+   (two encoder and two decoder layers, 16 frames of memory): prefill and
+   four decode steps' logits card against CPU at exact (flash_attention
+   non-causal in the encoder, causal in the decoder, flash_decode) and at
+   balanced (approx_attention_bitexact both ways; the approximate calls fed
+   the CPU's inputs), and one train step through the kernels against the
+   plain attention, both on the card (the same limits as the other train
+   steps);
 5. serve: the continuous scheduler on full-width qwen3-0.6b (28 layers,
    d_model 1024, vocab 151936, bf16, weights from a seed) at tier
    ``exact`` (no kernel: the yardstick), tier ``balanced`` (lut_matmul),
@@ -153,15 +173,15 @@ Phases, one line each (or a few):
    (seqmul_matmul); then with ``attn_impl="pallas"`` at tier ``exact``
    (flash_attention, flash_decode), tier ``balanced`` (adds
    approx_attention_bitexact and lut_matmul) and ``lowrank`` on mlp and
-   attn (lowrank_matmul, approx_attention_lowrank, flash_decode); two
-   batches of requests per run (one for seqmul).  Every launch count is
+   attn (lowrank_matmul, approx_attention_lowrank, flash_decode); one
+   batch of 4 requests per run (2 for seqmul).  Every launch count is
    set to 0 just before each run and read just after.
    After each run, one pool prefill and one decode step give the
    launches and host time per step, and a profiler pass over one
    decode step the device's busy share.  Then the rest of serving:
    ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over the
-   exact run's 8 requests (packed_matmul) and on the pallas exact pool
-   over 4 of its requests (flash_decode, flash_attention, packed_matmul),
+   exact run's 4 requests (packed_matmul) and on the pallas exact pool
+   over 2 of them (flash_decode, flash_attention, packed_matmul),
    their streams held against the greedy runs' by the margin rule (equal
    up to each request's first greedy step whose top-2 logit gap, by
    teacher forcing, is under ``STREAM_MARGIN``), with accept rate, rounds,
@@ -207,7 +227,16 @@ Phases, one line each (or a few):
    largest logit difference printed), mamba2 at exact, recurrentgemma at
    exact and pallas exact; each run with its parameter count, decode step
    and pool prefill ms, busy share, launches per decode step by kernel and
-   peak device memory;
+   peak device memory; then seamless-m4t-large-v2 (24 encoder + 24 decoder
+   layers, d_model 1024, 16 / 16 heads of 64, d_ff 8192, vocab 256,206,
+   tied, 1.772B params) through the static loop (the continuous scheduler
+   refuses an encoder-decoder), prompts and an encoder memory of 32
+   synthesized frames, at exact, balanced (lut_matmul), pallas exact
+   (flash_attention non-causal and causal, flash_decode) and pallas
+   balanced (approx_attention_bitexact non-causal and causal), 8 requests
+   at the exact tiers and 4 at the approximate ones, each with its prefill
+   (encoder, cross K/V, decoder) and decode-step ms, launches a step,
+   busy share, tok/s and peak device memory;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
@@ -226,7 +255,14 @@ Phases, one line each (or a few):
    of its first and last ten losses, its first two losses ((d) also its CE
    and aux at steps 1 and 16), step ms, train tokens/s, launches per step, peak device memory
    and the busy share of one profiled step (with the device's top
-   kernels and each of the port's kernels' device time).  Then the train CLI
+   kernels and each of the port's kernels' device time); then (e)
+   mamba2-130m at its published widths and depth (the SSD's scans under
+   autograd; no kernel), (f) recurrentgemma-2b at its published widths cut
+   to 6 of 26 layers, two (rglru, rglru, attn_local) periods (the forward
+   and the pair at g = 10, head width 256), and (g) seamless-m4t-large-v2
+   at its published widths and depth, fed 128 seeded frames a row (the
+   forward non-causal and causal, the pair after each; both causal
+   settings must be called on the card).  Then the train CLI
    on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
    injected at step 5, which it must recover from, with the losses of its
    steps 1 and 8 (its own "loss a -> b", which averages ten steps at each
@@ -239,12 +275,13 @@ Phases, one line each (or a few):
    the card), each with its wall time and the device's busy share, printed
    as a JSON line of its own; the launch counts are those of these calls.
    Then the checks: ``exhaustive_eval(12, 6)`` equal field for field to
-   the CPU's (without fix_to_1 its worst overshoot is the closed-form
+   the CPU's (computed in a process of its own started before the kernel
+   phases) (without fix_to_1 its worst overshoot is the closed-form
    MAE), so are ``exhaustive_eval`` at n = 1 and 4 and both ``mc_eval`` at
    2^16 samples; ``seqmul_words``' low + (high << 16) equal to
    ``core.seqmul``'s products on mc_eval(16, 8)'s draws; then ``python -m
    repro_torch.examples.quickstart`` and ``accuracy_sweep --steps 80`` on
-   the card, which must exit 0;
+   the card, both processes at once, which must exit 0;
 8. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
@@ -282,9 +319,9 @@ F32_LANES_PER_CLK_PER_SM = 128  # Hopper SM: 4 partitions x 32 FP32 lanes, one F
 # qwen3-0.6b projections (K, N): q, k/v, o, mlp up/gate, mlp down
 PROJECTIONS = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
 SERVE = dict(requests=16, batch=4, prompt=32, gen=16)
-# the qwen3-0.6b tier runs serve two batches (the open loop 32 requests, the
+# the qwen3-0.6b tier runs serve one batch (the open loop 32 requests, the
 # static loop 16, the soak 64): the script's time limit
-QWEN3_REQUESTS = SERVE["requests"] // 2
+QWEN3_REQUESTS = SERVE["requests"] // 4
 MAIN_SHAPE = (SERVE["batch"] * SERVE["prompt"], 1024, 3072)  # reported in the JSON
 # qwen3-0.6b attention: query heads, KV heads, head width; the serve cache length
 HEADS, KV_HEADS, HEAD_DIM = 16, 8, 128
@@ -316,6 +353,10 @@ RECURRENTGEMMA_HEADS = dict(h=10, kv=1, hd=256)
 RECURRENTGEMMA_WINDOW = 2048
 RECURRENTGEMMA_PROJECTIONS = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560)]
 MAMBA2_PROJECTIONS = [(768, 3352), (1536, 768)]
+# seamless-m4t-large-v2's 16 query heads over 16 KV heads of 64 (g = 1) and its
+# projections (K, N): q, k, v, o and their cross twins, MLP up/gate, down
+SEAMLESS_HEADS = dict(h=16, kv=16, hd=64)
+SEAMLESS_PROJECTIONS = [(1024, 1024), (1024, 8192), (8192, 1024)]
 # the long-prompt check of the recurrent families: a prompt of 4,096 at batch
 # 1 (mamba2's SSD over 16 chunks of 256, recurrentgemma's window of 2,048
 # binding), then teacher-forced decode steps, against one full forward
@@ -354,8 +395,10 @@ ELEMENTWISE_RAGGED = [(), (0,), (1,), (127,), (129,), ((1 << 20) + 3,)]
 # the train runs: the reference driver's batch and sequence defaults
 TRAIN = dict(batch=8, seq=128, steps=16)
 # train (c): gemma2-9b at its published widths, its depth cut to two
-# (local, global) periods; the train CLI has no depth flag
+# (local, global) periods; the train CLI has no depth flag; train (f):
+# recurrentgemma-2b's depth cut to two (rglru, rglru, attn_local) periods
 GEMMA2_TRAIN_LAYERS = 4
+RECURRENTGEMMA_TRAIN_LAYERS = 6
 REPLACES = {
     "lut_matmul": "src/repro/kernels/lut_matmul.py:30",
     "seqmul_matmul": "src/repro/kernels/seqmul_matmul.py:53",
@@ -546,7 +589,8 @@ def kernel_cases():
     sweep, and the GEMMs of the serve tiers at every projection of
     gemma2-9b and yi-9b (timed at gemma2's MLP), of qwen2-vl-7b, at
     granite-moe-1b-a400m's k/v projection and expert GEMMs, and at the
-    projections of mamba2-130m and recurrentgemma-2b (untimed)."""
+    projections of mamba2-130m, recurrentgemma-2b and seamless-m4t-large-v2
+    (untimed)."""
     from repro_torch.configs.granite_moe_1b import CONFIG as granite
     from repro_torch.models.moe import capacity
 
@@ -599,6 +643,12 @@ def kernel_cases():
                 cases.append((name, m, k, n, 8, 4, False))
         for k, n in RECURRENTGEMMA_PROJECTIONS:
             cases.append(("lut_matmul", m, k, n, 8, 4, False))
+    # seamless-m4t-large-v2's projections at the decode batch and the prefill
+    # (untimed): balanced, draft and seqmul
+    for m in (SERVE["batch"], SERVE["batch"] * SERVE["prompt"]):
+        for name in ("lut_matmul", "packed_matmul", "seqmul_matmul"):
+            for k, n in SEAMLESS_PROJECTIONS:
+                cases.append((name, m, k, n, 8, 4, False))
     return cases
 
 
@@ -865,7 +915,8 @@ def phase_gemm_edges() -> list:
 class AttnCase:
     """One attention row: the kernel, a label, q (b, s) over t slots, the
     key block (approximate attention), window, softcap, whether it is
-    timed, and the heads (query, KV, width) and the dtype of q, k, v."""
+    timed, the heads (query, KV, width), the dtype of q, k, v, and whether
+    the mask is causal (an encoder's self-attention is not)."""
 
     name: str
     label: str
@@ -880,6 +931,7 @@ class AttnCase:
     kv: int = KV_HEADS
     hd: int = HEAD_DIM
     dtype: str = "bfloat16"
+    causal: bool = True
 
 
 def attention_cases():
@@ -907,7 +959,38 @@ def attention_cases():
     cases.append(AttnCase("approx_attention_bitexact", "train", TRAIN["batch"], TRAIN["seq"],
                           TRAIN["seq"], 64, timed=True))
     return (cases + wide_attention_cases() + vl_moe_attention_cases()
-            + recurrent_attention_cases())
+            + recurrent_attention_cases() + seamless_attention_cases())
+
+
+def seamless_attention_cases():
+    """seamless-m4t-large-v2's 16 query heads over 16 KV heads of 64 (g = 1):
+    the encoder's non-causal forward at the serve shape (S = T = 32, the
+    memory of 32 frames), at the train shape with lse and at S = T = 1024;
+    the decoder's causal prefill over the serve cache; the decode at the
+    serve shape and over 4,096 slots; bitexact and lowrank non-causal at
+    the serve shape (key block as the reference computes it) and at S = T =
+    1024.  All timed."""
+    from repro_torch.kernels.approx_attention import attn_tiles
+    from repro_torch.models.attention import _block
+
+    b, p = SERVE["batch"], SERVE["prompt"]
+    tb, ts = TRAIN["batch"], TRAIN["seq"]
+    heads = dict(SEAMLESS_HEADS, timed=True)
+    enc = dict(heads, causal=False)
+    bk = lambda mode, t: min(_block(t), attn_tiles(mode)[1])
+    cases = [
+        AttnCase("flash_attention", "seamless enc serve", b, p, p, **enc),
+        AttnCase("flash_attention", "seamless enc train", tb, ts, ts, **enc),
+        AttnCase("flash_attention", "seamless enc long", 1, 1024, 1024, **enc),
+        AttnCase("flash_attention", "seamless dec serve", b, p, CACHE, **heads),
+        AttnCase("flash_decode", "seamless serve", b, 1, CACHE, **heads),
+        AttnCase("flash_decode", "seamless long", 4, 1, 4096, **heads),
+    ]
+    for mode in ("bitexact", "lowrank"):
+        name = f"approx_attention_{mode}"
+        cases.append(AttnCase(name, "seamless enc serve", b, p, p, bk(mode, p), **enc))
+        cases.append(AttnCase(name, "seamless enc long", 1, 1024, 1024, bk(mode, 1024), **enc))
+    return cases
 
 
 def recurrent_attention_cases():
@@ -1068,6 +1151,7 @@ def run_attention_case(card: Card, case, seed):
 
     name, label, b, s, t = case.name, case.label, case.b, case.s, case.t
     bk, window, softcap, timed = case.bk, case.window, case.softcap, case.timed
+    causal = case.causal
     q, k, v, q_pos, k_pos = attention_inputs(case, seed)
     hd, h, kv = case.hd, case.h, case.kv
     scale = hd**-0.5
@@ -1075,7 +1159,7 @@ def run_attention_case(card: Card, case, seed):
     # attend (a masked slot adds exactly 0); a row with none, a left pad,
     # averages every slot.  pairs: (query head, slot) pairs; slots: the
     # (row, slot) pairs whose K and V some query reads.
-    allow = fa.allow_mask(q_pos.reshape(b, s), k_pos, causal=True, window=window)
+    allow = fa.allow_mask(q_pos.reshape(b, s), k_pos, causal=causal, window=window)
     needed = allow | ~allow.any(-1, keepdim=True)
     pairs = h * needed.sum().item()
     slots = needed.any(1).sum().item()
@@ -1098,7 +1182,7 @@ def run_attention_case(card: Card, case, seed):
         bound = card.bound(esize * q.numel() + kv_bytes + io_bytes, 4 * pairs * hd,
                            card.f32_flops_per_s)
     elif name == "flash_attention":
-        kw = dict(causal=True, window=window, softcap=softcap, scale=scale)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         if with_lse:
             # the train step's forward: (o, lse) against the plain version's
             kern = lambda: fa.flash_attention_fwd(q, k, v, q_pos, k_pos, with_lse=True, **kw)
@@ -1115,14 +1199,14 @@ def run_attention_case(card: Card, case, seed):
                            BF16_TENSOR_FLOPS_PER_S)
     else:
         mode, rank = name.rsplit("_", 1)[1], 8
-        kw = dict(mode=mode, n=8, t=4, rank=rank, causal=True, window=window, softcap=softcap,
+        kw = dict(mode=mode, n=8, t=4, rank=rank, causal=causal, window=window, softcap=softcap,
                   scale=scale, bk=bk)
         wrapper = lambda: aa.approx_flash_attention(q, k, v, q_pos, k_pos, **kw)
         plain = lambda: aa.approx_attention_plain(q, k, v, q_pos, k_pos, with_lse=with_lse,
                                                   **kw)
         # the kernel alone, on operands quantized once outside the timing
         ops = aa.kernel_operands(q, k, v, mode=mode, n=8, t=4, fix_to_1=True, rank=rank)
-        kern = lambda: aa.launch_kernel(ops, q_pos, k_pos, bk=bk, causal=True, window=window,
+        kern = lambda: aa.launch_kernel(ops, q_pos, k_pos, bk=bk, causal=causal, window=window,
                                         softcap=softcap, scale=scale, with_lse=with_lse)
         plan = aa.launch_plan(mode, b, s, t, h, kv, hd, 8, rank, card.sms)
         built = aa.built_launch_plan(mode, b, s, t, h, kv, hd, 8, rank, card.sms)
@@ -1151,7 +1235,7 @@ def run_attention_case(card: Card, case, seed):
     want = plain()
     torch.cuda.synchronize()
     where = (f"{name} {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd} {case.dtype} bk={bk} "
-             f"window={window} softcap={softcap}")
+             f"window={window} softcap={softcap} causal={causal}")
     row = dict(name=name, label=label, shape=[b, s, t, h, kv, hd], bk=bk,
                bound_ms=bound[0], bound_by=bound[1])
     if name.startswith("approx"):
@@ -1171,12 +1255,12 @@ def run_attention_case(card: Card, case, seed):
         # the (work item, key block) pairs the kernel skips, counted on the card
         # in one more launch, against the masked-block rule's count on the CPU
         # (approx_tile_plan's pairs, once per KV head and head chunk)
-        live = aa.approx_tile_plan(q_pos, k_pos, bk=bk, rows=plan.rows, causal=True,
+        live = aa.approx_tile_plan(q_pos, k_pos, bk=bk, rows=plan.rows, causal=causal,
                                    window=window)
         per_tile = kv * -(-(h // kv) // plan.heads)
         planned, pairs_total = int((~live).sum()) * per_tile, live.numel() * per_tile
         counter = torch.zeros(1, dtype=torch.int32, device=q.device)
-        counted = aa.launch_kernel(ops, q_pos, k_pos, bk=bk, causal=True, window=window,
+        counted = aa.launch_kernel(ops, q_pos, k_pos, bk=bk, causal=causal, window=window,
                                    softcap=softcap, scale=scale, with_lse=with_lse,
                                    skipped=counter)
         counted = counted[0] if with_lse else counted
@@ -1215,7 +1299,7 @@ def run_attention_case(card: Card, case, seed):
             counted = fa.launch_decode(q[:, 0], k, v, q_pos, k_pos, skipped=counter, **kw)
             key, what = "skipped_chunks", "(b, KV head, chunk) triples"
         else:
-            live = fa.fwd_tile_plan(q_pos, k_pos, rows=plan.rows, keys=plan.keys, causal=True,
+            live = fa.fwd_tile_plan(q_pos, k_pos, rows=plan.rows, keys=plan.keys, causal=causal,
                                     window=window)
             counted, counted_lse = fa.launch_forward(q, k, v, q_pos, k_pos, with_lse=with_lse,
                                                      skipped=counter, **kw)
@@ -1304,6 +1388,7 @@ class BwdCase:
     hd: int = HEAD_DIM
     dtype: str = "bfloat16"
     forward: str = "flash"
+    causal: bool = True
 
 
 def backward_cases():
@@ -1314,7 +1399,11 @@ def backward_cases():
     gemma-7b's 16 / 16, gemma2's heads in float32 and on the approximate
     bitexact forward's (o, lse); and yi-9b's 32 / 4 of 128 (eight query
     heads to a KV head in dk/dv), qwen2-vl-7b's 28 / 4 of 128 (seven) and
-    granite-moe-1b-a400m's 16 / 8 of 64, all at the train shape."""
+    granite-moe-1b-a400m's 16 / 8 of 64, all at the train shape; then
+    seamless-m4t-large-v2's 16 / 16 of 64 non-causal (its encoder) and
+    causal (its decoder) at the train shape and at S = T = 1024, and
+    recurrentgemma-2b's 10 / 1 of 256 (g = 10) under its window of 2,048 at
+    both."""
     b, s = TRAIN["batch"], TRAIN["seq"]
     serve = (SERVE["batch"], SERVE["prompt"], CACHE)
     return [BwdCase("train", b, s, s),
@@ -1330,7 +1419,18 @@ def backward_cases():
             BwdCase("gemma2 f32 train", b, s, s, dtype="float32", **GEMMA2_HEADS),
             BwdCase("gemma2 bitexact train", b, s, s, forward="bitexact", **GEMMA2_HEADS),
             BwdCase("qwen2-vl train", b, s, s, **QWEN2VL_HEADS),
-            BwdCase("granite train", b, s, s, **GRANITE_HEADS)]
+            BwdCase("granite train", b, s, s, **GRANITE_HEADS),
+            # train (g): seamless's encoder (non-causal) and decoder (causal)
+            BwdCase("seamless enc train", b, s, s, causal=False, **SEAMLESS_HEADS),
+            BwdCase("seamless dec train", b, s, s, **SEAMLESS_HEADS),
+            BwdCase("seamless enc long", 1, 1024, 1024, causal=False, **SEAMLESS_HEADS),
+            BwdCase("seamless dec long", 1, 1024, 1024, **SEAMLESS_HEADS),
+            # train (f): recurrentgemma's ten query heads to its one KV head
+            # (g = 10) of 256 under its window of 2,048
+            BwdCase("recurrentgemma train", b, s, s, RECURRENTGEMMA_WINDOW,
+                    **RECURRENTGEMMA_HEADS),
+            BwdCase("recurrentgemma long", 1, 1024, 1024, RECURRENTGEMMA_WINDOW,
+                    **RECURRENTGEMMA_HEADS)]
 
 
 def run_backward_case(card: Card, case: BwdCase, seed):
@@ -1350,7 +1450,7 @@ def run_backward_case(card: Card, case: BwdCase, seed):
         AttnCase("flash_attention", label, b, s, t, h=h, kv=kv, hd=hd, dtype=case.dtype), seed)
     do = torch.randn((b, s, h, hd), device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(seed + 1))
-    kw = dict(causal=True, window=window, softcap=softcap, scale=hd**-0.5)
+    kw = dict(causal=case.causal, window=window, softcap=softcap, scale=hd**-0.5)
     if case.forward == "bitexact":
         ops = aa.kernel_operands(q, k, v, mode="bitexact", n=8, t=4, fix_to_1=True, rank=8)
         o, lse = aa.launch_kernel(ops, q_pos, k_pos, bk=64, with_lse=True, **kw)
@@ -1364,7 +1464,8 @@ def run_backward_case(card: Card, case: BwdCase, seed):
     want = plain()
     torch.cuda.synchronize()
     where = (f"backward {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd} {case.dtype} "
-             f"window={window} softcap={softcap} on the {case.forward} forward")
+             f"window={window} softcap={softcap} causal={case.causal} on the {case.forward} "
+             f"forward")
     plans = {}
     for kernel in ("dq", "dkv"):
         plan = fa.launch_plan(kernel, b, s, t, h, kv, hd, q.dtype)
@@ -1390,7 +1491,7 @@ def run_backward_case(card: Card, case: BwdCase, seed):
     # dv (3).  Bytes: q, k, v, do, lse, dd read once; dq or dk and dv
     # (float32) written once.
     dq_products, dkv_products = (5, 8) if q.dtype == torch.bfloat16 else (9, 12)
-    allow = fa.allow_mask(q_pos, k_pos, causal=True, window=window)
+    allow = fa.allow_mask(q_pos, k_pos, causal=case.causal, window=window)
     pairs = h * allow.sum().item()
     pad_pairs = h * t * (~allow.any(-1)).sum().item()
     inputs = q.element_size() * (q.numel() + k.numel() + v.numel())
@@ -1574,7 +1675,55 @@ def phase_elementwise(card: Card) -> list:
 
 
 # ------------------------------------------------------- error analysis
-def phase_error_analysis() -> dict:
+# exhaustive_eval(12, 6) on the CPU, both fix_to_1 settings, the reference the
+# card's reports are held against: run in a process of its own from the
+# start of the kernel phases on, with CPU_EVAL_THREADS threads
+CPU_EVAL_THREADS = 3
+CPU_EVAL = """
+import pickle, sys, time
+import torch
+torch.set_num_threads(int(sys.argv[2]))
+from repro_torch.core import error_metrics
+out = {}
+for fix in (False, True):
+    t0 = time.perf_counter()
+    rep = error_metrics.exhaustive_eval(12, 6, fix_to_1=fix, device="cpu")
+    out[fix] = (rep, time.perf_counter() - t0)
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def start_cpu_eval():
+    """Start ``CPU_EVAL`` in a process of its own; it is killed at exit if
+    it is still running.  Returns (process, the file it writes)."""
+    import atexit
+
+    out = ROOT / "build" / "chip_smoke_cpu_eval.pkl"
+    out.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CPU_EVAL, str(out), str(CPU_EVAL_THREADS)], cwd=ROOT,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": str(CPU_EVAL_THREADS),
+             "CUDA_VISIBLE_DEVICES": ""})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def cpu_eval_reports(cpu_eval) -> dict:
+    """Wait for ``start_cpu_eval``'s process: {fix_to_1: (report, seconds)}."""
+    import pickle
+
+    proc, out = cpu_eval
+    _, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"exhaustive_eval on the CPU: exit {proc.returncode}: "
+                                f"{err[-2000:]}")
+    reports = pickle.loads(out.read_bytes())
+    out.unlink()
+    return reports
+
+
+def phase_error_analysis(cpu_eval) -> dict:
     """The paper's simulated error analysis on the card: ``engine.multiply``
     and ``kernels.ops.approx_multiply`` through ``seqmul_packed``, then
     ``exhaustive_eval(12, 6)`` and ``mc_eval(16, 8)``, whose products come
@@ -1632,12 +1781,11 @@ def phase_error_analysis() -> dict:
           "bit-equal to the reference body on the card and on the CPU (n=8, t=4, all "
           "65536 pairs)", flush=True)
 
+    cpu_reports = cpu_eval_reports(cpu_eval)
     for fix in (False, True):
         label = f"exhaustive_eval(12, 6, fix_to_1={fix})"
         rep = reports[label]
-        t0 = time.perf_counter()
-        ref = error_metrics.exhaustive_eval(12, 6, fix_to_1=fix, device="cpu")
-        cpu_s = time.perf_counter() - t0
+        ref, cpu_s = cpu_reports[fix]
         check(rep == ref, f"{label}: card {rep} != CPU {ref}")
         if not fix:
             mae = error_model.mae_closed_form(12, 6)
@@ -1646,7 +1794,8 @@ def phase_error_analysis() -> dict:
         print(f"error analysis: {label} on the card equal to the CPU's field for field: "
               f"{rep.summary()}; worst overshoot {-rep.max_ed_neg} (closed-form MAE "
               f"{error_model.mae_closed_form(12, 6)}); wall {runs[label]['wall_s']:.2f}s on "
-              f"the card (device busy share {share(label)}), {cpu_s:.2f}s on the CPU",
+              f"the card (device busy share {share(label)}), {cpu_s:.2f}s on the CPU (a "
+              f"process of its own, {CPU_EVAL_THREADS} threads, beside the card's phases)",
               flush=True)
     for n, t in ((1, 1), (4, 2)):
         check(error_metrics.exhaustive_eval(n, t, device="cuda")
@@ -1683,16 +1832,24 @@ def phase_error_analysis() -> dict:
           "equal to core.seqmul's products on the card", flush=True)
     print("error analysis runs: " + json.dumps(runs), flush=True)
 
-    for module, args in (("repro_torch.examples.quickstart", []),
-                         ("repro_torch.examples.accuracy_sweep", ["--steps", "80"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
-                              text=True, cwd=ROOT, timeout=300,
-                              env={**os.environ, "PYTHONPATH": str(SRC)})
-        check(proc.returncode == 0, f"{module} exit {proc.returncode}: {proc.stderr[-2000:]}")
-        print(f"error analysis: python -m {module} {' '.join(args)} on the card "
-              f"({time.perf_counter() - t0:.1f}s): " + " | ".join(proc.stdout.splitlines()),
-              flush=True)
+    # the two example twins, both processes at once
+    t0 = time.perf_counter()
+    twins = [(module, args, subprocess.Popen(
+        [sys.executable, "-m", module, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)}))
+        for module, args in (("repro_torch.examples.quickstart", []),
+                             ("repro_torch.examples.accuracy_sweep", ["--steps", "80"]))]
+    try:
+        for module, args, proc in twins:
+            out, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"{module} exit {proc.returncode}: {err[-2000:]}")
+            print(f"error analysis: python -m {module} {' '.join(args)} on the card (both "
+                  f"twins at once, {time.perf_counter() - t0:.1f}s): "
+                  + " | ".join(out.splitlines()), flush=True)
+    finally:
+        for _, _, proc in twins:
+            if proc.poll() is None:
+                proc.kill()
     return dict(counts=counts, runs=runs)
 
 
@@ -1794,8 +1951,9 @@ def approximate_inputs(recorded: list, label: str, *, record: bool):
 def hold_logits_on_card(label: str, cfg, *, decode_steps: int = 0, prompt: int = 16,
                         cache: int = 24, forced: bool = False) -> None:
     """Prefill logits of ``cfg`` (seed-0 weights, two prompts of ``prompt``
-    tokens) and then ``decode_steps`` greedy decode steps on the card
-    against the port's CPU plain path, every step fed the CPU's token.
+    tokens; an encoder-decoder also encodes ``prompt`` seeded frames) and
+    then ``decode_steps`` greedy decode steps on the card against the
+    port's CPU plain path, every step fed the CPU's token.
     ``forced``: each approximate call on the card is first checked to get
     the CPU's inputs within rtol/atol 1e-4 and then fed the CPU's inputs
     themselves (``approximate_inputs``), as tests/test_torch_model.py
@@ -1812,6 +1970,12 @@ def hold_logits_on_card(label: str, cfg, *, decode_steps: int = 0, prompt: int =
     gpu_params = model.init_params(0, device="cpu").cuda()
     toks = torch.randint(0, cfg.vocab_size, (2, prompt),
                          generator=torch.Generator().manual_seed(3))
+    batch, mem_len = {"tokens": toks}, 0
+    if cfg.is_encdec:  # an encoder memory of ``prompt`` seeded frames
+        mem_len = prompt
+        batch["src_embeds"] = torch.randn((2, prompt, cfg.d_model),
+                                          generator=torch.Generator().manual_seed(4))
+        batch["src_pos"] = torch.arange(prompt).expand(2, prompt)
     recorded = []
 
     def on_cpu():
@@ -1823,10 +1987,11 @@ def hold_logits_on_card(label: str, cfg, *, decode_steps: int = 0, prompt: int =
             contextlib.nullcontext()
 
     with torch.inference_mode():
+        prefill = make_prefill_step(model, cache, mem_len=mem_len)
         with on_cpu():
-            want_cache, want = make_prefill_step(model, cache)(cpu_params, {"tokens": toks})
+            want_cache, want = prefill(cpu_params, batch)
         with on_card():
-            got_cache, got = make_prefill_step(model, cache)(gpu_params, {"tokens": toks.cuda()})
+            got_cache, got = prefill(gpu_params, {k: v.cuda() for k, v in batch.items()})
         steps = [("prefill", got.cpu(), want)]
         decode = make_decode_step(model)
         for i in range(decode_steps):
@@ -1966,6 +2131,85 @@ def phase_reference_recurrent() -> None:
         counts = kernels.launch_counts()
         check(all(counts[name] > 0 for name in expect),
               f"reduced {arch} pallas balanced: launches {counts}")
+
+
+def phase_reference_recurrent_train() -> None:
+    """One train step of reduced mamba2-130m (four SSD layers, chunks of 8:
+    the SSD's scans under autograd) and recurrentgemma-2b (one scanned
+    (rglru, rglru, attn_local) group and two remainder layers, window 8,
+    pallas: the forward with lse and the pair on its local attention) on
+    the card against the same step on the CPU."""
+    from repro_torch.configs.registry import get_config
+
+    for arch, layers_, expect in (("mamba2-130m", 4, ()),
+                                  ("recurrentgemma-2b", 5, ("flash_attention", *BWD_KERNELS))):
+        cfg = get_config(arch).reduced(num_layers=layers_, attn_impl="pallas")
+        phase_train_reference(f"reduced {arch} ({layers_} layers, pallas) train step card vs "
+                              f"CPU", ((cfg, "cpu"), (cfg, "cuda")), expect=expect)
+
+
+@contextlib.contextmanager
+def attention_calls():
+    """Count the models' calls into ``flash_attention`` and
+    ``approx_flash_attention`` on CUDA tensors by their ``causal`` flag:
+    {(wrapper, causal): calls}."""
+    import collections
+
+    import repro_torch.models.attention as attention
+
+    calls = collections.Counter()
+    originals = {name: getattr(attention, name)
+                 for name in ("flash_attention", "approx_flash_attention")}
+
+    def counting(name):
+        def call(*args, **kw):
+            if args[0].is_cuda:
+                calls[(name, kw["causal"])] += 1
+            return originals[name](*args, **kw)
+        return call
+
+    for name in originals:
+        setattr(attention, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(attention, name, fn)
+
+
+def phase_reference_encdec() -> None:
+    """Reduced seamless-m4t-large-v2 (two encoder and two decoder layers,
+    4 / 2 heads of 16, float32) under ``attn_impl="pallas"``: prefill (16
+    frames through the encoder: the forward non-causal; the decoder's
+    causal prefill) and four decode steps' logits on the card against the
+    CPU, at exact and at balanced (the encoder through
+    approx_attention_bitexact non-causal; the approximate calls fed the
+    CPU's inputs); then one train step through the kernels (the forward
+    non-causal and causal with lse, the pair after each) against the plain
+    attention, both on the card."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import apply_quality, get_config
+
+    cfg = get_config("seamless-m4t-large-v2").reduced(attn_impl="pallas")
+    for label, c, expect, forced in (
+            ("exact", cfg, (("flash_attention", False), ("flash_attention", True)), False),
+            ("balanced", apply_quality(cfg, "balanced"),
+             (("approx_flash_attention", False), ("approx_flash_attention", True)), True)):
+        kernels.reset_launch_counts()
+        with attention_calls() as calls:
+            hold_logits_on_card(f"reduced seamless-m4t-large-v2 pallas {label}", c,
+                                decode_steps=4, forced=forced)
+        counts = kernels.launch_counts()
+        check(all(calls[key] for key in expect) and counts["flash_decode"] > 0,
+              f"reduced seamless {label}: attention calls {dict(calls)}, launches {counts}")
+    with attention_calls() as calls:
+        phase_train_reference(
+            "reduced seamless-m4t-large-v2 train step, pallas attention vs plain on the card",
+            tuple((dataclasses.replace(cfg, attn_impl=impl), "cuda")
+                  for impl in ("xla", "pallas")),
+            expect=("flash_attention", *BWD_KERNELS))
+    check(calls[("flash_attention", False)] and calls[("flash_attention", True)],
+          f"reduced seamless train step: attention calls {dict(calls)}")
 
 
 @contextlib.contextmanager
@@ -2233,6 +2477,157 @@ def phase_serve_static_recurrent(arch: str, params, model, exact_run: dict) -> d
           f"{exact_run['tok_s']:.2f} tok/s); against the continuous scheduler: {agree}; run "
           f"incl. warmup {wall:.2f}s", flush=True)
     return dict(counts=counts, tok_s=st.tokens_per_s)
+
+
+def encdec_serve_runs() -> list:
+    """seamless-m4t-large-v2's static-loop runs: (label, attn_impl="pallas"?,
+    the tier, its requests, the kernels it must and must not launch, the
+    attention wrappers it must call by their causal flag)."""
+    return [
+        ("exact", False, dict(quality="exact", forbid=tuple(GEMM_KERNELS + ATTN_KERNELS),
+                              requests=WIDE_REQUESTS)),
+        ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
+                                 forbid=ATTN_KERNELS, requests=WIDE_APPROX_REQUESTS)),
+        ("pallas exact", True, dict(
+            quality="exact", expect=("flash_attention", "flash_decode"), forbid=GEMM_KERNELS,
+            calls=(("flash_attention", False), ("flash_attention", True)),
+            requests=WIDE_REQUESTS)),
+        ("pallas balanced", True, dict(
+            quality="balanced", expect=("approx_attention_bitexact", "flash_decode",
+                                        "lut_matmul"),
+            calls=(("approx_flash_attention", False), ("approx_flash_attention", True)),
+            requests=WIDE_APPROX_REQUESTS)),
+    ]
+
+
+def phase_serve_encdec(arch: str, runs: list) -> dict:
+    """The static loop (the continuous scheduler refuses an encoder-decoder)
+    on full-width ``arch`` (weights from seed 0, bf16) at each of ``runs``:
+    prompts and encoder memory of ``SERVE["prompt"]``, ``SERVE["gen"]``
+    tokens a request; each with ``phase_serve_static_encdec``'s step
+    breakdown.  The model is freed after."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
+    t0 = time.perf_counter()
+    params = model.init_params(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    print(f"serve: {arch} {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} query / {cfg.num_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, frontend {cfg.frontend}, {cfg.dtype}: {n_params / 1e9:.3f}B "
+          f"params from seed 0 in {time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card", flush=True)
+    out = {}
+    for label, use_pallas, kw in runs:
+        out[label] = phase_serve_static_encdec(f"{arch} {label}", params,
+                                               pallas if use_pallas else model, **kw)
+        run = out[label]
+        busy = "not measured" if run["busy_share"] is None else f"{run['busy_share']:.3f}"
+        print(f"serve {arch} {label}: {n_params / 1e9:.3f}B params, {kw['requests']} requests, "
+              f"{run['tok_s']:.2f} tok/s, decode step {run['decode_ms']:.2f} ms, prefill "
+              f"(encoder, cross K/V, decoder) {run['prefill_ms']:.2f} ms, busy share {busy}, "
+              f"peak device memory {run['peak_gb']:.2f} GB, launches "
+              f"{ {k: c for k, c in run['counts'].items() if c} } (per prefill "
+              f"{ {k: c for k, c in run['per_prefill'].items() if c} }, per decode step "
+              f"{ {k: c for k, c in run['per_decode'].items() if c} })", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_static_encdec(label: str, params, model, *, quality, requests: int,
+                              expect=(), forbid=(), calls=()) -> dict:
+    """One static-loop run, every kernel in ``expect`` launched, none in
+    ``forbid``, each ``(wrapper, causal)`` of ``calls`` called on the card,
+    every request given its budget of in-vocabulary tokens and no NaN
+    logits; then outside the count window one prefill (B = batch, the
+    prompt and the memory of ``SERVE["prompt"]``) and one decode step of
+    the tier's model on the host clock with their launches, and a profiled
+    decode step for the busy share."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serve import static_serve_loop, synth_requests
+    from repro_torch.serve.scheduler import _apply_pool_quality
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = model.cfg
+    b, p, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    queue = synth_requests(requests, prompt_len=p, gen=gen, vocab_size=cfg.vocab_size, seed=0,
+                           vary_budget=False, quality=quality)
+    bad_logits = []
+    lm_head = params.lm_head
+
+    def checked_lm_head(hidden):
+        logits = lm_head(hidden)
+        check(logits.shape[-1] == cfg.vocab_size, f"{label}: logits shape {tuple(logits.shape)}")
+        bad_logits.append(torch.isnan(logits).any())
+        return logits
+
+    params.lm_head = checked_lm_head
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with attention_calls() as seen:
+            result = static_serve_loop(model, params, queue, batch_size=b, prompt_len=p,
+                                       gen=gen, quality=quality)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        del params.lm_head
+    st = result.stats
+    for name in expect:
+        check(counts[name] > 0, f"{label}: {name} was never launched ({counts})")
+    for name in forbid:
+        check(counts[name] == 0, f"{label}: {name} ran in this run ({counts})")
+    for key in calls:
+        check(seen[key] > 0, f"{label}: no {key} call on the card ({dict(seen)})")
+    check(st.requests == requests, f"{label}: served {st.requests} of {requests}")
+    for r in queue:
+        toks = np.asarray(result.outputs[r.id])
+        check(len(toks) == r.max_new and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+              f"{label}: request {r.id} got {toks}")
+    check(not any(bool(x) for x in bad_logits), f"{label}: NaN logits")
+    print(f"serve {label}: {st.summary()}; prefill {st.prefill_s:.3f}s decode "
+          f"{st.decode_s:.3f}s over {st.decode_steps} steps; peak device memory {peak_gb:.2f} "
+          f"GB; attention calls on the card {dict(seen)}", flush=True)
+
+    tier_model, _ = _apply_pool_quality(model, quality)
+    prefill = make_prefill_step(tier_model, p + gen, mem_len=p)
+    decode = make_decode_step(tier_model)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.zeros((b, p), dtype=torch.int64, device="cuda"),
+             "src_embeds": torch.randn((b, p, cfg.d_model), generator=g, device="cuda"),
+             "src_pos": torch.arange(p, device="cuda").expand(b, p)}
+    tok = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, _ = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        per_prefill = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        decode(params, caches, tok, p)[0].cpu()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        per_decode = kernels.launch_counts()
+        busy_ms, kernel_ms, wall_ms, reps = profile_fn(
+            lambda: decode(params, caches, tok, p)[0].cpu(), 1, "decode step")
+    kernels.reset_launch_counts()
+    return dict(counts=counts, per_prefill=per_prefill, per_decode=per_decode,
+                prefill_ms=prefill_ms, decode_ms=decode_ms, tok_s=st.tokens_per_s,
+                peak_gb=peak_gb, busy_share=busy_ms / wall_ms if busy_ms else None)
 
 
 def phase_long_prompt(label: str, params, model) -> dict:
@@ -2625,18 +3020,22 @@ def profile_fn(fn, reps: int, what: str):
 
 
 # ---------------------------------------------------------------- train
-def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
+def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple = ()) -> dict:
     """``TRAIN["steps"]`` steps of ``make_train_step`` through ``run_loop`` at
-    full width from seed-0 weights and ``SyntheticLM`` data: the loss must
-    be finite and fall, every kernel in ``expect`` must launch in every
-    step.  Then one more step under the profiler for the device's busy
-    share."""
+    full width from seed-0 weights and ``SyntheticLM`` data (an
+    encoder-decoder also fed ``src_embeds`` of ``TRAIN["seq"]`` standard
+    normal frames, seeded per step as the train CLI seeds them): the loss
+    must be finite and fall, every kernel in ``expect`` must launch in
+    every step, and each ``(wrapper, causal)`` of ``calls`` must be called
+    on the card.  Then one more step under the profiler for the device's
+    busy share."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import fold_seed
     from repro_torch.runtime.fault import run_loop
     from repro_torch.train.steps import init_train_state, make_train_step
 
@@ -2654,7 +3053,11 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
                                   seed=seed))
 
     def batch_fn(step: int) -> dict:
-        return {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(step).items()}
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(step).items()}
+        if cfg.is_encdec:
+            g = torch.Generator(device="cuda").manual_seed(fold_seed(seed + 1, step))
+            batch["src_embeds"] = torch.randn((b, seq, cfg.d_model), generator=g, device="cuda")
+        return batch
 
     step_fn = make_train_step(model, tcfg)
     times, step_counts = [], []
@@ -2671,8 +3074,11 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
         return out
 
     kernels.reset_launch_counts()
-    result = run_loop(state, timed, batch_fn, total_steps=n)
+    with attention_calls() as seen:
+        result = run_loop(state, timed, batch_fn, total_steps=n)
     counts = kernels.launch_counts()
+    for key in calls:
+        check(seen[key] > 0, f"train {label}: no {key} call on the card ({dict(seen)})")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in result.metrics_history]
     auxes = [h["aux"] for h in result.metrics_history]
@@ -2691,7 +3097,9 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0) -> dict:
     share = (f"device busy {busy_ms / wall_ms:.3f} of {wall_ms:.1f} ms, own kernels "
              f"{kernel_ms / max(busy_ms, 1e-9):.3f} of busy" if busy_ms else
              "device busy share not measured (the profiler saw no device time)")
-    print(f"train {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+    depth = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder" if cfg.is_encdec
+             else f"{cfg.num_layers}")
+    print(f"train {label}: {depth} layers, d_model {cfg.d_model}, heads "
           f"{cfg.num_heads} / {cfg.num_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}, "
           f"{model.param_count(state.params) / 1e6:.1f}M params, {cfg.dtype}, remat "
           f"{cfg.remat}, batch {b} x seq {seq}, {n} steps "
@@ -2725,6 +3133,9 @@ def phase_train_reference(label: str, sides: tuple, *, expect: tuple = ()) -> No
     vocab = sides[0][0].vocab_size
     toks = torch.randint(0, vocab, (2, 33), generator=torch.Generator().manual_seed(5))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if sides[0][0].is_encdec:  # 24 frames for the encoder, 32 tokens for the decoder
+        batch["src_embeds"] = torch.randn((2, 24, sides[0][0].d_model),
+                                          generator=torch.Generator().manual_seed(6))
     results = []
     for cfg, device in sides:
         model = build_model(cfg)
@@ -2858,6 +3269,10 @@ def main() -> int:
                 print(f"build: {source} SASS: {kernel} HMMA/HGMMA/IMMA per instantiation {count}",
                       flush=True)
 
+    # the CPU's exhaustive_eval(12, 6), which the error analysis holds the
+    # card's against, beside the card's phases
+    cpu_eval = start_cpu_eval()
+
     # 3. kernels
     with phase("kernels: GEMMs"):
         rows = phase_kernels(card)
@@ -2896,6 +3311,9 @@ def main() -> int:
         phase_reference_vl_moe()
     with phase("reference: mamba2-130m, recurrentgemma-2b"):
         phase_reference_recurrent()
+        phase_reference_recurrent_train()
+    with phase("reference: seamless-m4t-large-v2"):
+        phase_reference_encdec()
     kernels.reset_launch_counts()
 
     # 5. serve
@@ -2955,6 +3373,10 @@ def main() -> int:
     for arch, arch_runs in wide_serve_runs(every).items():
         with phase(f"serve: {arch}"):
             wide_runs[arch] = phase_serve_wide(arch, arch_runs)
+    # the encoder-decoder at full width, through the static loop
+    with phase("serve: seamless-m4t-large-v2"):
+        wide_runs["seamless-m4t-large-v2"] = phase_serve_encdec("seamless-m4t-large-v2",
+                                                                encdec_serve_runs())
 
     # 6. train, full width, attn_impl="pallas" (set on the config; the CLI has no flag)
     with phase("train"):
@@ -2988,13 +3410,37 @@ def main() -> int:
         check(all(a > 0 for a in train_runs["granite-moe"]["aux"]),
               f"train (d): aux {train_runs['granite-moe']['aux']}")
     torch.cuda.empty_cache()
+    with phase("train: mamba2-130m, recurrentgemma-2b, seamless-m4t-large-v2"):
+        # (e) mamba2-130m at full width and depth: the SSD's scans under
+        # autograd, no attention (no kernel at exact)
+        mamba2 = dataclasses.replace(get_config("mamba2-130m"), attn_impl="pallas")
+        train_runs["mamba2-130m"] = phase_train("(e) mamba2-130m pallas", build_model(mamba2),
+                                                expect=())
+        torch.cuda.empty_cache()
+        # (f) recurrentgemma-2b at full width, two (rglru, rglru, attn_local)
+        # periods: the forward and the pair at g = 10, head width 256, window 2,048
+        rg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                                 num_layers=RECURRENTGEMMA_TRAIN_LAYERS, attn_impl="pallas")
+        train_runs["recurrentgemma-2b"] = phase_train(
+            f"(f) recurrentgemma-2b pallas, {RECURRENTGEMMA_TRAIN_LAYERS} of 26 layers",
+            build_model(rg), expect=("flash_attention", *BWD_KERNELS))
+        torch.cuda.empty_cache()
+        # (g) seamless-m4t-large-v2 at full width and depth: the forward
+        # non-causal (encoder) and causal (decoder), the pair after each
+        seamless = dataclasses.replace(get_config("seamless-m4t-large-v2"), attn_impl="pallas")
+        train_runs["seamless-m4t-large-v2"] = phase_train(
+            "(g) seamless-m4t-large-v2 pallas", build_model(seamless),
+            expect=("flash_attention", *BWD_KERNELS),
+            calls=(("flash_attention", False), ("flash_attention", True)))
+        del seamless
+    torch.cuda.empty_cache()
     with phase("train CLI"):
         phase_train_cli()
 
     # 7. the paper's simulated error analysis: engine.multiply through
     # seqmul_packed, the error reports up to n = 16 through seqmul_words
     with phase("error analysis"):
-        analysis = phase_error_analysis()
+        analysis = phase_error_analysis(cpu_eval)
     for name in ELEMENTWISE_KERNELS:
         runs[name] = analysis
 
@@ -3013,8 +3459,10 @@ def main() -> int:
             main_row = next(r for r in mine if r["label"] == "serve")
         if name in BWD_KERNELS:
             per_step = dict(launches_per_train_step=runs[name]["per_step"][name],
-                            gemma2_9b_train_launches_per_step=train_runs["gemma2-9b"][
-                                "per_step"][name])
+                            **{f"{arch.replace('-', '_')}_train_launches_per_step":
+                               train_runs[arch]["per_step"][name]
+                               for arch in ("gemma2-9b", "recurrentgemma-2b",
+                                            "seamless-m4t-large-v2")})
         elif name in ELEMENTWISE_KERNELS:
             per_step = dict(n=main_row["n"], t=main_row["t"])
         else:
@@ -3033,7 +3481,7 @@ def main() -> int:
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
         for arch in ("gemma2-9b", "qwen2-vl-7b", "granite-moe-1b-a400m", "recurrentgemma-2b",
-                     "mamba2-130m"):
+                     "mamba2-130m", "seamless-m4t-large-v2"):
             used = {label: run["counts"][name] for label, run in wide_runs[arch].items()
                     if run["counts"].get(name)}
             if used:

@@ -9,9 +9,10 @@ embeddings in place of tokens, seven query heads per KV head); the MoE
 models granite-moe-1b-a400m and kimi-k2-1t-a32b (the latter at
 ``.reduced()`` only: its published widths need sharding); the
 sub-quadratic models mamba2-130m (SSD blocks only) and recurrentgemma-2b
-(RG-LRU blocks and local MQA attention, 2:1); and the paper-multiplier
-model.  seamless-m4t-large-v2, the encoder-decoder, comes over with the
-slice that ports it (ROADMAP.md, "Modules to port" item 10e).
+(RG-LRU blocks and local MQA attention, 2:1); the encoder-decoder
+seamless-m4t-large-v2 (a non-causal encoder over frame embeddings, a
+decoder with cross-attention over its memory); and the paper-multiplier
+model.
 ``apply_approx(cfg, ...)`` deploys the paper's technique onto a config."""
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ ARCHS = {
     "kimi-k2-1t-a32b": "kimi_k2_1t",
     "mamba2-130m": "mamba2_130m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large",
     "paper-multiplier": "paper_multiplier",
 }
 

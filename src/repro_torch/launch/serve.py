@@ -131,7 +131,7 @@ def main(argv=None) -> None:
     if scheduler is None:
         scheduler = "continuous" if supports_continuous(cfg) else "static"
         if scheduler == "static":
-            print(f"# {args.arch}: auto-selected --scheduler static "
+            print(f"# {cfg.name}: auto-selected --scheduler static "
                   f"(continuous supports attention-only decoder stacks)")
     if args.loop == "open" and scheduler != "continuous":
         ap.error("--loop open requires --scheduler continuous")

@@ -13,12 +13,16 @@ data are made from ``--seed``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-multiplier \
       --reduced --device cpu --steps 16 --batch 2 --seq 32
 
-Every ``--arch`` of ``configs.registry`` trains but the recurrent ones:
-qwen2-vl-7b on text tokens (t = h = w), the MoE models
-granite-moe-1b-a400m and kimi-k2-1t-a32b with their load-balance loss in
-the loss (kimi-k2 only with ``--reduced``).  mamba2-130m and
-recurrentgemma-2b raise ``NotImplementedError`` before any weight is made
-(ROADMAP.md, 'Modules to port' item 10d').
+Every ``--arch`` of ``configs.registry`` trains: qwen2-vl-7b on text
+tokens (t = h = w), the MoE models granite-moe-1b-a400m and
+kimi-k2-1t-a32b with their load-balance loss in the loss (kimi-k2 only
+with ``--reduced``), the recurrent mamba2-130m and recurrentgemma-2b, and
+the encoder-decoder seamless-m4t-large-v2, fed ``src_embeds`` (B, seq,
+d_model) of standard normal float32 frames with each batch, as the
+reference's driver feeds it.  The frames are drawn on the host from a
+``torch.Generator`` seeded by (``--seed`` + 1, step): another stream than
+the reference's ``jax.random`` one, as the weights and the noise of the
+stochastic modes already are.
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ from repro_torch.configs.registry import apply_approx, apply_quality, get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.engine import modes as engine_modes
+from repro_torch.models.layers import fold_seed
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.fault import FailureInjector, StragglerMonitor, run_loop
-from repro_torch.train.steps import check_trainable, init_train_state, make_train_step
+from repro_torch.train.steps import init_train_state, make_train_step
 
 __all__ = ["main"]
 
@@ -89,7 +94,6 @@ def main(argv=None) -> None:
     elif args.quality_tier:
         cfg = apply_quality(cfg, args.quality_tier, n=args.approx_n)
     cfg = dataclasses.replace(cfg, scan_layers=True)
-    check_trainable(cfg)
 
     tcfg = TrainConfig(
         learning_rate=args.lr,
@@ -111,7 +115,12 @@ def main(argv=None) -> None:
     ))
 
     def batch_fn(step: int) -> dict:
-        return {k: torch.as_tensor(v, device=device) for k, v in data.batch(step).items()}
+        batch = {k: torch.as_tensor(v, device=device) for k, v in data.batch(step).items()}
+        if cfg.is_encdec:
+            gen = torch.Generator().manual_seed(fold_seed(args.seed + 1, step))
+            src = torch.randn((args.batch, args.seq, cfg.d_model), generator=gen)
+            batch["src_embeds"] = src.to(device)
+        return batch
 
     step_fn = make_train_step(model, tcfg)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None

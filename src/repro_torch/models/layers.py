@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ApproxConfig, ModelConfig
 from repro_torch.engine import dispatch as _engine, modes as _engine_modes
 
-__all__ = ["Ctx", "fold_seed", "rms_norm", "rope", "mrope", "dense", "mlp", "normal_init"]
+__all__ = ["Ctx", "fold_seed", "rms_norm", "rope", "mrope", "dense", "mlp", "normal_init",
+           "init_mlp"]
 
 
 @dataclasses.dataclass
@@ -58,6 +59,17 @@ def normal_init(shape, scale: float, dtype: torch.dtype, device: torch.device,
     """``N(0, 1) * scale`` drawn in f32 and cast, as ``layers._normal``."""
     z = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
     return (z * scale).to(dtype)
+
+
+def init_mlp(cfg: ModelConfig, dtype, device, generator) -> dict:
+    """The gated MLP's w1, w3 (d_model, d_ff) and w2 (d_ff, d_model), drawn
+    in that order at std fan_in^-1/2 (the reference's ``layers.init_mlp`` scales)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w1": normal_init((d, f), d**-0.5, dtype, device, generator),
+        "w3": normal_init((d, f), d**-0.5, dtype, device, generator),
+        "w2": normal_init((f, d), f**-0.5, dtype, device, generator),
+    }
 
 
 # ------------------------------------------------------------------- layers

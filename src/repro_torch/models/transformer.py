@@ -8,7 +8,7 @@ one cache per layer, by its kind: a
 ``attn_local``, an :class:`~repro_torch.models.rglru.RGLRUCache` for
 ``rglru`` (recurrentgemma's Griffin blocks) and an
 :class:`~repro_torch.models.ssd.SSDCache` for ``ssd`` (mamba2).
-Encoder-decoder models raise and name the slice that ports them.  A
+The encoder-decoder stack is ``models/encdec.py``.  A
 block's feed-forward is the gated MLP (``ffn``) or, in an MoE model, the
 routed experts (``ffn_moe``, ``models/moe.py``), whose load-balance loss
 each block returns; an ``ssd`` block has one only when ``d_ff > 0``, as
@@ -45,8 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe, rglru, ssd
 from repro_torch.models.layers import Ctx
 
-__all__ = ["Block", "Transformer", "block_kinds", "check_supported", "has_recurrent_state",
-           "init_cache"]
+__all__ = ["Block", "Transformer", "block_kinds", "has_recurrent_state", "init_cache"]
 
 _ATTN_KINDS = ("attn_global", "attn_local")
 _RECURRENT_KINDS = ("rglru", "ssd")  # block kinds with a recurrent state, which takes in pads
@@ -59,15 +58,6 @@ def block_kinds(cfg: ModelConfig) -> list[str]:
 
 def has_recurrent_state(cfg: ModelConfig) -> bool:
     return any(k in _RECURRENT_KINDS for k in cfg.layer_pattern)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: encoder-decoder models."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP.md, 'Modules to port' item 10e)"
-        )
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
@@ -177,16 +167,11 @@ def init_block_tensors(cfg: ModelConfig, kind: str, dtype, device, generator) ->
     if cfg.use_post_norm:
         p["post_ln1"] = zeros()
     if _has_ffn(cfg, kind):
-        d, f = cfg.d_model, cfg.d_ff
         p["ln2"] = zeros()
         if cfg.num_experts > 0:
             p["ffn_moe"] = moe.init_moe(cfg, dtype, device, generator)
         else:
-            p["ffn"] = {
-                "w1": layers.normal_init((d, f), d**-0.5, dtype, device, generator),
-                "w3": layers.normal_init((d, f), d**-0.5, dtype, device, generator),
-                "w2": layers.normal_init((f, d), f**-0.5, dtype, device, generator),
-            }
+            p["ffn"] = layers.init_mlp(cfg, dtype, device, generator)
         if cfg.use_post_norm:
             p["post_ln2"] = zeros()
     return p
@@ -197,7 +182,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, tensors: dict):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(tensors["embed"])
         self.final_norm = nn.Parameter(tensors["final_norm"])
@@ -210,7 +194,6 @@ class Transformer(nn.Module):
     @classmethod
     def init(cls, cfg: ModelConfig, *, seed: int, device: torch.device) -> "Transformer":
         """Seeded random weights with the scales of ``transformer.init_params``."""
-        check_supported(cfg)
         dtype = getattr(torch, cfg.dtype)
         gen = torch.Generator(device=device).manual_seed(seed)
         tensors = {

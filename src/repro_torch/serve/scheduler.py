@@ -596,22 +596,23 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
     it and re-batches only once the whole batch drains.  Finished rows burn
     dead decode steps until then; ``tokens_out`` counts the useful
     (budget/EOS-bounded) tokens only.  ``quality`` resolves a tier as the
-    continuous scheduler does.  ``seed`` seeds the reference's encoder
-    memory, which waits for the encoder-decoder family.
+    continuous scheduler does.  An encoder-decoder's batches also carry an
+    encoder memory synthesized as the reference's: standard normal float32
+    frames (B, prompt_len, d_model) from ``np.random.default_rng(seed)``,
+    one draw per batch in the reference's order (the warmup batches
+    first), at ``src_pos = arange(prompt_len)``.
     """
     model, pool_tier = _apply_pool_quality(model, quality)
     cfg = model.cfg
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the static loop's encoder memory is not ported yet (ROADMAP.md, "
-            f"'Modules to port' item 10e)"
-        )
-    prefill = make_prefill_step(model, prompt_len + gen)
+    mem_len = prompt_len if cfg.is_encdec else 0
+    prefill = make_prefill_step(model, prompt_len + gen, mem_len=mem_len)
     decode = make_decode_step(model)
     device = params.embed.device
+    rng = np.random.default_rng(seed)  # encoder-memory synthesis only
 
     def make_batch(batch_reqs: list) -> dict:
-        toks = np.zeros((len(batch_reqs), prompt_len), np.int64)
+        b = len(batch_reqs)
+        toks = np.zeros((b, prompt_len), np.int64)
         for i, r in enumerate(batch_reqs):
             _check_request_quality(r, pool_tier)
             if r.prompt_len > prompt_len:
@@ -621,7 +622,13 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
             if r.max_new > gen:
                 raise ValueError(f"request {r.id}: budget {r.max_new} exceeds gen {gen}")
             toks[i, prompt_len - r.prompt_len:] = r.tokens
-        return {"tokens": torch.as_tensor(toks, device=device)}
+        batch = {"tokens": torch.as_tensor(toks, device=device)}
+        if cfg.is_encdec:
+            src = rng.standard_normal((b, prompt_len, cfg.d_model)).astype(np.float32)
+            batch["src_embeds"] = torch.as_tensor(src, device=device)
+            batch["src_pos"] = torch.arange(prompt_len, device=device)[None, :].expand(
+                b, prompt_len)
+        return batch
 
     with torch.inference_mode():
         if warmup and requests:

@@ -4,11 +4,14 @@ Counterpart of ``repro/train/steps.py``.  ``make_train_step`` builds the
 training step: gradient-accumulation microbatches (gradients summed in
 float32, then averaged), optional int8 error-feedback gradient
 compression, AdamW (float32 or 8-bit moments) and the vocab-chunked CE.
-Remat is applied per block by the model, per ``cfg.remat``.  The
-reference jits the step and returns a new state; here it runs eagerly and
-updates the parameters in place (they are the state's largest part, and
-an update in place saves a copy of them per step), returning the state
-with its new optimizer state and step.
+Remat is applied per block by the model, per ``cfg.remat``.  Every
+family trains: autograd reaches the RG-LRU's and the SSD's log-depth
+scans (whole-tensor torch ops) and their float32 leaves, and an
+encoder-decoder's loss runs the encoder over ``batch["src_embeds"]``.
+The reference jits the step and returns a new state; here it runs
+eagerly and updates the parameters in place (they are the state's
+largest part, and an update in place saves a copy of them per step),
+returning the state with its new optimizer state and step.
 
 ``make_prefill_step`` / ``make_decode_step`` are the serving pair: prefill
 builds fresh caches, one per layer by its kind (KV, or RG-LRU / SSD
@@ -16,9 +19,9 @@ conv inputs and float32 state), and writes positions [0, S) (or, given
 per-row true positions of left-padded prompts, masks the pads out of the
 KV cache; a recurrent state takes every token in, pads included);
 decode consumes one token per row at a scalar or per-row position and
-carries every cache, recurrent ones by their single-step update.
-Training the RG-LRU and SSD families is not ported yet
-(``check_trainable``).
+carries every cache, recurrent ones by their single-step update.  An
+encoder-decoder's prefill also runs the encoder over ``batch["src_embeds"]``
+and puts each decoder layer's cross K/V, in the cache dtype, in its cache.
 Under M-RoPE every step broadcasts its (B, S) positions to the (3, B, S)
 t/h/w streams of a text-only sequence (t = h = w), as the reference does.
 """
@@ -32,12 +35,11 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.layers import fold_seed
 from repro_torch.models.registry import Model, reference_leaves
-from repro_torch.models.transformer import Transformer, check_supported, has_recurrent_state
 from repro_torch.optim import adamw, compress
 from repro_torch.train.losses import chunked_cross_entropy
 
 __all__ = [
-    "AUX_COEF", "TrainState", "check_trainable", "init_train_state", "loss_fn",
+    "AUX_COEF", "TrainState", "init_train_state", "loss_fn",
     "make_decode_step", "make_prefill_step", "make_train_step", "mrope_positions",
 ]
 
@@ -45,7 +47,7 @@ AUX_COEF = 0.01
 
 
 class TrainState(NamedTuple):
-    params: Transformer  # updated in place by the step
+    params: torch.nn.Module  # a Transformer or EncoderDecoder, updated in place by the step
     opt: adamw.OptState
     comp: Optional[compress.CompressState]
     seed: int  # the run's seed: each step's noise seed is fold_seed(seed, step)
@@ -78,30 +80,37 @@ def _positions(cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return mrope_positions(cfg, torch.arange(s, device=tokens.device)[None, :].expand(b, s))
 
 
-def _head_matrix(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
+def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     return params.embed.T if cfg.tie_embeddings else params.lm_head_w
 
 
-def loss_fn(params: Transformer, batch: dict, seed: Optional[int], model: Model):
+def loss_fn(params, batch: dict, seed: Optional[int], model: Model):
     """(loss, {"loss": ce, "aux": aux}): CE plus ``AUX_COEF`` times the MoE
     load-balance loss (0 without experts); ``seed`` seeds the stochastic
     modes' noise (``Ctx.seed``).  A frontend model takes ``batch["embeds"]``
     (B, S, D) in place of the token lookup when the batch has them; the
-    positions are ``arange(S)`` per row (t = h = w under M-RoPE).
-    Encoder-decoder models raise in ``check_supported``."""
+    positions are ``arange(S)`` per row (t = h = w under M-RoPE).  An
+    encoder-decoder encodes ``batch["src_embeds"]`` (B, S_src, D) at
+    ``src_pos = arange(S_src)`` and decodes the tokens over that memory."""
     cfg = model.cfg
-    check_supported(cfg)
     ctx = model.ctx(seed=seed)
-    embeds = batch.get("embeds") if cfg.frontend else None
+    kwargs = {}
+    if cfg.is_encdec:
+        src = batch["src_embeds"]
+        b, s_src = src.shape[:2]
+        kwargs = dict(src_embeds=src,
+                      src_pos=torch.arange(s_src, device=src.device)[None, :].expand(b, s_src))
+    elif cfg.frontend:
+        kwargs = dict(embeds=batch.get("embeds"))
     hidden, _, aux = model.forward(params, batch["tokens"], _positions(cfg, batch), ctx,
-                                   embeds=embeds)
+                                   **kwargs)
     ce = chunked_cross_entropy(hidden, _head_matrix(params, cfg), batch["labels"],
                                softcap=cfg.final_logit_softcap)
     loss = ce + AUX_COEF * aux
     return loss, {"loss": ce, "aux": aux}
 
 
-def _grads(params: Transformer, leaves, batch: dict) -> list:
+def _grads(params, leaves, batch: dict) -> list:
     """The parameters' gradients, one flat tensor per reference leaf.  Only
     the token table of a frontend model fed ``batch["embeds"]`` may miss
     the loss (untied: nothing reads it); it gets a zero gradient, as
@@ -116,21 +125,10 @@ def _grads(params: Transformer, leaves, batch: dict) -> list:
     return adamw.flatten_leaves(leaves, grads)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for what the port cannot train yet: the RG-LRU and SSD families
-    (and what ``check_supported`` refuses)."""
-    check_supported(cfg)
-    if has_recurrent_state(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training RG-LRU and SSD blocks is not ported yet (ROADMAP.md, "
-            f"'Modules to port' item 10d')"
-        )
-
-
 def make_train_step(model: Model, tcfg: TrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
-    holds ``tokens`` and ``labels`` (B, S) on the parameters' device."""
-    check_trainable(model.cfg)
+    holds ``tokens`` and ``labels`` (B, S) on the parameters' device, and
+    ``src_embeds`` (B, S_src, D) for an encoder-decoder."""
     accum = max(1, tcfg.grad_accum)
 
     def step_fn(state: TrainState, batch: dict):
@@ -175,11 +173,14 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     return step_fn
 
 
-def make_prefill_step(model: Model, max_seq: int):
+def make_prefill_step(model: Model, max_seq: int, *, mem_len: int = 0):
     """prefill(params, batch) -> (caches, last_token_logits (B, 1, V)).
 
     ``batch["positions"]`` (optional, (B, S)) gives per-row true position
-    ids; pad slots carry negative ids and are masked out of the cache.
+    ids; pad slots carry negative ids and are masked out of the cache.  An
+    encoder-decoder's batch also holds ``src_embeds`` and ``src_pos``: the
+    encoder runs over them and each decoder cache takes its layer's cross
+    K/V, cast to the cache dtype (its ``mem_len`` slots replaced).
     """
     cfg = model.cfg
     cache_dtype = getattr(torch, cfg.dtype)
@@ -188,7 +189,12 @@ def make_prefill_step(model: Model, max_seq: int):
         tokens = batch["tokens"]
         b, s = tokens.shape
         ctx = model.ctx()
-        caches = model.init_caches(b, max_seq, cache_dtype, tokens.device)
+        caches = model.init_caches(b, max_seq, cache_dtype, tokens.device, mem_len=mem_len)
+        if cfg.is_encdec:
+            memory = model.encode(params, batch["src_embeds"], batch["src_pos"], ctx)
+            cross = model.precompute_cross(params, memory, ctx)
+            caches = [c._replace(cross_k=ck.to(cache_dtype), cross_v=cv.to(cache_dtype))
+                      for c, (ck, cv) in zip(caches, cross)]
         if "positions" in batch:
             pos = batch["positions"].to(torch.int64)
             cache_pos = torch.zeros((b,), dtype=torch.int64, device=tokens.device)

@@ -399,6 +399,82 @@ def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtyp
         assert not bool(live.all())
 
 
+def _encoder_inputs(card, b, s, h, kv, hd, dtype, seed):
+    """q/k/v over S = T with every slot written at positions 0..S-1, as an
+    encoder's self-attention reads its frames."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g, device=card).to(dtype)
+    k = torch.randn((b, s, kv, hd), generator=g, device=card).to(dtype)
+    v = torch.randn((b, s, kv, hd), generator=g, device=card).to(dtype)
+    pos = torch.arange(s, device=card, dtype=torch.int32).expand(b, s).contiguous()
+    return q, k, v, pos, pos.clone()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (4, 32, 16, 16, 64, None), (8, 128, 16, 16, 64, None), (1, 1024, 16, 16, 64, None),
+    (2, 200, 16, 16, 64, 24), (2, 200, 8, 2, 128, None), (2, 72, 10, 1, 256, None),
+], ids=["seamless-serve", "seamless-train", "seamless-long", "ragged-window", "g4-ragged",
+        "g10"])
+def test_flash_attention_non_causal_matches_plain_version(b, s, h, kv, hd, window, dtype, card):
+    """The forward kernel with ``causal=False`` (an encoder's self-attention:
+    every query reads every slot, or those of its window both ways) against
+    the plain version within 2e-5, o and lse; a second launch gives the same
+    bits, and a launch counting on the card the pairs it skips skips those
+    of ``fwd_tile_plan`` (none without a window)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, qp, kp = _encoder_inputs(card, b, s, h, kv, hd, dtype, seed=s + hd)
+    kw = dict(causal=False, window=window, softcap=None, scale=hd**-0.5)
+    got, lse = fa.flash_attention_fwd(q, k, v, qp, kp, **kw, with_lse=True)
+    want, want_lse = fa.attend(q, k, v, qp, kp, **kw, with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+    again, lse2 = fa.flash_attention_fwd(q, k, v, qp, kp, **kw, with_lse=True)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    plan = fa.launch_plan("fwd", b, s, s, h, kv, hd, dtype,
+                          sms=torch.cuda.get_device_properties(card).multi_processor_count)
+    live = fa.fwd_tile_plan(qp, kp, rows=plan.rows, keys=plan.keys, causal=False, window=window)
+    counter = torch.zeros(1, dtype=torch.int32, device=card)
+    counted, _ = fa.launch_forward(q, k, v, qp, kp, skipped=counter, **kw)
+    assert torch.equal(counted, got)
+    assert counter.item() == int((~live).sum()) * kv * -(-(h // kv) // plan.heads)
+    assert bool(live.all()) == (window is None)
+
+
+@pytest.mark.parametrize("mode,b,s,bk", [("bitexact", 4, 32, 32), ("bitexact", 1, 1024, 64),
+                                         ("lowrank", 4, 32, 32), ("lowrank", 1, 1024, 128)])
+def test_approx_attention_non_causal_matches_plain_version(mode, b, s, bk, card):
+    """The approximate attention with ``causal=False`` at seamless-m4t-large-v2's
+    16 / 16 heads of 64, the encoder's serve shape and S = T = 1024: within
+    one probability quantum and 1e-5 for 99% of the outputs, two launches
+    bit-identical, the pairs skipped on the card those of
+    ``approx_tile_plan``."""
+    from repro_torch.kernels import approx_attention as aa
+
+    q, k, v, qp, kp = _encoder_inputs(card, b, s, 16, 16, 64, torch.bfloat16, seed=s)
+    kw = dict(mode=mode, n=8, t=4, rank=8, causal=False, window=None, softcap=None,
+              scale=64**-0.5, bk=bk)
+    got = aa.approx_flash_attention(q, k, v, qp, kp, **kw)
+    want = aa.approx_attention_plain(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert err.max().item() <= v.float().abs().max().item() / 255
+    assert (err <= 1e-5).float().mean().item() >= 0.99
+    assert torch.equal(got, aa.approx_flash_attention(q, k, v, qp, kp, **kw))
+    ops = aa.kernel_operands(q, k, v, mode=mode, n=8, t=4, fix_to_1=True, rank=8)
+    plan = aa.launch_plan(mode, b, s, s, 16, 16, 64, 8, 8,
+                          torch.cuda.get_device_properties(card).multi_processor_count)
+    live = aa.approx_tile_plan(qp, kp, bk=bk, rows=plan.rows, causal=False, window=None)
+    counter = torch.zeros(1, dtype=torch.int32, device=card)
+    counted = aa.launch_kernel(ops, qp, kp, bk=bk, causal=False, window=None, softcap=None,
+                               scale=64**-0.5, skipped=counter)
+    assert torch.equal(counted, got)
+    assert counter.item() == int((~live).sum()) * 16 * -(-1 // plan.heads) == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("hd,h,kv,t,window,softcap,empty_row", [
     (128, 16, 8, 100, None, None, False), (128, 8, 1, 100, 20, None, False),
@@ -414,6 +490,8 @@ def test_flash_attention_matches_plain_version(hd, window, softcap, layout, dtyp
     # recurrentgemma-2b's g = 10 (10 / 1 of 256); its window of 2,048 over 4,096 slots
     (256, 10, 1, 100, None, None, True), (256, 10, 1, 2000, None, None, False),
     (256, 10, 1, 4096, 2048, None, True),
+    # seamless-m4t-large-v2's decoder: g = 1 at head width 64
+    (64, 16, 16, 100, None, None, True), (64, 16, 16, 4096, None, None, False),
 ])
 def test_flash_decode_matches_plain_version(hd, h, kv, t, window, softcap, empty_row, dtype,
                                             card):
@@ -622,6 +700,14 @@ def _bwd_inputs(card, b, s, h, kv, hd, dtype, seed, pad=0):
     # with a window, softcap and pad row; granite-moe-1b-a400m's 16 / 8 of 64
     (28, 4, 128, None, None, 0, 128, True), (28, 4, 128, 24, 30.0, 5, 200, True),
     (16, 8, 64, None, None, 0, 128, True), (16, 8, 64, None, None, 3, 200, True),
+    # seamless-m4t-large-v2's 16 / 16 of 64: its encoder (non-causal) and
+    # decoder (causal) at the train shape's length, and non-causal ragged
+    # under a window (tiles skipped both ways)
+    (16, 16, 64, None, None, 0, 128, False), (16, 16, 64, None, None, 0, 128, True),
+    (16, 16, 64, 24, None, 0, 200, False),
+    # recurrentgemma-2b's g = 10 (10 / 1 of 256) at the train shape's length
+    # under its window, and with a binding window and a pad row
+    (10, 1, 256, 2048, None, 0, 128, True), (10, 1, 256, 24, None, 5, 200, True),
 ])
 def test_flash_backward_kernels_match_plain_version(h, kv, hd, window, softcap, pad, s, causal,
                                                     dtype, card):

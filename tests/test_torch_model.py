@@ -313,9 +313,9 @@ def test_seeded_init_has_the_reference_scales():
 
 
 def test_unported_block_kinds_raise():
-    """Encoder-decoder models raise and name the ROADMAP item; the hybrid
-    (RG-LRU + local attention) and SSD patterns and MoE feed-forwards, ported
-    since, build."""
+    """Every block kind builds: the hybrid (RG-LRU + local attention) and SSD
+    patterns, MoE feed-forwards and an encoder-decoder (both stacks, the
+    decoder's cross projections); only an unknown arch name raises."""
     base = get_config("qwen3-0.6b").reduced()
     hybrid = dataclasses.replace(base, layer_pattern=("rglru", "rglru", "attn_local"),
                                  lru_width=64)
@@ -327,14 +327,20 @@ def test_unported_block_kinds_raise():
     params = build_model(ssm).init_params(0, device="cpu")
     assert all(b.ffn is None and b.ssd["in_proj"].shape == (64, 2 * 128 + 2 * 16 + 8)
                for b in params.layers)
-    encdec = dataclasses.replace(base, encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(encdec).init_params(0, device="cpu")
+    encdec = dataclasses.replace(base, encoder_layers=3)
+    params = build_model(encdec).init_params(0, device="cpu")
+    assert len(params.enc_layers) == 3 and len(params.dec_layers) == base.num_layers
+    hq = base.num_heads * base.head_dim
+    assert all(b.cross["cross_wq"].shape == (64, hq) and b.cross["cross_wo"].shape == (hq, 64)
+               for b in params.dec_layers)
+    caches = build_model(encdec).init_caches(2, 12, torch.float32, "cpu", mem_len=5)
+    assert [tuple(c.cross_k.shape) for c in caches] == [(2, 5, base.num_kv_heads,
+                                                         base.head_dim)] * base.num_layers
     moe = dataclasses.replace(base, num_experts=4, num_experts_per_tok=2, moe_d_ff=32)
     params = build_model(moe).init_params(0, device="cpu")
     assert all(b.ffn is None and b.ffn_moe["we1"].shape == (4, 64, 32) for b in params.layers)
-    with pytest.raises(KeyError, match="qwen3-0.6b"):
-        get_config("seamless-m4t-large-v2")
+    with pytest.raises(KeyError, match="seamless-m4t-large-v2"):
+        get_config("seamless-m4t-large-v3")
 
 
 @pytest.mark.parametrize("arch,reduced", [("gemma2-9b", dict(num_layers=3)), ("yi-9b", {}),

@@ -19,7 +19,7 @@ float32 sums run in another order in the two frameworks, and the port's
 log-depth scan combines in another order than ``associative_scan``.
 
 Also: the long-prompt scan against a step-by-step recurrence, the
-float32 leaves of a bf16 model, and the training refusal.
+float32 leaves of a bf16 model, and a bf16 train step of each family.
 """
 
 from __future__ import annotations
@@ -281,13 +281,39 @@ def test_seeded_init_has_the_reference_scales(arch):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
-def test_training_the_recurrent_families_raises(arch):
-    """``make_train_step`` and the train CLI refuse both families and name
-    the ROADMAP item, the CLI before it makes any weight."""
+def test_training_the_recurrent_families_raises(arch, capsys):
+    """``make_train_step`` and the train CLI train both families (the name
+    is kept from when both refused).  One step of a bf16 model: autograd
+    reaches both scans and every float32 leaf the reference keeps (Lambda;
+    A, D and dt bias), whose gradients are float32, finite and nonzero, and
+    AdamW keeps them float32; then the CLI runs two steps on the CPU."""
     from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import reference_leaves
+    from repro_torch.train import steps
 
-    model = build_model(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*10d'"):
-        make_train_step(model, TrainConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*10d'"):
-        train_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2"])
+    cfg = get_config(arch).reduced(dtype="bfloat16", num_layers=4)
+    model = build_model(cfg)
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1)
+    state = steps.init_train_state(model, tcfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 17)))
+    params = state.params
+    loss, _ = steps.loss_fn(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 0, model)
+    loss.backward()
+    grads = dict(zip((leaf.names for leaf in reference_leaves(params)),
+                     steps._grads(params, reference_leaves(params), {"tokens": toks})))
+    names = {"mamba2-130m": ("ssm_a", "ssm_d", "dt_bias"), "recurrentgemma-2b": ("lru_a",)}[arch]
+    f32 = [(n, g) for ns, g in grads.items() for n in ns[:1] if n.rsplit(".", 1)[-1] in names]
+    assert {n.rsplit(".", 1)[-1] for n, _ in f32} == set(names)
+    for n, g in f32:
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all()) and g.abs().max() > 0, n
+    params.zero_grad(set_to_none=True)
+    state, metrics = make_train_step(model, tcfg)(state, {"tokens": toks[:, :-1],
+                                                          "labels": toks[:, 1:]})
+    assert np.isfinite(float(metrics["loss"])) and int(state.step) == 1
+    for n, p in state.params.named_parameters():
+        if n.rsplit(".", 1)[-1] in names:
+            assert p.dtype == torch.float32, n
+    train_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2", "--batch",
+                    "2", "--seq", "16", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke params=" in out and "loss " in out

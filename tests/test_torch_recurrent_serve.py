@@ -217,5 +217,5 @@ def test_cli_auto_selects_the_static_loop(arch, tier):
     proc = _run("-m", "repro_torch.launch.serve", "--arch", arch, "--reduced", "--device", "cpu",
                 "--requests", "4", "--batch", "2", "--gen", "4", *tier_args)
     assert proc.returncode == 0, proc.stderr
-    assert f"# {arch}: auto-selected --scheduler static" in proc.stdout
+    assert f"# {arch}-smoke: auto-selected --scheduler static" in proc.stdout
     assert "[static] served 4 requests, 16 tokens" in proc.stdout

@@ -20,7 +20,10 @@ counterpart in ``repro_torch``:
   of reduced qwen2-vl-7b (M-RoPE; also on patch embeddings),
   granite-moe-1b-a400m and kimi-k2-1t-a32b (the MoE aux loss in the loss,
   assignments dropped at their own capacity; granite also bitexact on
-  moe+attn under the Pallas path): loss at rtol 1e-5, aux within 1e-6 and
+  moe+attn under the Pallas path), reduced mamba2-130m and
+  recurrentgemma-2b (the two scans; recurrentgemma also under the Pallas
+  path) and seamless-m4t-large-v2 (both packages fed the same
+  ``src_embeds``; also under the Pallas path): loss at rtol 1e-5, aux within 1e-6 and
   every gradient within 1e-4 * max|want| of
   ``jax.value_and_grad(repro.train.steps.loss_fn)``.  In the approximate
   cases every approximate GEMM (and attention) call of the port is first
@@ -149,9 +152,12 @@ def _assert_moments_equal(port_opt, ref_opt, bits):
 
 # the reduced trees: qwen3-0.6b's one stacked group; gemma2-9b's period-2
 # (local, global) group with a remainder layer, and its post-norms;
-# granite-moe-1b-a400m's experts stacked (L, E, d, f) beside the router
+# granite-moe-1b-a400m's experts stacked (L, E, d, f) beside the router;
+# seamless-m4t-large-v2's encoder and decoder stacks (the recurrent
+# families' stacked layouts, on which decay is keyed, are held leaf for leaf
+# in tests/test_torch_model.py's loader test)
 ADAMW_TREES = {"qwen3-0.6b": {}, "gemma2-9b": dict(num_layers=3),
-               "granite-moe-1b-a400m": {}}
+               "granite-moe-1b-a400m": {}, "seamless-m4t-large-v2": {}}
 
 
 @pytest.mark.parametrize("arch", sorted(ADAMW_TREES))
@@ -323,6 +329,16 @@ EXACT_STEPS = {
     # the aux loss; capacity 1.25 and 1.0 drop assignments at 2 x 16 tokens
     "granite-moe": ("granite-moe-1b-a400m", {}),
     "kimi-k2": ("kimi-k2-1t-a32b", {}),
+    # the SSD scan, stacked with period 1; the RG-LRU's (rglru, rglru,
+    # attn_local) group with two remainder layers, the window of 8 binding,
+    # also under the Pallas-path attention
+    "mamba2": ("mamba2-130m", {}),
+    "recurrentgemma": ("recurrentgemma-2b", dict(num_layers=5)),
+    "recurrentgemma-pallas": ("recurrentgemma-2b", dict(num_layers=5, attn_impl="pallas")),
+    # the encoder-decoder on the same src_embeds (the encoder's non-causal
+    # and the decoder's causal forward and backward under pallas)
+    "seamless": ("seamless-m4t-large-v2", {}),
+    "seamless-pallas": ("seamless-m4t-large-v2", dict(attn_impl="pallas")),
 }
 
 
@@ -346,7 +362,9 @@ def _step_configs(case):
 @pytest.mark.parametrize("case", ["exact", "paper-multiplier", "bitexact-mlp+attn-pallas",
                                   "gemma2-9b-pallas", "gemma2-9b-pallas-hd256", "yi-9b",
                                   "qwen2-vl", "qwen2-vl-embeds", "granite-moe", "kimi-k2",
-                                  "granite-bitexact-moe+attn-pallas"])
+                                  "granite-bitexact-moe+attn-pallas", "mamba2",
+                                  "recurrentgemma", "recurrentgemma-pallas", "seamless",
+                                  "seamless-pallas"])
 def test_train_step_loss_and_gradients_match_reference(case, monkeypatch):
     jcfg, tcfg = _step_configs(case)
     jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
@@ -359,6 +377,9 @@ def test_train_step_loss_and_gradients_match_reference(case, monkeypatch):
         embeds = np.random.default_rng(5).standard_normal((2, 16, tcfg.d_model)).astype(
             np.float32)
         jbatch["embeds"], batch["embeds"] = jnp.asarray(embeds), torch.from_numpy(embeds)
+    if tcfg.is_encdec:  # frames of another length than the tokens'
+        src = np.random.default_rng(6).standard_normal((2, 12, tcfg.d_model)).astype(np.float32)
+        jbatch["src_embeds"], batch["src_embeds"] = jnp.asarray(src), torch.from_numpy(src)
     if case not in EXACT_STEPS:
         _force_port_inputs(monkeypatch,
                            _record_reference_inputs(monkeypatch, jcfg, jparams, jbatch))
@@ -496,7 +517,8 @@ def test_training_lowers_the_loss(bits, comp, lr):
 
 
 @pytest.mark.parametrize("arch", ["paper-multiplier", "gemma2-9b", "qwen2-vl-7b",
-                                  "granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+                                  "granite-moe-1b-a400m", "kimi-k2-1t-a32b", "mamba2-130m",
+                                  "recurrentgemma-2b", "seamless-m4t-large-v2"])
 def test_cpu_train_cli_lowers_the_loss(arch):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run(
