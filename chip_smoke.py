@@ -179,9 +179,9 @@ Phases, one line each (or a few):
    After each run, one pool prefill and one decode step give the
    launches and host time per step, and a profiler pass over one
    decode step the device's busy share.  Then the rest of serving:
-   ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over the
-   exact run's 4 requests (packed_matmul) and on the pallas exact pool
-   over 2 of them (flash_decode, flash_attention, packed_matmul),
+   ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over 2
+   of the exact run's 4 requests (packed_matmul) and on the pallas exact
+   pool over 2 of its own (flash_decode, flash_attention, packed_matmul),
    their streams held against the greedy runs' by the margin rule (equal
    up to each request's first greedy step whose top-2 logit gap, by
    teacher forcing, is under ``STREAM_MARGIN``), with accept rate, rounds,
@@ -208,7 +208,7 @@ Phases, one line each (or a few):
    (approx_attention_bitexact at g = 7); granite-moe-1b-a400m (24 layers,
    32 experts top-8 of moe_d_ff 512, 16 / 8 heads of 64, vocab 49155, tied,
    1.335B params) at exact, balanced (lut_matmul on every expert GEMM and
-   attention projection), draft (packed_matmul per expert; these two at 8
+   attention projection), draft (packed_matmul per expert; these two at 4
    tokens a request) and pallas exact, each MoE run also printing the kernel launches inside the
    expert GEMMs per decode step and the share of routed assignments that
    capacity dropped, counted in the run (balanced and draft unprofiled);
@@ -237,6 +237,21 @@ Phases, one line each (or a few):
    at the exact tiers and 4 at the approximate ones, each with its prefill
    (encoder, cross K/V, decoder) and decode-step ms, launches a step,
    busy share, tok/s and peak device memory;
+5b. distribution, after the qwen3-0.6b serve runs on their weights: a
+   one-rank NCCL process group through a ``FileStore`` in a temporary
+   directory (no network); ``make_host_mesh()`` on ``cuda`` is (1, 1) and
+   ``data_parallel_mesh(4)`` None; a mesh without a process group (the
+   production mesh, an object) must make the scheduler raise; qwen3-0.6b
+   served under an explicit one-rank ``("data",)`` mesh at ``exact``,
+   ``balanced`` (lut_matmul) and ``draft`` (packed_matmul), each stream
+   bit-equal to the ``mesh=None`` run's, with decode-step ms, launches a
+   step and busy share beside it; qwen3-0.6b's full-width train state
+   (bf16 parameters, two float32 AdamW moments drawn from a seed) sharded
+   over the (1, 1) mesh, saved, restored onto the card (sharded) and onto
+   the CPU (unsharded), both bit-equal, with the bytes and the save and
+   restore seconds; the dry-run of kimi-k2-1t-a32b at ``train_4k`` and
+   ``decode_32k`` on the 16 x 16 mesh, per-device GB beside the card's
+   memory, under 10 s of host time;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
@@ -263,10 +278,10 @@ Phases, one line each (or a few):
    at its published widths and depth, fed 128 seeded frames a row (the
    forward non-causal and causal, the pair after each; both causal
    settings must be called on the card).  Then the train CLI
-   on paper-multiplier, 8 steps with a checkpoint every 4 and a failure
+   on paper-multiplier, 6 steps with a checkpoint every 4 and a failure
    injected at step 5, which it must recover from, with the losses of its
-   steps 1 and 8 (its own "loss a -> b", which averages ten steps at each
-   end, the same steps over a run of 8, is checked but not printed);
+   steps 1 and 6 (its own "loss a -> b", which averages ten steps at each
+   end, the same steps over a run of 6, is checked but not printed);
 7. error analysis: ``engine.multiply`` (auto) and
    ``kernels.ops.approx_multiply`` on CUDA tensors (``seqmul_packed``, its
    launch count seen to rise), ``exhaustive_eval(12, 6)`` with fix_to_1
@@ -293,6 +308,7 @@ a machine without CUDA, or a directory without the repository's ``src``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -394,6 +410,7 @@ ELEMENTWISE_MAIN = {"seqmul_packed": (12, 6), "seqmul_words": (16, 8)}
 ELEMENTWISE_RAGGED = [(), (0,), (1,), (127,), (129,), ((1 << 20) + 3,)]
 # the train runs: the reference driver's batch and sequence defaults
 TRAIN = dict(batch=8, seq=128, steps=16)
+TRAIN_CLI_STEPS = 6  # one checkpoint (step 4) before the failure at step 5
 # train (c): gemma2-9b at its published widths, its depth cut to two
 # (local, global) periods; the train CLI has no depth flag; train (f):
 # recurrentgemma-2b's depth cut to two (rglru, rglru, attn_local) periods
@@ -2257,7 +2274,7 @@ def moe_counters():
 # ---------------------------------------------------------------- serve
 def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=("mlp",),
                 expect=(), forbid=(), requests: int, profile_reps: int = 1,
-                gen: int = SERVE["gen"], full_length: bool = False):
+                gen: int = SERVE["gen"], full_length: bool = False, mesh=None):
     """One closed-loop run of the scheduler, ``gen`` tokens a request (prompts
     of 4 to 32 tokens, or all of 32 with ``full_length``, as the recurrent
     families take them); every kernel in ``expect`` must launch and none in
@@ -2278,7 +2295,8 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
                            quality=quality, **(dict(min_prompt=SERVE["prompt"])
                                                if full_length else {}))
     sched = ContinuousScheduler(model, params, batch_size=SERVE["batch"],
-                                prompt_len=SERVE["prompt"], max_new=gen, quality=quality)
+                                prompt_len=SERVE["prompt"], max_new=gen, quality=quality,
+                                mesh=mesh)
     bad_logits = []
     lm_head = params.lm_head
 
@@ -2353,16 +2371,16 @@ def wide_serve_runs(every: tuple) -> dict:
         # the balanced tier approximates the expert GEMMs and the attention
         # projections (lut_matmul), the draft tier the expert GEMMs
         # (packed_matmul), one launch per expert and projection: host-bound
-        # steps of 1.7 and 2.9 s, so 8 tokens a request, and no profiled step
+        # steps of 1.7 and 2.9 s, so 4 tokens a request, and no profiled step
         # (the profiler's pass over draft's 131,000 launches took 90 s, over
         # balanced's 78,880 about 60)
         "granite-moe-1b-a400m": [
             exact,
             ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
-                                     forbid=ATTN_KERNELS, gen=SERVE["gen"] // 2, profile_reps=0,
+                                     forbid=ATTN_KERNELS, gen=SERVE["gen"] // 4, profile_reps=0,
                                      **few)),
             ("draft", False, dict(quality="draft", expect=("packed_matmul",), profile_reps=0,
-                                  gen=SERVE["gen"] // 2, **few)),
+                                  gen=SERVE["gen"] // 4, **few)),
             pallas_exact],
         # the recurrent families take only full-length prompts; recurrentgemma's
         # attention kernels at g = 10, mamba2's GEMMs at its in_proj width 3352
@@ -3019,6 +3037,142 @@ def profile_fn(fn, reps: int, what: str):
     return busy_us / 1e3, kernel_us / 1e3, wall_ms, reps
 
 
+# ---------------------------------------------------------- distribution
+DRYRUN_CELLS = ("train_4k", "decode_32k")
+
+
+def phase_distribution(params, model, base_runs: dict, n_req: int) -> dict:
+    """The mesh path on one card (see the module's note, 5b): a one-rank
+    NCCL group, qwen3-0.6b served under a ("data",) mesh against
+    ``base_runs`` (tier -> the mesh=None run), the elastic save and
+    restore of its train state, and the kimi-k2 dry-run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint.manager import (
+        CheckpointManager, Placed, shard_train_state, state_leaves,
+    )
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed.sharding import data_parallel_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW, make_host_mesh, make_production_mesh
+    from repro_torch.models.registry import reference_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.serve import ContinuousScheduler
+    from repro_torch.train.steps import TrainState, init_train_state
+
+    card_line = nvidia_smi("name,power.limit")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+        torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            host = make_host_mesh()
+            check(host.mesh_dim_names == ("data", "model") and tuple(host.mesh.shape) == (1, 1),
+                  f"distribution: make_host_mesh() is {host}")
+            check(data_parallel_mesh(4) is None, "distribution: data_parallel_mesh(4) on one rank")
+            for bad in (make_production_mesh(), object()):
+                try:
+                    ContinuousScheduler(model, params, batch_size=SERVE["batch"],
+                                        prompt_len=SERVE["prompt"], max_new=SERVE["gen"],
+                                        mesh=bad)
+                except ValueError:
+                    continue
+                raise SmokeFailure(f"distribution: mesh={bad!r} served without a process group")
+            data = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            print(f"distribution: one-rank NCCL group, host mesh {tuple(host.mesh.shape)} "
+                  f"{host.mesh_dim_names}, data mesh {tuple(data.mesh.shape)}", flush=True)
+
+            # serve under the mesh: streams bit-equal to mesh=None's in this call
+            for tier, kernel in (("exact", None), ("balanced", "lut_matmul"),
+                                 ("draft", "packed_matmul")):
+                base = base_runs[tier]
+                run = phase_serve(f"mesh {tier}", params, model, quality=tier,
+                                  expect=(kernel,) if kernel else (), requests=n_req,
+                                  forbid=() if kernel else tuple(base["counts"]), mesh=data)
+                for r in run["queue"]:
+                    check(np.array_equal(run["outputs"][r.id], base["outputs"][r.id]),
+                          f"distribution: mesh {tier}: request {r.id} streams differ from "
+                          f"mesh=None's")
+                print(f"distribution: serve {tier} under the mesh: streams bit-equal to "
+                      f"mesh=None over {len(run['queue'])} requests; decode step "
+                      f"{run['decode_ms']:.2f} ms (mesh=None {base['decode_ms']:.2f}), "
+                      f"launches a step {run['per_decode']} (mesh=None {base['per_decode']}), "
+                      f"busy {run['busy_share']} (mesh=None {base['busy_share']}), tok/s "
+                      f"{run['tok_s']:.2f} (mesh=None {base['tok_s']:.2f}); {card_line}",
+                      flush=True)
+                out[tier] = run
+
+            # the elastic save and restore of the full-width train state
+            tcfg = TrainConfig()
+            state = init_train_state(model, tcfg, 0, device="cuda")
+            g = torch.Generator(device="cuda").manual_seed(1)
+            for m in state.opt.mu + state.opt.nu:
+                m.normal_(generator=g)
+            sharded = shard_train_state(state, host)
+            mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(1, sharded, blocking=True)
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(mgr._path(1))
+            card_target = shard_train_state(init_train_state(model, tcfg, 1, device="cuda"),
+                                            host)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.restore(card_target)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            cpu_params = model.init_params(0, device="meta").to_empty(device="cpu")
+            cpu_target = TrainState(cpu_params, adamw.init(
+                reference_leaves(cpu_params), dict(cpu_params.named_parameters()), tcfg),
+                None, 0, torch.zeros((), dtype=torch.int64))
+            t0 = time.perf_counter()
+            mgr.restore(cpu_target)
+            cpu_s = time.perf_counter() - t0
+            leaves = state_leaves(state)
+            for want, on_card, on_cpu in zip(leaves, state_leaves(card_target),
+                                             state_leaves(cpu_target)):
+                got = on_card.local if isinstance(on_card, Placed) else on_card
+                check(torch.equal(got.reshape(want.shape), want),
+                      "distribution: restore onto the card is not bit-equal")
+                check(torch.equal(on_cpu, want.cpu()),
+                      "distribution: restore onto the CPU is not bit-equal")
+            print(f"distribution: train state of {len(leaves)} leaves, {nbytes} bytes "
+                  f"({nbytes / 1e9:.3f} GB): save {save_s:.2f} s, restore onto the card "
+                  f"{card_s:.2f} s, onto the CPU {cpu_s:.2f} s, both bit-equal; {card_line}",
+                  flush=True)
+            out["checkpoint"] = dict(bytes=nbytes, save_s=save_s, restore_card_s=card_s,
+                                     restore_cpu_s=cpu_s)
+            del state, sharded, card_target, cpu_target, cpu_params
+            torch.cuda.empty_cache()
+        finally:
+            torch.distributed.destroy_process_group()
+
+    # the dry-run: kimi-k2-1t-a32b at its published widths on the 16 x 16 pod
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    t0 = time.perf_counter()
+    for cell in DRYRUN_CELLS:
+        rec = dryrun.size_cell("kimi-k2-1t-a32b", cell, False)
+        b = rec["per_device_bytes"]
+        print(f"distribution: dry-run kimi-k2-1t-a32b {cell} on {rec['chips']} devices "
+              f"(16 x 16): per device {rec['per_device_gb']:.3f} GB (params "
+              f"{b['params'] / 1e9:.3f}, moments {b['opt'] / 1e9:.3f}, caches "
+              f"{b['caches'] / 1e9:.3f}, batch {b['batch'] / 1e9:.6f}) against this card's "
+              f"{card_gb:.2f} GB ({'fits' if rec['per_device_gb'] < card_gb else 'does not fit'}"
+              f"); compute {rec['terms_s']['compute']:.4f} s, memory "
+              f"{rec['terms_s']['memory']:.4f} s at {HW.NAME}'s rates; HLO FLOPs and "
+              f"collective bytes absent", flush=True)
+        out[f"dryrun {cell}"] = rec
+    host_s = time.perf_counter() - t0
+    check(host_s < 10.0, f"distribution: the dry-run took {host_s:.1f} s of host time")
+    print(f"distribution: dry-run host time {host_s:.2f} s", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- train
 def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple = ()) -> dict:
     """``TRAIN["steps"]`` steps of ``make_train_step`` through ``run_loop`` at
@@ -3179,7 +3333,7 @@ def phase_train_cli() -> None:
     history = ROOT / "build" / "chip_smoke_train_history.json"
     shutil.rmtree(ckpt, ignore_errors=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "paper-multiplier",
-           "--steps", "8", "--batch", "8", "--seq", "128", "--ckpt-dir", str(ckpt),
+           "--steps", str(TRAIN_CLI_STEPS), "--batch", "8", "--seq", "128", "--ckpt-dir", str(ckpt),
            "--ckpt-every", "4", "--inject-failures", "5", "--log-every", "2",
            "--out", str(history)]
     t0 = time.perf_counter()
@@ -3187,7 +3341,7 @@ def phase_train_cli() -> None:
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600,
                               env={**os.environ, "PYTHONPATH": str(SRC)})
         # the history holds one loss per step run, the repeated step 5 (after
-        # the restore from step 4) included: its first is step 1, its last step 8
+        # the restore from step 4) included: its first is step 1, its last the final step
         losses = ([h["loss"] for h in json.loads(history.read_text())]
                   if proc.returncode == 0 else [])
     finally:
@@ -3204,13 +3358,14 @@ def phase_train_cli() -> None:
     check(failures == 1 and restarts == 1 and all(map(math.isfinite, (a, b))),
           f"train CLI: {m.group(0)}")
     # a step between the restored checkpoint and the failure runs twice
-    check(len(losses) >= 8 and all(map(math.isfinite, losses)), f"train CLI losses {losses}")
+    check(len(losses) >= TRAIN_CLI_STEPS and all(map(math.isfinite, losses)),
+          f"train CLI losses {losses}")
     # the CLI's own "loss a -> b" is checked above but not printed: over 8
     # steps both of its ten-step means average the same steps
     lines = [ln for ln in out.splitlines() if ln.startswith(("arch=", "recovered"))]
     print(f"train CLI ({wall:.1f}s): " + " | ".join(lines)
           + f" | failures {failures} restarts {restarts} | loss of step 1 {losses[0]:.6f}, "
-          f"of step 8 {losses[-1]:.6f}", flush=True)
+          f"of step {TRAIN_CLI_STEPS} {losses[-1]:.6f}", flush=True)
 
 
 def main() -> int:
@@ -3264,8 +3419,10 @@ def main() -> int:
         sass_checks = (("flash_attention", ("flash_attention_kernel",), ("flash_decode_kernel",)),
                        ("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel"), ()),
                        ("approx_attention", ("lowrank_kernel",), ("bitexact_kernel",)))
-        for source, names, without in sass_checks:
-            for kernel, count in sorted(tensor_core_instructions(source, names, without).items()):
+        with concurrent.futures.ThreadPoolExecutor(len(sass_checks)) as pool:
+            found = list(pool.map(lambda c: tensor_core_instructions(*c), sass_checks))
+        for (source, _, _), counts in zip(sass_checks, found):
+            for kernel, count in sorted(counts.items()):
                 print(f"build: {source} SASS: {kernel} HMMA/HGMMA/IMMA per instantiation {count}",
                       flush=True)
 
@@ -3354,8 +3511,9 @@ def main() -> int:
             requests=n_req)
         # the rest of serving: speculative rounds (draft proposals, one verify
         # forward), the open loop with its policy, the static loop, the soak
+        exact_half = {**exact_run, "queue": exact_run["queue"][:n_req // 2]}
         spec_runs = {"packed_matmul": phase_serve_speculative(
-            "speculative", params, exact_run, expect=("packed_matmul",),
+            "speculative", params, exact_half, expect=("packed_matmul",),
             draft_run=runs["packed_matmul"])}
         pallas_exact = runs["flash_attention"]
         pallas_half = {**pallas_exact, "queue": pallas_exact["queue"][:n_req // 2]}
@@ -3365,6 +3523,10 @@ def main() -> int:
         phase_serve_open(params, model)
         phase_serve_static(params, model)
         phase_soak(params, model)
+    with phase("distribution"):
+        dist_runs = phase_distribution(params, model, {
+            "exact": exact_run, "balanced": runs["lut_matmul"],
+            "draft": runs["packed_matmul"]}, n_req)
         del params
         torch.cuda.empty_cache()
     # gemma2-9b, gemma-7b, yi-9b, qwen2-vl-7b, granite-moe-1b-a400m,
@@ -3478,6 +3640,10 @@ def main() -> int:
         if name in spec_runs:
             # each round of the speculative run: SPEC_K draft decodes and one verify
             per_step["launches_per_spec_round"] = spec_runs[name]["per_round"].get(name, 0.0)
+        for tier in ("balanced", "draft"):
+            if dist_runs[tier]["counts"].get(name):
+                # its launches in the serve run under the one-rank ("data",) mesh
+                per_step["mesh_serve_launches"] = dist_runs[tier]["counts"][name]
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
         for arch in ("gemma2-9b", "qwen2-vl-7b", "granite-moe-1b-a400m", "recurrentgemma-2b",

@@ -5,9 +5,10 @@
 Total parameters ~= 61 * 384 * 3 * 2048 * 7168 ≈ 1.03e12 (the "1T");
 active ≈ 61 * (8 experts * 3 * 2048 * 7168 + attention) ≈ 30e9 ("a32b").
 This is the FSDP stress config: it only fits with parameters sharded
-over many devices.  The port runs it at ``.reduced()`` only, on one
-device: its published widths wait for the sharding of ROADMAP.md,
-"Modules to port" item 11.
+over many devices.  The port serves and trains it at ``.reduced()`` on one
+device; at its published widths it is sized, not run, by the dry-run
+(``python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b``): on the
+16 x 16 pod the experts split 256 ways (TP over E, FSDP over d_model).
 """
 
 from repro_torch.configs.base import ModelConfig

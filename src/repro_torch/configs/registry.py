@@ -12,8 +12,11 @@ sub-quadratic models mamba2-130m (SSD blocks only) and recurrentgemma-2b
 (RG-LRU blocks and local MQA attention, 2:1); the encoder-decoder
 seamless-m4t-large-v2 (a non-causal encoder over frame embeddings, a
 decoder with cross-attention over its memory); and the paper-multiplier
-model.
-``apply_approx(cfg, ...)`` deploys the paper's technique onto a config."""
+model.  kimi-k2-1t-a32b's published widths run through the dry-run
+(``launch/dryrun.py``): one card cannot hold them.
+``apply_approx(cfg, ...)`` deploys the paper's technique onto a config;
+``list_archs`` and ``shapes_for`` name the (arch x shape) cells the
+dry-run sizes."""
 
 from __future__ import annotations
 
@@ -21,24 +24,34 @@ import dataclasses
 import importlib
 from typing import Optional
 
-from repro_torch.configs.base import ApproxConfig, ModelConfig
+from repro_torch.configs.base import SHAPES, ApproxConfig, ModelConfig, ShapeConfig
 
-__all__ = ["ARCHS", "get_config", "apply_approx", "apply_quality"]
+__all__ = [
+    "ARCHS", "get_config", "list_archs", "apply_approx", "apply_quality", "shapes_for",
+    "SHAPES",
+]
 
 # arch-id -> module name under repro_torch.configs
 ARCHS = {
-    "qwen3-0.6b": "qwen3_0_6b",
-    "gemma-7b": "gemma_7b",
-    "gemma2-9b": "gemma2_9b",
     "yi-9b": "yi_9b",
-    "qwen2-vl-7b": "qwen2_vl_7b",
+    "gemma-7b": "gemma_7b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "gemma2-9b": "gemma2_9b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "mamba2-130m": "mamba2_130m",
-    "recurrentgemma-2b": "recurrentgemma_2b",
     "seamless-m4t-large-v2": "seamless_m4t_large",
     "paper-multiplier": "paper_multiplier",
 }
+
+
+def list_archs(include_paper: bool = False) -> list[str]:
+    out = [a for a in ARCHS if a != "paper-multiplier"]
+    if include_paper:
+        out.append("paper-multiplier")
+    return out
 
 
 def get_config(name: str, **overrides) -> ModelConfig:
@@ -93,3 +106,15 @@ def apply_quality(cfg: ModelConfig, tier, *, n: int = 8, order: int = 1) -> Mode
     from repro_torch.engine import config as engine_config  # lazy import as above
 
     return engine_config.apply_quality(cfg, tier, n=n, order=order)
+
+
+def shapes_for(cfg: ModelConfig) -> dict[str, ShapeConfig]:
+    """The assigned shape cells that apply to this architecture.
+
+    ``long_500k`` needs sub-quadratic attention -> only SSM/hybrid families.
+    All archs have autoregressive decoders, so no decode-shape skips.
+    """
+    out = dict(SHAPES)
+    if not cfg.sub_quadratic:
+        out.pop("long_500k")
+    return out

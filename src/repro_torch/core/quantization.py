@@ -31,11 +31,16 @@ def _const(value, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(value), dtype=like.dtype, device=like.device)
 
 
-def calibrate_absmax(x: torch.Tensor, *, bits: int, dim=None) -> QuantParams:
+def calibrate_absmax(x: torch.Tensor, *, bits: int, dim=None, reduce=None) -> QuantParams:
+    """Absmax scale of ``x`` (per tensor, or along ``dim``); ``reduce`` maps
+    the local absmax to the global one where ``x``'s rows are split over
+    ranks (``distributed.sharding.global_max``)."""
     if dim is None:
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=dim, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax)
     # qmax as a tensor on the device: CUDA divides by a host scalar as a
     # multiply by its reciprocal, which can differ in the last bit.
     # torch.full fills on the device; torch.tensor would copy from the
@@ -71,9 +76,9 @@ class _SteRound(torch.autograd.Function):
         return g
 
 
-def fake_quant(x: torch.Tensor, *, bits: int, dim=None) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, *, bits: int, dim=None, reduce=None) -> torch.Tensor:
     """Straight-through fake quantization (QAT substrate)."""
-    qp = calibrate_absmax(x.detach(), bits=bits, dim=dim)
+    qp = calibrate_absmax(x.detach(), bits=bits, dim=dim, reduce=reduce)
     r = _SteRound.apply(x / qp.scale)
     # maximum/minimum rather than clamp: like the reference's jnp.clip they
     # split the gradient at a tie, which the absmax element always is

@@ -22,6 +22,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' (or --device cpu) "
             "to run the plain PyTorch versions on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu' (or 'meta' "
+                         f"for shapes only)")
     return dev

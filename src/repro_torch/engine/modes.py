@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import quantization
+from repro_torch.distributed import sharding
 from repro_torch.engine import artifacts
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul, lowrank_matmul_plain
 from repro_torch.kernels.lut_matmul import lut_matmul, lut_matmul_plain
@@ -116,9 +117,11 @@ def quantize_operands(x: torch.Tensor, w: torch.Tensor, n: int):
     """Sign-magnitude absmax quantization of both GEMM operands.
 
     Returns ``((mag_x, sign_x), (mag_w, sign_w), scale)``; calibration
-    sees detached tensors (scales are data, not parameters).
+    sees detached tensors (scales are data, not parameters).  The
+    activation's absmax is global over the ranks its rows are split over
+    (``sharding.global_max``); the weight is whole on every rank.
     """
-    qx = quantization.calibrate_absmax(x.detach(), bits=n)
+    qx = quantization.calibrate_absmax(x.detach(), bits=n, reduce=sharding.global_max)
     qw = quantization.calibrate_absmax(w.detach(), bits=n)
     mx, sx = quantization.quantize(x, qx)
     mw, sw = quantization.quantize(w, qw)
@@ -196,12 +199,17 @@ def _lowrank_cuda(x, w, p):
 
 
 def _inject_prepare(x, w, p, generator):
-    """Draw the moment-matched noise, shape (M, N)."""
+    """Draw the moment-matched noise, shape (M, N).  Where the rows of x
+    are split over ranks, every rank draws the global (M_global, N) noise
+    and keeps its own rows, so the draws do not depend on the rank count."""
     mean, std = artifacts.error_moments(p.n, p.t, p.fix_to_1)
     k_dim = x.shape[-1]
+    m_global, start = sharding.global_rows(x.shape[0])
     z = torch.randn(
-        (x.shape[0], w.shape[-1]), generator=generator, dtype=torch.float32, device=x.device
+        (m_global, w.shape[-1]), generator=generator, dtype=torch.float32, device=x.device
     )
+    if m_global != x.shape[0]:
+        z = z[start:start + x.shape[0]]
     return (mean * k_dim + std * math.sqrt(k_dim) * z,)
 
 
@@ -224,7 +232,8 @@ def _inject_cuda(x, w, p, noise):
 
 
 def _fakequant_ref(x, w, p):
-    return quantization.fake_quant(x, bits=p.n) @ quantization.fake_quant(w, bits=p.n)
+    xq = quantization.fake_quant(x, bits=p.n, reduce=sharding.global_max)
+    return xq @ quantization.fake_quant(w, bits=p.n)
 
 
 register_mode(ModeSpec(

@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import quantization
+from repro_torch.distributed import sharding
 from repro_torch.engine import artifacts
 from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand, sm_count
 from repro_torch.kernels.flash_attention import (
@@ -167,8 +168,9 @@ def bitexact_tile(mq, sq, mk, sk, mv, sv, lut, *, n):
 def quant_signed(x, n):
     """Per-tensor sign-magnitude quantization: (mag int32, sign f32, signed
     values f32, scale).  The scale is calibrated in ``x``'s own dtype, as
-    the reference does for a bf16 input."""
-    qp = quantization.calibrate_absmax(x.detach(), bits=n)
+    the reference does for a bf16 input, and global over the ranks the
+    batch is split over (``sharding.global_max``)."""
+    qp = quantization.calibrate_absmax(x.detach(), bits=n, reduce=sharding.global_max)
     mag, sign = quantization.quantize(x, qp)
     sign = sign.to(torch.float32)
     return mag, sign, mag.to(torch.float32) * sign, qp.scale

@@ -23,26 +23,36 @@ batched forward); ``--scheduler static`` runs the static-batch loop:
 Every ``--arch`` of ``configs.registry`` serves, qwen2-vl-7b (on text
 tokens, t = h = w), the MoE models granite-moe-1b-a400m and
 kimi-k2-1t-a32b, and the recurrent-state models mamba2-130m and
-recurrentgemma-2b included; kimi-k2 only with ``--reduced``, its published
-widths needing the sharding of item 11.  For the recurrent-state models
+recurrentgemma-2b included; kimi-k2 only with ``--reduced`` (its published
+widths are sized by ``launch/dryrun.py``; one card cannot hold them).  For
+the recurrent-state models
 ``--scheduler`` defaults to ``static`` (the continuous scheduler refuses
 their padded admission), as the reference's CLI does:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced \
       --device cpu --requests 4 --batch 2 --gen 4
 
-``--data-parallel`` raises ``NotImplementedError`` (ROADMAP.md, 'Modules
-to port' item 11).
+``--data-parallel`` splits the continuous scheduler's pool rows over the
+ranks of a ``torchrun`` job (``sharding.data_parallel_mesh(--batch)``: the
+largest rank count that divides the batch; ranks past it sit out), NCCL on
+the card and gloo with ``--device cpu``; only rank 0 prints.  In a single
+process there is no mesh and the pool is served unsharded, as in the
+reference:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --data-parallel --requests 8 --batch 4 --gen 16
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
 from repro_torch.configs.registry import apply_approx, get_config
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import data_parallel_mesh
 from repro_torch.engine import config as engine_config
 from repro_torch.engine import modes as engine_modes
 from repro_torch.models.registry import build_model
@@ -85,7 +95,8 @@ def main(argv=None) -> None:
     ap.add_argument("--eos-id", type=int, default=None,
                     help="retire a row early when it emits this token id")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard the decode batch over a device mesh (not ported yet)")
+                    help="shard the decode batch over a ('data',) mesh of the torchrun "
+                         "job's ranks (one process: unsharded)")
     ap.add_argument("--loop", default="closed", choices=("closed", "open"),
                     help="closed: drain a pre-filled queue; open: arrival-clocked "
                          "admission (continuous scheduler only)")
@@ -111,27 +122,50 @@ def main(argv=None) -> None:
                     help="speculative: tier whose engine verifies (default: the pool's)")
     args = ap.parse_args(argv)
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported yet (ROADMAP.md, 'Modules to port' item 11)"
-        )
     if args.approx_mode and args.quality_tier:
         ap.error("--approx-mode and --quality-tier are mutually exclusive "
                  "(the tier owns the mode)")
     device = resolve_device(args.device)
+    joined = args.data_parallel and _join_job(device)
+    try:
+        _serve(ap, args, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _join_job(device) -> bool:
+    """Join the process group a ``torchrun`` job describes (``WORLD_SIZE``
+    above 1, ``env://`` rendezvous); False in a single process."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or torch.distributed.is_initialized():
+        return False
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    torch.distributed.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return True
+
+
+def _serve(ap, args, device) -> None:
+    mesh = None
+    if args.data_parallel:
+        mesh = data_parallel_mesh(args.batch, device=device)
+        if mesh is not None and mesh.get_coordinate() is None:
+            return  # past the largest rank count that divides the batch: sit out
+    rank0 = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)  # only rank 0 prints
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.approx_mode:
         cfg = apply_approx(cfg, mode=args.approx_mode)
     if args.quality_tier:
-        print(f"# {engine_config.resolve_tier(args.quality_tier).describe()}")
+        say(f"# {engine_config.resolve_tier(args.quality_tier).describe()}")
 
     scheduler = args.scheduler
     if scheduler is None:
         scheduler = "continuous" if supports_continuous(cfg) else "static"
         if scheduler == "static":
-            print(f"# {cfg.name}: auto-selected --scheduler static "
+            say(f"# {cfg.name}: auto-selected --scheduler static "
                   f"(continuous supports attention-only decoder stacks)")
     if args.loop == "open" and scheduler != "continuous":
         ap.error("--loop open requires --scheduler continuous")
@@ -147,7 +181,7 @@ def main(argv=None) -> None:
                                    verify_tier=args.verify_tier)
         verify = args.verify_tier or args.quality_tier or "exact"
         est = engine_config.accept_rate_estimate(args.draft_tier, verify)
-        print(f"# speculative: k={args.spec_k} draft={args.draft_tier} "
+        say(f"# speculative: k={args.spec_k} draft={args.draft_tier} "
               f"verify={verify}, accept-rate lower bound {est:.1%} "
               f"(engine_config.accept_rate_estimate)")
 
@@ -169,7 +203,7 @@ def main(argv=None) -> None:
             step_time_s=args.step_time_ms / 1e3,
             clock=args.clock,
         )
-        print(f"# open loop: {args.workload} preset, offered "
+        say(f"# open loop: {args.workload} preset, offered "
               f"{draw.offered_rps:.1f} rps, policy {run_kwargs['policy'].name}")
     else:
         queue = synth_requests(
@@ -181,7 +215,7 @@ def main(argv=None) -> None:
         if scheduler == "continuous":
             result = continuous_serve_loop(
                 model, params, queue, batch_size=args.batch, prompt_len=args.prompt_len,
-                max_new=args.gen, quality=args.quality_tier, strategy=strategy,
+                max_new=args.gen, mesh=mesh, quality=args.quality_tier, strategy=strategy,
                 **run_kwargs,
             )
         else:
@@ -189,21 +223,21 @@ def main(argv=None) -> None:
                 model, params, queue, batch_size=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, seed=args.seed, quality=args.quality_tier,
             )
-    print(result.stats.summary())
+    say(result.stats.summary())
     ar = result.stats.accept_rate
     if ar is not None:
-        print(f"# speculative accept: {result.stats.spec_accepted}/"
+        say(f"# speculative accept: {result.stats.spec_accepted}/"
               f"{result.stats.spec_proposed} draft tokens ({ar:.1%}), "
               f"{result.stats.spec_rolled_back} rolled back over "
               f"{result.stats.spec_rounds} speculated rounds")
     lat = result.stats.request_latencies_s
     if lat:
-        print(
+        say(
             f"per-request latency p50 {1e3 * percentile(lat, 50):.0f}ms "
             f"p95 {1e3 * percentile(lat, 95):.0f}ms over {len(lat)} requests"
         )
     for sw in result.tier_switches:
-        print(f"# tier switch @ step {sw.step} t={sw.now_s:.3f}s: "
+        say(f"# tier switch @ step {sw.step} t={sw.now_s:.3f}s: "
               f"{sw.from_tier} -> {sw.to_tier} ({sw.reason})")
 
 

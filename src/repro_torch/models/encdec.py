@@ -177,9 +177,10 @@ class EncoderDecoder(nn.Module):
 
     @classmethod
     def init(cls, cfg: ModelConfig, *, seed: int, device: torch.device) -> "EncoderDecoder":
-        """Seeded random weights with the scales of ``encdec.init_params``."""
+        """Seeded random weights with the scales of ``encdec.init_params``;
+        shapes only on the ``meta`` device."""
         dtype = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)
         tensors = {
             "embed": layers.normal_init((cfg.vocab_size, cfg.d_model), cfg.d_model**-0.5,

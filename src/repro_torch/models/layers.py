@@ -56,7 +56,10 @@ def fold_seed(seed: int, value: int) -> int:
 # --------------------------------------------------------------------- init
 def normal_init(shape, scale: float, dtype: torch.dtype, device: torch.device,
                 generator: torch.Generator) -> torch.Tensor:
-    """``N(0, 1) * scale`` drawn in f32 and cast, as ``layers._normal``."""
+    """``N(0, 1) * scale`` drawn in f32 and cast, as ``layers._normal``; on
+    the ``meta`` device only the shape and dtype (nothing is drawn)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     z = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
     return (z * scale).to(dtype)
 

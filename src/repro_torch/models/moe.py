@@ -1,7 +1,7 @@
 """Mixture-of-Experts feed-forward: top-k routing, capacity, sort-based dispatch.
 
-Counterpart of ``repro/models/moe.py``, its single-device path (``moe_ffn``
-after the sharded branch).  The (T, k) expert assignments are flattened
+Counterpart of ``repro/models/moe.py``: its global path (``moe_ffn``
+after the sharded branch) and ``_moe_sharded``.  The (T, k) expert assignments are flattened
 and sorted by expert id, stably; each assignment's rank within its
 expert's run is its slot, and slots at or past the capacity are dropped
 (scattered to a dummy row that is cut off).  The tokens go into an (E, C,
@@ -32,10 +32,26 @@ What the port does on purpose:
   they run the hand-written GEMM kernels (``lut_matmul``,
   ``packed_matmul``, ...), E launches per projection.
 
-The reference's ``_moe_sharded`` (expert parallelism: local dispatch per
-data shard, experts over the model axis, a psum to combine) needs a model
-axis larger than one device; it comes with the sharding of ROADMAP.md,
-"Modules to port" item 11.
+Under a live mesh (``distributed.sharding``) the path is the reference's:
+
+- **(data, model) mesh with a model axis larger than 1**, E divisible by
+  it and at least k tokens a data rank (``moe_ffn``'s condition):
+  :func:`_moe_sharded`.  Each data rank routes its own tokens with a
+  local capacity ``cap_loc``; each model rank owns E / model experts and
+  runs one engine ``matmul`` per local expert on its (cap_loc, d) slot
+  block, with the absmax and the ``inject`` draws global over the data
+  ranks (the reference's expert GEMM sees the (E, data x cap_loc, d)
+  buffer); the aux loss averages ``me`` and ``ce`` over the data ranks;
+  the combine adds each token's rows in the fixed slot order on every
+  rank and then sums the model ranks' partial outputs (an all-reduce
+  SUM).  Rows that arrive replicated (the single-row admission prefill)
+  are cut to each data rank's share and gathered again after, as the
+  reference's ``shard_map`` splits them.  Forward only: the sharded train
+  step is ROADMAP.md item 11b.
+- **otherwise, rows split over data ranks**: the tokens are gathered and
+  routed globally, capacity counted over every token of the batch, and
+  each rank keeps its own rows of the output, so the result does not
+  depend on the rank count.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.engine import dispatch as _engine, modes as _engine_modes
 from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
@@ -85,9 +102,12 @@ class Routing(NamedTuple):
     aux: torch.Tensor  # the Switch-style load-balance loss, float32 0-d
 
 
-def route(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig) -> Routing:
+def route(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig, *,
+          mean_over=None) -> Routing:
     """Router logits in float32, softmax, top-k, the aux loss and the
-    sort-based dispatch with capacity (``moe_ffn``'s first half)."""
+    sort-based dispatch with capacity (``moe_ffn``'s first half).
+    ``mean_over`` averages the aux loss's two statistics over the ranks
+    that route their own tokens (``_moe_sharded``)."""
     tokens = x2.shape[0]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = x2.to(torch.float32) @ router.to(torch.float32)  # (T, E)
@@ -102,6 +122,8 @@ def route(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig) -> Routing:
     # multiply by its reciprocal
     ce = torch.bincount(flat_e, minlength=e).to(torch.float32) / torch.full(
         (), float(tokens * k), device=x2.device)
+    if mean_over is not None:
+        me, ce = mean_over(me), mean_over(ce)
     aux = e * torch.sum(me * ce)
 
     cap = capacity(tokens, k, e, cfg.capacity_factor)
@@ -115,20 +137,35 @@ def route(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(expert, gate, order, dest, keep, order // k, cap, aux)
 
 
-def expert_gemm(x: torch.Tensor, w: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+def expert_gemm(x: torch.Tensor, w: torch.Tensor, ctx: Ctx, *,
+                experts: tuple = (0, None)) -> torch.Tensor:
     """(E, C, a) @ (E, a, b) -> (E, C, b), through the multiplier when
-    ``moe`` is targeted (see the module's note)."""
+    ``moe`` is targeted (see the module's note).  ``experts = (first,
+    total)``: x and w hold experts ``first ..`` of ``total``; a stochastic
+    mode's generator skips the other experts' draws, so each expert draws
+    what it draws when every expert is local."""
     ap = ctx.cfg.approx
     if not ap.enabled or "moe" not in ap.targets:
         return torch.bmm(x, w.to(x.dtype))
     ap = ap.for_target("moe")
     generator = _engine_modes.default_generator(ap.mode, ctx.generator, x.device)
+    first, total = experts
+    total = x.shape[0] if total is None else total
+
+    def skip(count):
+        if generator is not None and count:
+            rows = sharding.global_rows(x.shape[1])[0]
+            for _ in range(count):
+                torch.randn((rows, w.shape[-1]), generator=generator, device=x.device)
+
+    skip(first)
     outs = [
         _engine.matmul(x[i].to(torch.float32), w[i].to(torch.float32), n=ap.n, t=ap.t,
                        fix_to_1=ap.fix_to_1, mode=ap.mode, rank=ap.rank,
                        generator=generator, backend=ap.backend)
         for i in range(x.shape[0])
     ]
+    skip(total - first - x.shape[0])
     return torch.stack(outs).to(x.dtype)
 
 
@@ -150,21 +187,98 @@ def _combine(y: torch.Tensor, r: Routing, tokens: int) -> torch.Tensor:
     return out
 
 
+def _act(cfg: ModelConfig):
+    return F.silu if cfg.ffn_activation == "silu" else layers._gelu_tanh
+
+
+def _moe_sharded(params, x_loc: torch.Tensor, ctx: Ctx, mesh):
+    """Expert parallelism on a (data, model) mesh (see the module's note):
+    this rank's tokens ``x_loc`` (T_loc, d) -> (its output (T_loc, d)
+    float32, the aux loss)."""
+    cfg = ctx.cfg
+    t_loc, d = x_loc.shape
+    e = cfg.num_experts
+    dgroup, _, dsize = sharding.data_group(mesh)
+    mgroup, midx, msize = sharding.model_group(mesh)
+    e_loc = e // msize
+    e0 = midx * e_loc
+
+    def mean_over_data(t):
+        if dsize == 1:
+            return t
+        t = t.clone()
+        torch.distributed.all_reduce(t, group=dgroup)
+        return t / torch.full((), float(dsize), device=t.device)
+
+    # the local capacity: route counts it over this data rank's tokens
+    r = route(params["router"], x_loc, cfg, mean_over=mean_over_data)
+    sorted_e = r.expert.reshape(-1)[r.order]
+    mine = r.keep & (sorted_e >= e0) & (sorted_e < e0 + e_loc)
+    r = r._replace(keep=mine, dest=torch.where(mine, r.dest - e0 * r.cap, e_loc * r.cap))
+    xs = torch.where(mine[:, None], x_loc[r.token], x_loc.new_zeros(()))
+    buf = x_loc.new_zeros((e_loc * r.cap + 1, d)).index_put((r.dest,), xs)
+    buf = buf[: e_loc * r.cap].reshape(e_loc, r.cap, d)
+
+    # the expert GEMMs see every data rank's slots of their experts
+    local = {n: params[n][e0:e0 + e_loc] for n in ("we1", "we3", "we2")}
+    with sharding.mesh_context(mesh, rows=True):
+        def gemm(v, w):
+            return expert_gemm(v, w, ctx, experts=(e0, e))
+
+        h = _act(cfg)(gemm(buf, local["we1"])) * gemm(buf, local["we3"])
+        y = gemm(h, local["we2"])
+    out = _combine(y, r, t_loc)
+    if msize > 1:
+        torch.distributed.all_reduce(out, group=mgroup)
+    return out, r.aux
+
+
+def _sharded_applies(cfg: ModelConfig, mesh, tokens: int) -> bool:
+    """The reference's condition for ``_moe_sharded`` (``tokens`` global)."""
+    _, _, msize = sharding.model_group(mesh)
+    _, _, dsize = sharding.data_group(mesh)
+    return (msize > 1 and cfg.num_experts % msize == 0 and tokens % dsize == 0
+            and tokens // dsize >= cfg.num_experts_per_tok)
+
+
 def moe_ffn(params, x: torch.Tensor, ctx: Ctx) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss float32 0-d)."""
     cfg = ctx.cfg
     b, s, d = x.shape
     tokens = b * s
-    e = cfg.num_experts
     x2 = x.reshape(tokens, d)
+    mesh = sharding.ambient_mesh()
+    _, ridx, rsize = sharding.row_shard()
+    dgroup, didx, dsize = sharding.data_group(mesh)
+    if _sharded_applies(cfg, mesh, tokens * rsize):
+        if rsize == 1 and dsize > 1:  # replicated rows: each data rank takes its share
+            share = tokens // dsize
+            out, aux = _moe_sharded(params, x2[didx * share:(didx + 1) * share], ctx, mesh)
+            out = sharding.gather_rows(out, dgroup, dsize)
+        else:
+            out, aux = _moe_sharded(params, x2, ctx, mesh)
+    elif rsize > 1:  # (c) on a data mesh: route every rank's tokens together
+        xg = sharding.gather_rows(x2)
+        with sharding.rows_replicated():
+            out, aux = _moe_global(params, xg, ctx)
+        out = out[ridx * tokens:(ridx + 1) * tokens]
+    else:
+        out, aux = _moe_global(params, x2, ctx)
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_global(params, x2: torch.Tensor, ctx: Ctx) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global path over the tokens x2 (T, d): (out (T, d) float32, aux)."""
+    cfg = ctx.cfg
+    tokens, d = x2.shape
+    e = cfg.num_experts
     r = route(params["router"], x2, cfg)
 
     xs = torch.where(r.keep[:, None], x2[r.token], x2.new_zeros(()))
     buf = x2.new_zeros((e * r.cap + 1, d)).index_put((r.dest,), xs)
     buf = buf[: e * r.cap].reshape(e, r.cap, d)
 
-    act = F.silu if cfg.ffn_activation == "silu" else layers._gelu_tanh
+    act = _act(cfg)
     h = act(expert_gemm(buf, params["we1"], ctx)) * expert_gemm(buf, params["we3"], ctx)
     y = expert_gemm(h, params["we2"], ctx)  # (E, C, d)
-    out = _combine(y, r, tokens)
-    return out.reshape(b, s, d).to(x.dtype), r.aux
+    return _combine(y, r, tokens), r.aux

@@ -39,7 +39,8 @@ from repro_torch.models.encdec import EncoderDecoder, init_dec_caches
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import Transformer, block_kinds, init_cache
 
-__all__ = ["Leaf", "Model", "build_model", "from_jax_params", "reference_leaves", "to_jax_layout"]
+__all__ = ["Leaf", "Model", "STACKS", "build_model", "from_jax_params", "reference_leaves",
+           "to_jax_layout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,7 +178,7 @@ class Leaf:
 
 
 # the reference's stacked subtrees: one leading layer axis on every leaf
-_STACKS = ("scan", "enc_scan", "dec_scan")
+STACKS = ("scan", "enc_scan", "dec_scan")
 
 
 def reference_leaves(params) -> list:
@@ -249,7 +250,7 @@ def to_jax_layout(tensors: dict, params) -> dict:
     tree: dict = {}
     for leaf in reference_leaves(params):
         arrs = [host(tensors[n]) for n in leaf.names]
-        value = np.stack(arrs) if leaf.path[0] in _STACKS else arrs[0]
+        value = np.stack(arrs) if leaf.path[0] in STACKS else arrs[0]
         node = tree
         for key in leaf.path[:-1]:
             if key == "rem":

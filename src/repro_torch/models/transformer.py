@@ -193,9 +193,10 @@ class Transformer(nn.Module):
 
     @classmethod
     def init(cls, cfg: ModelConfig, *, seed: int, device: torch.device) -> "Transformer":
-        """Seeded random weights with the scales of ``transformer.init_params``."""
+        """Seeded random weights with the scales of ``transformer.init_params``;
+        shapes only on the ``meta`` device (the dry-run's stand-ins)."""
         dtype = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         tensors = {
             "embed": layers.normal_init(
                 (cfg.vocab_size, cfg.d_model), cfg.d_model**-0.5, dtype, device, gen

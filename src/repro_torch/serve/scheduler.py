@@ -20,8 +20,21 @@ Decoder-only families.  Attention-only stacks take mixed-length prompts
 (``supports_continuous``); the recurrent-state families (RG-LRU, SSD:
 recurrentgemma-2b, mamba2-130m) take only prompts of the bucket's
 length, since left pads would flow into their state, and padded
-admission raises, as the reference's does.  Data-parallel meshes are
-ROADMAP.md's 'Modules to port' item 11.
+admission raises, as the reference's does.
+
+**Data-parallel serving** (``mesh=``, a live ``DeviceMesh`` of
+``distributed.sharding``; every rank runs the same scheduler): each rank
+owns ``B / n`` contiguous pool rows and their caches, n the size of the
+mesh's data axis.  The pool prefill, the decode and the speculative
+verify run on the rank's own rows under the mesh context (the engine's
+absmax and ``inject`` draws global over the data ranks, MoE routing on
+the gathered tokens), and the next tokens are all-gathered, so every
+rank's host state (admission, retirement, stats, strategy) is the same
+and the streams are those of the unsharded pool.  The single-row
+admission prefill ``(1, P)`` runs replicated on every rank, and only the
+row's owner writes its cache.  Where n does not divide the batch, every
+rank computes every row, as the reference's ``resolve_spec`` drops the
+axis.  A mesh without a process group raises.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.transformer import has_recurrent_state
 from repro_torch.serve.policy import AdmissionPolicy, LoadSnapshot, StaticTier, get_policy
 from repro_torch.serve.request import Request, RequestStats
@@ -100,6 +114,67 @@ def _scatter_row(big: list, small: list, row: int) -> list:
     return big
 
 
+class _RowSplit:
+    """This rank's share of a pool of ``batch`` rows over a live mesh."""
+
+    def __init__(self, mesh, batch: int):
+        sharding.require_live(mesh, "data-parallel serving (mesh=...)")
+        self.mesh = mesh
+        self.group, index, self.n = sharding.data_group(mesh)
+        if batch % self.n:  # the axis does not divide: every rank serves every row
+            self.group, index, self.n = None, 0, 1
+        self.rows = batch // self.n
+        self.start = index * self.rows
+
+    def local(self):
+        """Context for steps on this rank's rows."""
+        return sharding.mesh_context(self.mesh, rows=self.n > 1)
+
+    def replicated(self):
+        """Context for steps every rank runs on the same rows."""
+        return sharding.mesh_context(self.mesh, rows=False)
+
+    def mine(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.start:self.start + self.rows] if self.n > 1 else t
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return sharding.gather_rows(t, self.group, self.n)
+
+    def scatter_row(self, big: list, small: list, row: int) -> list:
+        """The admitted row's caches, written by its owner only."""
+        if self.start <= row < self.start + self.rows:
+            return _scatter_row(big, small, row - self.start)
+        return big
+
+    def engine(self, eng: TierEngine) -> TierEngine:
+        """``eng``'s steps taking and returning the whole pool's rows:
+        each runs on this rank's rows and gathers the tokens."""
+
+        def prefill_pool(params, toks, pos):
+            with self.local():
+                caches, tok0 = eng.prefill_pool(params, self.mine(toks), self.mine(pos))
+            return caches, self.gather(tok0)
+
+        def decode(params, caches, tok, pos, write):
+            with self.local():
+                nxt, caches = eng.decode(params, caches, self.mine(tok), self.mine(pos),
+                                         self.mine(write))
+            return self.gather(nxt), caches
+
+        def verify(params, caches, tokens, positions, starts):
+            with self.local():
+                ver, caches = eng.verify(params, caches, self.mine(tokens),
+                                         self.mine(positions), self.mine(starts))
+            return self.gather(ver), caches
+
+        def admit_step(params, caches, toks, pos, row):
+            with self.replicated():
+                return eng.admit_step(params, caches, toks, pos, row)
+
+        return dataclasses.replace(eng, admit_step=admit_step, prefill_pool=prefill_pool,
+                                   decode=decode, verify=verify)
+
+
 @dataclasses.dataclass
 class _Slot:
     """Host-side state of one live row."""
@@ -149,15 +224,13 @@ class ContinuousScheduler:
         ``"speculative"``) or a ``DecodeStrategy``; ``SelfSpeculative``
         reserves ``extra_capacity`` spare KV slots per row, admits at its
         verify tier and commits 1..k+1 verify-quality tokens per round.
+      mesh: an optional live ``DeviceMesh`` (e.g.
+        ``sharding.data_parallel_mesh(batch_size)``): the pool's rows split
+        over its data axis (see the module's note).
     """
 
     def __init__(self, model, params, *, batch_size: int, prompt_len: int,
                  max_new: int, mesh=None, quality=None, strategy=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel serving is not ported yet (ROADMAP.md, 'Modules to port' "
-                "item 11)"
-            )
         if model.cfg.is_encdec:
             raise ValueError(
                 "ContinuousScheduler supports decoder-only families; "
@@ -165,6 +238,8 @@ class ContinuousScheduler:
             )
         if batch_size < 1 or prompt_len < 1 or max_new < 1:
             raise ValueError("batch_size, prompt_len and max_new must be >= 1")
+        self.mesh = mesh
+        self._split = _RowSplit(mesh, batch_size) if mesh is not None else None
         model, self.quality = _apply_pool_quality(model, quality)
         # recurrent-state layers integrate left pads into their state
         # (positions cannot mask them out), so padded admission would be
@@ -188,11 +263,20 @@ class ContinuousScheduler:
         eng = self._engines.get(key)
         if eng is None:
             model, name = _apply_pool_quality(self.model, key)
+            split = self._split
             eng = build_tier_engine(
-                model, self.capacity, name=name, key=key, scatter_row=_scatter_row,
+                model, self.capacity, name=name, key=key,
+                scatter_row=_scatter_row if split is None else split.scatter_row,
             )
+            if split is not None:
+                eng = split.engine(eng)
             self._engines[key] = eng
         return eng
+
+    def init_pool_caches(self) -> list:
+        """Zero caches of this rank's pool rows (all of them without a mesh)."""
+        rows = self.batch_size if self._split is None else self._split.rows
+        return self.model.init_caches(rows, self.capacity, self._cache_dtype, self.device)
 
     # ------------------------------------------------------------- helpers
     def _pad(self, req: Request) -> tuple:
@@ -416,7 +500,7 @@ class ContinuousScheduler:
             for i, req in enumerate(first):
                 seat(i, req, int(tok0s[i]), t_b, pool=True)
         else:
-            caches = self.model.init_caches(B, self.capacity, self._cache_dtype, self.device)
+            caches = self.init_pool_caches()
         while True:
             if open_loop:
                 if not virtual:
@@ -527,7 +611,10 @@ class ContinuousScheduler:
             1 for r in retired if r.slo_ttft_s is not None and r.ttft_s <= r.slo_ttft_s
         )
         switches = pol.switches
-        devices = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if self.mesh is not None:
+            devices = self.mesh.size()
+        else:
+            devices = torch.cuda.device_count() if self.device.type == "cuda" else 1
         stats = ServeStats(
             requests=len(retired),
             tokens_out=sum(r.tokens_out for r in retired),

@@ -247,10 +247,10 @@ class SelfSpeculative(DecodeStrategy):
 
     def warmup(self, pool) -> None:
         """Run the draft decode and the verify forward once on throwaway caches."""
-        B, cap, dev = pool.batch_size, pool.capacity, pool.device
+        B, dev = pool.batch_size, pool.device
         draft = pool.engine_for(self.draft_tier)
         verify = pool.engine_for(self.admission_key(pool.quality))
-        caches = pool.model.init_caches(B, cap, pool._cache_dtype, dev)
+        caches = pool.init_pool_caches()
         zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
         _, caches = draft.decode(pool.params, caches,
                                  torch.zeros((B, 1), dtype=torch.int64, device=dev), zeros, zeros)

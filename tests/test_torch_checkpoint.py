@@ -94,6 +94,26 @@ def test_async_save_is_a_snapshot(tmp_path):
         assert torch.equal(got, want)
 
 
+def test_restore_reads_np_load_s_file_and_catches_a_flipped_byte(tmp_path):
+    """restore reads its members straight into their arrays: the leaves
+    equal ``np.load``'s of the same file, and one flipped data byte fails
+    the member's CRC check."""
+    state, _, _ = _setup()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, state, blocking=True)
+    path = tmp_path / "step_00000000.npz"
+    target, _, _ = _setup(seed=3)
+    mgr.restore(target)
+    with np.load(path) as z:
+        for i, got in enumerate(state_leaves(target)):
+            np.testing.assert_array_equal(got.detach().numpy(), z[f"leaf_{i}"])
+    raw = bytearray(path.read_bytes())
+    raw[len(raw) // 2] ^= 1
+    path.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="CRC mismatch"):
+        mgr.restore(target)
+
+
 def test_checkpoint_structure_mismatch(tmp_path):
     state, _, _ = _setup()
     mgr = CheckpointManager(str(tmp_path))

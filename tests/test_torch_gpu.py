@@ -32,7 +32,11 @@ Tolerances (kernel against plain version, both on the card):
   output, float32 before the cast (sums of up to T terms in another order);
 - the elementwise multiplier (``seqmul_packed``, ``seqmul_words``):
   bit-equal;
-- ``moe_ffn`` at granite-moe-1b-a400m's widths: two launches bit-identical.
+- ``moe_ffn`` at granite-moe-1b-a400m's widths: two launches bit-identical;
+- distribution under a one-rank NCCL group (a ``FileStore``, no network):
+  the scheduler's streams under a ``("data",)`` mesh equal ``mesh=None``'s
+  at exact, balanced and draft; a train state sharded over a (1, 1) mesh
+  restores onto the card and onto the CPU bit for bit.
 """
 
 from __future__ import annotations
@@ -961,3 +965,77 @@ def test_error_analysis_on_the_card_equals_the_cpu(card):
         kw = dict(samples=1 << 16, seed=n)
         assert (error_metrics.mc_eval(n, t, device=card, **kw)
                 == error_metrics.mc_eval(n, t, device="cpu", **kw))
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A one-rank NCCL process group (a FileStore, no network) and its
+    ("data",) mesh on the card, torn down after the test."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+    torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("tier,kernel", [("exact", None), ("balanced", "lut_matmul"),
+                                         ("draft", "packed_matmul")])
+def test_one_rank_nccl_mesh_serves_the_unsharded_streams(tier, kernel, nccl_mesh):
+    """Reduced qwen3-0.6b on the card under a one-rank ('data',) NCCL mesh:
+    the streams equal ``mesh=None``'s, through the tier's GEMM kernel."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import data_parallel_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ContinuousScheduler, synth_requests
+
+    assert data_parallel_mesh(4) is None  # one rank: nothing to split
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = build_model(cfg)
+    params = model.init_params(0, device="cuda")
+    queue = synth_requests(6, prompt_len=8, gen=4, vocab_size=cfg.vocab_size, seed=0)
+    runs = []
+    for mesh in (None, nccl_mesh):
+        kernels.reset_launch_counts()
+        runs.append(ContinuousScheduler(model, params, batch_size=4, prompt_len=8, max_new=4,
+                                        quality=tier, mesh=mesh).run(queue))
+        if kernel is not None:
+            assert kernels.launch_counts()[kernel] > 0
+    for r in queue:
+        np.testing.assert_array_equal(runs[0].outputs[r.id], runs[1].outputs[r.id])
+
+
+def test_elastic_checkpoint_on_the_card_restores_on_card_and_cpu(nccl_mesh, tmp_path):
+    """A reduced train state on the card, sharded over a one-rank (1, 1)
+    mesh, saved, restored onto the card (sharded) and onto the CPU
+    (unsharded): bit-equal."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint.manager import (
+        CheckpointManager, Placed, shard_train_state, state_leaves,
+    )
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import init_train_state
+
+    model = build_model(get_config("qwen3-0.6b").reduced(dtype="bfloat16"))
+    tcfg = TrainConfig()
+    state = init_train_state(model, tcfg, 0, device="cuda")
+    for m in state.opt.mu + state.opt.nu:
+        m.normal_()
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(1, shard_train_state(state, mesh))
+    card_target = shard_train_state(init_train_state(model, tcfg, 1, device="cuda"), mesh)
+    cpu_target = init_train_state(model, tcfg, 1, device="cpu")
+    mgr.restore(card_target)
+    mgr.restore(cpu_target)
+    for want, on_card, on_cpu in zip(state_leaves(state), state_leaves(card_target),
+                                     state_leaves(cpu_target)):
+        got = on_card.local if isinstance(on_card, Placed) else on_card
+        assert torch.equal(got.reshape(want.shape).cpu(), want.cpu())
+        assert torch.equal(on_cpu.cpu(), want.cpu())

@@ -147,17 +147,18 @@ def test_tier_pool_serves_its_tier_and_refuses_another(pools):
 
 
 def test_unported_serving_options_raise(pools):
-    """What stays unported (data-parallel serving, ROADMAP item 11) raises
-    NotImplementedError; unknown policy and strategy names raise ValueError
-    listing the known ones."""
+    """A mesh that is no live DeviceMesh (an object, a mesh without a
+    process group) raises rather than serving unsharded; unknown policy and
+    strategy names raise ValueError listing the known ones."""
     _, _, tmodel, tparams = pools
-    with pytest.raises(NotImplementedError, match="item 11"):
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with pytest.raises(ValueError, match="DeviceMesh over an initialized process group"):
         ContinuousScheduler(tmodel, tparams, batch_size=BATCH, prompt_len=PROMPT, max_new=GEN,
                             mesh=object())
-    from repro_torch.launch import serve
-
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve.main(["--reduced", "--device", "cpu", "--data-parallel"])
+    with pytest.raises(ValueError, match="has no process group"):
+        ContinuousScheduler(tmodel, tparams, batch_size=BATCH, prompt_len=PROMPT, max_new=GEN,
+                            mesh=make_production_mesh())
     sched = ContinuousScheduler(tmodel, tparams, batch_size=BATCH, prompt_len=PROMPT,
                                 max_new=GEN)
     req = synth_requests(1, prompt_len=PROMPT, gen=GEN, vocab_size=256)
@@ -166,6 +167,34 @@ def test_unported_serving_options_raise(pools):
     with pytest.raises(ValueError, match=r"known: \['greedy', 'speculative'\]"):
         ContinuousScheduler(tmodel, tparams, batch_size=1, prompt_len=PROMPT, max_new=GEN,
                             strategy="beam")
+
+
+def test_scheduler_under_explicit_one_device_mesh(pools, tmp_path):
+    """A one-rank ('data',) mesh must not change the streams (the
+    reference's ``test_scheduler_under_explicit_mesh``), greedy and
+    speculative; without a process group there is no data-parallel mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import data_parallel_mesh
+
+    _, _, tmodel, tparams = pools
+    assert not torch.distributed.is_initialized() and data_parallel_mesh(4) is None
+    store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+    torch.distributed.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        assert data_parallel_mesh(4, device="cpu") is None  # one rank: unsharded
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        queue = synth_requests(3, prompt_len=PROMPT, gen=GEN, vocab_size=256, seed=5)
+        for strategy in ("greedy", "speculative"):
+            kw = dict(batch_size=1, prompt_len=PROMPT, max_new=GEN, strategy=strategy)
+            plain = ContinuousScheduler(tmodel, tparams, **kw).run(queue, warmup=False)
+            sharded = ContinuousScheduler(tmodel, tparams, mesh=mesh, **kw).run(queue,
+                                                                                  warmup=False)
+            assert sharded.stats.devices == 1
+            for r in queue:
+                np.testing.assert_array_equal(plain.outputs[r.id], sharded.outputs[r.id])
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def _run(*args, **kw):
@@ -189,10 +218,11 @@ def test_entry_point_without_gpu_or_cpu_flag_raises():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from repro_torch.launch import serve
-
-        serve.main(["--reduced", "--device", "cpu", "--data-parallel"])
+    # --data-parallel in one process: no mesh, the pool served unsharded
+    proc = _run("-m", "repro_torch.launch.serve", "--reduced", "--device", "cpu",
+                "--data-parallel", "--requests", "2", "--batch", "2", "--gen", "2")
+    assert proc.returncode == 0, proc.stderr
+    assert re.search(r"served 2 requests, 4 tokens", proc.stdout), proc.stdout
 
 
 def test_port_imports_no_jax():
