@@ -8,15 +8,34 @@ Phases, one line each (or a few):
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, compute capability (must be 9.0), TF32 off;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with one nvcc
-   per source, all started together;
+   per source, all started together, beside ``python -m
+   repro_torch.launch.analyze`` in a process of its own on the CPU and
+   the certifier's verdicts the armed phases will ask for
+   (``warm_certificates``, all of which must be certified);
+   then the analysis phase (``phase_analysis``): the certifier's matrix
+   (every deployed entry certified, every frontier entry as expected,
+   each refusal printed with its finding), every built instantiation's
+   registers (``-Xptxas -v``) x the most threads its wrapper launches
+   within 65,536 and its static + most dynamic shared memory within
+   232,448 bytes, with its blocks an SM printed, the shared-memory model
+   equal to the plans the built libraries report for every GEMM tile (all
+   four GEMMs) and every attention kernel at every head width and dtype,
+   and one exact qwen3-0.6b decode step's FLOPs and bytes
+   (``launch/hlo_analysis.py``), printed after the serve phase beside
+   the bound they imply and the measured step.  The kernel phases and the
+   qwen3-0.6b serve phase run with ``REPRO_STATIC_AUDIT=1``: every launch
+   is checked by the dispatch gate first (the ``gate ...`` lines count the
+   checks beside the launches), and an uncertified call (seqmul at n =
+   13) must raise ``CertificationError`` before any launch;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card at the main path's shapes.  GEMMs: M in {decode batch,
    admission prompt, batch x prompt}, (K, N) the projections of
    qwen3-0.6b, plus a sweep over (n, t), and lut_matmul at the train
    shape (M = 1024, both MLP projections); the integer GEMMs must be
    bit-equal, lowrank_matmul within 2e-6 * max|want|, and every GEMM must
-   give the same bits on two launches; lut_matmul's and seqmul_matmul's
-   ``launch_plan`` must equal the launch the built library makes.  Then
+   give the same bits on two launches; each GEMM's ``launch_plan`` (lut,
+   seqmul, packed, lowrank) must equal the launch the built library
+   makes.  Then
    their edge cases: packed lanes at +-(2^n - 1) at n = 8 and 15 with K =
    3072, an odd K, M = 1 and (33, 300, 70); lowrank with every magnitude
    255 and mixed signs, with zero SVD tables (then bit-equal), M = 1,
@@ -179,9 +198,9 @@ Phases, one line each (or a few):
    After each run, one pool prefill and one decode step give the
    launches and host time per step, and a profiler pass over one
    decode step the device's busy share.  Then the rest of serving:
-   ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over 2
+   ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over 1
    of the exact run's 4 requests (packed_matmul) and on the pallas exact
-   pool over 2 of its own (flash_decode, flash_attention, packed_matmul),
+   pool over 1 of its own (flash_decode, flash_attention, packed_matmul),
    their streams held against the greedy runs' by the margin rule (equal
    up to each request's first greedy step whose top-2 logit gap, by
    teacher forcing, is under ``STREAM_MARGIN``), with accept rate, rounds,
@@ -196,8 +215,9 @@ Phases, one line each (or a few):
    full-width gemma2-9b (42 layers, d_model 3584, 16 / 8 heads of 256,
    9.24B params), gemma-7b (28 layers, 16 / 16 heads of 256) and yi-9b (48
    layers, 32 / 4 heads of 128, an untied head), bf16 weights from seed 0,
-   one model on the card at a time, 8 requests (two batches) a run at the
-   exact tiers and 4 (one batch) at the approximate ones, with the same
+   one model on the card at a time, 4 requests (one batch) a run, 16
+   tokens a request at the exact tiers and 8 at the approximate ones, with
+   the same
    checks and launch counts (one profiled decode step a run, none for
    granite's draft run): gemma2-9b at exact, balanced, draft,
    pallas exact, pallas balanced and pallas lowrank on mlp and attn;
@@ -233,8 +253,8 @@ Phases, one line each (or a few):
    refuses an encoder-decoder), prompts and an encoder memory of 32
    synthesized frames, at exact, balanced (lut_matmul), pallas exact
    (flash_attention non-causal and causal, flash_decode) and pallas
-   balanced (approx_attention_bitexact non-causal and causal), 8 requests
-   at the exact tiers and 4 at the approximate ones, each with its prefill
+   balanced (approx_attention_bitexact non-causal and causal), 4 requests
+   a run, each with its prefill
    (encoder, cross K/V, decoder) and decode-step ms, launches a step,
    busy share, tok/s and peak device memory;
 5b. distribution, after the qwen3-0.6b serve runs on their weights: a
@@ -377,10 +397,12 @@ SEAMLESS_PROJECTIONS = [(1024, 1024), (1024, 8192), (8192, 1024)]
 # 1 (mamba2's SSD over 16 chunks of 256, recurrentgemma's window of 2,048
 # binding), then teacher-forced decode steps, against one full forward
 LONG_PROMPT, LONG_STEPS = 4096, 8
-# the full-width serve runs of the three wide models: two batches at the
-# exact tiers, one at the approximate ones (their steps are device-bound)
-WIDE_REQUESTS = 2 * SERVE["batch"]
+# the full-width serve runs of the wide models: one batch at every tier, half
+# the tokens a request at the approximate ones (their steps are device-bound);
+# the decode step itself is timed apart (step_breakdown)
+WIDE_REQUESTS = SERVE["batch"]
 WIDE_APPROX_REQUESTS = SERVE["batch"]
+WIDE_APPROX_GEN = SERVE["gen"] // 2
 # self-speculative serving: proposals per round; a verify forward is (B, k+1)
 # over the pool cache, which holds k spare slots per row
 SPEC_K = 4
@@ -466,26 +488,6 @@ def phase(name: str):
     print(f"phase {name}: {time.perf_counter() - t0:.1f}s wall", flush=True)
 
 
-def ptxas_report(log: str) -> list:
-    """``[(kernel, registers, spill store bytes, spill load bytes)]`` per
-    instantiation from nvcc's ``-Xptxas -v`` log, names demangled where a
-    demangler is installed."""
-    rows = []
-    for chunk in log.split("Compiling entry function '")[1:]:
-        regs = re.search(r"Used (\d+) registers", chunk)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
-        rows.append([chunk.split("'")[0], int(regs.group(1)) if regs else None,
-                     *(map(int, spill.groups()) if spill else (None, None))])
-    tool = shutil.which("c++filt") or shutil.which("cu++filt")
-    if tool and rows:
-        names = subprocess.run([tool], input="\n".join(r[0] for r in rows), capture_output=True,
-                               text=True, timeout=60).stdout.splitlines()
-        if len(names) == len(rows):
-            for row, name in zip(rows, names):
-                row[0] = re.sub(r"\(anonymous namespace\)::|\(.*", "", name.replace("void ", ""))
-    return [tuple(r) for r in rows]
-
-
 def tensor_core_instructions(source: str, names: tuple, without: tuple = ()) -> dict:
     """``{kernel: [count per instantiation]}`` of tensor-core MMA
     instructions (HMMA for float and mma.sync, HGMMA for wgmma, IMMA for
@@ -513,6 +515,224 @@ def tensor_core_instructions(source: str, names: tuple, without: tuple = ()) -> 
     check(all(counts.get(n) and not any(counts[n]) for n in without),
           f"{source}: tensor-core instructions where none belong: {counts}")
     return counts
+
+
+# ------------------------------------------------------------- analysis
+GATE = "REPRO_STATIC_AUDIT"  # the dispatch gate's switch (analysis.audit.gate)
+AUDIT_REPORT = ROOT / "build" / "chip_smoke_audit.json"
+
+
+def start_audit():
+    """``python -m repro_torch.launch.analyze --report`` in a process of its
+    own on the CPU, beside the build; killed at exit if still running."""
+    import atexit
+
+    AUDIT_REPORT.parent.mkdir(parents=True, exist_ok=True)
+    AUDIT_REPORT.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.analyze", "--report", str(AUDIT_REPORT)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
+             "OMP_NUM_THREADS": "2"})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def warm_certificates() -> int:
+    """Ask the certifier, while nvcc runs, for every verdict the armed
+    phases' gate will ask for (the gate caches each; a first ask traces on
+    the host): each GEMM kernel at the kernel phases' and edges' widths,
+    the elementwise pair at theirs, the engine routes at n = 8 (every
+    split the tiers may resolve), the approximate attention at the splits
+    the phases use, the exact attention at every built head width.
+    Returns the verdicts asked for; every one must be certified."""
+    import torch
+
+    from repro_torch.analysis import audit
+    from repro_torch.kernels import flash_attention as fa
+
+    kind = {"lut_matmul": "lut_gemm", "seqmul_matmul": "seqmul_gemm",
+            "packed_matmul": "packed_gemm", "lowrank_matmul": "lowrank_gemm"}
+    gemms = {(kind[c[0]], c[4], c[5] if c[0] == "seqmul_matmul" else max(1, c[4] // 2))
+             for c in kernel_cases()}
+    gemms |= {(kind[e[0]], e[5], max(1, e[5] // 2)) for e in GEMM_EDGES}
+    asked = [audit.certified_kernel(*g) for g in sorted(gemms)]
+    for name, n, t, *_ in elementwise_cases():
+        asked.append(audit.certified_elementwise(n, t) if name == "seqmul_packed"
+                     else audit.certified_kernel("packed_words", n, t))
+    asked += [audit.certified(mode, 8, t) for mode in ("bitexact", "inject", "lowrank", "seqmul")
+              for t in range(1, 8)]
+    asked += [audit.certified_attention(mode, 8, t, 128, 8) for mode in ("bitexact", "lowrank")
+              for t in (1, 2, 4)]
+    asked += [audit.certified_flash(hd, dt) for hd in fa.HEAD_DIMS
+              for dt in (torch.bfloat16, torch.float32)]
+    check(all(asked), "analysis: a configuration the armed phases run is not certified")
+    return len(asked)
+
+
+def phase_analysis(card: Card, audit_run) -> dict:
+    """The static certifier on the card's machine: (1) the audit matrix,
+    every deployed entry certified and every frontier entry as expected,
+    each refusal printed with its finding; (2) every built instantiation's
+    block: static + dynamic shared memory <= 232,448 bytes, registers x
+    threads <= 65,536, with registers, shared memory and blocks an SM
+    printed; (3) the shared-memory model against the plans the built
+    libraries report, for all six wrappers: each GEMM tile (and seqmul at
+    n = 12), each attention kernel at every built head width and dtype;
+    (4) one exact qwen3-0.6b decode step's FLOPs and bytes
+    (``launch/hlo_analysis.py``, meta tensors), printed after the serve
+    phase beside the measured step."""
+    import torch
+
+    from repro_torch.analysis import smem
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import approx_attention as aa
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lowrank_matmul as lr
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import seqmul_matmul as sm
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_decode_step
+
+    # (1) the matrix, run beside the build
+    out, _ = audit_run.communicate(timeout=900)
+    check(audit_run.returncode == 0 and AUDIT_REPORT.exists(),
+          f"analysis: the analyze CLI exited {audit_run.returncode}:\n{out[-4000:]}")
+    rep = json.loads(AUDIT_REPORT.read_text())
+    entries = rep["entries"]
+    deployed = [e for e in entries if e["deployed"]]
+    check(rep["all_deployed_certified"] and rep["frontier_holds"],
+          f"analysis: uncertified entries {[e['name'] for e in entries if not e['as_expected']]}")
+    for e in entries:
+        if not e["certified"]:
+            why = "; ".join(f"{f['kind']}: {f['message']}" for f in e["findings"] if f["gating"])
+            print(f"analysis: refused {e['name']} (frontier entry, as expected): {why}",
+                  flush=True)
+    print(f"analysis: audit matrix {len(entries)} entries, {len(deployed)} deployed and all "
+          f"certified, {len(entries) - len(deployed)} frontier entries as expected", flush=True)
+
+    # (2) every built instantiation against Hopper's limits
+    footprints = smem.built_report(smem.built_logs())
+    for fp in footprints:
+        print(f"analysis: {fp.config}: {fp.registers} registers x {fp.threads} threads = "
+              f"{(fp.registers or 0) * fp.threads} of {smem.REGS_PER_SM}; shared memory "
+              f"{fp.static_smem} static + {fp.smem} dynamic (its most) = {fp.smem_total} of "
+              f"{smem.SMEM_PER_BLOCK}; spills {fp.spill_bytes} bytes; {fp.blocks_per_sm} "
+              f"blocks an SM", flush=True)
+    over = [fp.config for fp in footprints if not fp.within or fp.registers is None]
+    check(not over, f"analysis: instantiations over Hopper's limits (or unread): {over}")
+    print(f"analysis: {len(footprints)} built instantiations within {smem.SMEM_PER_BLOCK} "
+          f"bytes of shared memory and {smem.REGS_PER_SM} registers a block", flush=True)
+
+    # (3) the model's blocks as the built libraries launch them
+    sms, k, n_cols = card.sms, 1024, 3072
+    for mode, mod in (("bitexact", lm), ("seqmul", sm), ("inject", pm), ("lowrank", lr)):
+        for bits in ((8, 12) if mode == "seqmul" else (8,)):
+            for bm, bn in mod.TILES:
+                fp = smem.validate_tiles(mode, bits, 4, (bm, bn))
+                if mode == "bitexact":
+                    built = lm.built_launch_plan(lm.launch_plan(bm, k, n_cols, bits, sms), bm, k,
+                                                 n_cols, bits, sms)
+                elif mode == "seqmul":
+                    built = sm.built_launch_plan(sm.launch_plan(bm, k, n_cols, bits, sms), bm, k,
+                                                 n_cols, bits, 4)
+                elif mode == "inject":
+                    built = pm.built_launch_plan(pm.launch_plan(bm, k // 2, n_cols, sms), bm,
+                                                 k // 2, n_cols)
+                else:
+                    built = lr.built_launch_plan(lr.launch_plan(bm, k, n_cols, bits, sms), bm, k,
+                                                 n_cols, bits, 8)
+                check(built[1:] == (fp.threads, fp.smem),
+                      f"analysis: {mode} tile ({bm}, {bn}) n={bits}: model {fp} but the library "
+                      f"launches {built}")
+                print(f"analysis: {mod.KERNEL.name} tile ({bm}, {bn}) n={bits}: {fp.smem} bytes "
+                      f"of shared memory, {fp.threads} threads, as built", flush=True)
+    held = 0
+    for hd in fa.HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kernel in ("fwd", "decode", "dq", "dkv"):
+                args = (kernel, 4, 1 if kernel == "decode" else 1024, 4096, 16, 8, hd, dtype)
+                plan = fa.launch_plan(*args, sms=sms)
+                check(plan == fa.built_launch_plan(*args, sms=sms) and
+                      plan.smem <= smem.SMEM_PER_BLOCK, f"analysis: {args}: plan {plan}")
+                held += 1
+        for mode in aa.ATTN_MODES:
+            args = (mode, 4, 1024, 1024, 16, 8, hd, 8, 8, sms)
+            plan = aa.launch_plan(*args)
+            check(plan == aa.built_launch_plan(*args) and plan.smem <= smem.SMEM_PER_BLOCK,
+                  f"analysis: {args}: plan {plan}")
+            held += 1
+    print(f"analysis: {held} attention plans (head widths {fa.HEAD_DIMS}, bf16 and float32) "
+          f"equal to the built libraries' and within {smem.SMEM_PER_BLOCK} bytes", flush=True)
+
+    # (4) one exact decode step of the serve pool, counted on meta tensors
+    model = build_model(get_config("qwen3-0.6b"))
+    params = model.init_params(0, device="meta")
+    b = SERVE["batch"]
+    caches = model.init_caches(b, CACHE, torch.bfloat16, "meta")
+    tok = torch.zeros((b, 1), dtype=torch.int64, device="meta")
+    at = torch.full((b,), SERVE["prompt"], dtype=torch.int64, device="meta")
+    decode = make_decode_step(model)
+    with torch.no_grad():
+        counts = hlo_analysis.analyze(lambda: decode(params, caches, tok, at, at), [])
+    return dict(flops=counts.flops, bytes=counts.bytes, ops=len(counts.ops),
+                top=[(r.name, r.bytes, r.module.split("/")[-1]) for r in counts.top_bytes(3)])
+
+
+def report_gate(where: str, launches: dict) -> None:
+    """Every kernel launched under the armed gate was checked by it, once
+    per wrapper call (an empty elementwise call is checked and launches
+    nothing)."""
+    from repro_torch.analysis import audit
+
+    checked = dict(audit.GATE_CHECKS)
+    missed = {k: n for k, n in launches.items() if n and checked.get(k, 0) < 1}
+    check(not missed, f"{where}: launched past the armed gate, unchecked: {missed}")
+    short = {k: (checked.get(k, 0), n) for k, n in launches.items() if checked.get(k, 0) < n}
+    check(not short, f"{where}: fewer gate checks than launches (checks, launches): {short}")
+    print(f"gate {where}: {GATE}=1, checks {sum(checked.values())} "
+          f"({', '.join(f'{k} {v}' for k, v in sorted(checked.items()))}); launches "
+          f"{sum(launches.values())}", flush=True)
+
+
+def gate_refuses() -> None:
+    """The armed gate is live: an uncertified call (seqmul past its dispatch
+    contract, n = 13) raises ``CertificationError`` before any launch."""
+    import torch
+
+    from repro_torch import engine, kernels
+    from repro_torch.analysis import audit
+
+    before = kernels.launch_counts()
+    x = torch.ones((4, 64), device="cuda")
+    w = torch.ones((64, 32), device="cuda")
+    try:
+        engine.matmul(x, w, mode="seqmul", n=13, t=6)
+    except audit.CertificationError as e:
+        refused = str(e)
+    else:
+        raise SmokeFailure("gate: seqmul at n = 13 launched under the armed gate")
+    check(kernels.launch_counts() == before, "gate: a launch happened before the refusal")
+    print(f"gate: refused before launching: {refused[:160]}", flush=True)
+
+
+def report_decode_counts(counts: dict, exact_run: dict, card_line: str) -> None:
+    """One exact qwen3-0.6b decode step's FLOPs and bytes (eager model), the
+    bound they imply and the step measured in the serve phase: a record,
+    not a claim."""
+    bound_ms = 1e3 * max(counts["bytes"] / HBM_BYTES_PER_S,
+                         counts["flops"] / BF16_TENSOR_FLOPS_PER_S)
+    by = "bytes" if counts["bytes"] / HBM_BYTES_PER_S >= \
+        counts["flops"] / BF16_TENSOR_FLOPS_PER_S else "FLOPs"
+    print(f"analysis: qwen3-0.6b exact decode step (B={SERVE['batch']}, cache {CACHE}): "
+          f"{counts['flops']:.6g} FLOPs, {counts['bytes']:.6g} bytes over {counts['ops']} ops "
+          f"(launch/hlo_analysis.py, eager byte model); bound {bound_ms:.4f} ms by {by} "
+          f"(bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, FLOPs at "
+          f"{BF16_TENSOR_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16); measured step "
+          f"{exact_run['decode_ms']:.2f} ms (host clock), busy share "
+          f"{exact_run['busy_share']}; top bytes {counts['top']}; {card_line}", flush=True)
 
 
 # --------------------------------------------------------------- timing
@@ -679,7 +899,7 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
     from repro_torch.kernels import seqmul_matmul as sm
 
     _, _, mx, sx, mw, sw, scale = operands(m, k, n, bits, seed)
-    library = plan = None
+    library = None
     extra = {}
     if name == "lowrank_matmul":
         u, v, _ = artifacts.svd_factors(bits, t, 8, True, mx.device)
@@ -701,6 +921,10 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         rhs = torch.cat([mw.to(torch.float32) * swf,
                          (v[mw.long()] * swf[..., None]).permute(0, 2, 1).reshape(k * rank, n)])
         library = lambda: torch.matmul(lhs, rhs)
+        plan = lr.launch_plan(m, k, n, bits, card.sms)
+        built = lr.built_launch_plan(plan, m, k, n, bits, rank)
+        expect = (((n + plan.bn - 1) // plan.bn, (m + plan.bm - 1) // plan.bm, plan.splits),
+                  lr.THREADS, lr.smem_bytes(bits, plan.bm, rank))
     elif name == "lut_matmul":
         lut = artifacts.product_lut_u16(bits, t, True, mx.device)
         a, b = mx.to(torch.uint8), mw.to(torch.uint8)
@@ -708,6 +932,7 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         plain = lambda: lm.lut_matmul_plain(lut, a, sx, b, sw, n=bits)
         plan = lm.launch_plan(m, k, n, bits, card.sms)
         built = lm.built_launch_plan(plan, m, k, n, bits, card.sms)
+        expect = (plan.grid, plan.threads, plan.smem)
         # the bytes the function must move: operands, output and table once
         nbytes = lut.numel() * 2 + 2 * m * k + 2 * k * n + 4 * m * n
         bound = card.bound(nbytes, m * k * n, card.lookups_per_s)
@@ -720,6 +945,7 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         plain = lambda: sm.seqmul_matmul_plain(a, sx, b, sw, n=bits, t=t)
         plan = sm.launch_plan(m, k, n, bits, card.sms)
         built = sm.built_launch_plan(plan, m, k, n, bits, t)
+        expect = (plan.grid, plan.threads, plan.smem)
         nbytes = 3 * m * k + 3 * k * n + 4 * m * n
         bound = card.bound(nbytes, seqmul_ops(m, k, n, bits), card.int32_ops_per_s)
     else:
@@ -727,6 +953,11 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         pb = pm.pack_i16_pairs(mw * sw.to(torch.int32), dim=0)
         kern = lambda: pm.packed_matmul(pa, pb, n=bits)
         plain = lambda: pm.packed_matmul_plain(pa, pb)
+        kw = pa.shape[1]
+        plan = pm.launch_plan(m, kw, n, card.sms)
+        built = pm.built_launch_plan(plan, m, kw, n)
+        expect = (((n + plan.bn - 1) // plan.bn, (m + plan.bm - 1) // plan.bm, plan.splits),
+                  pm.THREADS, pm.smem_bytes(plan.bm))
         nbytes = 4 * (pa.numel() + pb.numel() + m * n)
         # the least time: int16 lanes split into int8 halves on the tensor
         # cores, 4 int8 products of 2 ops (multiply, add) per lane product
@@ -747,12 +978,13 @@ def run_kernel_case(card: Card, name, m, k, n, bits, t, seed, timed: bool):
         check(torch.equal(got, want), f"{where}: kernel != plain (max |err| {err})")
     row = dict(name=name, shape=[m, k, n], n=bits, t=t, max_abs_err=err,
                bound_ms=bound[0], bound_by=bound[1], **extra)
-    if plan is not None:
-        # the Python plan the wrapper launches with against the built library's
-        check((plan.grid, plan.threads, plan.smem) == built,
-              f"{where}: launch_plan {plan} but the library launches {built}")
-        row["plan"] = dict(grid=list(plan.grid), threads=plan.threads, smem=plan.smem,
-                           splits=plan.splits, k_chunk=plan.k_chunk)
+    # the Python plan the wrapper launches with against the built library's
+    # (grid, threads, shared memory), for all four GEMMs
+    check(expect == built, f"{where}: launch_plan {plan} ({expect}) but the library "
+          f"launches {built}")
+    row["plan"] = dict(grid=list(expect[0]), threads=expect[1], smem=expect[2],
+                       splits=plan.splits, k_chunk=getattr(plan, "k_chunk", None) or
+                       2 * plan.kw_chunk)
     if timed:
         # the dequantized operands (the joint scale folded into the left one)
         xq, wq = (mx * sx).to(torch.float32) * scale, (mw * sw).to(torch.float32)
@@ -2343,7 +2575,7 @@ def wide_serve_runs(every: tuple) -> dict:
     """arch -> its full-width serve runs: (label, attn_impl="pallas"?,
     phase_serve's tier or mode, its requests, and the kernels it must and
     must not launch)."""
-    few = dict(requests=WIDE_APPROX_REQUESTS)
+    few = dict(requests=WIDE_APPROX_REQUESTS, gen=WIDE_APPROX_GEN)
     exact = ("exact", False, dict(quality="exact", forbid=every, requests=WIDE_REQUESTS))
     balanced = ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
                                         forbid=ATTN_KERNELS, **few))
@@ -2378,9 +2610,9 @@ def wide_serve_runs(every: tuple) -> dict:
             exact,
             ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
                                      forbid=ATTN_KERNELS, gen=SERVE["gen"] // 4, profile_reps=0,
-                                     **few)),
+                                     requests=WIDE_APPROX_REQUESTS)),
             ("draft", False, dict(quality="draft", expect=("packed_matmul",), profile_reps=0,
-                                  gen=SERVE["gen"] // 4, **few)),
+                                  gen=SERVE["gen"] // 4, requests=WIDE_APPROX_REQUESTS)),
             pallas_exact],
         # the recurrent families take only full-length prompts; recurrentgemma's
         # attention kernels at g = 10, mamba2's GEMMs at its in_proj width 3352
@@ -3156,7 +3388,9 @@ def phase_distribution(params, model, base_runs: dict, n_req: int) -> dict:
     card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     t0 = time.perf_counter()
     for cell in DRYRUN_CELLS:
-        rec = dryrun.size_cell("kimi-k2-1t-a32b", cell, False)
+        # sizing only: the step's FLOPs and bytes (launch/hlo_analysis.py) are
+        # counted by the dry-run CLI, which takes seconds a cell more
+        rec = dryrun.size_cell("kimi-k2-1t-a32b", cell, False, steps=False)
         b = rec["per_device_bytes"]
         print(f"distribution: dry-run kimi-k2-1t-a32b {cell} on {rec['chips']} devices "
               f"(16 x 16): per device {rec['per_device_gb']:.3f} GB (params "
@@ -3164,8 +3398,8 @@ def phase_distribution(params, model, base_runs: dict, n_req: int) -> dict:
               f"{b['caches'] / 1e9:.3f}, batch {b['batch'] / 1e9:.6f}) against this card's "
               f"{card_gb:.2f} GB ({'fits' if rec['per_device_gb'] < card_gb else 'does not fit'}"
               f"); compute {rec['terms_s']['compute']:.4f} s, memory "
-              f"{rec['terms_s']['memory']:.4f} s at {HW.NAME}'s rates; HLO FLOPs and "
-              f"collective bytes absent", flush=True)
+              f"{rec['terms_s']['memory']:.4f} s at {HW.NAME}'s rates; step FLOPs and bytes "
+              f"not counted here, collective bytes absent", flush=True)
         out[f"dryrun {cell}"] = rec
     host_s = time.perf_counter() - t0
     check(host_s < 10.0, f"distribution: the dry-run took {host_s:.1f} s of host time")
@@ -3394,18 +3628,25 @@ def main() -> int:
           f"{card.lookups_per_s / 1e12:.2f} T/s, float32 "
           f"{card.f32_flops_per_s / 1e12:.2f} TFLOP/s", flush=True)
 
-    # 2. build
+    # 2. build, with the static audit's matrix in a process of its own beside it
     from repro_torch import kernels
+    from repro_torch.analysis import smem
     from repro_torch.kernels import build
 
+    audit_run = start_audit()
     with phase("build"):
         t0 = time.perf_counter()
-        logs = build.build_all()
-        print(f"build: {sorted(logs) or 'all cached'} in {time.perf_counter() - t0:.1f}s",
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            built = pool.submit(build.build_all)
+            warmed = warm_certificates()  # on the host while nvcc runs
+            warm_s = time.perf_counter() - t0
+            logs = built.result()
+        print(f"build: {sorted(logs) or 'all cached'} in {time.perf_counter() - t0:.1f}s; "
+              f"{warmed} certifier verdicts for the armed phases in {warm_s:.1f}s beside it",
               flush=True)
         for name, log in sorted(logs.items()):
-            report = ptxas_report(log)
-            for kernel, regs, spill_st, spill_ld in report:
+            report = smem.ptxas_report(log)
+            for kernel, regs, spill_st, spill_ld, _ in report:
                 print(f"build: {name}: {kernel}: {regs} registers, spill stores {spill_st} "
                       f"bytes, spill loads {spill_ld} bytes", flush=True)
             if name in WIDE_INSTANTIATIONS:
@@ -3414,7 +3655,7 @@ def main() -> int:
                 check(len(wide) == WIDE_INSTANTIATIONS[name],
                       f"build: {name}: {len(wide)} head-width-256 instantiations in ptxas's "
                       f"log, expected {WIDE_INSTANTIATIONS[name]}")
-                spilled = [r for r in wide if r[2:] != (0, 0)]
+                spilled = [r for r in wide if r[2:4] != (0, 0)]
                 check(not spilled, f"build: {name}: spills at head width 256: {spilled}")
         sass_checks = (("flash_attention", ("flash_attention_kernel",), ("flash_decode_kernel",)),
                        ("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel"), ()),
@@ -3430,7 +3671,17 @@ def main() -> int:
     # card's against, beside the card's phases
     cpu_eval = start_cpu_eval()
 
-    # 3. kernels
+    # 2b. the static certifier: its matrix, every built instantiation's
+    # block, the plans as built, one exact decode step's FLOPs and bytes
+    from repro_torch.analysis import audit
+
+    with phase("analysis"):
+        decode_counts = phase_analysis(card, audit_run)
+
+    # 3. kernels, under the armed dispatch gate
+    os.environ[GATE] = "1"
+    audit.GATE_CHECKS.clear()
+    kernels.reset_launch_counts()
     with phase("kernels: GEMMs"):
         rows = phase_kernels(card)
     with phase("kernels: attention"):
@@ -3439,6 +3690,9 @@ def main() -> int:
         rows += phase_backward(card)
     with phase("kernels: elementwise"):
         rows += phase_elementwise(card)
+    report_gate("kernels", kernels.launch_counts())
+    gate_refuses()
+    del os.environ[GATE]
     kernels.reset_launch_counts()
 
     # 4. reference
@@ -3473,7 +3727,9 @@ def main() -> int:
         phase_reference_encdec()
     kernels.reset_launch_counts()
 
-    # 5. serve
+    # 5. serve, the qwen3-0.6b phase under the armed gate
+    os.environ[GATE] = "1"
+    audit.GATE_CHECKS.clear()
     with phase("serve: qwen3-0.6b"):
         cfg = get_config("qwen3-0.6b")
         model = build_model(cfg)
@@ -3511,18 +3767,25 @@ def main() -> int:
             requests=n_req)
         # the rest of serving: speculative rounds (draft proposals, one verify
         # forward), the open loop with its policy, the static loop, the soak
-        exact_half = {**exact_run, "queue": exact_run["queue"][:n_req // 2]}
+        spec_exact = {**exact_run, "queue": exact_run["queue"][:n_req // 4]}
         spec_runs = {"packed_matmul": phase_serve_speculative(
-            "speculative", params, exact_half, expect=("packed_matmul",),
+            "speculative", params, spec_exact, expect=("packed_matmul",),
             draft_run=runs["packed_matmul"])}
         pallas_exact = runs["flash_attention"]
-        pallas_half = {**pallas_exact, "queue": pallas_exact["queue"][:n_req // 2]}
+        spec_pallas = {**pallas_exact, "queue": pallas_exact["queue"][:n_req // 4]}
         spec_runs["flash_attention"] = spec_runs["flash_decode"] = phase_serve_speculative(
-            "pallas speculative", params, pallas_half,
+            "pallas speculative", params, spec_pallas,
             expect=("flash_decode", "flash_attention", "packed_matmul"))
         phase_serve_open(params, model)
         phase_serve_static(params, model)
         phase_soak(params, model)
+    served = {}
+    for run in {id(r): r for r in [exact_run, *runs.values(), *spec_runs.values()]}.values():
+        for name, count in run["counts"].items():
+            served[name] = served.get(name, 0) + count
+    report_gate("serve: qwen3-0.6b", served)
+    del os.environ[GATE]
+    report_decode_counts(decode_counts, exact_run, card_line)
     with phase("distribution"):
         dist_runs = phase_distribution(params, model, {
             "exact": exact_run, "balanced": runs["lut_matmul"],

@@ -15,18 +15,13 @@ deferred-carry error that grows with ``t``.
   tier relative to the exact design; :func:`accept_rate_estimate`,
   :func:`expected_round_tokens`, :func:`speculation_gain` and
   :func:`best_spec_k` are the economics of self-speculative decoding.
-* :func:`kernel_tiles` checks the Hopper kernels' tiles for one call.
+* :func:`kernel_tiles` checks the Hopper kernels' tiles for one call
+  against the shared-memory model of ``analysis.smem``.
 
-Certification stand-in.  With ``mode`` set, the reference's
-``resolve_t`` keeps only splits that its jaxpr auditor
-(``repro.analysis``) has proven overflow-, gather- and VMEM-safe.  That
-auditor is not ported (ROADMAP.md, "Modules to port" item 12), so the
-port filters candidates through the static integer envelopes instead:
-the per-mode bit-width ceilings of ``engine.dispatch._MODE_MAX_N`` and,
-for the packed single-word elementwise products, ``2n <= 31``.  The
-integer accumulators of the CUDA kernels are sized per call
-(``kernels.build.wide_accumulator``), so they add no envelope of their
-own.
+With ``mode`` set, :func:`resolve_t` keeps only the splits that the
+static certifier (``repro_torch.analysis``) has proven overflow-, gather-
+and shared-memory-safe for that mode's CUDA kernel, as the reference's
+does with its jaxpr auditor.
 """
 
 from __future__ import annotations
@@ -37,7 +32,6 @@ from typing import Optional, Union
 
 from repro_torch.configs.base import ApproxConfig, LayerQuality, ModelConfig
 from repro_torch.core import error_model
-from repro_torch.kernels.build import SMEM_PER_BLOCK
 
 __all__ = [
     "T_FA",
@@ -50,7 +44,6 @@ __all__ = [
     "QualityError",
     "sweep_t",
     "resolve_t",
-    "within_envelope",
     "DEFAULT_N",
     "default_t",
     "kernel_tiles",
@@ -154,18 +147,6 @@ def sweep_t(n: int, *, order: int = 1) -> tuple:
     return _sweep(n, order, None, None)
 
 
-def within_envelope(mode: str, n: int, t: int) -> bool:
-    """The static integer envelope a (mode, n, t) must lie in: the port's
-    stand-in for the reference's kernel certification (module docstring)."""
-    from repro_torch.engine.dispatch import _MODE_MAX_N, PACKED_U32_MAX_2N
-
-    if n > _MODE_MAX_N.get(mode, n):
-        return False
-    if mode in ("seqmul_approx", "seqmul_exact") and 2 * n > PACKED_U32_MAX_2N:
-        return False
-    return True
-
-
 def resolve_t(
     n: int,
     budget: ErrorBudget,
@@ -180,8 +161,10 @@ def resolve_t(
     Keeps the candidates whose closed-form bounds satisfy the budget and
     returns the one minimizing ``(cycle_delay, t)``.  Raises
     :class:`QualityError` when none does.  With ``mode`` set, candidates
-    outside the mode's static integer envelope (:func:`within_envelope`)
-    are dropped too.
+    are filtered through the static kernel audit
+    (:func:`repro_torch.analysis.audit.certified`): the controller can only
+    return an (n, t) whose CUDA route the certifier has proven safe, and
+    raises :class:`QualityError` naming certification when none is.
     """
     if pa is None and pb is None:
         points = sweep_t(n, order=order)
@@ -195,13 +178,16 @@ def resolve_t(
             f"nmed<={points[0].nmed_est:.2e}, mae={points[0].mae})"
         )
     if mode is not None:
-        inside = [p for p in valid if within_envelope(mode, n, p.t)]
-        if not inside:
+        from repro_torch.analysis import audit  # lazy: the audit imports the engine
+
+        certified = [p for p in valid if audit.certified(mode, n, p.t)]
+        if not certified:
             raise QualityError(
                 f"every budget-valid splitting point for mode {mode!r} at n={n} "
-                f"(t in {[p.t for p in valid]}) lies outside the mode's integer envelope"
+                f"(t in {[p.t for p in valid]}) failed static kernel certification; run "
+                f"`python -m repro_torch.launch.analyze` for the findings"
             )
-        valid = inside
+        valid = certified
     return min(valid, key=lambda p: (p.delay, p.t))
 
 
@@ -209,54 +195,25 @@ DEFAULT_N = 8  # LUT-backed modes require n <= 8; the engine-wide default
 
 
 # ------------------------------------------------- CUDA kernel parameters
-def _lut_smem_bytes(n: int, bm: int) -> int:
-    """``csrc/lut_matmul.cu``'s dynamic shared memory at row tile ``bm``
-    (``kernels.lut_matmul.smem_bytes``): the uint16 table and one stage of
-    operand words."""
-    from repro_torch.kernels.lut_matmul import smem_bytes
-
-    return smem_bytes(n, bm)
-
-
-def _lowrank_smem_bytes(n: int, bm: int, rank: int) -> int:
-    """``csrc/lowrank_matmul.cu``'s dynamic shared memory at token tile
-    ``bm`` (``kernels.lowrank_matmul.smem_bytes``)."""
-    from repro_torch.kernels.lowrank_matmul import smem_bytes
-
-    return smem_bytes(n, bm, rank)
-
-
-_SMEM_BYTES = {
-    "bitexact": lambda n, bm, rank: _lut_smem_bytes(n, bm),
-    "lowrank": _lowrank_smem_bytes,
-}
-
-
 @functools.lru_cache(maxsize=1024)
 def kernel_tiles(mode: str, n: int, t: int, m: int, rank: int = 8) -> int:
     """The CUDA kernels' row tile for one GEMM call of ``m`` rows, checked.
 
-    The row tile is picked from M by each kernel's wrapper, through the
+    The tile is picked from M by each kernel's wrapper, through the
     ``tile`` of ``kernels.lut_matmul`` (``bitexact``),
     ``kernels.seqmul_matmul`` (``seqmul``), ``kernels.lowrank_matmul``
     (``lowrank``) and ``kernels.packed_matmul`` (``inject``); this returns
-    that pick.  For the modes that hold tables in shared memory
-    (``bitexact``: the uint16 product table; ``lowrank``: the two SVD
-    factors, which grow with ``rank``) the footprint is checked against
-    the 227 KiB a block may use, at dispatch rather than at launch.  ``t``
-    shapes the table contents or the recurrence, not the footprint.
+    its rows after ``analysis.smem.validate_tiles`` has checked the block
+    against Hopper's shared memory and threads (the uint16 table of
+    ``bitexact`` and the SVD factors of ``lowrank``, which grow with
+    ``rank``, at dispatch rather than at launch).  Raises
+    ``TileBudgetError`` (a ``ValueError``) naming (mode, n, t).
     """
-    from repro_torch.kernels import lowrank_matmul, lut_matmul, packed_matmul, seqmul_matmul
+    from repro_torch.analysis import smem
 
-    bm = {"bitexact": lut_matmul, "seqmul": seqmul_matmul, "lowrank": lowrank_matmul,
-          "inject": packed_matmul}[mode].tile(m)[0]
-    footprint = _SMEM_BYTES.get(mode)
-    if footprint is not None and footprint(n, bm, rank) > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"{mode} at n={n}, t={t}, rank={rank}: {footprint(n, bm, rank)} bytes of "
-            f"shared memory per block, over the {SMEM_PER_BLOCK} a Hopper block may use"
-        )
-    return bm
+    tile = smem._gemm_module(mode).tile(m)
+    smem.validate_tiles(mode, n, t, tile, rank=rank)
+    return tile[0]
 
 
 @functools.lru_cache(maxsize=64)

@@ -14,6 +14,12 @@ kernels; an explicit request for a mode without one raises), ``auto``
 :func:`multiply` is the elementwise counterpart on integer magnitudes: the
 ``seqmul_packed`` kernel (``kernels.seqmul_kernel``) for ``cuda``,
 ``core.seqmul`` for ``reference``.
+
+With ``REPRO_STATIC_AUDIT=1`` in the environment, both refuse a CUDA
+launch at a configuration the static audit (``repro_torch.analysis``) has
+not certified, with ``CertificationError``, before any other check and
+before the launch; each kernel wrapper checks its own launch the same way
+(``kernels.build.audit_gate``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch.engine import modes as _modes
 from repro_torch.engine import policy as _policy
+from repro_torch.kernels.build import audit_armed, audit_gate
 
 __all__ = ["BACKENDS", "PACKED_U32_MAX_2N", "matmul", "multiply", "resolve_backend"]
 
@@ -120,6 +127,9 @@ def matmul(
     """
     n, t = _resolve_nt(n, t)
     spec = _modes.get_mode(mode)
+    if (audit_armed() and spec.cuda is not None
+            and _policy.resolve_backend(backend, x.device) == "cuda"):
+        audit_gate("engine.matmul", mode, n, t)
     _validate_mode_nt(mode, n, t)
     resolved = resolve_backend(backend, spec, x.device)
     if spec.needs_key and generator is None:
@@ -168,13 +178,14 @@ def multiply(
     ``n``/``t`` default to the controller's resolution (see ``matmul``).
     ``auto`` runs the ``seqmul_packed`` kernel for CUDA tensors on sm_90
     and ``core.seqmul`` for CPU tensors; an explicit ``cuda`` on a CPU
-    tensor raises.  The reference's ``REPRO_STATIC_AUDIT`` gate has no
-    counterpart: the eager checks above are the whole integer envelope
-    (``engine.config.within_envelope``) of the elementwise modes.
+    tensor raises.
     """
     from repro_torch.core import seqmul as _seqmul
 
     n, t = _resolve_nt(n, t)
+    if audit_armed() and _policy.resolve_backend(backend, _seqmul.operands(a, b)[0].device) \
+            == "cuda":
+        audit_gate("engine.multiply", "packed_single", n, t)
     _check_multiply(n, t, approx)
     a, b = _seqmul.operands(a, b)
     resolved = _policy.resolve_backend(backend, a.device)

@@ -23,6 +23,7 @@ Registered modes
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional
@@ -47,6 +48,7 @@ __all__ = [
     "quantize_operands",
     "bitexact_gemm_int",
     "seqmul_gemm_int",
+    "substitute_kernels",
 ]
 
 class GemmParams(NamedTuple):
@@ -150,6 +152,27 @@ def seqmul_gemm_int(mag_a: torch.Tensor, sign_a: torch.Tensor, mag_b: torch.Tens
     ``kernels.seqmul_matmul``, exact integer sums converted once."""
     return seqmul_matmul_plain(mag_a, sign_a, mag_b, sign_b, n=n, t=t, approx=approx,
                                fix_to_1=fix_to_1)
+
+
+@contextlib.contextmanager
+def substitute_kernels(**kernels):
+    """Within, the CUDA bodies below call the given functions in place of
+    the kernel entry points of the same names (``lut_matmul``,
+    ``seqmul_matmul``, ``packed_matmul``, ``pack_i16_pairs``,
+    ``lowrank_matmul``): the static certifier's carrier-faithful bodies
+    (``analysis.contracts``) and the FLOP counter's single ops
+    (``launch.hlo_analysis``) trace the routes through it."""
+    module = globals()
+    unknown = sorted(set(kernels) - {"lut_matmul", "seqmul_matmul", "packed_matmul",
+                                     "pack_i16_pairs", "lowrank_matmul"})
+    if unknown:
+        raise ValueError(f"no kernel entry point named {unknown} in the CUDA bodies")
+    saved = {name: module[name] for name in kernels}
+    module.update(kernels)
+    try:
+        yield
+    finally:
+        module.update(saved)
 
 
 # ------------------------------------------------------------ mode bodies

@@ -52,7 +52,9 @@ import torch
 from repro_torch.core import quantization
 from repro_torch.distributed import sharding
 from repro_torch.engine import artifacts
-from repro_torch.kernels.build import SMEM_PER_BLOCK, CudaKernel, check_operand, sm_count
+from repro_torch.kernels.build import (
+    SMEM_PER_BLOCK, CudaKernel, audit_gate, check_operand, sm_count,
+)
 from repro_torch.kernels.flash_attention import (
     NEG_INF, FlashBackward, _check_width, allow_mask, fwd_tile_plan, needs_grad,
 )
@@ -363,12 +365,13 @@ def _geometry(b: int, s: int, h: int, kv: int, rh: int) -> tuple[int, int, int]:
 
 
 def _check_fits(mode: str, n: int, hd: int, rank: int) -> None:
-    """Raise unless a block of ``mode`` fits the shared memory at its least
-    (bitexact at TM = 1)."""
-    nbytes = smem_bytes(mode, n, hd, rank, tm=_TMS[-1])
-    if nbytes > SMEM_PER_BLOCK:
-        raise ValueError(f"approx attention ({mode}, n={n}, hd={hd}, rank={rank}) needs "
-                         f"{nbytes} bytes of shared memory, over {SMEM_PER_BLOCK}")
+    """Raise ``TileBudgetError`` (a ``ValueError``) unless a block of
+    ``mode`` fits the shared memory at its least (bitexact at TM = 1):
+    ``analysis.smem.validate_attention``, the one model of a block's
+    budget."""
+    from repro_torch.analysis.smem import validate_attention
+
+    validate_attention(mode, n, hd, rank)
 
 
 def launch_plan(mode: str, b: int, s: int, t: int, h: int, kv: int, hd: int, n: int,
@@ -420,6 +423,7 @@ class KernelOperands(NamedTuple):
     args: list  # magnitudes (uint8) and signs (int8) of q, k and v
     table: torch.Tensor  # bitexact: the uint16 product table; lowrank: U and V (2, 2^n, r)
     scales: torch.Tensor  # [qk_scale, pv_scale]
+    t: int = 0  # the split the table or factors were built at
 
 
 def kernel_operands(q, k, v, *, mode, n, t, fix_to_1, rank) -> KernelOperands:
@@ -447,7 +451,7 @@ def kernel_operands(q, k, v, *, mode, n, t, fix_to_1, rank) -> KernelOperands:
         check_operand(table, "tables", torch.float32, (2, 1 << n, rank), dev)
     else:
         table = artifacts.product_lut_u16(n, t, fix_to_1, dev)
-    return KernelOperands(mode, n, rank, (b, s, h, hd), (b, tt, kv, hd), args, table, scales)
+    return KernelOperands(mode, n, rank, (b, s, h, hd), (b, tt, kv, hd), args, table, scales, t)
 
 
 def launch_kernel(ops: KernelOperands, q_pos, k_pos, *, bk, causal, window, softcap,
@@ -477,6 +481,7 @@ def launch_kernel(ops: KernelOperands, q_pos, k_pos, *, bk, causal, window, soft
         check_operand(skipped, "skipped", torch.int32, (1,), dev)
     lowrank = ops.mode == "lowrank"
     kernel, tail = (LOWRANK_KERNEL, [ops.rank]) if lowrank else (BITEXACT_KERNEL, [])
+    audit_gate(kernel.name, f"attention:{ops.mode}", ops.n, ops.t, hd=hd, rank=ops.rank)
     out = torch.empty((b, s, h, hd), dtype=torch.float32, device=dev)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if with_lse else None
     kernel.launch(

@@ -34,8 +34,9 @@ import torch
 
 __all__ = [
     "BUILD_DIR", "CSRC", "KERNELS", "SMEM_PER_BLOCK", "SPLIT_BLOCKS_PER_SM", "CudaKernel",
-    "build_all", "check_operand", "device_index", "float_scratch", "library_path", "nvcc_path",
-    "pick_tile", "sm_count", "sm_count_of", "split_k", "tile_counters", "wide_accumulator", "workspace_bytes",
+    "audit_armed", "audit_gate", "build_all", "check_operand", "device_index", "float_scratch",
+    "library_path", "nvcc_path", "pick_tile", "sm_count", "sm_count_of", "split_k",
+    "tile_counters", "wide_accumulator", "workspace_bytes",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -151,6 +152,21 @@ class CudaKernel:
             msg = self._lib.kernel_error_string(err).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+def audit_armed() -> bool:
+    """Whether ``REPRO_STATIC_AUDIT=1`` is set: the dispatch gate is on."""
+    return os.environ.get("REPRO_STATIC_AUDIT") == "1"
+
+
+def audit_gate(kernel: str, what: str, n: int = 0, t: int = 0, **config) -> None:
+    """The dispatch gate before a launch of ``kernel``: with the gate on
+    (:func:`audit_armed`), ``analysis.audit.gate`` refuses a configuration
+    the static audit has not certified; otherwise nothing."""
+    if audit_armed():
+        from repro_torch.analysis import audit
+
+        audit.gate(kernel, what, n, t, **config)
 
 
 def check_operand(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

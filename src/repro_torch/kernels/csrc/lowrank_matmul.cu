@@ -543,6 +543,32 @@ extern "C" int lowrank_matmul_launch(const void* u, const void* v, const void* m
   return int(err);
 }
 
+// The launch lowrank_matmul_launch makes for these arguments: out[0..2]
+// the grid, out[3] the threads, out[4] the dynamic shared memory in bytes
+// (kernels/lowrank_matmul.py built_launch_plan holds launch_plan to it).
+template <int WM, int MT>
+void plan_of(int M, int N, int n, int rank, int splits, long long* out) {
+  using T = Tile<WM, MT>;
+  const long long plan[5] = {(N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits, kThreads,
+                             (long long)smem_bytes<WM, MT>(1 << n, (rank + 7) & ~7)};
+  for (int i = 0; i < 5; ++i) out[i] = plan[i];
+}
+
+extern "C" int lowrank_matmul_plan(int M, int N, int K, int n, int rank, int bm, int splits,
+                                   int k_chunk, long long* out) {
+  const long long qmax = (1LL << n) - 1;
+  if (n < 1 || n > 8 || rank < 1 || M < 1 || N < 1 || K < 0 || splits < 1 || splits > 65535 ||
+      k_chunk < kBK || k_chunk % kBK != 0 || (long long)splits * k_chunk < K ||
+      (splits > 1 && (long long)(splits - 1) * k_chunk >= K) ||
+      (long long)k_chunk * qmax * qmax >= (1LL << 31))
+    return int(cudaErrorInvalidValue);
+  if (bm == 16) plan_of<1, 1>(M, N, n, rank, splits, out);
+  else if (bm == 32) plan_of<2, 1>(M, N, n, rank, splits, out);
+  else if (bm == 64) plan_of<2, 2>(M, N, n, rank, splits, out);
+  else return int(cudaErrorInvalidValue);
+  return 0;
+}
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

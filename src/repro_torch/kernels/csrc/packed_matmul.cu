@@ -384,6 +384,30 @@ extern "C" int packed_matmul_launch(const void* pa, const void* pb, void* out, v
   return int(err);
 }
 
+// The launch packed_matmul_launch makes for these arguments: out[0..2] the
+// grid, out[3] the threads, out[4] the dynamic shared memory in bytes
+// (kernels/packed_matmul.py built_launch_plan holds launch_plan to it).
+template <int WN, int MT>
+void plan_of(int M, int N, int splits, long long* out) {
+  using T = Tile<WN, MT>;
+  const long long plan[5] = {(N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits, kThreads,
+                             (long long)T::kSmem};
+  for (int i = 0; i < 5; ++i) out[i] = plan[i];
+}
+
+extern "C" int packed_matmul_plan(int M, int N, int KW, int bm, int splits, int kw_chunk,
+                                  long long* out) {
+  if (M < 1 || N < 1 || KW < 0 || splits < 1 || splits > 65535 || kw_chunk < kBKW ||
+      kw_chunk % kBKW != 0 || (long long)splits * kw_chunk < KW ||
+      (splits > 1 && (long long)(splits - 1) * kw_chunk >= KW))
+    return int(cudaErrorInvalidValue);
+  if (bm == 8) plan_of<4, 1>(M, N, splits, out);
+  else if (bm == 32) plan_of<2, 2>(M, N, splits, out);
+  else if (bm == 64) plan_of<2, 4>(M, N, splits, out);
+  else return int(cudaErrorInvalidValue);
+  return 0;
+}
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import (
-    SMEM_PER_BLOCK, CudaKernel, check_operand, float_scratch, sm_count, tile_counters,
+    SMEM_PER_BLOCK, CudaKernel, audit_gate, check_operand, float_scratch, sm_count, tile_counters,
 )
 
 __all__ = [
@@ -641,6 +641,7 @@ def launch_forward(q, k, v, q_pos, k_pos, *, causal=True, window=None, softcap=N
     q, k, v, q_pos, k_pos = q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_pos), _i32(k_pos)
     dtype = _check_qkv(q, k, v, q_pos, k_pos, (b, s, h, hd), (b, t, kv, hd), (b, s))
     q, k, v = _aligned(q, k, v)
+    audit_gate(FORWARD_KERNEL.name, "flash", hd=hd, dtype=q.dtype)
     out = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
     FORWARD_KERNEL.launch(
@@ -687,6 +688,7 @@ def flash_attention_bwd_dq(q, k, v, q_pos, k_pos, do, lse, dd, causal=True, wind
                            softcap=None, scale=1.0) -> torch.Tensor:
     """One launch of ``_dq_kernel``'s port on CUDA tensors -> dq (B,S,H,hd) f32."""
     ptrs, dtype, (b, s, t, h, kv, hd), _keep = _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd)
+    audit_gate(DQ_KERNEL.name, "flash", hd=hd, dtype=_keep[0].dtype)
     dq = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
     DQ_KERNEL.launch(q.device, *ptrs, dq.data_ptr(), dtype, b, s, t, h, kv, hd,
                      int(bool(causal)), _window(window), float(softcap or 0.0), float(scale))
@@ -697,6 +699,7 @@ def flash_attention_bwd_dkv(q, k, v, q_pos, k_pos, do, lse, dd, causal=True, win
                             softcap=None, scale=1.0):
     """One launch of ``_dkv_kernel``'s port on CUDA tensors -> (dk, dv) (B,T,KV,hd) f32."""
     ptrs, dtype, (b, s, t, h, kv, hd), _keep = _bwd_operands(q, k, v, q_pos, k_pos, do, lse, dd)
+    audit_gate(DKV_KERNEL.name, "flash", hd=hd, dtype=_keep[0].dtype)
     dk = torch.empty((b, t, kv, hd), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     DKV_KERNEL.launch(q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), dtype, b, s, t, h, kv, hd,
@@ -769,6 +772,7 @@ def launch_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None, scale=1.0
         raise ValueError(f"flash_decode takes up to {MAX_GROUP} query heads per KV head")
     k, v = _aligned(k, v)
     dev = q.device
+    audit_gate(DECODE_KERNEL.name, "flash", hd=hd, dtype=q.dtype)
     # the chunks' partials, (acc[hd], m, l) per (batch row, query head,
     # chunk), in a buffer kept for every call: room for the most chunks the
     # kernel's split makes, so the split is decided in the kernel alone

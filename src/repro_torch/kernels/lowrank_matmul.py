@@ -25,12 +25,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import (
-    CudaKernel, check_operand, pick_tile, sm_count, split_k, tile_counters, wide_accumulator,
+    CudaKernel, audit_gate, check_operand, pick_tile, sm_count, split_k, tile_counters,
+    wide_accumulator,
 )
 
 __all__ = [
-    "KERNEL", "TILES", "Plan", "launch_plan", "lowrank_matmul", "lowrank_matmul_plain",
-    "max_k_chunk", "smem_bytes", "tile", "workspace_bytes",
+    "KERNEL", "THREADS", "TILES", "Plan", "audit_body", "audit_trace", "built_launch_plan",
+    "launch_plan", "lowrank_matmul", "lowrank_matmul_plain", "max_k_chunk", "smem_bytes", "tile",
+    "workspace_bytes",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,6 +44,7 @@ KERNEL = CudaKernel(
 # csrc/lowrank_matmul.cu: (tokens, weight columns) per block, four warps of
 # 16 or 32 tokens by 32 columns; K per stage, ring depth, shared-memory rows
 TILES = ((16, 128), (32, 64), (64, 64))
+THREADS = 128
 K_STEP, STAGES = 32, 3
 RAW_TOKEN_ROW, WEIGHT_PLANE_ROW, TOKEN_PLANE_ROW = 48, 40, 32
 MIN_K_CHUNK = 64  # the shortest K slice a split gives a block
@@ -82,6 +85,23 @@ def launch_plan(m: int, k: int, n_cols: int, n: int, sms: int = 132) -> Plan:
     return Plan(bm, bn, splits, chunk)
 
 
+def built_launch_plan(plan: Plan, m: int, k: int, n_cols: int, n: int, rank: int) -> tuple:
+    """(grid, threads, shared memory) of the launch that the built
+    ``csrc/lowrank_matmul.cu`` makes for ``plan`` (its
+    ``lowrank_matmul_plan``), which ``plan`` must match (grid ``(tiles_n,
+    tiles_m, splits)``, :data:`THREADS`, :func:`smem_bytes`); builds the
+    library, so it needs ``nvcc``."""
+    fn = KERNEL.library().lowrank_matmul_plan
+    fn.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(m, n_cols, k, n, rank, plan.bm, plan.splits, plan.k_chunk, out)
+    if err != 0:
+        raise ValueError(f"lowrank_matmul_plan refused {plan} at {(m, k, n_cols, n, rank)}: "
+                         f"CUDA error {err}")
+    return tuple(out[:3]), out[3], out[4]
+
+
 def workspace_bytes(plan: Plan, m: int, n_cols: int) -> int:
     """Bytes of the split-K workspace: an int32 partial and a float32
     correction per split and output; none without a split."""
@@ -118,6 +138,73 @@ def lowrank_matmul_plain(u, v, mag_a, sign_a, mag_b, sign_b, *, n: int) -> torch
     return exact + ue @ ve
 
 
+def audit_body(u, v, mag_a, sign_a, mag_b, sign_b, *, n: int, k_chunk: int,
+               clamp: bool = True) -> torch.Tensor:
+    """The kernel's arithmetic, carrier by carrier (``csrc/lowrank_matmul.cu``),
+    for the certifier.  Exact part: each operand ``s |x|`` as two s8 planes
+    ``s h`` and ``s l`` (|x| = 128 h + l), a block's sum over its K slice of
+    ``k_chunk`` in int32, the slices summed in int64.  Correction: the
+    tables with their zero row (2^n + 1 rows), an entry naming the
+    clamped magnitude's row or, for sign 0, the zero row.  Equal to
+    :func:`lowrank_matmul_plain` (a zero entry may differ in its sign)."""
+    from repro_torch.analysis.carrier import carrier
+
+    cu = "csrc/lowrank_matmul.cu"
+    qmax = (1 << n) - 1
+    ma, mb = mag_a.to(torch.int64), mag_b.to(torch.int64)
+    if clamp:
+        ma, mb = torch.clamp(ma, max=qmax), torch.clamp(mb, max=qmax)
+    sa, sb = sign_a.to(torch.int64), sign_b.to(torch.int64)
+    planes = [(carrier(s * (x >> 7), 8, True, f"{cu}: s8 plane s*h, |x| = 128 h + l"),
+               carrier(s * (x & 127), 8, True, f"{cu}: s8 plane s*l"))
+              for x, s in ((ma, sa), (mb, sb))]
+    (ha, la), (hb, lb) = planes
+    prod = (16384 * ha[:, :, None] * hb[None, :, :]
+            + 128 * (ha[:, :, None] * lb[None, :, :] + la[:, :, None] * hb[None, :, :])
+            + la[:, :, None] * lb[None, :, :])
+    m_dim, k_dim, n_dim = prod.shape
+    slices = -(-k_dim // k_chunk)
+    if slices * k_chunk > k_dim:
+        prod = torch.cat([prod, prod.new_zeros((m_dim, slices * k_chunk - k_dim, n_dim))], 1)
+    part = carrier(prod.reshape(m_dim, slices, k_chunk, n_dim).sum(dim=2), 32, True,
+                   f"{cu}: a block's int32 partial over its K slice (max_k_chunk)")
+    exact = carrier(part.sum(dim=1), 64, True, f"{cu}: the split-K partials summed in int64")
+    zero = u.new_zeros((1, u.shape[1]))
+    ia = torch.where(sa == 0, 1 << n, ma)
+    ib = torch.where(sb == 0, 1 << n, mb)
+    ue = torch.cat([u, zero])[ia] * sign_a.to(torch.float32)[..., None]
+    ve = torch.cat([v, zero])[ib] * sign_b.to(torch.float32)[..., None]
+    rank = u.shape[1]
+    ue = ue.reshape(m_dim, k_dim * rank)
+    ve = ve.permute(0, 2, 1).reshape(k_dim * rank, n_dim)
+    return exact.to(torch.float32) + ue @ ve
+
+
+def audit_trace(*, n: int, t: int = 4, rank: int = 8, m: int = 16, k: int | None = None,
+                n_cols: int = 32, k_chunk: int | None = None):
+    """The certifier's contract of the kernel (nothing executes): uint8
+    magnitudes over their whole carrier (the clamp is what keeps the
+    tables' gathers in bounds), signs in {-1, 0, 1}, K two slices of the
+    longest int32-exact slice (:func:`max_k_chunk`); ``t`` shapes only the
+    tables' contents."""
+    from repro_torch.analysis.spec import TraceSpec, ValueRange, sds
+
+    del t
+    k_chunk = max_k_chunk(n) if k_chunk is None else k_chunk
+    k = 2 * k_chunk if k is None else k
+    sgn = ValueRange.sign()
+    return TraceSpec(
+        name=f"kernel:lowrank_matmul[n={n},r={rank},K={k},slice={k_chunk}]",
+        fn=lambda u, v, ma, sa, mb, sb: audit_body(u, v, ma, sa, mb, sb, n=n, k_chunk=k_chunk),
+        args=[sds((1 << n, rank), torch.float32), sds((1 << n, rank), torch.float32),
+              sds((m, k), torch.uint8), sds((m, k), torch.int8), sds((k, n_cols), torch.uint8),
+              sds((k, n_cols), torch.int8)],
+        ranges=[None, None, None, sgn, None, sgn],
+        exact_products=False,
+        facts={"k": k, "k_chunk": k_chunk},
+    )
+
+
 def lowrank_matmul(u, v, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor:
     """(M, K) x (K, N) -> (M, N) float32 ``lowrank`` GEMM.
 
@@ -138,6 +225,7 @@ def lowrank_matmul(u, v, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.T
     check_operand(sign_a, "sign_a", torch.int8, (m_dim, k_dim), dev)
     check_operand(mag_b, "mag_b", torch.uint8, (k_dim, n_dim), dev)
     check_operand(sign_b, "sign_b", torch.int8, (k_dim, n_dim), dev)
+    audit_gate(KERNEL.name, "lowrank_gemm", n, max(1, n // 2))
     plan = launch_plan(m_dim, k_dim, n_dim, n, sm_count(dev))
     out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
     ws_int = ws_corr = counters = None

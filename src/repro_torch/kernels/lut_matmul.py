@@ -20,13 +20,13 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import (
-    CudaKernel, check_operand, device_index, pick_tile, sm_count_of, split_k, tile_counters,
-    wide_accumulator, workspace_bytes,
+    CudaKernel, audit_gate, check_operand, device_index, pick_tile, sm_count_of, split_k,
+    tile_counters, wide_accumulator, workspace_bytes,
 )
 
 __all__ = [
-    "KERNEL", "TILES", "Plan", "built_launch_plan", "launch_plan", "lut_matmul",
-    "lut_matmul_plain", "smem_bytes", "tile",
+    "KERNEL", "TILES", "THREADS", "Plan", "audit_body", "audit_trace", "built_launch_plan",
+    "int32_k_limit", "launch_plan", "lut_matmul", "lut_matmul_plain", "smem_bytes", "tile",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -146,6 +146,81 @@ def lut_matmul_plain(lut, mag_a, sign_a, mag_b, sign_b, *, n: int) -> torch.Tens
     return acc.to(torch.float32)
 
 
+def audit_body(lut, mag_a, sign_a, mag_b, sign_b, *, n: int, wide: bool,
+               clamp: bool = True) -> torch.Tensor:
+    """The kernel's arithmetic, carrier by carrier (``csrc/lut_matmul.cu``),
+    for the certifier: int64 values, each marked with the word the kernel
+    holds it in (``analysis.carrier``).  Bit-equal to
+    :func:`lut_matmul_plain`.  The (k, row) word keeps the row's table
+    byte offset ``2 |a| 2^n`` in bits 0-23, the (k, column) word the
+    column's ``2 |b|`` in bits 0-15; their sum halved is the table index.
+    Products sum per stage of :data:`STAGE_K` in int32, and over the K
+    slice in int32 (``wide`` False) or into int64 (``wide``).
+    ``clamp=False`` drops the magnitudes' clamp to 2^n - 1 (a mutation the
+    tests hold the certifier to)."""
+    from repro_torch.analysis.carrier import carrier
+
+    cu = "csrc/lut_matmul.cu"
+    qmax = (1 << n) - 1
+    ma, mb = mag_a.to(torch.int64), mag_b.to(torch.int64)
+    if clamp:
+        ma, mb = torch.clamp(ma, max=qmax), torch.clamp(mb, max=qmax)
+    a_off = carrier((2 * ma) << n, 24, False, f"{cu}: (k, row) word, table-row byte offset")
+    b_off = carrier(2 * mb, 16, False, f"{cu}: (k, column) word, column byte offset")
+    idx = (a_off[:, :, None] + b_off[None, :, :]) >> 1  # (M, K, N) table entries
+    prod = lut.to(torch.int64)[idx] * (sign_a.to(torch.int64)[:, :, None]
+                                       * sign_b.to(torch.int64)[None, :, :])
+    m_dim, k_dim, n_dim = prod.shape
+    stages = -(-k_dim // STAGE_K)
+    staged = prod
+    if stages * STAGE_K > k_dim:  # the last stage's missing k add nothing
+        staged = torch.cat([prod, prod.new_zeros((m_dim, stages * STAGE_K - k_dim, n_dim))], 1)
+    carrier(staged.reshape(m_dim, stages, STAGE_K, n_dim).sum(dim=2), 32, True,
+            f"{cu}: int32 part[][], one stage's products")
+    # the stages' sum is the sum of the slice's K products (its envelope
+    # counts K of them, not K rounded up to whole stages)
+    acc = carrier(prod.sum(dim=1), 64 if wide else 32, True,
+                  f"{cu}: acc[][] over the K slice ({'int64' if wide else 'int32'} by "
+                  f"build.wide_accumulator)")
+    return acc.to(torch.float32)
+
+
+def int32_k_limit(n: int) -> int:
+    """The largest K whose sums :func:`launch_plan` keeps in int32
+    (``build.wide_accumulator`` on the table's bound 2^(2n) - 1)."""
+    return ((1 << 31) - 1) // ((1 << (2 * n)) - 1)
+
+
+def audit_trace(*, n: int, t: int = 0, m: int = 4, k: int | None = None, n_cols: int = 32,
+                wide: bool | None = None, clamp: bool = True):
+    """The certifier's contract of the kernel (nothing executes).
+
+    The magnitudes range over their whole uint8 carrier, a miscalibrated
+    quantizer, so what is proven is that the kernel's clamp keeps every
+    lookup inside the 2^(2n)-entry table; the table holds
+    ``[0, 2^(2n) - 1]`` in uint16 (the bound ``wide_accumulator`` takes).
+    K defaults to the largest whose sums stay int32 (:func:`int32_k_limit`):
+    the trace is of shapes only, so the proof covers the int32 choice at
+    its edge.  ``t`` shapes only the table's contents."""
+    from repro_torch.analysis.spec import TraceSpec, ValueRange, sds
+
+    del t
+    k = int32_k_limit(n) if k is None else k
+    wide = wide_accumulator(k, (1 << (2 * n)) - 1) if wide is None else wide
+    sgn = ValueRange.sign()
+    return TraceSpec(
+        name=f"kernel:lut_matmul[n={n},K={k}{',wide' if wide else ''}]",
+        fn=lambda lut, ma, sa, mb, sb: audit_body(lut, ma, sa, mb, sb, n=n, wide=wide,
+                                                  clamp=clamp),
+        args=[sds((1 << (2 * n),), torch.uint16), sds((m, k), torch.uint8),
+              sds((m, k), torch.int8), sds((k, n_cols), torch.uint8),
+              sds((k, n_cols), torch.int8)],
+        ranges=[ValueRange(0.0, float((1 << (2 * n)) - 1), int_valued=True), None, sgn, None,
+                sgn],
+        facts={"k": k, "wide": wide},
+    )
+
+
 def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor:
     """(M, K) x (K, N) -> (M, N) float32 approximate GEMM.
 
@@ -166,6 +241,7 @@ def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor
     check_operand(sign_b, "sign_b", torch.int8, (k_dim, n_dim), dev)
     if lut.data_ptr() % 4:
         raise ValueError("lut must be 4-byte aligned (the kernel copies it as 32-bit words)")
+    audit_gate(KERNEL.name, "lut_gemm", n, max(1, n // 2))
     index = device_index(dev)
     plan, sms = _plan_on(index, m_dim, k_dim, n_dim, n)
     out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)

@@ -20,13 +20,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import (
-    CudaKernel, check_operand, pick_tile, sm_count, split_k, tile_counters, wide_accumulator,
-    workspace_bytes,
+    CudaKernel, audit_gate, check_operand, pick_tile, sm_count, split_k, tile_counters,
+    wide_accumulator, workspace_bytes,
 )
 
 __all__ = [
-    "KERNEL", "TILES", "Plan", "launch_plan", "pack_i16_pairs", "packed_matmul",
-    "packed_matmul_plain", "tile",
+    "KERNEL", "THREADS", "TILES", "Plan", "audit_body", "audit_pack", "audit_trace",
+    "built_launch_plan", "int32_k_limit", "launch_plan", "pack_i16_pairs", "packed_matmul",
+    "packed_matmul_plain", "smem_bytes", "tile",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,7 +39,10 @@ KERNEL = CudaKernel(
 # csrc/packed_matmul.cu: (tokens, weight columns) per block, four warps of
 # 32 columns by 8, 16 or 32 tokens; words (64 K lanes) per stage
 TILES = ((8, 128), (32, 64), (64, 64))
+THREADS = 128
 KW_STEP = 32
+STAGES = 3  # cp.async ring depth
+X_ROW = KW_STEP + 4  # words per token row of a stage (padded)
 MIN_KW_CHUNK = 64  # the shortest slice of words a split gives a block
 
 
@@ -57,6 +61,14 @@ def tile(m: int) -> tuple[int, int]:
     return pick_tile(m, TILES)
 
 
+def smem_bytes(bm: int) -> int:
+    """Dynamic shared memory of one block at token tile ``bm``: the ring of
+    :data:`STAGES` stages of the weight's (KW_STEP, bn + 8) and the tokens'
+    (bm, X_ROW) words (``Tile::kSmem``)."""
+    bn = dict(TILES)[bm]
+    return STAGES * (KW_STEP * (bn + 8) + bm * X_ROW) * 4
+
+
 @functools.lru_cache(maxsize=4096)
 def launch_plan(m: int, kw: int, n_cols: int, sms: int = 132) -> Plan:
     """The kernel's tile and split for an (m, kw) x (kw, n_cols) call in
@@ -67,6 +79,23 @@ def launch_plan(m: int, kw: int, n_cols: int, sms: int = 132) -> Plan:
     tiles = -(-m // bm) * -(-n_cols // bn)
     splits, chunk = split_k(tiles, kw, step=KW_STEP, min_chunk=MIN_KW_CHUNK, sms=sms)
     return Plan(bm, bn, splits, chunk)
+
+
+def built_launch_plan(plan: Plan, m: int, kw: int, n_cols: int) -> tuple:
+    """(grid, threads, shared memory) of the launch that the built
+    ``csrc/packed_matmul.cu`` makes for ``plan`` (its
+    ``packed_matmul_plan``), which ``plan`` must match (grid ``(tiles_n,
+    tiles_m, splits)``, :data:`THREADS`, :func:`smem_bytes`); builds the
+    library, so it needs ``nvcc``."""
+    fn = KERNEL.library().packed_matmul_plan
+    fn.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(m, n_cols, kw, plan.bm, plan.splits, plan.kw_chunk, out)
+    if err != 0:
+        raise ValueError(f"packed_matmul_plan refused {plan} at {(m, kw, n_cols)}: "
+                         f"CUDA error {err}")
+    return tuple(out[:3]), out[3], out[4]
 
 
 def pack_i16_pairs(q: torch.Tensor, *, dim: int) -> torch.Tensor:
@@ -98,6 +127,86 @@ def packed_matmul_plain(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.float32)
 
 
+def audit_pack(q: torch.Tensor, *, dim: int) -> torch.Tensor:
+    """:func:`pack_i16_pairs` for the certifier: the lanes themselves (an
+    odd K padded with a zero lane), each marked as the int16 half of a
+    word it is packed into, and left unpacked, so the interval of each
+    lane is not lost in the bit surgery of packing."""
+    from repro_torch.analysis.carrier import carrier
+
+    q = q.to(torch.int64).movedim(dim, -1)
+    if q.shape[-1] % 2:
+        q = torch.nn.functional.pad(q, (0, 1))
+    q = carrier(q, 16, True, "csrc/packed_matmul.cu: an int16 lane of an int32 word")
+    return q.movedim(-1, dim)
+
+
+def audit_body(lanes_a: torch.Tensor, lanes_b: torch.Tensor, *, n: int,
+               wide: bool) -> torch.Tensor:
+    """The kernel's arithmetic on (M, K) x (K, N) lanes, carrier by carrier
+    (``csrc/packed_matmul.cu``), for the certifier: each lane q = 256 h + l
+    as a u8 low and an s8 high plane; per K step of 32 lanes the four
+    plane products summed in int32 (the MMA accumulators), folded modulo
+    the carrier into the block's sum, which must hold in int32 (``wide``
+    False) or int64.  Bit-equal to
+    :func:`packed_matmul_plain` on the packed lanes."""
+    from repro_torch.analysis.carrier import carrier
+
+    cu = "csrc/packed_matmul.cu"
+    a, b = lanes_a.to(torch.int64), lanes_b.to(torch.int64)
+    la = carrier(a & 255, 8, False, f"{cu}: u8 low plane l = q & 255")
+    ha = carrier(a >> 8, 8, True, f"{cu}: s8 high plane h = q >> 8")
+    lb = carrier(b & 255, 8, False, f"{cu}: u8 low plane l = q & 255")
+    hb = carrier(b >> 8, 8, True, f"{cu}: s8 high plane h = q >> 8")
+    m_dim, k_dim = a.shape
+    n_dim = b.shape[1]
+    steps = -(-k_dim // 32)
+    pad = steps * 32 - k_dim
+
+    def step_sums(x, y, what):
+        prod = x[:, :, None] * y[None, :, :]
+        if pad:
+            prod = torch.cat([prod, prod.new_zeros((m_dim, pad, n_dim))], 1)
+        return carrier(prod.reshape(m_dim, steps, 32, n_dim).sum(dim=2), 32, True,
+                       f"{cu}: s32 MMA accumulator of {what} over one K step")
+
+    for x, y, what in ((ha, hb, "hh"), (ha, lb, "hl"), (la, hb, "lh"), (la, lb, "ll")):
+        step_sums(x, y, what)
+    # the four plane sums fold into one sum modulo the carrier, exact where
+    # the total fits: 65536 hh + 256 (hl + lh) + ll = a b, lane by lane
+    total = (a[:, :, None] * b[None, :, :]).sum(dim=1)
+    total = carrier(total, 64 if wide else 32, True,
+                    f"{cu}: the block's sum ({'int64' if wide else 'int32'} by "
+                    f"build.wide_accumulator)")
+    return total.to(torch.float32)
+
+
+def int32_k_limit(n: int) -> int:
+    """The largest K (lanes) whose sums the kernel keeps in int32."""
+    return ((1 << 31) - 1) // ((1 << n) - 1) ** 2
+
+
+def audit_trace(*, n: int, t: int = 0, m: int = 8, k: int | None = None, n_cols: int = 32,
+                wide: bool | None = None):
+    """The certifier's contract of the kernel (nothing executes), past the
+    wrapper's ``n <= 15`` guard: signed lanes ``|q| <= 2^n - 1`` packed two
+    to a word (:func:`audit_pack`), K the largest whose sums stay int32."""
+    from repro_torch.analysis.spec import TraceSpec, ValueRange, sds
+
+    del t
+    k = max(2, int32_k_limit(n) // 2 * 2) if k is None else k
+    wide = wide_accumulator(k, ((1 << n) - 1) ** 2) if wide is None else wide
+    q = ValueRange(-float((1 << n) - 1), float((1 << n) - 1), int_valued=True)
+    return TraceSpec(
+        name=f"kernel:packed_matmul[n={n},K={k}{',wide' if wide else ''}]",
+        fn=lambda qa, qb: audit_body(audit_pack(qa, dim=1), audit_pack(qb, dim=0), n=n,
+                                     wide=wide),
+        args=[sds((m, k), torch.int64), sds((k, n_cols), torch.int64)],
+        ranges=[q, q],
+        facts={"k": k, "wide": wide},
+    )
+
+
 def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15) -> torch.Tensor:
     """Packed (M, K/2) x (K/2, N) -> (M, N) float32 integer GEMM.
 
@@ -114,6 +223,7 @@ def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15) -> torch.T
     n_dim = pb.shape[1]
     check_operand(pa, "pa", torch.int32, (m_dim, kw), dev)
     check_operand(pb, "pb", torch.int32, (kw, n_dim), dev)
+    audit_gate(KERNEL.name, "packed_gemm", n, max(1, n // 2))
     plan = launch_plan(m_dim, kw, n_dim, sm_count(dev))
     out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
     wide = wide_accumulator(2 * kw, ((1 << n) - 1) ** 2)

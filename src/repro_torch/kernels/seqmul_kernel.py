@@ -26,10 +26,11 @@ import torch
 
 from repro_torch.core.seqmul import packed_u32
 from repro_torch.engine.recurrence import seqmul_recurrence, validate_nt
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, audit_gate
 
 __all__ = [
-    "PACKED_KERNEL", "WORDS_KERNEL", "WORDS_MAX_N", "packed_kernel", "seqmul_packed",
+    "PACKED_KERNEL", "WORDS_KERNEL", "WORDS_MAX_N", "audit_body_packed", "audit_body_words",
+    "audit_trace_packed", "audit_trace_words", "packed_kernel", "seqmul_packed",
     "seqmul_packed_plain", "seqmul_words", "seqmul_words_plain",
 ]
 
@@ -103,6 +104,7 @@ def packed_kernel(a, b, *, n: int, t: int, approx: bool = True,
     _check_operands(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"packed_kernel needs CUDA tensors, got {a.device}")
+    audit_gate(PACKED_KERNEL.name, "packed_single", n, t)
     a, b = (x.to(torch.uint32).contiguous() for x in (a, b))
     out = torch.empty(a.shape, dtype=torch.uint32, device=a.device)
     if out.numel():
@@ -131,6 +133,7 @@ def seqmul_words(a, b, *, n: int, t: int, approx: bool = True,
     _check_operands(a, b)
     if a.device.type == "cpu":
         return seqmul_words_plain(a, b, n=n, t=t, approx=approx, fix_to_1=fix_to_1)
+    audit_gate(WORDS_KERNEL.name, "packed_words", n, t)
     a, b = (x.to(torch.uint32).contiguous() for x in (a, b))
     low = torch.empty(a.shape, dtype=torch.uint32, device=a.device)
     high = torch.empty_like(low)
@@ -138,3 +141,75 @@ def seqmul_words(a, b, *, n: int, t: int, approx: bool = True,
         WORDS_KERNEL.launch(a.device, a.data_ptr(), b.data_ptr(), low.data_ptr(),
                             high.data_ptr(), low.numel(), n, t, int(approx), int(fix_to_1))
     return low, high
+
+
+def _one_word(a, b, *, n: int, t: int, approx: bool, fix_to_1: bool):
+    """The recurrence, its results marked with the uint32 words
+    ``csrc/seqmul_kernel.cu`` holds them in (``seqmul_one``: lo and the
+    one-word state W = s_lsp + 2^t s_msp)."""
+    from repro_torch.analysis.carrier import carrier
+
+    cu = "csrc/seqmul_kernel.cu"
+    lo, s_lsp, s_msp, _ = seqmul_recurrence(a.to(torch.int64), b.to(torch.int64), n=n, t=t,
+                                            approx=approx, fix_to_1=fix_to_1)
+    w = carrier(s_lsp + (s_msp << t), 32, False, f"{cu}: W, the one-word state (unsigned)")
+    return carrier(lo, 32, False, f"{cu}: lo, product bits [0, n-1) (unsigned)"), w
+
+
+def audit_body_packed(a, b, *, n: int, t: int, approx: bool = True,
+                      fix_to_1: bool = True) -> torch.Tensor:
+    """``seqmul_packed_kernel``'s arithmetic for the certifier: the packed
+    word ``lo + (W << (n-1))`` in a uint32.  Equal to
+    :func:`seqmul_packed_plain` (as int64 values) wherever that is defined."""
+    from repro_torch.analysis.carrier import carrier
+
+    lo, w = _one_word(a, b, n=n, t=t, approx=approx, fix_to_1=fix_to_1)
+    return carrier(lo + (w << (n - 1)), 32, False,
+                   "csrc/seqmul_kernel.cu: the packed product word (unsigned)")
+
+
+def audit_body_words(a, b, *, n: int, t: int, approx: bool = True,
+                     fix_to_1: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """``seqmul_words_kernel``'s arithmetic for the certifier:
+    ``low = lo | (W & 1) << (n-1)`` and ``high = W >> 1``, each a uint32."""
+    from repro_torch.analysis.carrier import carrier
+
+    cu = "csrc/seqmul_kernel.cu"
+    lo, w = _one_word(a, b, n=n, t=t, approx=approx, fix_to_1=fix_to_1)
+    low = carrier(lo | ((w & 1) << (n - 1)), 32, False, f"{cu}: low word (unsigned)")
+    return low, carrier(w >> 1, 32, False, f"{cu}: high word (unsigned)")
+
+
+def audit_trace_packed(*, n: int, t: int, size: int = 1024):
+    """The certifier's contract of ``seqmul_packed``, past the wrapper's
+    ``2n <= 31`` guard: operands in ``[0, 2^n - 1]``.  The packed word
+    never wraps its uint32 (it tops out at 2^(2n) - 1); what binds is its
+    output contract: consumers take the product as a non-negative int32
+    payload, ``[0, 2^31 - 1]``, first broken at n = 16."""
+    from repro_torch.analysis.spec import TraceSpec, ValueRange, sds
+
+    q = ValueRange.quantized(n)
+    return TraceSpec(
+        name=f"kernel:seqmul_packed[n={n},t={t}]",
+        fn=lambda a, b: audit_body_packed(a, b, n=n, t=t),
+        args=[sds((size,), torch.int64), sds((size,), torch.int64)],
+        ranges=[q, q],
+        out_ranges=[ValueRange(0.0, float(2**31 - 1), int_valued=True)],
+        out_contract_reason=("the packed single-word product is consumed as a non-negative "
+                             "int32 payload, which requires 2n <= 31"),
+    )
+
+
+def audit_trace_words(*, n: int, t: int, size: int = 1024):
+    """The certifier's contract of ``seqmul_words``: operands in
+    ``[0, 2^n - 1]``; the (low, high) words stay inside their uint32s for
+    every n <= 16."""
+    from repro_torch.analysis.spec import TraceSpec, ValueRange, sds
+
+    q = ValueRange.quantized(n)
+    return TraceSpec(
+        name=f"kernel:seqmul_words[n={n},t={t}]",
+        fn=lambda a, b: audit_body_words(a, b, n=n, t=t),
+        args=[sds((size,), torch.int64), sds((size,), torch.int64)],
+        ranges=[q, q],
+    )

@@ -19,13 +19,14 @@ import torch
 
 from repro_torch.engine.recurrence import pack_u32, seqmul_recurrence, validate_nt
 from repro_torch.kernels.build import (
-    CudaKernel, check_operand, device_index, pick_tile, sm_count_of, split_k, tile_counters,
-    wide_accumulator, workspace_bytes,
+    CudaKernel, audit_gate, check_operand, device_index, pick_tile, sm_count_of, split_k,
+    tile_counters, wide_accumulator, workspace_bytes,
 )
 
 __all__ = [
-    "KERNEL", "MAX_N", "TILES", "Plan", "built_launch_plan", "launch_plan", "seqmul_matmul",
-    "seqmul_matmul_plain", "smem_bytes", "tile",
+    "KERNEL", "MAX_N", "THREADS", "TILES", "Plan", "audit_body", "audit_trace",
+    "built_launch_plan", "int32_k_limit", "launch_plan", "seqmul_matmul", "seqmul_matmul_plain",
+    "smem_bytes", "tile",
 ]
 
 MAX_N = 12
@@ -141,6 +142,105 @@ def seqmul_matmul_plain(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
     return acc.to(torch.float32)
 
 
+def _recurrence_carriers(a, b, *, n: int, t: int, approx: bool, fix_to_1: bool,
+                         carry_weight: int = 1):
+    """``engine.recurrence.seqmul_recurrence`` line for line, each word
+    marked with the planes ``csrc/seqmul_matmul.cu`` holds it in: the state
+    W = s_lsp + 2^t s_msp is n + 1 planes (``w[NB + 1]``), s_lsp planes
+    0..t-1 and s_msp planes t..n; lo is n - 1 planes.  ``carry_weight``
+    scales the carry into the MSP word (1 in the paper's design; 2 is a
+    mutation the tests hold the certifier to).  Returns the assembled
+    product."""
+    from repro_torch.analysis.carrier import carrier
+
+    cu = "csrc/seqmul_matmul.cu"
+    m_t = (1 << t) - 1
+    zero = torch.zeros_like(a)
+    s_lsp, s_msp, c_ff, lo = zero, zero, zero, zero
+    for j in range(n):
+        m = torch.where(((b >> j) & 1).bool(), a, zero)
+        aug_lsp = (s_lsp >> 1) | ((s_msp & 1) << (t - 1))
+        aug_msp = s_msp >> 1
+        lsum = aug_lsp + (m & m_t)
+        c_out = lsum >> t
+        c_in = c_ff if approx else c_out
+        s_msp = carrier(aug_msp + (m >> t) + carry_weight * c_in, n - t + 1, False,
+                        f"{cu}: w[t..n], the state's MSP planes (s_msp)")
+        lo = lo | ((lsum & 1) << j)
+        s_lsp = carrier(lsum & m_t, t, False, f"{cu}: w[0..t-1], the state's LSP planes (s_lsp)")
+        c_ff = c_out
+    lo = lo & ((1 << (n - 1)) - 1) if n > 1 else zero
+    if approx and fix_to_1:
+        hit = c_ff.bool()
+        lo = torch.where(hit, torch.full_like(lo, (1 << (n - 1)) - 1 if n > 1 else 0), lo)
+        s_lsp = torch.where(hit, torch.full_like(s_lsp, m_t), s_lsp)
+        s_msp = torch.where(hit, s_msp | 1, s_msp)
+    lo = carrier(lo, max(n - 1, 1), False, f"{cu}: lo[], product planes 0..n-2")
+    w = carrier(s_lsp + (s_msp << t), n + 1, False, f"{cu}: w[NB + 1], the state W")
+    return carrier(lo + (w << (n - 1)), 2 * n, False,
+                   f"{cu}: the 2n product planes counted (count[2 * NB])")
+
+
+def audit_body(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int, wide: bool,
+               approx: bool = True, fix_to_1: bool = True, carry_weight: int = 1):
+    """The kernel's arithmetic, carrier by carrier (``csrc/seqmul_matmul.cu``),
+    for the certifier: int64 values, each marked with the word the kernel
+    holds it in (``analysis.carrier``).  Bit-equal to
+    :func:`seqmul_matmul_plain` (``carry_weight`` 1).  The recurrence's
+    words and its 2n product planes (:func:`_recurrence_carriers`); per
+    plane p a signed popcount sum over the K slice in int32 (``count[p]``);
+    the slice's ``sum_p count_p 2^p`` in int64 (``part``); the partial
+    that crosses blocks in int32 (``wide`` False) or int64."""
+    from repro_torch.analysis.carrier import carrier
+
+    cu = "csrc/seqmul_matmul.cu"
+    a, b = mag_a.to(torch.int64), mag_b.to(torch.int64)
+    m_dim, k_dim = a.shape
+    n_dim = b.shape[1]
+    shape = (m_dim, k_dim, n_dim)
+    prod = _recurrence_carriers(a[:, :, None].expand(shape), b[None, :, :].expand(shape), n=n,
+                                t=t, approx=approx, fix_to_1=fix_to_1,
+                                carry_weight=carry_weight)
+    sign = sign_a.to(torch.int64)[:, :, None] * sign_b.to(torch.int64)[None, :, :]
+    part = torch.zeros((m_dim, n_dim), dtype=torch.int64, device=a.device)
+    for p in range(2 * n):
+        count = carrier((((prod >> p) & 1) * sign).sum(dim=1), 32, True,
+                        f"{cu}: count[p], a plane's signed popcounts over the K slice")
+        part = part + (count << p)
+    part = carrier(part, 64, True, f"{cu}: part, the slice's sum")
+    part = carrier(part, 64 if wide else 32, True,
+                   f"{cu}: the split-K partial ({'int64' if wide else 'int32'} by "
+                   f"build.wide_accumulator)")
+    return part.to(torch.float32)
+
+
+def int32_k_limit(n: int) -> int:
+    """The largest K whose partials :func:`launch_plan` keeps in int32."""
+    return ((1 << 31) - 1) // ((1 << (2 * n)) - 1)
+
+
+def audit_trace(*, n: int, t: int, m: int = 2, k: int | None = None, n_cols: int = 32,
+                wide: bool | None = None, carry_weight: int = 1):
+    """The certifier's contract of the kernel (nothing executes), past the
+    wrapper's ``n <= 12`` guard so the carriers' own frontier is derived:
+    int16 magnitudes in ``[0, 2^n - 1]``, signs in {-1, 0, 1}; K the
+    largest whose partials stay int32 (:func:`int32_k_limit`)."""
+    from repro_torch.analysis.spec import TraceSpec, ValueRange, sds
+
+    k = max(1, int32_k_limit(n)) if k is None else k
+    wide = wide_accumulator(k, (1 << (2 * n)) - 1) if wide is None else wide
+    q, sgn = ValueRange.quantized(n), ValueRange.sign()
+    return TraceSpec(
+        name=f"kernel:seqmul_matmul[n={n},t={t},K={k}{',wide' if wide else ''}]",
+        fn=lambda ma, sa, mb, sb: audit_body(ma, sa, mb, sb, n=n, t=t, wide=wide,
+                                             carry_weight=carry_weight),
+        args=[sds((m, k), torch.int16), sds((m, k), torch.int8), sds((k, n_cols), torch.int16),
+              sds((k, n_cols), torch.int8)],
+        ranges=[q, sgn, q, sgn],
+        facts={"k": k, "wide": wide},
+    )
+
+
 def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
                   approx: bool = True, fix_to_1: bool = True) -> torch.Tensor:
     """(M, K) x (K, N) -> (M, N) float32 GEMM, the recurrence per product.
@@ -159,6 +259,7 @@ def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
     check_operand(sign_a, "sign_a", torch.int8, (m_dim, k_dim), dev)
     check_operand(mag_b, "mag_b", torch.int16, (k_dim, n_dim), dev)
     check_operand(sign_b, "sign_b", torch.int8, (k_dim, n_dim), dev)
+    audit_gate(KERNEL.name, "seqmul_gemm", n, t)
     index = device_index(dev)
     plan = _plan_on(index, m_dim, k_dim, n_dim, n)
     out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)

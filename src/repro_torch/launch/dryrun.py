@@ -17,9 +17,17 @@ or 2 x 16 x 16 across two pods, as axis sizes) and the specs of
   ``HW.HBM_BW``), at the H100 constants of ``launch/mesh.py``.
 
 The reference also reads FLOPs, HBM bytes and collective bytes off the
-compiled HLO (``launch/hlo_analysis.py``); the port has no compiler pass to
-read them from (ROADMAP.md item 12), so those fields print as null
-(absent), never as zero, and so does the collective term.
+compiled HLO (``launch/hlo_analysis.py``).  The port counts FLOPs and
+bytes of one device's step on its aten graph instead (:func:`step_counts`,
+``launch/hlo_analysis.py``): each distinct layer kind is traced once on
+the ``meta`` device (nothing executes), a step at one layer of that kind
+less the step at no layer, and multiplied by its count, at the
+per-device batch and the port's own placement of each leaf (dense layers
+replicated over the model axis; the MoE's expert GEMMs split over it).
+The bytes are the eager model's (every op moves its operands and its
+result), not the reference's fused-HLO model.  The port has no sharded
+step yet (ROADMAP.md item 11b), so ``collective_bytes_per_dev`` and the
+collective term print as null (absent), never as zero, with the reason.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --mesh single
@@ -30,6 +38,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -44,8 +53,11 @@ from repro_torch.distributed.sharding import mesh_axis_sizes
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import block_kinds
 
-__all__ = ["cell_bytes", "model_flops", "size_cell", "main"]
+__all__ = ["cell_bytes", "model_flops", "size_cell", "step_counts", "main"]
+
+COLLECTIVES_NULL = "no sharded step yet (ROADMAP.md item 11b): dense layers are replicated"
 
 
 def model_flops(cfg, shape, kind: str) -> float:
@@ -135,8 +147,95 @@ def cell_bytes(cfg, shape, mesh, *, fsdp: bool = True) -> dict:
     return out
 
 
-def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True) -> dict:
-    """One cell's record (see the module's note)."""
+def _depths(cfg) -> tuple:
+    """``(base, {kind: (cfg with one more layer of kind, count)})``: the
+    configs whose difference is one layer of each distinct kind, and how
+    many layers of it ``cfg`` has beyond ``base``.  A decoder stack's base
+    has no layer; an encoder-decoder's keeps one decoder layer (its caches
+    and memory need one), and its kinds are ``enc`` and ``dec``."""
+    rep = dataclasses.replace
+    if cfg.is_encdec:
+        base = rep(cfg, encoder_layers=0, num_layers=1)
+        return base, {"enc": (rep(base, encoder_layers=1), cfg.encoder_layers),
+                      "dec": (rep(base, num_layers=2), cfg.num_layers - 1)}
+    kinds = block_kinds(cfg)
+    return rep(cfg, num_layers=0), {
+        k: (rep(cfg, num_layers=1, layer_pattern=(k,)), kinds.count(k))
+        for k in dict.fromkeys(kinds)}
+
+
+def _step(cfg, shape, batch: int):
+    """``(fn, args)`` of one device's step of ``shape.kind`` on meta tensors
+    at ``batch`` rows: the loss and its gradients (train), the prefill, or
+    one decode step over a ``shape.seq_len`` cache."""
+    from repro_torch.train import steps
+
+    model = build_model(cfg)
+    params = model.init_params(0, device="meta")
+    small = dataclasses.replace(shape, global_batch=batch)
+    if shape.kind == "train":
+        data = {k: v.to(torch.int64) if not v.is_floating_point() else v
+                for k, v in S.input_specs(cfg, small).items()}
+
+        def train(params, data):
+            loss, _ = steps.loss_fn(params, data, None, model)
+            return torch.autograd.grad(loss, list(params.parameters()), allow_unused=True)
+
+        return train, [params, data]
+    if shape.kind == "prefill":
+        data = {k: v.to(torch.int64) if not v.is_floating_point() else v
+                for k, v in S.input_specs(cfg, small).items()}
+        prefill = steps.make_prefill_step(model, shape.seq_len, mem_len=shape.seq_len)
+        return (lambda params, data: prefill(params, data)), [params, data]
+    mem_len = S.ENC_MEM_LEN_DECODE if cfg.is_encdec else 0
+    caches = model.init_caches(batch, shape.seq_len, getattr(torch, cfg.dtype), "meta",
+                               mem_len=mem_len)
+    token = torch.zeros((batch, 1), dtype=torch.int64, device="meta")
+    decode = steps.make_decode_step(model)
+    return (lambda params, caches, token: decode(params, caches, token, shape.seq_len - 1)), \
+        [params, caches, token]
+
+
+def _count(cfg, shape, batch: int, model_shards: int) -> tuple[float, float]:
+    """FLOPs and bytes of one device's step of ``cfg`` (at its depth)."""
+    from repro_torch.launch import hlo_analysis
+
+    fn, args = _step(cfg, shape, batch)
+    split = bool(cfg.num_experts) and model_shards > 1 and cfg.num_experts % model_shards == 0
+    with torch.set_grad_enabled(shape.kind == "train"):
+        a = hlo_analysis.analyze(fn, args, where=split)
+    if split:
+        # expert parallel: each model rank runs its E / model experts
+        f, b = a.by_module(r"models/moe\.py:\d+:expert_gemm")
+        return (a.flops - f + f / model_shards, a.bytes - b + b / model_shards)
+    return a.flops, a.bytes
+
+
+def step_counts(cfg, shape, mesh) -> dict:
+    """One device's step: FLOPs and bytes (``launch/hlo_analysis.py``), each
+    distinct layer kind traced once at one layer and multiplied by its
+    count, at the per-device batch (the batch over the data axes)."""
+    sizes = mesh_axis_sizes(mesh)
+    batch_spec = S.batch_specs({"x": torch.empty((shape.global_batch,), device="meta")},
+                               mesh)["x"]
+    batch = max(1, shape.global_batch // _shards(batch_spec, sizes))
+    model_shards = sizes.get("model", 1)
+    base_cfg, kinds = _depths(cfg)
+    base = _count(base_cfg, shape, batch, model_shards)
+    flops, nbytes = base
+    for kind_cfg, count in kinds.values():
+        f, b = _count(kind_cfg, shape, batch, model_shards)
+        flops += count * (f - base[0])
+        nbytes += count * (b - base[1])
+    layers = ({"enc": cfg.encoder_layers, "dec": cfg.num_layers} if cfg.is_encdec
+              else {k: count for k, (_, count) in kinds.items()})
+    return {"flops": flops, "bytes": nbytes, "batch_per_dev": batch, "layer_kinds": layers}
+
+
+def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True,
+              steps: bool = True) -> dict:
+    """One cell's record (see the module's note); ``steps=False`` leaves the
+    step's FLOPs and bytes out (null), for callers that size memory only."""
     t0 = time.perf_counter()
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -145,6 +244,8 @@ def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True)
     kind = shape.kind
     per_dev = cell_bytes(cfg, shape, mesh, fsdp=fsdp)
     mf = model_flops(cfg, shape, kind)
+    step = step_counts(cfg, shape, mesh) if steps else dict.fromkeys(
+        ("flops", "bytes", "batch_per_dev", "layer_kinds"))
     t_compute = mf / chips / HW.PEAK_FLOPS
     t_memory = per_dev["total"] / HW.HBM_BW
     terms = {"compute": t_compute, "memory": t_memory, "collective": None}
@@ -161,10 +262,13 @@ def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True)
         "per_device_gb": per_dev["total"] / 1e9,
         "fits": per_dev["total"] <= HW.HBM_BYTES,
         "model_flops_total": mf,
-        # read off compiled HLO in the reference; no counterpart yet (item 12)
-        "flops_per_dev": None,
-        "bytes_per_dev": None,
+        # counted on the aten graph of one device's step (launch/hlo_analysis.py)
+        "flops_per_dev": step["flops"],
+        "bytes_per_dev": step["bytes"],
+        "batch_per_dev": step["batch_per_dev"],
+        "layer_kinds": step["layer_kinds"],
         "collective_bytes_per_dev": None,
+        "collective_bytes_null_because": COLLECTIVES_NULL,
         "terms_s": terms,
         "dominant": max(("compute", "memory"), key=terms.get),
         "step_time_bound_s": max(t_compute, t_memory),

@@ -118,10 +118,13 @@ def route(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig, *,
 
     flat_e = expert.reshape(-1)
     me = probs.mean(dim=0)
-    # a 0-d divisor on the device: CUDA divides by a host scalar as a
+    # each expert's count with a length fixed by e (bincount's depends on
+    # the data, so it cannot run on the meta tensors the dry-run counts
+    # on); a 0-d divisor on the device: CUDA divides by a host scalar as a
     # multiply by its reciprocal
-    ce = torch.bincount(flat_e, minlength=e).to(torch.float32) / torch.full(
-        (), float(tokens * k), device=x2.device)
+    counts = torch.zeros((e,), dtype=torch.int64, device=x2.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ce = counts.to(torch.float32) / torch.full((), float(tokens * k), device=x2.device)
     if mean_over is not None:
         me, ce = mean_over(me), mean_over(ce)
     aux = e * torch.sum(me * ce)

@@ -33,7 +33,7 @@ quantizer rounds one element otherwise), the port's loop goes on from the
 jitted output.  The
 reference resolves ``balanced`` through a static auditor that raises
 under this jax version; the module fixture replaces it, in this process
-only, by the port's stand-in (as ``test_torch_recurrent_serve.py`` does).
+only, by the port's static certifier (as ``test_torch_recurrent_serve.py`` does).
 Also: the loader's round trip and leaf order, the seeded init's scales,
 the continuous scheduler's refusal and the serve CLI.
 """
@@ -67,6 +67,7 @@ from repro.models.layers import Ctx as JaxCtx
 from repro.models.registry import build_model as jax_build_model
 from repro.train.steps import make_decode_step as jax_decode_step
 from repro.train.steps import make_prefill_step as jax_prefill_step
+from repro_torch.analysis import audit as port_audit
 import repro_torch.models.attention as port_attention
 import repro_torch.models.layers as port_layers
 from repro_torch import serve
@@ -100,14 +101,14 @@ def one_thread():
 
 @pytest.fixture(scope="module", autouse=True)
 def certifier_stub():
-    """The reference's tier certifier, replaced by the port's stand-in for
-    this module; both packages must then resolve every tier alike."""
+    """The reference's tier certifier, replaced by the port's certifier
+    (``repro_torch.analysis.audit.certified``) for this module; both
+    packages must then resolve every tier alike at n = 8."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_audit, "certified",
-                   lambda mode, n, t: engine_config.within_envelope(mode, n, t))
+        mp.setattr(jax_audit, "certified", port_audit.certified)
         for tier in TIERS:
-            want = jax_engine_config.resolve_tier(tier)
-            got = engine_config.resolve_tier(tier)
+            want = jax_engine_config.resolve_tier(tier, n=8)
+            got = engine_config.resolve_tier(tier, n=8)
             assert [(q.target, q.n, q.t, q.mode) for q in got.per_target] == [
                 (q.target, q.n, q.t, q.mode) for q in want.per_target], tier
         yield

@@ -241,15 +241,23 @@ def test_tier_cycle_factor_is_monotone():
     assert f[0] > f[1] > f[2] > f[3] > 0
 
 
-def test_tier_filter_uses_the_integer_envelope():
-    """The port's stand-in for the reference's kernel certification."""
-    assert config.within_envelope("bitexact", 8, 4)
-    assert not config.within_envelope("bitexact", 9, 4)
-    assert config.within_envelope("seqmul", 12, 6)
-    assert not config.within_envelope("seqmul", 13, 6)
-    assert not config.within_envelope("seqmul_approx", 16, 6)
-    with pytest.raises(config.QualityError, match="integer envelope"):
-        config.resolve_t(10, config.ErrorBudget(max_nmed=1e-2), mode="bitexact")
+@pytest.mark.parametrize("mode,n,t,want", [
+    ("bitexact", 8, 4, True), ("bitexact", 9, 4, False), ("seqmul", 12, 6, True),
+    ("seqmul", 13, 6, False), ("seqmul_approx", 16, 6, False),
+])
+def test_tier_filter_uses_the_integer_envelope(mode, n, t, want):
+    """The tier filter is the port's static certifier (``analysis.audit``):
+    the uint16 table holds n <= 8, seqmul certifies within the dispatch
+    contract n <= 12, the packed single word (the elementwise
+    ``seqmul_approx``) needs 2n <= 31."""
+    from repro_torch.analysis import audit
+
+    got = (audit.certified_elementwise(n, t) if mode == "seqmul_approx"
+           else audit.certified(mode, n, t))
+    assert got is want
+    if mode == "bitexact" and not want:
+        with pytest.raises(config.QualityError, match="certification"):
+            config.resolve_t(10, config.ErrorBudget(max_nmed=1e-2), mode="bitexact")
 
 
 def test_apply_quality_deploys_the_tier():
@@ -290,19 +298,20 @@ def test_wrapper_operand_checks_and_launch_parameters():
 
 
 def test_kernel_tiles_hold_the_table_in_shared_memory():
+    from repro_torch.analysis import smem
     from repro_torch.kernels import lut_matmul
 
     assert config.kernel_tiles("bitexact", 8, 4, 4) == lut_matmul.tile(4)[0] == 4
     assert config.kernel_tiles("seqmul", 12, 6, 128) == 16
-    assert config._lut_smem_bytes(8, 32) <= config.SMEM_PER_BLOCK
+    assert smem.gemm_footprint("bitexact", 8, lut_matmul.tile(32)).smem <= smem.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):  # a 512 KiB table at n=9
         config.kernel_tiles("bitexact", 9, 4, 4)
     # lowrank: the two (2^n, r) tables as (hi, lo) float pairs grow with r
     # (rounded up to 8); the cp.async ring, planes and entries do not
     assert config.kernel_tiles("lowrank", 8, 4, 128, rank=8) == 64
     rest = 3 * 10240 + 9216 + 8192
-    assert config._lowrank_smem_bytes(8, 64, 8) == 16 * 257 * 8 + rest == 81_024
-    assert config._lowrank_smem_bytes(8, 64, 24) == 16 * 257 * 24 + rest
+    assert smem.gemm_footprint("lowrank", 8, (64, 64), 8).smem == 16 * 257 * 8 + rest == 81_024
+    assert smem.gemm_footprint("lowrank", 8, (64, 64), 24).smem == 16 * 257 * 24 + rest
     assert config.kernel_tiles("lowrank", 8, 4, 128, rank=40) == 64
     assert config.kernel_tiles("lowrank", 8, 4, 4, rank=40) == 16
     with pytest.raises(ValueError, match="rank=41"):

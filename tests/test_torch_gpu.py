@@ -16,7 +16,7 @@ Tolerances (kernel against plain version, both on the card):
   integer on both sides, the float32 correction is summed in another order
   (split TF32 on the tensor cores); bit-equal with zero SVD tables;
 - the split-K GEMMs (packed, lowrank, lut, seqmul): two launches give the
-  same bits; lut's and seqmul's ``launch_plan`` equal the built plans;
+  same bits; all four ``launch_plan``s equal the built plans;
 - ``flash_attention`` / ``flash_decode``: 2e-5, the reference's flash
   tolerance, for float32 sums in another order (and the forward's bf16
   tensor-core products of split float32 operands); two launches give the
@@ -33,6 +33,9 @@ Tolerances (kernel against plain version, both on the card):
 - the elementwise multiplier (``seqmul_packed``, ``seqmul_words``):
   bit-equal;
 - ``moe_ffn`` at granite-moe-1b-a400m's widths: two launches bit-identical;
+- the static certifier: every built instantiation's block within
+  Hopper's limits (registers from ``-Xptxas -v``), and the armed gate
+  (``REPRO_STATIC_AUDIT=1``) refusing an uncertified launch before it;
 - distribution under a one-rank NCCL group (a ``FileStore``, no network):
   the scheduler's streams under a ``("data",)`` mesh equal ``mesh=None``'s
   at exact, balanced and draft; a train state sharded over a (1, 1) mesh
@@ -1039,3 +1042,61 @@ def test_elastic_checkpoint_on_the_card_restores_on_card_and_cpu(nccl_mesh, tmp_
         got = on_card.local if isinstance(on_card, Placed) else on_card
         assert torch.equal(got.reshape(want.shape).cpu(), want.cpu())
         assert torch.equal(on_cpu.cpu(), want.cpu())
+
+
+# ------------------------------------------------------- the static certifier
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 3072), (4, 3072, 1024), (33, 300, 70),
+                                   (128, 1024, 3072), (4096, 1024, 1024)])
+def test_packed_and_lowrank_launch_plans_are_the_kernels(m, k, n, card):
+    """The plans the two tensor-core GEMMs' wrappers launch with equal what
+    the built libraries report (``packed_matmul_plan``, ``lowrank_matmul_plan``),
+    as lut's and seqmul's do, and the shared-memory model's blocks."""
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import lowrank_matmul as lr
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels.build import sm_count
+
+    sms = sm_count(card)
+    kw = (k + 1) // 2
+    plan = pm.launch_plan(m, kw, n, sms)
+    want = (((n + plan.bn - 1) // plan.bn, (m + plan.bm - 1) // plan.bm, plan.splits),
+            pm.THREADS, pm.smem_bytes(plan.bm))
+    assert pm.built_launch_plan(plan, m, kw, n) == want
+    assert smem.validate_tiles("inject", 8, 4, (plan.bm, plan.bn)).smem == want[2]
+    for rank in (8, 24):
+        plan = lr.launch_plan(m, k, n, 8, sms)
+        want = (((n + plan.bn - 1) // plan.bn, (m + plan.bm - 1) // plan.bm, plan.splits),
+                lr.THREADS, lr.smem_bytes(8, plan.bm, rank))
+        assert lr.built_launch_plan(plan, m, k, n, 8, rank) == want
+        assert smem.validate_tiles("lowrank", 8, 4, (plan.bm, plan.bn), rank=rank).smem == want[2]
+
+
+def test_every_built_instantiation_fits_a_hopper_block(card):
+    """Registers from ``-Xptxas -v`` times the most threads a wrapper
+    launches within 65,536; static plus the most dynamic shared memory
+    within 232,448 bytes; at least one block an SM."""
+    from repro_torch.analysis import smem
+
+    footprints = smem.built_report(smem.built_logs())
+    assert len(footprints) > 100
+    for fp in footprints:
+        assert fp.registers is not None and fp.within and fp.blocks_per_sm >= 1, fp
+
+
+def test_armed_gate_refuses_an_uncertified_launch(card, monkeypatch):
+    """With ``REPRO_STATIC_AUDIT=1`` an uncertified call raises before any
+    launch, and a certified one launches after one check."""
+    from repro_torch import engine, kernels
+    from repro_torch.analysis import audit
+
+    monkeypatch.setenv("REPRO_STATIC_AUDIT", "1")
+    x = torch.randn((4, 64), device=card)
+    w = torch.randn((64, 32), device=card)
+    kernels.reset_launch_counts()
+    audit.GATE_CHECKS.clear()
+    with pytest.raises(audit.CertificationError, match="seqmul"):
+        engine.matmul(x, w, mode="seqmul", n=13, t=6)
+    assert kernels.launch_counts()["seqmul_matmul"] == 0
+    engine.matmul(x, w, mode="seqmul", n=12, t=6)
+    assert kernels.launch_counts()["seqmul_matmul"] == 1
+    assert audit.GATE_CHECKS["seqmul_matmul"] == 1 and audit.GATE_CHECKS["engine.matmul"] == 1

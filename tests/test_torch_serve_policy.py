@@ -15,7 +15,7 @@ paths run on the CPU.
 
 The reference resolves ``high``/``balanced``/``draft`` through a static
 auditor that raises under this jax version; the module fixture replaces
-it, in this process only, by the port's integer-envelope stand-in after
+it, in this process only, by the port's static certifier after
 checking that both packages then resolve every tier alike.
 """
 
@@ -41,6 +41,7 @@ from repro.configs.registry import get_config as jax_get_config
 from repro.engine import config as jax_engine_config
 from repro.models.registry import build_model as jax_build_model
 from repro.serve import workload as jax_wl
+from repro_torch.analysis import audit as port_audit
 from repro_torch import serve
 from repro_torch.configs.registry import get_config
 from repro_torch.engine import config as engine_config
@@ -65,18 +66,18 @@ def one_thread():
 
 @pytest.fixture(scope="module", autouse=True)
 def certifier_stub():
-    """The reference's tier certifier, replaced by the port's stand-in for
-    this module; both packages must then resolve every tier alike."""
+    """The reference's tier certifier, replaced by the port's certifier
+    (``repro_torch.analysis.audit.certified``) for this module; both
+    packages must then resolve every tier alike at n = 8."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_audit, "certified",
-                   lambda mode, n, t: engine_config.within_envelope(mode, n, t))
+        mp.setattr(jax_audit, "certified", port_audit.certified)
         for tier in TIERS:
-            want = jax_engine_config.resolve_tier(tier)
-            got = engine_config.resolve_tier(tier)
+            want = jax_engine_config.resolve_tier(tier, n=8)
+            got = engine_config.resolve_tier(tier, n=8)
             assert [(q.target, q.n, q.t, q.mode) for q in got.per_target] == [
                 (q.target, q.n, q.t, q.mode) for q in want.per_target], tier
         yield
-    # nothing computed under the stand-in outlives this module
+    # nothing computed under the port's certifier outlives this module
     jax_engine_config.tier_cycle_factor.cache_clear()
     jax_engine_config.accept_rate_estimate.cache_clear()
 

@@ -242,7 +242,7 @@ def test_dryrun_bytes_match_reference_specs(arch):
         assert sharding.mesh_axis_sizes(mesh) == MESHES[mesh_name]
         for shape_name, _ in _jax_cells(arch):
             want = _ref_bytes(arch, shape_name, MESHES[mesh_name])
-            rec = dryrun.size_cell(arch, shape_name, multi)
+            rec = dryrun.size_cell(arch, shape_name, multi, steps=False)
             assert rec["per_device_bytes"] == want, (arch, shape_name, mesh_name)
             assert rec["chips"] == (512 if multi else 256)
             assert rec["flops_per_dev"] is None and rec["terms_s"]["collective"] is None

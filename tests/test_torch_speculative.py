@@ -23,7 +23,7 @@ converted by ``from_jax_params``:
 
 The reference resolves ``high``/``balanced``/``draft`` through a static
 auditor that raises under this jax version; the module fixture replaces
-it, in this process only, by the port's integer-envelope stand-in after
+it, in this process only, by the port's static certifier after
 checking that both packages then resolve every tier alike.
 """
 
@@ -42,6 +42,7 @@ import jax.numpy as jnp
 
 import repro.analysis.audit as jax_audit
 import repro.models.layers as jax_layers
+from repro_torch.analysis import audit as port_audit
 import repro_torch.models.layers as port_layers
 from repro.configs.registry import apply_approx as jax_apply_approx
 from repro.configs.registry import get_config as jax_get_config
@@ -84,18 +85,18 @@ def one_thread():
 
 @pytest.fixture(scope="module", autouse=True)
 def certifier_stub():
-    """The reference's tier certifier, replaced by the port's stand-in for
-    this module; both packages must then resolve every tier alike."""
+    """The reference's tier certifier, replaced by the port's certifier
+    (``repro_torch.analysis.audit.certified``) for this module; both
+    packages must then resolve every tier alike at n = 8."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_audit, "certified",
-                   lambda mode, n, t: engine_config.within_envelope(mode, n, t))
+        mp.setattr(jax_audit, "certified", port_audit.certified)
         for tier in TIERS:
-            want = jax_engine_config.resolve_tier(tier)
-            got = engine_config.resolve_tier(tier)
+            want = jax_engine_config.resolve_tier(tier, n=8)
+            got = engine_config.resolve_tier(tier, n=8)
             assert [(q.target, q.n, q.t, q.mode) for q in got.per_target] == [
                 (q.target, q.n, q.t, q.mode) for q in want.per_target], tier
         yield
-    # nothing computed under the stand-in outlives this module
+    # nothing computed under the port's certifier outlives this module
     jax_engine_config.tier_cycle_factor.cache_clear()
     jax_engine_config.accept_rate_estimate.cache_clear()
 
