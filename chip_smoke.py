@@ -272,12 +272,36 @@ Phases, one line each (or a few):
    restore seconds; the dry-run of kimi-k2-1t-a32b at ``train_4k`` and
    ``decode_32k`` on the 16 x 16 mesh, per-device GB beside the card's
    memory, under 10 s of host time;
+5c. tensor parallel (``phase_tensor_parallel``): under the armed gate,
+   each integer epilogue (lut_matmul and packed_matmul at n = 8,
+   seqmul_matmul at n = 12) at qwen3-0.6b's row-parallel shard shapes
+   (w2: K 3,072 over 2 and 4 shards, wo: K 2,048; N 1,024; M 4 and 128):
+   every shard's output equal to its plain version, the shards' int64
+   sums bit-equal to the whole K's integer launch, whose conversion equals
+   the float32 launch, both epilogues timed, and the row-parallel seqmul
+   route at n = 13 refused; the decode's (o, lse) over 2 and 4 slot ranges
+   combined within rtol/atol 2e-5 of the whole decode (and its lse of the
+   plain version's), o unmoved by writing lse, at the serve shape and
+   over 4,096 slots, g = 2 (qwen3) and g = 10 (recurrentgemma, window
+   2,048), with and without lse timed; then on a one-rank NCCL (1, 1)
+   mesh the TP code: two full-width qwen3-0.6b train steps (bitexact
+   mlp+attn, pallas; the row-parallel GEMMs take the integer epilogue),
+   held after phase 6 against the first two of train (b), the same steps
+   with ``mesh=None`` (losses within rtol 1e-5, both under PyTorch's
+   deterministic algorithms; step ms, launches a step, busy share), and a
+   balanced serve (lut_matmul) and a pallas exact one (flash_attention and
+   flash_decode with their lse, the ranges combined) with placed
+   parameters, of the serve phase's requests, streams bit-equal to its
+   ``mesh=None`` runs', the profiled decode step's host time in
+   collectives and in device syncs and copies beside theirs;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
    ``attn_impl="pallas"`` (lut_matmul on the MLPs, flash_attention with
    lse, the dq and dk/dv kernels) and qwen3-0.6b bitexact on mlp and attn
-   with ``attn_impl="pallas"`` (adds approx_attention_bitexact), and (c)
+   with ``attn_impl="pallas"`` (adds approx_attention_bitexact; train (b),
+   under PyTorch's deterministic algorithms, so that 5c's sharded steps
+   are held against its first two), and (c)
    gemma2-9b at its published widths (d_model 3584, 16 / 8 heads of 256,
    vocab 256,000, both softcaps, window 4,096, tied embeddings), its depth
    cut to 4 layers (local, global, local, global), bf16, remat "full",
@@ -297,12 +321,13 @@ Phases, one line each (or a few):
    and the pair at g = 10, head width 256), and (g) seamless-m4t-large-v2
    at its published widths and depth, fed 128 seeded frames a row (the
    forward non-causal and causal, the pair after each; both causal
-   settings must be called on the card).  Then the train CLI
-   on paper-multiplier, 6 steps with a checkpoint every 4 and a failure
+   settings must be called on the card);
+7. the train CLI, in a process of its own beside the error analysis:
+   paper-multiplier, 6 steps with a checkpoint every 4 and a failure
    injected at step 5, which it must recover from, with the losses of its
    steps 1 and 6 (its own "loss a -> b", which averages ten steps at each
    end, the same steps over a run of 6, is checked but not printed);
-7. error analysis: ``engine.multiply`` (auto) and
+   error analysis: ``engine.multiply`` (auto) and
    ``kernels.ops.approx_multiply`` on CUDA tensors (``seqmul_packed``, its
    launch count seen to rise), ``exhaustive_eval(12, 6)`` with fix_to_1
    both ways and ``mc_eval(16, 8)`` at 2^24 samples (their products from
@@ -314,9 +339,10 @@ Phases, one line each (or a few):
    phases) (without fix_to_1 its worst overshoot is the closed-form
    MAE), so are ``exhaustive_eval`` at n = 1 and 4 and both ``mc_eval`` at
    2^16 samples; ``seqmul_words``' low + (high << 16) equal to
-   ``core.seqmul``'s products on mc_eval(16, 8)'s draws; then ``python -m
+   ``core.seqmul``'s products on mc_eval(16, 8)'s draws; and ``python -m
    repro_torch.examples.quickstart`` and ``accuracy_sweep --steps 80`` on
-   the card, both processes at once, which must exit 0;
+   the card, both processes started with the phase, which must exit 0
+   (the phase's walls are taken beside them and the train CLI);
 8. the kernel table as JSON, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
@@ -562,6 +588,9 @@ def warm_certificates() -> int:
                      else audit.certified_kernel("packed_words", n, t))
     asked += [audit.certified(mode, 8, t) for mode in ("bitexact", "inject", "lowrank", "seqmul")
               for t in range(1, 8)]
+    # the tensor-parallel phase's integer epilogues
+    asked += [audit.certified_kernel(f"{kind[name]}_int", n, max(1, n // 2))
+              for name, n in TP_EPILOGUES]
     asked += [audit.certified_attention(mode, 8, t, 128, 8) for mode in ("bitexact", "lowrank")
               for t in (1, 2, 4)]
     asked += [audit.certified_flash(hd, dt) for hd in fa.HEAD_DIMS
@@ -1979,7 +2008,25 @@ def phase_error_analysis(cpu_eval) -> dict:
     from ``seqmul_words``, and ``mc_eval(32, 16)`` (``core.seqmul`` on the
     card).  Every launch count is set to 0 just before these calls and read
     just after; the comparisons with the CPU and with ``core.seqmul``
-    follow, then the two example twins (in processes of their own)."""
+    follow.  The two example twins run in processes of their own beside
+    all of it (and beside the train CLI, started before), so the walls
+    here are taken beside them."""
+    # the two example twins, both processes at once, beside all of this
+    t0 = time.perf_counter()
+    twins = [(module, args, subprocess.Popen(
+        [sys.executable, "-m", module, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)}))
+        for module, args in (("repro_torch.examples.quickstart", []),
+                             ("repro_torch.examples.accuracy_sweep", ["--steps", "80"]))]
+    try:
+        return _error_analysis(cpu_eval, twins, t0)
+    finally:
+        for _, _, proc in twins:
+            if proc.poll() is None:
+                proc.kill()
+
+
+def _error_analysis(cpu_eval, twins: list, t0: float) -> dict:
     import numpy as np
     import torch
 
@@ -2043,7 +2090,9 @@ def phase_error_analysis(cpu_eval) -> dict:
         print(f"error analysis: {label} on the card equal to the CPU's field for field: "
               f"{rep.summary()}; worst overshoot {-rep.max_ed_neg} (closed-form MAE "
               f"{error_model.mae_closed_form(12, 6)}); wall {runs[label]['wall_s']:.2f}s on "
-              f"the card (device busy share {share(label)}), {cpu_s:.2f}s on the CPU (a "
+              f"the card beside the train CLI and the twins (device busy share {share(label)}), "
+              f"{cpu_s:.2f}s "
+              f"on the CPU (a "
               f"process of its own, {CPU_EVAL_THREADS} threads, beside the card's phases)",
               flush=True)
     for n, t in ((1, 1), (4, 2)):
@@ -2061,7 +2110,8 @@ def phase_error_analysis(cpu_eval) -> dict:
         check(rep.samples == samples and all(map(math.isfinite, (rep.er, rep.nmed, rep.mred))),
               f"{label}: {rep}")
         print(f"error analysis: {label} on the card: {rep.summary()}; wall "
-              f"{runs[label]['wall_s']:.2f}s (device busy share {share(label)}); at 2^16 "
+              f"{runs[label]['wall_s']:.2f}s beside the train CLI and the twins (device busy share "
+              f"{share(label)}); at 2^16 "
               f"samples equal to the CPU's field for field", flush=True)
 
     # the two-word kernel against core.seqmul on mc_eval(16, 8)'s draws
@@ -2081,24 +2131,12 @@ def phase_error_analysis(cpu_eval) -> dict:
           "equal to core.seqmul's products on the card", flush=True)
     print("error analysis runs: " + json.dumps(runs), flush=True)
 
-    # the two example twins, both processes at once
-    t0 = time.perf_counter()
-    twins = [(module, args, subprocess.Popen(
-        [sys.executable, "-m", module, *args], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)}))
-        for module, args in (("repro_torch.examples.quickstart", []),
-                             ("repro_torch.examples.accuracy_sweep", ["--steps", "80"]))]
-    try:
-        for module, args, proc in twins:
-            out, err = proc.communicate(timeout=300)
-            check(proc.returncode == 0, f"{module} exit {proc.returncode}: {err[-2000:]}")
-            print(f"error analysis: python -m {module} {' '.join(args)} on the card (both "
-                  f"twins at once, {time.perf_counter() - t0:.1f}s): "
-                  + " | ".join(out.splitlines()), flush=True)
-    finally:
-        for _, _, proc in twins:
-            if proc.poll() is None:
-                proc.kill()
+    for module, args, proc in twins:
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"{module} exit {proc.returncode}: {err[-2000:]}")
+        print(f"error analysis: python -m {module} {' '.join(args)} on the card (both "
+              f"twins at once, beside the phase, {time.perf_counter() - t0:.1f}s): "
+              + " | ".join(out.splitlines()), flush=True)
     return dict(counts=counts, runs=runs)
 
 
@@ -2604,8 +2642,8 @@ def wide_serve_runs(every: tuple) -> dict:
         # projections (lut_matmul), the draft tier the expert GEMMs
         # (packed_matmul), one launch per expert and projection: host-bound
         # steps of 1.7 and 2.9 s, so 4 tokens a request, and no profiled step
-        # (the profiler's pass over draft's 131,000 launches took 90 s, over
-        # balanced's 78,880 about 60)
+        # (key_averages()' pass over draft's 131,000 launches took 90 s, over
+        # balanced's 78,880 about 60; profile_totals reads them faster)
         "granite-moe-1b-a400m": [
             exact,
             ("balanced", False, dict(quality="balanced", expect=("lut_matmul",),
@@ -3218,7 +3256,8 @@ def step_breakdown(label: str, sched, params, profile_reps: int) -> dict:
           f"{per_prefill}; decode step (M={b}) {decode_ms:.2f} ms, launches {per_decode}; "
           f"{share}", flush=True)
     return dict(per_prefill=per_prefill, per_decode=per_decode, prefill_ms=prefill_ms,
-                decode_ms=decode_ms, busy_share=busy_ms / wall_ms if busy_ms else None)
+                decode_ms=decode_ms, busy_share=busy_ms / wall_ms if busy_ms else None,
+                host_split=dict(HOST_SPLIT) if reps else None)
 
 
 def profile_decode(eng, params, caches, tok, at, reps: int = 3):
@@ -3226,10 +3265,88 @@ def profile_decode(eng, params, caches, tok, at, reps: int = 3):
                       "decode step")
 
 
+# host ops of a profile: the collectives (c10d's record and ops), and the
+# calls that wait for the device or copy (a device-to-host read waits)
+COLLECTIVE_OPS = ("record_param_comms", "c10d::")
+SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+HOST_SPLIT: dict = {}  # the last profile's, a call: see profile_fn
+
+
+def profile_totals(prof) -> tuple:
+    """(host, device) of a finished ``torch.profiler.profile``: lists of
+    (self µs, count, name), one a name, the numbers ``key_averages()``
+    gives (``self_cpu_time_total`` of the host ops and runtime calls,
+    ``self_device_time_total`` of the device's kernels, copies and sets),
+    read from the raw events.  ``key_averages()`` builds a Python object an
+    event first, about 80 µs each: 10 s for one balanced decode step."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    cpu = DeviceType.CPU
+    host_nodes, device = [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if e.device_type() != cpu:
+            us, count = device.get(name, (0.0, 0))
+            device[name] = (us + (0.0 if e.is_async() else e.duration_ns() / 1e3), count + 1)
+            continue
+        thread = e.start_thread_id()
+        is_async = e.is_async() or thread != e.end_thread_id()
+        # name, start, end, async, correlation, linked correlation, thread,
+        # then parent and children
+        host_nodes.append([name, e.start_ns(), e.end_ns(), is_async, e.correlation_id(),
+                           e.linked_correlation_id(), thread, None, []])
+    # a runtime call (a launch, a copy) belongs to the thread of the op it is linked to
+    thread_of = {n[4]: n[6] for n in host_nodes if not n[3] and n[5] == 0}
+    by_thread: dict = {}
+    for n in host_nodes:
+        if not n[3]:
+            by_thread.setdefault(thread_of.get(n[5], n[6]), []).append(n)
+    for events in by_thread.values():  # nest each thread's intervals, as key_averages does
+        stack = []
+        for n in sorted(events, key=lambda n: (n[1], -n[2])):
+            while stack and (n[1] >= stack[-1][2] or n[2] > stack[-1][2]):
+                stack.pop()
+            if stack:
+                n[7] = stack[-1]
+                stack[-1][8].append(n)
+            stack.append(n)
+    dropped = set()
+    fold = [n for n in host_nodes if n[7] is not None and n[7][0] == n[0]]
+    while fold:  # an op's only child of its own name is folded into it
+        again = []
+        for n in fold:
+            parent = n[7]
+            if id(n) in dropped or len(parent[8]) != 1:
+                again.append(n)
+                continue
+            parent[8] = n[8]
+            for child in n[8]:
+                child[7] = parent
+            dropped.add(id(n))
+        if len(again) == len(fold):
+            break
+        fold = again
+    host: dict = {}
+    for n in host_nodes:
+        if id(n) in dropped:
+            continue
+        self_us = 0.0 if n[3] else (n[2] - n[1] - sum(c[2] - c[1] for c in n[8])) / 1e3
+        us, count = host.get(n[0], (0.0, 0))
+        host[n[0]] = (us + self_us, count + 1)
+    return ([(us, c, _rewrite_name(k, with_wildcard=True)) for k, (us, c) in host.items()],
+            [(us, c, _rewrite_name(k, with_wildcard=True)) for k, (us, c) in device.items()])
+
+
 def profile_fn(fn, reps: int, what: str):
     """Device time over ``reps`` calls of ``fn``, which ends in a sync: (busy
     ms, ms in the port's kernels, host-clock ms, reps).  Busy is the sum of
-    kernel times on the one stream the calls use."""
+    kernel times on the one stream the calls use.  ``HOST_SPLIT`` then holds
+    a call's host self time (ms) and count of the collectives and of the
+    syncs and copies, and its wall ms (under the profiler).  The totals
+    are read by ``profile_totals``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3241,22 +3358,19 @@ def profile_fn(fn, reps: int, what: str):
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = kernel_us = 0.0
-    host, device, own = [], [], []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) is not None and "CUDA" not in str(ev.device_type):
-            host.append((ev.self_cpu_time_total, ev.count, ev.key))
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        busy_us += dev_us
-        device.append((dev_us, ev.count, ev.key))
-        if any(f"{name}_kernel" in ev.key for name in kernels.ALL):
-            kernel_us += dev_us
-            own.append((dev_us, ev.count, ev.key))
+        t1 = time.perf_counter()
+        wall_ms = (t1 - t0) * 1e3
+    t0 = time.perf_counter()
+    host, device = profile_totals(prof)
+    stop_s, read_s = t0 - t1, time.perf_counter() - t0
+    busy_us = sum(us for us, _, _ in device)
+    own = [ev for ev in device if any(f"{name}_kernel" in ev[2] for name in kernels.ALL)]
+    kernel_us = sum(us for us, _, _ in own)
     launches = sum(c for _, c, k in host if k.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    for key, ops in (("collective", COLLECTIVE_OPS), ("sync", SYNC_OPS)):
+        HOST_SPLIT[f"{key}_ms"] = sum(us for us, _, k in host if k.startswith(ops)) / 1e3 / reps
+        HOST_SPLIT[f"{key}_calls"] = sum(c for _, c, k in host if k.startswith(ops)) // reps
+    HOST_SPLIT["wall_ms"] = wall_ms / reps
     top = ", ".join(f"{k} {us / 1e3 / reps:.2f} ms x{c // reps}"
                     for us, c, k in sorted(host, reverse=True)[:6])
     top_device = ", ".join(f"{k[:60]} {us / 1e3 / reps:.2f} ms x{c // reps}"
@@ -3264,8 +3378,13 @@ def profile_fn(fn, reps: int, what: str):
     own_device = ", ".join(f"{k[:70]} {us / 1e3 / reps:.4f} ms x{c // reps}"
                            for us, c, k in sorted(own, reverse=True)) or "none"
     print(f"profile: per {what} {launches / reps:.0f} launches through the CUDA runtime "
-          f"seen; host self time by op: {top}; device time by kernel: {top_device}; the "
-          f"port's kernels: {own_device}", flush=True)
+          f"seen; host self time by op: {top}; in collectives {HOST_SPLIT['collective_ms']:.2f} "
+          f"ms x{HOST_SPLIT['collective_calls']}, in syncs and copies "
+          f"{HOST_SPLIT['sync_ms']:.2f} ms x{HOST_SPLIT['sync_calls']}, of "
+          f"{HOST_SPLIT['wall_ms']:.2f} ms; device time by kernel: {top_device}; the "
+          f"port's kernels: {own_device}; profiler stopped in {stop_s:.2f}s, its "
+          f"{len(host) + len(device)} ops read in {read_s:.2f}s",
+          flush=True)
     return busy_us / 1e3, kernel_us / 1e3, wall_ms, reps
 
 
@@ -3407,8 +3526,336 @@ def phase_distribution(params, model, base_runs: dict, n_req: int) -> dict:
     return out
 
 
+# ---------------------------------------------------- tensor parallelism
+TP_SHARDS = (2, 4)  # the model-axis sizes whose K shards the epilogues are held at
+TP_GEMMS = {"w2": (3072, 1024), "wo": (2048, 1024)}  # qwen3-0.6b's row-parallel (K, N)
+TP_ROWS = (SERVE["batch"], SERVE["batch"] * SERVE["prompt"])  # M = 4 and 128
+TP_EPILOGUES = (("lut_matmul", 8), ("packed_matmul", 8), ("seqmul_matmul", 12))
+TP_DECODES = (("qwen3 g=2", dict(h=16, kv=8, hd=128), None),
+              ("recurrentgemma g=10", RECURRENTGEMMA_HEADS, RECURRENTGEMMA_WINDOW))
+TP_SERVE_KERNELS = {"balanced": ("lut_matmul",),
+                    "pallas exact": ("flash_attention", "flash_decode")}
+TP_TRAIN_STEPS = 2
+
+
+def tp_gemm(kernel: str, n: int, mx, sx, mw, sw, *, integer: bool, plain: bool = False):
+    """One call of ``kernel`` (or its plain version) on quantized operands,
+    as the engine's mode body makes it."""
+    import torch
+
+    from repro_torch.engine import artifacts
+    from repro_torch.kernels import lut_matmul as lm, packed_matmul as pm, seqmul_matmul as sm
+
+    mx, sx, mw, sw = (t.contiguous() for t in (mx, sx, mw, sw))  # a K shard's slices
+    if kernel == "lut_matmul":
+        lut = artifacts.product_lut_u16(n, max(1, n // 2), True, mx.device)
+        fn = lm.lut_matmul_plain if plain else lm.lut_matmul
+        return fn(lut, mx.to(torch.uint8), sx, mw.to(torch.uint8), sw, n=n, integer=integer)
+    if kernel == "packed_matmul":
+        pa = pm.pack_i16_pairs(mx * sx.to(torch.int32), dim=1)
+        pb = pm.pack_i16_pairs(mw * sw.to(torch.int32), dim=0)
+        return (pm.packed_matmul_plain if plain else pm.packed_matmul)(pa, pb, n=n,
+                                                                      integer=integer)
+    fn = sm.seqmul_matmul_plain if plain else sm.seqmul_matmul
+    return fn(mx.to(torch.int16), sx, mw.to(torch.int16), sw, n=n, t=n // 2, integer=integer)
+
+
+def tp_epilogues(card_line: str) -> dict:
+    """Each integer epilogue at qwen3-0.6b's row-parallel shard shapes: the
+    K shards' outputs, summed in int64 in rank order, equal the whole-K
+    integer launch bit for bit (and its float32 launch equals their
+    conversion); each shard's output equals its plain version; the integer
+    and float32 epilogues timed at the main row (M = 128, w2 over two
+    shards)."""
+    import torch
+
+    out = {}
+    for kernel, n in TP_EPILOGUES:
+        held = 0
+        for weight, (k, n_cols) in TP_GEMMS.items():
+            for m in TP_ROWS:
+                _, _, mx, sx, mw, sw, _ = operands(m, k, n_cols, n, seed=7)
+                whole = tp_gemm(kernel, n, mx, sx, mw, sw, integer=True)
+                check(torch.equal(whole.to(torch.float32),
+                                  tp_gemm(kernel, n, mx, sx, mw, sw, integer=False)),
+                      f"tensor parallel: {kernel} {weight} M {m}: the integer epilogue's "
+                      f"conversion differs from the float32 output")
+                for shards in TP_SHARDS:
+                    kl = k // shards
+                    total = None
+                    for r in range(shards):
+                        ks = slice(r * kl, (r + 1) * kl)
+                        part = tp_gemm(kernel, n, mx[:, ks], sx[:, ks], mw[ks], sw[ks],
+                                       integer=True)
+                        want = tp_gemm(kernel, n, mx[:, ks], sx[:, ks], mw[ks], sw[ks],
+                                       integer=True, plain=True)
+                        check(part.dtype == want.dtype and torch.equal(part, want),
+                              f"tensor parallel: {kernel} {weight} M {m} shard {r} of {shards}: "
+                              f"differs from its plain version")
+                        total = part.to(torch.int64) if total is None else \
+                            total + part.to(torch.int64)
+                        held += 1
+                    check(torch.equal(total, whole.to(torch.int64)),
+                          f"tensor parallel: {kernel} {weight} M {m}: the {shards} shards' "
+                          f"integer sums differ from the whole K's")
+        k, n_cols = TP_GEMMS["w2"]
+        kl = k // TP_SHARDS[0]
+        _, _, mx, sx, mw, sw, _ = operands(TP_ROWS[-1], kl, n_cols, n, seed=8)
+        ms = {integer: graph_ms(lambda: tp_gemm(kernel, n, mx, sx, mw, sw, integer=integer))
+              for integer in (False, True)}
+        print(f"tensor parallel: {kernel} n = {n}: {held} shard outputs at w2 (K 3,072) and wo "
+              f"(K 2,048), M 4 and 128, over 2 and 4 shards, each equal to its plain version, "
+              f"their int64 sums bit-equal to the whole K's; device ms at ({TP_ROWS[-1]}, {kl}, "
+              f"{n_cols}): integer epilogue {ms[True]:.4f}, float32 {ms[False]:.4f}; "
+              f"{card_line}", flush=True)
+        out[kernel] = dict(int_epilogue_ms=ms[True], float_epilogue_ms=ms[False],
+                           int_epilogue_shape=[TP_ROWS[-1], kl, n_cols])
+    return out
+
+
+def tp_decodes(card_line: str) -> dict:
+    """The decode's ``(o, lse)`` over 2 and 4 slot ranges, combined in range
+    order (``combine_ranges``), against the whole decode within the flash
+    tolerance, at the serve shape and over 4,096 slots, g = 2 and g = 10;
+    the decode with and without its lse timed."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for label, heads, window in TP_DECODES:
+        for t in (CACHE, 4096):
+            g = torch.Generator(device="cuda").manual_seed(t)
+            b, h, kv, hd = SERVE["batch"], heads["h"], heads["kv"], heads["hd"]
+            q = torch.randn((b, h, hd), generator=g, device="cuda").to(torch.bfloat16)
+            k, v = (torch.randn((b, t, kv, hd), generator=g, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            q_pos = torch.tensor([t - 1, t - 5, t // 2, 3], device="cuda", dtype=torch.int32)
+            k_pos = torch.arange(t, device="cuda", dtype=torch.int32)[None].expand(b, t)
+            k_pos = torch.where(k_pos <= q_pos[:, None], k_pos, -1).contiguous()
+            kw = dict(window=window, softcap=None, scale=hd**-0.5)
+            whole, whole_lse = fa.launch_decode(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+            check(torch.equal(whole, fa.launch_decode(q, k, v, q_pos, k_pos, **kw)),
+                  f"tensor parallel: decode {label} over {t}: o moved with its lse written")
+            _, plain_lse = fa.flash_decode_plain(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+            worst = 0.0
+            for shards in TP_SHARDS:
+                step = t // shards
+                parts = [fa.launch_decode(q, k[:, r * step:(r + 1) * step].contiguous(),
+                                          v[:, r * step:(r + 1) * step].contiguous(), q_pos,
+                                          k_pos[:, r * step:(r + 1) * step].contiguous(),
+                                          with_lse=True, **kw) for r in range(shards)]
+                o, lse = fa.combine_ranges(torch.stack([p[0] for p in parts]),
+                                           torch.stack([p[1] for p in parts]))
+                err = float(((o - whole).abs() / (2e-5 + 2e-5 * whole.abs())).max())
+                lerr = float(((lse - whole_lse).abs() / (2e-5 + 2e-5 * whole_lse.abs())).max())
+                check(err <= 1.0 and lerr <= 1.0,
+                      f"tensor parallel: decode {label} over {t} slots in {shards} ranges: "
+                      f"err/limit {err:.3f} (o), {lerr:.3f} (lse)")
+                worst = max(worst, err, lerr)
+            lse_err = float(((whole_lse - plain_lse).abs() / (2e-5 + 2e-5 * plain_lse.abs())).max())
+            check(lse_err <= 1.0, f"tensor parallel: decode {label} over {t}: lse err/limit "
+                                  f"{lse_err:.3f} against the plain version")
+            ms = {lse: graph_ms(lambda: fa.launch_decode(q, k, v, q_pos, k_pos, with_lse=lse,
+                                                         **kw)) for lse in (False, True)}
+            print(f"tensor parallel: decode {label} q ({b}, {h}, {hd}) over {t} slots"
+                  f"{f' window {window}' if window else ''}: 2 and 4 ranges combined within "
+                  f"rtol/atol 2e-5 of the whole (worst err/limit {worst:.3f}), lse err/limit "
+                  f"{lse_err:.3f} against the plain version; device ms with lse {ms[True]:.4f}, "
+                  f"without {ms[False]:.4f}; {card_line}", flush=True)
+            out[f"{label} {t}"] = dict(lse_ms=ms[True], no_lse_ms=ms[False], err=worst)
+    return out
+
+
+def tp_train(host) -> dict:
+    """``TP_TRAIN_STEPS`` train steps of full-width qwen3-0.6b (bitexact
+    mlp+attn, pallas: train (b)'s configuration, data and seed) through the
+    sharded step on the one-rank (1, 1) mesh, from its seed-0 state, with
+    PyTorch's deterministic algorithms on, as train (b) runs them (the
+    embedding's backward accumulates with atomics otherwise, which can move
+    the second loss by 0.3% between two runs of one path): its losses and
+    grad norms, the second step's ms and launches, and the busy share of
+    one more, profiled.  :func:`tp_train_check` holds them against train
+    (b)'s first steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import apply_approx, get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import init_train_state, make_train_step, shard_batch
+
+    cfg = apply_approx(dataclasses.replace(get_config("qwen3-0.6b"), attn_impl="pallas"),
+                       mode="bitexact", n=8, t=4, targets=("mlp", "attn"))
+    model = build_model(cfg)
+    tcfg, data = train_setup(cfg, 0)
+    losses, norms, times, counts = [], [], [], []
+    with deterministic_algorithms():
+        state = init_train_state(model, tcfg, 0, device="cuda", mesh=host)
+        step = make_train_step(model, tcfg, mesh=host)
+        for i in range(TP_TRAIN_STEPS + 1):
+            batch = shard_batch({k: torch.as_tensor(v, device="cuda")
+                                 for k, v in data.batch(i).items()}, host)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i < TP_TRAIN_STEPS:
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            else:  # one more, profiled
+                busy, _, wall, _ = profile_fn(lambda: step(state, batch)[1]["loss"].item(), 1,
+                                              "train step, mesh (1, 1)")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append({k: v for k, v in kernels.launch_counts().items() if v})
+    check(np.all(np.isfinite(losses)), f"tensor parallel: train: losses {losses}")
+    for name in ("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS):
+        check(counts[1].get(name), f"tensor parallel: train: {name} not launched ({counts[1]})")
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, norms=norms, step_ms=times[1] * 1e3, per_step=counts[1],
+                busy=busy / wall if busy else None)
+
+
+def tp_train_check(tp: dict, base: dict, card_line: str) -> None:
+    """The (1, 1) mesh's train steps (:func:`tp_train`) against train (b),
+    the same steps with ``mesh=None`` in this call: the losses within rtol
+    1e-5; step ms, launches a step and busy share beside each other."""
+    import numpy as np
+
+    want, norms = base["losses"][:TP_TRAIN_STEPS], base["norms"][:TP_TRAIN_STEPS]
+    check(np.allclose(tp["losses"], want, rtol=1e-5, atol=0),
+          f"tensor parallel: train losses {tp['losses']} against mesh=None's {want}")
+    per_step = {k: v for k, v in base["per_step"].items() if v}
+    print(f"tensor parallel: train qwen3-0.6b bitexact mlp+attn pallas, batch {TRAIN['batch']} "
+          f"x {TRAIN['seq']}: losses {tp['losses']} (grad norms {tp['norms']}) on the (1, 1) "
+          f"mesh, {want} ({norms}) with mesh=None, train (b) (equal: "
+          f"{tp['losses'] == want and tp['norms'] == norms}); step {tp['step_ms']:.1f} ms "
+          f"(mesh=None {base['step_ms']:.1f}, train (b)'s median), launches a step "
+          f"{tp['per_step']} (mesh=None {per_step}), busy {tp['busy']} (mesh=None "
+          f"{base['busy_share']}); {card_line}", flush=True)
+
+
+def phase_tensor_parallel(card_line: str, base_runs: dict) -> dict:
+    """Tensor parallelism on one card (see the module's note, 5c): the
+    integer epilogues at the row-parallel shard shapes, the decode's
+    per-range (o, lse), and the TP code on a one-rank NCCL (1, 1) mesh:
+    two train steps (held against train (b) by :func:`tp_train_check`),
+    and a balanced and a pallas exact serve against ``base_runs`` (label
+    -> the serve phase's ``mesh=None`` run of the same requests)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.analysis import audit
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.build import audit_gate
+    from repro_torch.models.registry import build_model
+
+    def split(run) -> str:
+        h = run["host_split"]
+        return (f"in collectives {h['collective_ms']:.2f} ms x{h['collective_calls']}, in syncs "
+                f"and copies {h['sync_ms']:.2f} ms x{h['sync_calls']}, of {h['wall_ms']:.2f} ms")
+
+    os.environ[GATE] = "1"
+    audit.GATE_CHECKS.clear()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dict(epilogues=tp_epilogues(card_line))
+    print(f"tensor parallel: epilogues {time.perf_counter() - t0:.1f}s", flush=True)
+    report_gate("tensor parallel: epilogues", kernels.launch_counts())
+    try:
+        audit_gate("engine.matmul", "row:seqmul", 13, 6, shards=2)
+    except audit.CertificationError:
+        print("gate: the row-parallel seqmul route at n = 13 refused", flush=True)
+    else:
+        raise SmokeFailure("gate: the row-parallel seqmul route at n = 13 was certified")
+    del os.environ[GATE]
+    t0 = time.perf_counter()
+    out["decodes"] = tp_decodes(card_line)
+    print(f"tensor parallel: decodes {time.perf_counter() - t0:.1f}s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+        torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            host = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            t0 = time.perf_counter()
+            out["train"] = tp_train(host)
+            print(f"tensor parallel: train {time.perf_counter() - t0:.1f}s", flush=True)
+            out["serve"] = {}
+            qwen3 = get_config("qwen3-0.6b")
+            for label, base in base_runs.items():
+                attn = "pallas" if label.startswith("pallas") else "xla"
+                model = build_model(dataclasses.replace(qwen3, attn_impl=attn))
+                params = model.init_params(0, device="cuda", mesh=host)
+                tp = phase_serve(f"tensor parallel {label}, mesh (1, 1)", params, model,
+                                 quality=label.split()[-1], expect=TP_SERVE_KERNELS[label],
+                                 requests=QWEN3_REQUESTS, mesh=host)
+                del params
+                torch.cuda.empty_cache()
+                for r in tp["queue"]:
+                    check(np.array_equal(tp["outputs"][r.id], base["outputs"][r.id]),
+                          f"tensor parallel: serve {label}: request {r.id} streams differ from "
+                          f"mesh=None's")
+                print(f"tensor parallel: serve {label} on the (1, 1) mesh: streams bit-equal to "
+                      f"mesh=None's run in the serve phase over {len(tp['queue'])} requests of "
+                      f"{SERVE['gen']} tokens; "
+                      f"decode step {tp['decode_ms']:.2f} ms (mesh=None {base['decode_ms']:.2f}), "
+                      f"pool prefill {tp['prefill_ms']:.2f} ms (mesh=None "
+                      f"{base['prefill_ms']:.2f}), launches a step {tp['per_decode']} (mesh=None "
+                      f"{base['per_decode']}), busy {tp['busy_share']} (mesh=None "
+                      f"{base['busy_share']}); the profiled decode step's host self time "
+                      f"{split(tp)} (mesh=None {split(base)}); {card_line}", flush=True)
+                for name, count in tp["counts"].items():
+                    if count:
+                        out["serve"][name] = out["serve"].get(name, 0) + count
+        finally:
+            torch.distributed.destroy_process_group()
+    return out
+
+
 # ---------------------------------------------------------------- train
-def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple = ()) -> dict:
+def train_setup(cfg, seed: int) -> tuple:
+    """(TrainConfig, SyntheticLM) of a full-width train run: the TrainConfig
+    the reference's train CLI makes for ``--steps TRAIN["steps"]``, and its
+    data stream."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    n = TRAIN["steps"]
+    tcfg = TrainConfig(learning_rate=3e-4, total_steps=n, warmup_steps=max(10, n // 20),
+                       seed=seed)
+    return tcfg, SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                                        global_batch=TRAIN["batch"], seed=seed))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True):
+    """Within, PyTorch's deterministic algorithms (``warn_only``) when
+    ``on``, without their fill of each new tensor (a kernel a tensor, which
+    the step's results do not depend on)."""
+    import torch
+
+    import torch.utils.deterministic as det
+
+    fill = det.fill_uninitialized_memory
+    if on:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        if on:
+            torch.use_deterministic_algorithms(False)
+            det.fill_uninitialized_memory = fill
+
+
+def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple = (),
+                deterministic: bool = False) -> dict:
     """``TRAIN["steps"]`` steps of ``make_train_step`` through ``run_loop`` at
     full width from seed-0 weights and ``SyntheticLM`` data (an
     encoder-decoder also fed ``src_embeds`` of ``TRAIN["seq"]`` standard
@@ -3416,29 +3863,24 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple
     must be finite and fall, every kernel in ``expect`` must launch in
     every step, and each ``(wrapper, causal)`` of ``calls`` must be called
     on the card.  Then one more step under the profiler for the device's
-    busy share."""
+    busy share.  ``deterministic``: all of it under PyTorch's deterministic
+    algorithms."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.layers import fold_seed
     from repro_torch.runtime.fault import run_loop
     from repro_torch.train.steps import init_train_state, make_train_step
 
     cfg = model.cfg
     b, seq, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
-    # the reference driver's TrainConfig for --steps n
-    tcfg = TrainConfig(learning_rate=3e-4, total_steps=n, warmup_steps=max(10, n // 20),
-                       seed=seed)
+    tcfg, data = train_setup(cfg, seed)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(model, tcfg, seed, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=b,
-                                  seed=seed))
 
     def batch_fn(step: int) -> dict:
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(step).items()}
@@ -3462,7 +3904,7 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple
         return out
 
     kernels.reset_launch_counts()
-    with attention_calls() as seen:
+    with attention_calls() as seen, deterministic_algorithms(deterministic):
         result = run_loop(state, timed, batch_fn, total_steps=n)
     counts = kernels.launch_counts()
     for key in calls:
@@ -3480,8 +3922,9 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple
               f"train {label}: {name} not launched in steps {missed} ({counts})")
     step_ms = float(np.median(times[1:])) * 1e3
     per_step = {k: v / n for k, v in counts.items() if v}
-    busy_ms, kernel_ms, wall_ms, _ = profile_fn(lambda: timed(result.state, batch_fn(n)), 1,
-                                                "train step")
+    with deterministic_algorithms(deterministic):
+        busy_ms, kernel_ms, wall_ms, _ = profile_fn(lambda: timed(result.state, batch_fn(n)), 1,
+                                                    "train step")
     share = (f"device busy {busy_ms / wall_ms:.3f} of {wall_ms:.1f} ms, own kernels "
              f"{kernel_ms / max(busy_ms, 1e-9):.3f} of busy" if busy_ms else
              "device busy share not measured (the profiler saw no device time)")
@@ -3500,7 +3943,8 @@ def phase_train(label: str, model, *, expect: tuple, seed: int = 0, calls: tuple
           f"launches per step {per_step}; peak device memory {peak_gb:.2f} GB; {share}",
           flush=True)
     return dict(counts=counts, per_step=per_step, step_ms=step_ms, first=first, last=last,
-                losses=losses, aux=auxes, busy_share=busy_ms / wall_ms if busy_ms else None)
+                losses=losses, norms=[h["grad_norm"] for h in result.metrics_history],
+                aux=auxes, busy_share=busy_ms / wall_ms if busy_ms else None)
 
 
 def phase_train_reference(label: str, sides: tuple, *, expect: tuple = ()) -> None:
@@ -3556,34 +4000,49 @@ def phase_train_reference(label: str, sides: tuple, *, expect: tuple = ()) -> No
           f"1e-4); launches { {n: counts[n] for n in expect} }", flush=True)
 
 
-def phase_train_cli() -> None:
-    """The train CLI on the card: full-width paper-multiplier, a checkpoint
-    every 4 steps and a failure injected at step 5; it must recover from the
-    step-4 checkpoint and print its loss line."""
-    import re
+def start_train_cli():
+    """Start the train CLI on the card in a process of its own: full-width
+    paper-multiplier, a checkpoint every 4 steps and a failure injected at
+    step 5 (``finish_train_cli`` holds what it printed).  It is killed at
+    exit if it is still running."""
+    import atexit
     import shutil
 
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
     history = ROOT / "build" / "chip_smoke_train_history.json"
     shutil.rmtree(ckpt, ignore_errors=True)
+    history.unlink(missing_ok=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "paper-multiplier",
            "--steps", str(TRAIN_CLI_STEPS), "--batch", "8", "--seq", "128", "--ckpt-dir", str(ckpt),
            "--ckpt-every", "4", "--inject-failures", "5", "--log-every", "2",
            "--out", str(history)]
     t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, t0, ckpt, history
+
+
+def finish_train_cli(started) -> None:
+    """Wait for ``start_train_cli``'s process: it must recover from the
+    step-4 checkpoint and print its loss line."""
+    import re
+    import shutil
+
+    proc, t0, ckpt, history = started
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600,
-                              env={**os.environ, "PYTHONPATH": str(SRC)})
+        out, err = proc.communicate(timeout=600)
         # the history holds one loss per step run, the repeated step 5 (after
         # the restore from step 4) included: its first is step 1, its last the final step
         losses = ([h["loss"] for h in json.loads(history.read_text())]
                   if proc.returncode == 0 else [])
     finally:
+        if proc.poll() is None:
+            proc.kill()
         shutil.rmtree(ckpt, ignore_errors=True)
         history.unlink(missing_ok=True)
     wall = time.perf_counter() - t0
-    out = proc.stdout
-    check(proc.returncode == 0, f"train CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    check(proc.returncode == 0, f"train CLI exit {proc.returncode}: {err[-2000:]}")
     m = re.search(r"loss ([-\d.naif]+) -> ([-\d.naif]+)\s+failures=(\d+) restarts=(\d+)", out)
     check(m is not None, f"train CLI printed no loss line: {out[-2000:]}")
     a, b = float(m.group(1)), float(m.group(2))
@@ -3597,7 +4056,7 @@ def phase_train_cli() -> None:
     # the CLI's own "loss a -> b" is checked above but not printed: over 8
     # steps both of its ten-step means average the same steps
     lines = [ln for ln in out.splitlines() if ln.startswith(("arch=", "recovered"))]
-    print(f"train CLI ({wall:.1f}s): " + " | ".join(lines)
+    print(f"train CLI ({wall:.1f}s, beside the error analysis): " + " | ".join(lines)
           + f" | failures {failures} restarts {restarts} | loss of step 1 {losses[0]:.6f}, "
           f"of step {TRAIN_CLI_STEPS} {losses[-1]:.6f}", flush=True)
 
@@ -3636,14 +4095,16 @@ def main() -> int:
     audit_run = start_audit()
     with phase("build"):
         t0 = time.perf_counter()
+        seconds = {}
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            built = pool.submit(build.build_all)
+            built = pool.submit(build.build_all, seconds=seconds)
             warmed = warm_certificates()  # on the host while nvcc runs
             warm_s = time.perf_counter() - t0
             logs = built.result()
-        print(f"build: {sorted(logs) or 'all cached'} in {time.perf_counter() - t0:.1f}s; "
-              f"{warmed} certifier verdicts for the armed phases in {warm_s:.1f}s beside it",
-              flush=True)
+        each = ", ".join(f"{n} {s:.1f}s" for n, s in sorted(seconds.items(), key=lambda x: x[1]))
+        print(f"build: {sorted(logs) or 'all cached'} in {time.perf_counter() - t0:.1f}s "
+              f"({each or 'none built'}; nvcc {' '.join(build.NVCC_FLAGS)}); {warmed} certifier "
+              f"verdicts for the armed phases in {warm_s:.1f}s beside it", flush=True)
         for name, log in sorted(logs.items()):
             report = smem.ptxas_report(log)
             for kernel, regs, spill_st, spill_ld, _ in report:
@@ -3792,6 +4253,10 @@ def main() -> int:
             "draft": runs["packed_matmul"]}, n_req)
         del params
         torch.cuda.empty_cache()
+    with phase("tensor parallel"):
+        tp_runs = phase_tensor_parallel(card_line, {
+            "balanced": runs["lut_matmul"], "pallas exact": runs["flash_attention"]})
+        torch.cuda.empty_cache()
     # gemma2-9b, gemma-7b, yi-9b, qwen2-vl-7b, granite-moe-1b-a400m,
     # recurrentgemma-2b and mamba2-130m at full width, one at a time
     wide_runs = {}
@@ -3813,7 +4278,9 @@ def main() -> int:
                                             mode="bitexact", n=8, t=4, targets=("mlp", "attn")))
         train_runs["bitexact"] = phase_train(
             "qwen3-0.6b bitexact mlp+attn pallas", bitexact,
-            expect=("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS))
+            expect=("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS),
+            deterministic=True)
+        tp_train_check(tp_runs["train"], train_runs["bitexact"], card_line)
         for name in BWD_KERNELS:
             runs[name] = dict(counts=train_runs["paper-multiplier"]["counts"],
                               per_step=train_runs["paper-multiplier"]["per_step"])
@@ -3859,13 +4326,14 @@ def main() -> int:
             calls=(("flash_attention", False), ("flash_attention", True)))
         del seamless
     torch.cuda.empty_cache()
-    with phase("train CLI"):
-        phase_train_cli()
 
-    # 7. the paper's simulated error analysis: engine.multiply through
-    # seqmul_packed, the error reports up to n = 16 through seqmul_words
-    with phase("error analysis"):
+    # 7. the train CLI in a process of its own, beside the paper's simulated
+    # error analysis: engine.multiply through seqmul_packed, the error
+    # reports up to n = 16 through seqmul_words
+    with phase("train CLI and error analysis"):
+        cli = start_train_cli()
         analysis = phase_error_analysis(cpu_eval)
+        finish_train_cli(cli)
     for name in ELEMENTWISE_KERNELS:
         runs[name] = analysis
 
@@ -3909,6 +4377,16 @@ def main() -> int:
                 per_step["mesh_serve_launches"] = dist_runs[tier]["counts"][name]
         if "exact_matmul_ms" in main_row:
             per_step["exact_matmul_ms"] = main_row["exact_matmul_ms"]
+        # the tensor-parallel phase: the integer epilogue, the decode's lse,
+        # and the launches of the TP code's train step and serve run
+        per_step.update(tp_runs["epilogues"].get(name, {}))
+        if name == "flash_decode":
+            per_step["lse_ms"] = {k: v["lse_ms"] for k, v in tp_runs["decodes"].items()}
+            per_step["no_lse_ms"] = {k: v["no_lse_ms"] for k, v in tp_runs["decodes"].items()}
+        if tp_runs["train"]["per_step"].get(name):
+            per_step["tp_train_launches_per_step"] = tp_runs["train"]["per_step"][name]
+        if tp_runs["serve"].get(name):
+            per_step["tp_serve_launches"] = tp_runs["serve"][name]
         for arch in ("gemma2-9b", "qwen2-vl-7b", "granite-moe-1b-a400m", "recurrentgemma-2b",
                      "mamba2-130m", "seamless-m4t-large-v2"):
             used = {label: run["counts"][name] for label, run in wide_runs[arch].items()

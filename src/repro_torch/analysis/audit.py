@@ -37,7 +37,8 @@ from repro_torch.analysis.spec import TraceSpec
 __all__ = [
     "AuditResult", "CertificationError", "GATE_CHECKS", "audit_kernel", "audit_matrix",
     "certified", "certified_attention", "certified_elementwise", "certified_flash",
-    "certified_kernel", "derived_frontier", "gate", "matrix_entries", "report",
+    "certified_kernel", "certified_row", "derived_frontier", "gate", "matrix_entries",
+    "report",
     "require_certified",
 ]
 
@@ -204,7 +205,8 @@ def _model_head_dims() -> list[int]:
 
 def matrix_entries() -> list[tuple]:
     """``(family, mode, n, t, deployed, expect)``: every CUDA GEMM mode at
-    every tier-resolved split; the approximate attention at every attention
+    every tier-resolved split; the integer modes' row-parallel routes over
+    four K shards (``"gemm_row"``, mode ``"<mode>/<shards>"``); the approximate attention at every attention
     split; the elementwise kernels; the kernel-level contracts; the blocks
     of every GEMM tile and every attention kernel at the models' head
     widths (``smem``, ``t`` the head width); and the frontier entries."""
@@ -227,7 +229,12 @@ def matrix_entries() -> list[tuple]:
             ("elementwise", "packed_single", 16, 8, False, False),
             ("elementwise", "packed_words", 16, 8, True, None)]
     out += [("kernel", kind, n, t_def, True, None)
-            for kind in ("lut_gemm", "packed_gemm", "lowrank_gemm")]
+            for kind in ("lut_gemm", "packed_gemm", "lowrank_gemm", "lut_gemm_int",
+                         "packed_gemm_int")]
+    out += [("kernel", "seqmul_gemm_int", 12, 6, True, None)]
+    # the row-parallel routes (tensor parallelism) over four K shards
+    out += [("gemm_row", f"{mode}/4", n, t_def, True, None)
+            for mode in ("bitexact", "seqmul", "inject")]
     out += [("kernel", "seqmul_gemm", 12, 6, True, None),
             ("kernel", "seqmul_gemm", 15, 7, False, True),
             ("kernel", "seqmul_gemm", 16, 8, False, False),
@@ -254,6 +261,10 @@ def _audit_entry(family: str, mode: str, n: int, t: int, deployed: bool,
     kw = dict(deployed=deployed, expect=expect)
     if family == "gemm":
         return _audit_gemm(mode, n, t, **kw)
+    if family == "gemm_row":
+        gmode, shards = mode.split("/")
+        return audit_kernel(contracts.gemm_trace(gmode, n, t, shards=int(shards)),
+                            family="gemm", mode=gmode, n=n, t=t, **kw)
     if family == "attention":
         return audit_kernel(contracts.attention_trace(mode, n, t), family=family, mode=mode,
                             n=n, t=t, footprints=(smem.validate_attention(mode, n, 64, 8),), **kw)
@@ -318,6 +329,18 @@ def certified_kernel(kind: str, n: int, t: int) -> bool:
     return audit_kernel(contracts.kernel_trace(kind, n, t)).certified
 
 
+@functools.lru_cache(maxsize=1024)
+def certified_row(mode: str, n: int, t: int, shards: int) -> bool:
+    """Static verdict for ``mode``'s row-parallel route over ``shards`` K
+    shards (``contracts.gemm_trace(..., shards=)``): the integer epilogue
+    of each shard and the int64 sum of their partials, within the mode's
+    dispatch contract and its certified whole route."""
+    if not certified(mode, n, t):
+        return False
+    spec = contracts.gemm_trace(mode, n, t, shards=shards)
+    return audit_kernel(spec, family="gemm", mode=mode, n=n, t=t).certified
+
+
 def require_certified(mode: str, n: int, t: int, *, elementwise: bool = False) -> None:
     """Raise :class:`CertificationError` unless ``mode``'s GEMM (or, with
     ``elementwise``, the packed single-word kernel) is certified at (n, t)."""
@@ -364,12 +387,15 @@ def gate(kernel: str, what: str, n: int = 0, t: int = 0, **config: Any) -> None:
     certificate: an engine mode (its CUDA route, :func:`certified`), a
     kernel kind (``contracts.KERNEL_KINDS``, :func:`certified_kernel`),
     ``"packed_single"`` (:func:`certified_elementwise`),
-    ``"attention:<mode>"`` (with ``hd`` and ``rank``) or ``"flash"`` (with
-    ``hd`` and ``dtype``)."""
+    ``"attention:<mode>"`` (with ``hd`` and ``rank``), ``"flash"`` (with
+    ``hd`` and ``dtype``) or ``"row:<mode>"`` (with ``shards``,
+    :func:`certified_row`)."""
     if what == "flash":
         ok = certified_flash(config["hd"], config["dtype"])
     elif what.startswith("attention:"):
         ok = certified_attention(what[10:], n, t, config["hd"], config["rank"])
+    elif what.startswith("row:"):
+        ok = certified_row(what[4:], n, t, config["shards"])
     elif what == "packed_single":
         ok = certified_elementwise(n, t)
     elif what in contracts.KERNEL_KINDS:

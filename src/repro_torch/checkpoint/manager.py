@@ -69,18 +69,9 @@ class Placed:
 
     def full(self) -> torch.Tensor:
         """The whole logical tensor, gathered over the mesh (collective)."""
-        from repro_torch.distributed.sharding import gather_rows
+        from repro_torch.distributed.sharding import gather_block
 
-        out, names = self.local, self.mesh.mesh_dim_names
-        # undo local_block's narrowing, innermost mesh dimension first
-        for mdim in reversed(range(len(names))):
-            for d, entry in enumerate(self.spec):
-                axes = entry if isinstance(entry, tuple) else (entry,)
-                size = self.mesh.size(mdim)
-                if entry is not None and names[mdim] in axes and size > 1:
-                    group = self.mesh.get_group(names[mdim])
-                    out = gather_rows(out.movedim(d, 0), group, size).movedim(0, d)
-        return out.reshape(self.shape)
+        return gather_block(self.local, self.spec, self.mesh).reshape(self.shape)
 
     def load(self, full: torch.Tensor) -> None:
         """Keep this rank's block of ``full`` (the logical tensor)."""

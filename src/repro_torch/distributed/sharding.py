@@ -57,15 +57,41 @@ port's per-layer tensor of such a leaf is replicated over that axis (the
 entry is dropped); the dry-run counts bytes on the reference's stacked
 layout, so for these leaves the port's own placement holds twice the
 dry-run's figure (under 2 MB a device for either model).
+
+**Tensor parallelism** (the second half of the module).  Where the
+reference hints heads, d_ff and the vocabulary onto the model axis with
+``constrain`` and lets GSPMD insert the collectives, the port issues them
+itself.  :func:`place_params` replaces each parameter by its local block
+under its per-layer spec and records the spec on it (``p.spec``); a layer
+reads from the spec which dimension is split (:func:`tp_role`: a weight
+whose output dimension holds the model axis is column-parallel, one whose
+input dimension holds it row-parallel), never from the arch.  Before use,
+:func:`use` gathers a leaf over the data axis it is FSDP-split over (its
+gradient reduce-scattered back), or, for a leaf replicated over a data
+axis, passes it through with its gradient all-reduced over that axis.
+The model-axis collectives are ``torch.autograd.Function`` pairs:
+:func:`copy_to` (identity, all-reduce backward) before a column-parallel
+product and :func:`reduce_from` (all-reduce, identity backward) after a
+row-parallel one; :func:`all_gather` (reduce-scatter backward) and
+:func:`reduce_scatter` (all-gather backward) along a dimension.  Gloo has
+no reduce-scatter, so :func:`reduce_scatter` is an all-reduce after which
+each rank keeps its slice, under gloo and NCCL alike, so both give the
+same bits; it moves the whole buffer, and is counted so.  Every
+collective goes through :func:`_collective`, which counts the bytes it
+issues by kind (:func:`counting`), calls the
+collective on a one-rank group too (the card runs them there), and on an
+:class:`AbstractMesh` runs nothing and returns the result's shape, so the
+dry-run counts a sharded step's collectives on ``meta`` tensors from the
+calls that step makes.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import re
-import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -74,11 +100,13 @@ TP = "model"
 FSDP = "data"
 
 __all__ = [
-    "DP", "TP", "FSDP", "AbstractMesh", "LeafSpec", "ambient_mesh", "data_group",
-    "data_parallel_mesh", "gather_rows", "global_max", "global_rows",
-    "leaf_specs", "local_block", "mesh_axis_sizes", "mesh_context", "model_group",
-    "param_spec", "param_specs", "require_live", "resolve_spec", "row_shard",
-    "rows_replicated",
+    "DP", "TP", "FSDP", "RS_AS_ALL_REDUCE", "AbstractMesh", "Axis", "LeafSpec", "Shard",
+    "all_gather", "all_reduce", "all_reduce_max", "ambient_mesh", "copy_to", "counting",
+    "data_group", "data_parallel_mesh", "gather", "gather_block", "gather_rows", "global_max",
+    "global_rows", "heads_split", "is_placed", "leaf_specs", "local_block", "mesh_axis",
+    "mesh_axis_sizes", "mesh_context", "model_axis", "model_group", "param_spec", "param_specs",
+    "place_params", "reduce_from", "reduce_scatter", "require_live", "resolve_spec", "row_shard",
+    "rows_replicated", "spec_axes", "tp_role", "use",
 ]
 
 
@@ -124,10 +152,15 @@ def mesh_axis_sizes(mesh=None) -> dict:
 
 
 # ------------------------------------------------------------ ambient mesh
-class _State(threading.local):
+class _State:
+    """The ambient mesh, process-wide: autograd runs a CUDA backward (and a
+    remat block's recompute within it) on a device thread of its own, which
+    must see the mesh its forward ran under."""
+
     def __init__(self):
         self.mesh = None
         self.rows = False  # the activations' leading dimension is sharded over DP
+        self.heads = None  # the Axis an attention's heads are split over, or None
 
 
 _STATE = _State()
@@ -204,13 +237,29 @@ def row_shard():
     return data_group(_STATE.mesh)
 
 
+@contextlib.contextmanager
+def heads_split(ax):
+    """Within, the attention's heads are split over ``ax`` (tensor
+    parallelism): :func:`global_max` takes the max over it too, so the
+    approximate attention's per-tensor q, k and v scales are the whole
+    tensors'."""
+    saved = _STATE.heads
+    _STATE.heads = ax
+    try:
+        yield
+    finally:
+        _STATE.heads = saved
+
+
 def global_max(t: torch.Tensor) -> torch.Tensor:
-    """(a): ``t`` (an absmax) as the max over every rank's rows."""
+    """(a): ``t`` (an absmax) as the max over every rank's rows (and, within
+    :func:`heads_split`, over the ranks the heads are split over)."""
     group, _, size = row_shard()
-    if size == 1:
-        return t
-    t = t.clone()
-    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=group)
+    if size > 1:
+        t = t.clone()
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=group)
+    if _STATE.heads is not None:
+        t = all_reduce_max(t, _STATE.heads)
     return t
 
 
@@ -360,6 +409,11 @@ class LeafSpec:
     stacked: bool
 
     @property
+    def ndim(self) -> int:
+        """The leaf's rank in the reference's tree (stacking adds one)."""
+        return len(self.shape)
+
+    @property
     def layer_spec(self) -> tuple:
         """The spec of each of the port's tensors: the stacked entry dropped
         (a per-layer tensor is replicated over an axis that split the
@@ -397,16 +451,330 @@ def param_specs(params, mesh, *, fsdp: bool = True) -> dict:
             for name in ls.names}
 
 
+def _layout(mesh) -> tuple:
+    """(axis names, sizes, this rank's coordinate) of a live mesh, or of an
+    :class:`AbstractMesh` at coordinate 0 (every block has its shape)."""
+    if isinstance(mesh, AbstractMesh):
+        return tuple(mesh.axis_names), tuple(mesh.axis_sizes), (0,) * len(mesh.axis_sizes)
+    names = tuple(mesh.mesh_dim_names)
+    return names, tuple(mesh.size(i) for i in range(len(names))), tuple(mesh.get_coordinate())
+
+
+def spec_axes(entry) -> tuple:
+    """The axis names of one spec entry (``None``, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 def local_block(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's block of ``full`` under ``spec`` on a live mesh (a view;
-    every dimension a spec splits divides by construction)."""
-    coord = mesh.get_coordinate()
+    """This rank's block of ``full`` under ``spec`` on a live mesh, or the
+    block at coordinate 0 of an :class:`AbstractMesh` (a view; every
+    dimension a spec splits divides by construction)."""
+    names, sizes, coord = _layout(mesh)
     out = full
-    for mdim, axis in enumerate(mesh.mesh_dim_names):
+    for mdim, axis in enumerate(names):
         for d, entry in enumerate(spec):
-            axes = entry if isinstance(entry, tuple) else (entry,)
-            if entry is not None and axis in axes:
-                n = mesh.size(mdim)
+            if axis in spec_axes(entry):
+                n = sizes[mdim]
                 step = out.shape[d] // n
                 out = out.narrow(d, coord[mdim] * step, step)
+    return out
+
+
+def gather_block(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The inverse of :func:`local_block`: the whole tensor from every
+    rank's block (all-gathers over each split axis, innermost mesh
+    dimension first; no gradient)."""
+    names = _layout(mesh)[0]
+    out = local
+    for axis in reversed(names):
+        ax = mesh_axis(mesh, axis)
+        for d, entry in enumerate(spec):
+            if axis in spec_axes(entry):
+                out = _collective("all-gather", out, ax, dim=d)
+    return out
+
+
+# ------------------------------------------------------ tensor parallelism
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of a mesh: its process group (None on an
+    :class:`AbstractMesh`), this rank's index along it and its size."""
+
+    name: str
+    group: object
+    index: int
+    size: int
+
+    @property
+    def abstract(self) -> bool:
+        return self.group is None
+
+
+class Shard(NamedTuple):
+    """A GEMM's tensor-parallel role: ``"column"`` (the weight's output
+    dimension split over ``axis``) or ``"row"`` (its input dimension)."""
+
+    role: str
+    axis: Axis
+
+
+def mesh_axis(mesh, name: str) -> Optional[Axis]:
+    """Axis ``name`` of ``mesh`` (default: the ambient mesh), with its
+    group even where it has one rank; None without a mesh or that axis."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is None:
+        return None
+    names, sizes, coord = _layout(mesh)
+    if name not in names:
+        return None
+    i = names.index(name)
+    group = None if isinstance(mesh, AbstractMesh) else mesh.get_group(name)
+    return Axis(name, group, coord[i], sizes[i])
+
+
+def model_axis(mesh=None) -> Optional[Axis]:
+    """The model axis of ``mesh`` (default: the ambient mesh), or None."""
+    return mesh_axis(mesh, TP)
+
+
+_COUNTERS: list = []
+RS_AS_ALL_REDUCE = "all-reduce for reduce-scatter"  # the counted kind of a reduce-scatter
+
+
+@contextlib.contextmanager
+def counting():
+    """Within, every collective adds the bytes it issues to the yielded
+    ``Counter`` under its kind: ``all-reduce`` and ``all-gather`` their
+    result buffer's, as the reference's HLO analysis counts them, and
+    :data:`RS_AS_ALL_REDUCE` the whole buffer of the all-reduce that stands
+    in for a reduce-scatter (the module's note), ``m`` times the
+    reduce-scatter's result over ``m`` ranks."""
+    counter = collections.Counter()
+    _COUNTERS.append(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTERS.remove(counter)
+
+
+def _collective(kind: str, t: torch.Tensor, ax: Axis, *, dim: int = 0,
+                op: str = "sum") -> torch.Tensor:
+    """The one place every tensor-parallel collective passes: counted, then
+    run over ``ax`` (on an abstract axis only shaped).  ``all-reduce``
+    (``op`` sum or max) returns a new tensor; ``all-gather`` concatenates
+    the ranks' ``t`` along ``dim`` in rank order; ``reduce-scatter`` sums
+    and keeps this rank's slice along ``dim``."""
+    if kind == "all-gather":
+        shape = list(t.shape)
+        shape[dim] *= ax.size
+        nbytes = t.numel() * ax.size * t.element_size()
+    else:  # a reduce-scatter is issued as an all-reduce of the whole buffer
+        nbytes = t.numel() * t.element_size()
+    for counter in _COUNTERS:
+        counter[RS_AS_ALL_REDUCE if kind == "reduce-scatter" else kind] += nbytes
+    if ax.abstract:
+        if kind == "all-gather":
+            return t.new_empty(shape) if t.device.type == "meta" else torch.cat([t] * ax.size, dim)
+        if kind == "reduce-scatter":
+            return t.narrow(dim, ax.index * (t.shape[dim] // ax.size), t.shape[dim] // ax.size)
+        return t.clone()
+    dist = torch.distributed
+    if kind == "all-gather":  # into one tensor, ranks along dim 0, then moved to dim
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((ax.size * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=ax.group)
+        return out.movedim(0, dim).contiguous() if dim % t.ndim else out
+    out = t.contiguous().clone()
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    dist.all_reduce(out, op=red, group=ax.group)
+    if kind == "reduce-scatter":  # gloo has none: all-reduce, keep this rank's slice
+        step = out.shape[dim] // ax.size
+        out = out.narrow(dim, ax.index * step, step).contiguous()
+    return out
+
+
+def all_reduce(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The sum over ``ax`` (no gradient); ``t`` unchanged without an axis."""
+    return t if ax is None else _collective("all-reduce", t, ax)
+
+
+def gather(t: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over ``ax`` with no gradient (a result every
+    rank then holds whole, such as the serving logits)."""
+    return t if ax is None else _collective("all-gather", t.detach(), ax, dim=dim)
+
+
+def all_reduce_max(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The max over ``ax`` (no gradient); ``t`` unchanged without an axis."""
+    return t if ax is None else _collective("all-reduce", t, ax, op="max")
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all-reduce", g, ctx.ax), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _collective("all-reduce", x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _collective("all-gather", x, ax, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("reduce-scatter", g, ctx.ax, dim=ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _collective("reduce-scatter", x, ax, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all-gather", g, ctx.ax, dim=ctx.dim), None, None
+
+
+def copy_to(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Identity forward, all-reduce backward over ``ax``: the input of a
+    column-parallel product, whose every rank adds a part of its gradient."""
+    if ax is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyTo.apply(x, ax)
+
+
+def reduce_from(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """All-reduce forward, identity backward over ``ax``: the sum of a
+    row-parallel product's partials."""
+    if ax is None:
+        return x
+    if not torch.is_grad_enabled():  # serving: the collective alone
+        return _collective("all-reduce", x, ax)
+    return _ReduceFrom.apply(x, ax)
+
+
+def all_gather(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over ``ax``, reduce-scatter backward (the
+    ranks' gradients of the gathered tensor are parts of one sum)."""
+    if ax is None:
+        return x
+    if not torch.is_grad_enabled():
+        return _collective("all-gather", x, ax, dim=dim)
+    return _AllGather.apply(x, ax, dim)
+
+
+def reduce_scatter(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """Sum over ``ax``, keep this rank's slice along ``dim``; all-gather backward."""
+    if ax is None:
+        return x
+    if not torch.is_grad_enabled():
+        return _collective("reduce-scatter", x, ax, dim=dim)
+    return _ReduceScatter.apply(x, ax, dim)
+
+
+def tp_role(spec: Optional[tuple]) -> Optional[str]:
+    """``"column"`` where a 2-D weight's output dimension holds the model
+    axis, ``"row"`` where its input dimension does, else None."""
+    if not spec or len(spec) != 2:
+        return None
+    if TP in spec_axes(spec[-1]):
+        return "column"
+    if TP in spec_axes(spec[0]):
+        return "row"
+    return None
+
+
+def is_placed(params) -> bool:
+    """Whether ``params`` (a model's module) holds local blocks (:func:`place_params`)."""
+    return getattr(params, "placed_on", None) is not None
+
+
+def _set_param(module, name: str, p: torch.nn.Parameter) -> None:
+    *path, last = name.split(".")
+    for key in path:
+        module = getattr(module, key)
+    module.register_parameter(last, p)
+
+
+def _held(ls: LeafSpec, blocks: dict, mesh) -> LeafSpec:
+    """``ls`` with the spec its :class:`~repro_torch.checkpoint.manager.Placed`
+    leaves hold their blocks under (those leaves must lie on ``mesh``)."""
+    layer = {tuple(blocks[n].spec) for n in ls.names}
+    if len(layer) != 1:
+        raise ValueError(f"{_path_str(ls.path)}: its layers' blocks lie under different specs "
+                         f"({sorted(layer)})")
+    if any(blocks[n].mesh is not mesh and blocks[n].mesh != mesh for n in ls.names):
+        raise ValueError(f"{_path_str(ls.path)}: its blocks lie on another mesh than {mesh}")
+    (layer,) = layer
+    return dataclasses.replace(ls, spec=(None,) + layer if ls.stacked and layer else layer)
+
+
+def place_params(params, mesh, *, fsdp: bool = True, blocks=None):
+    """In place: every parameter of ``params`` becomes its block under its
+    per-layer spec (``leaf_specs`` with ``fsdp``) on ``mesh``, with
+    ``p.spec`` set, ``params.placed_on`` the mesh and
+    ``params.placed_specs`` the :class:`LeafSpec` list (of the whole
+    shapes); returns ``params``.  ``blocks`` (by parameter name) are
+    :class:`~repro_torch.checkpoint.manager.Placed` leaves on ``mesh`` to
+    hold instead: each parameter shares its leaf's storage and takes its
+    leaf's spec, so the leaves stay the one record of where each block lies."""
+    specs = leaf_specs(params, mesh, fsdp=fsdp)
+    if blocks is not None:
+        specs = [_held(ls, blocks, mesh) for ls in specs]
+    for ls in specs:
+        if ls.stacked and ls.spec and ls.spec[0] is not None:
+            raise ValueError(f"{_path_str(ls.path)}: a spec that splits the stacked "
+                             f"layers ({ls.spec}) has no per-layer block")
+        for name in ls.names:
+            old = params.get_parameter(name)
+            if blocks is not None:
+                block = blocks[name].local
+            else:
+                block = local_block(old.detach(), ls.layer_spec, mesh)
+                block = block.clone() if block.numel() < old.numel() else block
+            new = torch.nn.Parameter(block, requires_grad=old.requires_grad)
+            new.spec = ls.layer_spec
+            _set_param(params, name, new)
+    params.placed_on = mesh
+    params.placed_specs = specs
+    return params
+
+
+def use(p: torch.Tensor) -> torch.Tensor:
+    """A placed leaf as its layer uses it: gathered over the data axis its
+    spec splits it on (the gradient reduce-scattered), or, replicated over
+    a data axis, passed on with its gradient all-reduced over it; the leaf
+    itself where it is not placed."""
+    spec = getattr(p, "spec", None)
+    if spec is None:
+        return p
+    mesh = ambient_mesh()
+    if mesh is None:
+        raise ValueError("a placed parameter is used outside a mesh_context of its mesh")
+    out = p
+    for axis in DP:
+        ax = mesh_axis(mesh, axis)
+        if ax is None:
+            continue
+        dims = [d for d, e in enumerate(spec) if axis in spec_axes(e)]
+        out = all_gather(out, ax, dims[0]) if dims else copy_to(out, ax)
     return out

@@ -19,7 +19,15 @@ With ``REPRO_STATIC_AUDIT=1`` in the environment, both refuse a CUDA
 launch at a configuration the static audit (``repro_torch.analysis``) has
 not certified, with ``CertificationError``, before any other check and
 before the launch; each kernel wrapper checks its own launch the same way
-(``kernels.build.audit_gate``).
+(``kernels.build.audit_gate``).  A row-parallel shard of an integer mode
+needs the certificate of its route over K shards too (``row:<mode>``,
+``analysis.contracts.gemm_trace(..., shards=)``).
+
+``shard`` (a ``distributed.sharding.Shard``) carries a tensor-parallel
+layer's role to the mode body (``engine/modes.py``).  The straight-through
+backward is then the shard's own: for a column shard ``g @ w.T`` is this
+rank's part of dx, which the layer's ``sharding.copy_to`` adds over the
+model group; for a row shard it is dx's own K slice.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ from repro_torch.engine import modes as _modes
 from repro_torch.engine import policy as _policy
 from repro_torch.kernels.build import audit_armed, audit_gate
 
-__all__ = ["BACKENDS", "PACKED_U32_MAX_2N", "matmul", "multiply", "resolve_backend"]
+__all__ = ["BACKENDS", "INTEGER_MODES", "PACKED_U32_MAX_2N", "matmul", "multiply",
+           "resolve_backend"]
 
 BACKENDS = _policy.BACKENDS
 
@@ -42,6 +51,8 @@ BACKENDS = _policy.BACKENDS
 #   inject    packs quantized magnitudes into int16 lanes (|q| < 2^15);
 #   fakequant symmetric integer quantization in f32 (exact for n <= 23).
 _MODE_MAX_N = {"bitexact": 8, "lowrank": 8, "seqmul": 12, "inject": 15, "fakequant": 23}
+
+INTEGER_MODES = ("bitexact", "seqmul", "inject")  # row shards add integer partial sums
 
 PACKED_U32_MAX_2N = 31  # packed single-word product limit (the elementwise multiply)
 
@@ -116,8 +127,10 @@ def matmul(
     rank: int = 8,
     generator: Optional[torch.Generator] = None,
     backend: str = "auto",
+    shard=None,
 ) -> torch.Tensor:
-    """Approximate GEMM: x (M, K) @ w (K, N) -> (M, N) f32.
+    """Approximate GEMM: x (M, K) @ w (K, N) -> (M, N) f32; ``shard`` (a
+    ``sharding.Shard``) makes it one tensor-parallel shard of the GEMM.
 
     ``n``/``t`` left ``None`` are resolved by ``engine.config`` (the
     ``balanced`` tier's split at ``DEFAULT_N``).  Raises ``ValueError`` for
@@ -130,6 +143,8 @@ def matmul(
     if (audit_armed() and spec.cuda is not None
             and _policy.resolve_backend(backend, x.device) == "cuda"):
         audit_gate("engine.matmul", mode, n, t)
+        if shard is not None and shard.role == "row" and mode in INTEGER_MODES:
+            audit_gate("engine.matmul", f"row:{mode}", n, t, shards=shard.axis.size)
     _validate_mode_nt(mode, n, t)
     resolved = resolve_backend(backend, spec, x.device)
     if spec.needs_key and generator is None:
@@ -140,7 +155,7 @@ def matmul(
         from repro_torch.engine import config as _config
 
         _config.kernel_tiles(mode, n, t, x.shape[0], rank)
-    p = _modes.GemmParams(n=n, t=t, fix_to_1=fix_to_1, rank=rank)
+    p = _modes.GemmParams(n=n, t=t, fix_to_1=fix_to_1, rank=rank, shard=shard)
     extra = spec.prepare(x, w, p, generator) if spec.prepare is not None else ()
     impl = spec.cuda if resolved == "cuda" else spec.reference
     if spec.differentiable:

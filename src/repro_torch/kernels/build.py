@@ -4,13 +4,17 @@ Each kernel is one CUDA C++ source under ``csrc/`` with a plain C entry
 point.  It is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0 \
+         -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``)
 and loaded with ``ctypes``.  The library name carries a hash of the
 source, so an edited kernel is never served from a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
-all of them.  Nothing here runs at import: the CPU tests import every
+all of them.  ``--split-compile=0`` lets each ``nvcc`` optimise its
+kernels on every core, so the slowest source (``seqmul_matmul.cu``, 67
+instantiations) does not hold the build on one core once the others are
+done.  Nothing here runs at import: the CPU tests import every
 module of the port, and this machine may have no ``nvcc`` at all.
 
 A :class:`CudaKernel` is a kernel's binding: it checks the C function's
@@ -21,6 +25,7 @@ prefill and decode kernels); each has its own binding and count.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -29,6 +34,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -48,7 +54,7 @@ KERNELS = (
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 _lock = threading.Lock()
@@ -81,15 +87,26 @@ def _start(name: str) -> tuple[subprocess.Popen, pathlib.Path, pathlib.Path]:
     return proc, tmp, out
 
 
-def build_all(names=KERNELS) -> dict:
+def build_all(names=KERNELS, seconds: dict | None = None) -> dict:
     """Compile every stale kernel at once; returns ``{name: compiler log}``
-    (``-Xptxas -v`` register and shared-memory report) for those built."""
+    (``-Xptxas -v`` register and shared-memory report) for those built.
+    ``seconds``, where given, gets each one's wall seconds from the start."""
     with _lock:
+        t0 = time.perf_counter()
         started = {n: _start(n) for n in names if not library_path(n).exists()}
+
+        def finish(name):
+            log, _ = started[name][0].communicate()
+            return log, time.perf_counter() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(max(1, len(started))) as pool:
+            done = dict(zip(started, pool.map(finish, started)))
         logs, failed = {}, []
         for name, (proc, tmp, out) in started.items():
-            log, _ = proc.communicate()
+            log, wall = done[name]
             logs[name] = log
+            if seconds is not None:
+                seconds[name] = wall
             if proc.returncode != 0:
                 failed.append(f"{name}:\n{log}")
                 continue

@@ -114,6 +114,10 @@
 // row with no allowed slot in any chunk gets the uniform average of all T
 // slots, computed by that block, which is the reference's result there.
 // No float atomics: two launches on the same inputs give the same bits.
+// Given an lse buffer, that block also writes each row's M + log(max(L,
+// 1e-30)) over the slots it was given (NEG_INF where none is allowed), so
+// that ranks holding a sequence shard each of the cache can combine
+// their (o, lse) over the model group (models/attention.py).
 //
 // What bounds each on the H100.  The forward: per allowed (query head,
 // slot) pair, QK^T (2 hd FLOPs) and P.V as two bf16 terms (4 hd) on the
@@ -710,9 +714,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-                    float* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-                    int* __restrict__ skipped, int T_len, int H, int KV, int chunk, int window,
-                    float softcap, float scale) {
+                    float* __restrict__ out, float* __restrict__ lse, float* __restrict__ ws,
+                    int* __restrict__ counters, int* __restrict__ skipped, int T_len, int H,
+                    int KV, int chunk, int window, float softcap, float scale) {
   using L = DecLayout<T, HD>;
   constexpr int LD = L::LD;
   constexpr int NO = kMaxG * HD / kDecThreads;  // outputs (row, column) a thread may own
@@ -867,6 +871,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
     ls[tid] = l_all;
     ms[tid] = m_all;  // -inf: no chunk of the row had an allowed slot
+    if (lse != nullptr)
+      lse[size_t(b) * H + kvh * g + tid] =
+          m_all == minus_inf() ? kNegInf : m_all + logf(fmaxf(l_all, 1e-30f));
   }
   __syncthreads();
   for (int i = tid; i < g * HD; i += kDecThreads) {
@@ -995,8 +1002,9 @@ cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
   kernel<<<p.grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int*>(a.q_pos), static_cast<const int*>(a.k_pos),
-      static_cast<float*>(a.out), static_cast<float*>(a.ws), static_cast<int*>(a.counters),
-      static_cast<int*>(a.skipped), a.T_len, a.H, a.KV, p.keys, a.window, a.softcap, a.scale);
+      static_cast<float*>(a.out), static_cast<float*>(a.lse), static_cast<float*>(a.ws),
+      static_cast<int*>(a.counters), static_cast<int*>(a.skipped), a.T_len, a.H, a.KV, p.keys,
+      a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
@@ -1058,20 +1066,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 }
 
 // q (B, H, hd), k/v (B, T, KV, hd), q_pos (B,), k_pos (B, T); out f32 (B,
-// H, hd); ws: ws_floats float32 for the chunks' partials; counters: B x KV
+// H, hd); lse f32 (B, H) or null; ws: ws_floats float32 for the chunks'
+// partials; counters: B x KV
 // zeroed int32 (split_k.cuh); skipped: null, or an int32 to which the
 // kernel adds the (b, KV head, chunk) triples it skips; sms: the SMs the
 // split fills.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   const void* q_pos, const void* k_pos, void* out, void* ws,
-                                   long long ws_floats, void* counters, void* skipped,
+                                   const void* q_pos, const void* k_pos, void* out, void* lse,
+                                   void* ws, long long ws_floats, void* counters, void* skipped,
                                    int dtype, int B, int T_len, int H, int KV, int hd,
                                    int window, float softcap, float scale, int sms, int device,
                                    void* stream) {
   if (bad_args(dtype, B, 1, T_len, H, KV)) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const Args a{q, k, v, q_pos, k_pos, out, nullptr, ws, counters, skipped, ws_floats, B, 1,
+  const Args a{q, k, v, q_pos, k_pos, out, lse, ws, counters, skipped, ws_floats, B, 1,
                T_len, H, KV, 1, window, sms, softcap, scale};
   return int(decode_dispatch(dtype, hd, a, static_cast<cudaStream_t>(stream)));
 }

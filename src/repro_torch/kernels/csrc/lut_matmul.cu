@@ -55,6 +55,15 @@
 // counter per tile, split_k.cuh) adds them in split order, converts,
 // writes the output and resets its counter to 0.
 //
+// Integer epilogue (int_out).  A tensor-parallel shard of a row-parallel
+// layer holds a slice of K; the shards' sums must be added as the exact
+// integers they are before the one conversion, or the shard count would
+// move the result wherever |sum| >= 2^24 (engine/modes.py).  With int_out
+// the kernel writes the accumulator itself, int32 or int64 as the host
+// chose it (build.wide_accumulator), in place of float(acc); the split-K
+// sum is the same integer, so the output equals the float32 one before
+// its conversion, bit for bit.
+//
 // Bound on the H100 (chip_smoke.py): the larger of the table lookups at
 // the shared-memory rate (32 a clock per SM) and the bytes the function
 // must move at the HBM rate: operands once, output once, the table once.
@@ -110,6 +119,15 @@ __device__ __forceinline__ uint4 load16(const uint8_t* p, int limit, bool vec) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// The output: float32, or (int_out) the exact sum in the accumulator's type.
+template <typename Acc>
+__device__ __forceinline__ void store_out(float* out, size_t o, Acc v, int int_out) {
+  if (int_out)
+    reinterpret_cast<Acc*>(out)[o] = v;
+  else
+    out[o] = float(v);
+}
+
 // A block of 16 warps: TN row groups of TM rows by 16 / TN column groups
 // of 32 * TN columns (BM = TM * TN rows by 512 columns); a thread owns TM
 // rows and the TN columns lane + 32 j of its warp's span.
@@ -119,7 +137,7 @@ lut_matmul_kernel(const uint16_t* __restrict__ lut, const uint8_t* __restrict__ 
                   const int8_t* __restrict__ sign_a, const uint8_t* __restrict__ mag_b,
                   const int8_t* __restrict__ sign_b, float* __restrict__ out,
                   Acc* __restrict__ ws, int* __restrict__ counters, int M, int N, int K, int n,
-                  int splits, int k_chunk, int vec) {
+                  int splits, int k_chunk, int vec, int int_out) {
   constexpr int BM = TM * TN, kColGroups = 16 / TN;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -258,7 +276,7 @@ lut_matmul_kernel(const uint16_t* __restrict__ lut, const uint8_t* __restrict__ 
         if (m >= M || col >= N) continue;
         const size_t o = size_t(m) * N + col;
         if (splits == 1)
-          out[o] = float(acc[i][j]);
+          store_out(out, o, acc[i][j], int_out);
         else
           ws[split * plane + o] = acc[i][j];
       }
@@ -274,7 +292,7 @@ lut_matmul_kernel(const uint16_t* __restrict__ lut, const uint8_t* __restrict__ 
         const size_t o = size_t(m) * N + col;
         Acc sum = 0;
         for (int s = 0; s < splits; ++s) sum += __ldcg(ws + s * plane + o);
-        out[o] = float(sum);
+        store_out(out, o, sum, int_out);
       }
     split_k_release(counters, tile);
   }
@@ -303,7 +321,7 @@ bool make_plan(int M, int N, int K, int n, int bm, int splits, int k_chunk, int 
 template <int TM, int TN, typename Acc>
 cudaError_t launch(const Plan& p, const void* lut, const void* ma, const void* sa, const void* mb,
                    const void* sb, void* out, void* ws, void* counters, int M, int N, int K,
-                   int n, int splits, int k_chunk, int vec, cudaStream_t stream) {
+                   int n, int splits, int k_chunk, int vec, int int_out, cudaStream_t stream) {
   auto kernel = lut_matmul_kernel<TM, TN, Acc>;
   // the attribute once per kernel and device (at its largest, n = 8), not once per launch
   static bool sized[kMaxDevices] = {};
@@ -320,17 +338,18 @@ cudaError_t launch(const Plan& p, const void* lut, const void* ma, const void* s
       static_cast<const uint16_t*>(lut), static_cast<const uint8_t*>(ma),
       static_cast<const int8_t*>(sa), static_cast<const uint8_t*>(mb),
       static_cast<const int8_t*>(sb), static_cast<float*>(out), static_cast<Acc*>(ws),
-      static_cast<int*>(counters), M, N, K, n, splits, k_chunk, vec);
+      static_cast<int*>(counters), M, N, K, n, splits, k_chunk, vec, int_out);
   return cudaGetLastError();
 }
 
 template <typename Acc>
 cudaError_t launch_acc(const Plan& p, int bm, const void* lut, const void* ma, const void* sa,
                        const void* mb, const void* sb, void* out, void* ws, void* counters, int M,
-                       int N, int K, int n, int splits, int k_chunk, int vec, cudaStream_t s) {
-  if (bm == 4) return launch<4, 1, Acc>(p, lut, ma, sa, mb, sb, out, ws, counters, M, N, K, n, splits, k_chunk, vec, s);
-  if (bm == 16) return launch<8, 2, Acc>(p, lut, ma, sa, mb, sb, out, ws, counters, M, N, K, n, splits, k_chunk, vec, s);
-  if (bm == 32) return launch<8, 4, Acc>(p, lut, ma, sa, mb, sb, out, ws, counters, M, N, K, n, splits, k_chunk, vec, s);
+                       int N, int K, int n, int splits, int k_chunk, int vec, int int_out,
+                       cudaStream_t s) {
+  if (bm == 4) return launch<4, 1, Acc>(p, lut, ma, sa, mb, sb, out, ws, counters, M, N, K, n, splits, k_chunk, vec, int_out, s);
+  if (bm == 16) return launch<8, 2, Acc>(p, lut, ma, sa, mb, sb, out, ws, counters, M, N, K, n, splits, k_chunk, vec, int_out, s);
+  if (bm == 32) return launch<8, 4, Acc>(p, lut, ma, sa, mb, sb, out, ws, counters, M, N, K, n, splits, k_chunk, vec, int_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -340,12 +359,13 @@ cudaError_t launch_acc(const Plan& p, int bm, const void* lut, const void* ma, c
 // K in whole stages of 32, no slice empty; sms: the grid's cap (one block
 // per SM); vec: 16-byte loads (K and N multiples of 16, 16-byte aligned
 // operands); ws (splits * M * N int32, or int64 if wide_acc) and counters
-// (one per tile, zeroed) are needed only when splits > 1.
+// (one per tile, zeroed) are needed only when splits > 1; int_out: out
+// holds M * N int32 (int64 if wide_acc) exact sums in place of float32.
 extern "C" int lut_matmul_launch(const void* lut, const void* mag_a, const void* sign_a,
                                  const void* mag_b, const void* sign_b, void* out, int M,
                                  int N, int K, int n, int bm, int wide_acc, int splits,
                                  int k_chunk, int sms, int vec, void* ws, void* counters,
-                                 int device, void* stream) {
+                                 int int_out, int device, void* stream) {
   Plan p;
   if (!make_plan(M, N, K, n, bm, splits, k_chunk, sms, &p) ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
@@ -354,9 +374,9 @@ extern "C" int lut_matmul_launch(const void* lut, const void* mag_a, const void*
   if (err != cudaSuccess) return int(err);
   const auto s = static_cast<cudaStream_t>(stream);
   err = wide_acc ? launch_acc<long long>(p, bm, lut, mag_a, sign_a, mag_b, sign_b, out, ws,
-                                         counters, M, N, K, n, splits, k_chunk, vec, s)
+                                         counters, M, N, K, n, splits, k_chunk, vec, int_out, s)
                  : launch_acc<int>(p, bm, lut, mag_a, sign_a, mag_b, sign_b, out, ws, counters,
-                                   M, N, K, n, splits, k_chunk, vec, s);
+                                   M, N, K, n, splits, k_chunk, vec, int_out, s);
   return int(err);
 }
 

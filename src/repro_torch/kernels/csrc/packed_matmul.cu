@@ -130,6 +130,14 @@ __device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
   v[2] = q.z;
   v[3] = q.w;
 }
+// four consecutive outputs of the integer epilogue (16-byte aligned: N % 4 == 0)
+__device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(long long* p, const long long (&v)[4]) {
+  reinterpret_cast<longlong2*>(p)[0] = make_longlong2(v[0], v[1]);
+  reinterpret_cast<longlong2*>(p)[1] = make_longlong2(v[2], v[3]);
+}
 __device__ __forceinline__ void load4(const long long* p, long long (&v)[4]) {
   const longlong2 a = __ldcg(reinterpret_cast<const longlong2*>(p));
   const longlong2 b = __ldcg(reinterpret_cast<const longlong2*>(p + 2));
@@ -139,11 +147,22 @@ __device__ __forceinline__ void load4(const long long* p, long long (&v)[4]) {
   v[3] = b.y;
 }
 
+// The output: float32, or (int_out) the exact sum in the accumulator's type:
+// the integer epilogue of a tensor-parallel K shard, whose sums the shards
+// add as integers before the one conversion (engine/modes.py).
+template <typename Acc>
+__device__ __forceinline__ void store_out(float* out, size_t o, Acc v, int int_out) {
+  if (int_out)
+    reinterpret_cast<Acc*>(out)[o] = v;
+  else
+    out[o] = float(v);
+}
+
 template <int WN, int MT, typename Acc>
 __global__ void __launch_bounds__(kThreads)
 packed_matmul_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__ pb,
                      float* __restrict__ out, Acc* __restrict__ ws, int* __restrict__ counters,
-                     int M, int N, int KW, int kw_chunk, int vec) {
+                     int M, int N, int KW, int kw_chunk, int vec, int int_out) {
   using T = Tile<WN, MT>;
   extern __shared__ __align__(16) uint32_t ring[];
   const int tid = threadIdx.x;
@@ -267,7 +286,7 @@ packed_matmul_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__
         if (split)
           ws[blockIdx.z * plane + o] = total[j][mt][c];
         else
-          out[o] = float(total[j][mt][c]);
+          store_out(out, o, total[j][mt][c], int_out);
       }
   if (!split) return;
 
@@ -310,10 +329,15 @@ packed_matmul_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__
         for (int c = 0; c < 4; ++c) sum[i][c] += part[i][c];
     }
 #pragma unroll
-    for (int i = 0; i < kGroups; ++i)
-      if (ok[i])
+    for (int i = 0; i < kGroups; ++i) {
+      if (!ok[i]) continue;
+      if (int_out) {
+        store4(reinterpret_cast<Acc*>(out) + off[i], sum[i]);
+      } else {
         *reinterpret_cast<float4*>(out + off[i]) =
             make_float4(float(sum[i][0]), float(sum[i][1]), float(sum[i][2]), float(sum[i][3]));
+      }
+    }
   } else {  // ragged N: one output at a time
     for (int e = tid; e < T::BM * T::BN; e += kThreads) {
       const int m = m_base + e / T::BN, col = n_base + e % T::BN;
@@ -321,7 +345,10 @@ packed_matmul_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__
       const size_t o = size_t(m) * N + col;
       long long sum = 0;
       for (int s = 0; s < splits; ++s) sum += __ldcg(ws + s * plane + o);
-      out[o] = __ll2float_rn(sum);
+      if (int_out)
+        reinterpret_cast<Acc*>(out)[o] = Acc(sum);
+      else
+        out[o] = __ll2float_rn(sum);
     }
   }
   split_k_release(counters, tile);
@@ -329,7 +356,8 @@ packed_matmul_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__
 
 template <int WN, int MT, typename Acc>
 cudaError_t launch(const void* pa, const void* pb, void* out, void* ws, void* counters, int M,
-                   int N, int KW, int splits, int kw_chunk, int vec, cudaStream_t stream) {
+                   int N, int KW, int splits, int kw_chunk, int vec, int int_out,
+                   cudaStream_t stream) {
   using T = Tile<WN, MT>;
   if ((M + T::BM - 1) / T::BM > 65535) return cudaErrorInvalidValue;
   auto kernel = packed_matmul_kernel<WN, MT, Acc>;
@@ -347,17 +375,17 @@ cudaError_t launch(const void* pa, const void* pb, void* out, void* ws, void* co
   const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
   kernel<<<grid, kThreads, T::kSmem, stream>>>(
       static_cast<const int32_t*>(pa), static_cast<const int32_t*>(pb), static_cast<float*>(out),
-      static_cast<Acc*>(ws), static_cast<int*>(counters), M, N, KW, kw_chunk, vec);
+      static_cast<Acc*>(ws), static_cast<int*>(counters), M, N, KW, kw_chunk, vec, int_out);
   return cudaGetLastError();
 }
 
 template <typename Acc>
 cudaError_t launch_acc(const void* pa, const void* pb, void* out, void* ws, void* counters,
                        int M, int N, int KW, int bm, int splits, int kw_chunk, int vec,
-                       cudaStream_t s) {
-  if (bm == 8) return launch<4, 1, Acc>(pa, pb, out, ws, counters, M, N, KW, splits, kw_chunk, vec, s);
-  if (bm == 32) return launch<2, 2, Acc>(pa, pb, out, ws, counters, M, N, KW, splits, kw_chunk, vec, s);
-  if (bm == 64) return launch<2, 4, Acc>(pa, pb, out, ws, counters, M, N, KW, splits, kw_chunk, vec, s);
+                       int int_out, cudaStream_t s) {
+  if (bm == 8) return launch<4, 1, Acc>(pa, pb, out, ws, counters, M, N, KW, splits, kw_chunk, vec, int_out, s);
+  if (bm == 32) return launch<2, 2, Acc>(pa, pb, out, ws, counters, M, N, KW, splits, kw_chunk, vec, int_out, s);
+  if (bm == 64) return launch<2, 4, Acc>(pa, pb, out, ws, counters, M, N, KW, splits, kw_chunk, vec, int_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -365,10 +393,11 @@ cudaError_t launch_acc(const void* pa, const void* pb, void* out, void* ws, void
 
 // bm picks the tile (kernels/packed_matmul.py TILES): 8 -> 128 columns x 8
 // tokens, 32 -> 64 x 32, 64 -> 64 x 64.  splits * kw_chunk words cover KW;
-// one step's plane sums stay far inside int32 at any chunk.
+// one step's plane sums stay far inside int32 at any chunk; int_out: out
+// holds M * N int32 (int64 if wide_acc) exact sums in place of float32.
 extern "C" int packed_matmul_launch(const void* pa, const void* pb, void* out, void* ws,
                                     void* counters, int M, int N, int KW, int bm, int splits,
-                                    int kw_chunk, int vec, int wide_acc, int device,
+                                    int kw_chunk, int vec, int wide_acc, int int_out, int device,
                                     void* stream) {
   if (M < 1 || N < 1 || KW < 0 || splits < 1 || splits > 65535 || kw_chunk < kBKW ||
       kw_chunk % kBKW != 0 || (long long)splits * kw_chunk < KW ||
@@ -379,8 +408,10 @@ extern "C" int packed_matmul_launch(const void* pa, const void* pb, void* out, v
   if (err != cudaSuccess) return int(err);
   const auto s = static_cast<cudaStream_t>(stream);
   err = wide_acc
-            ? launch_acc<long long>(pa, pb, out, ws, counters, M, N, KW, bm, splits, kw_chunk, vec, s)
-            : launch_acc<int>(pa, pb, out, ws, counters, M, N, KW, bm, splits, kw_chunk, vec, s);
+            ? launch_acc<long long>(pa, pb, out, ws, counters, M, N, KW, bm, splits, kw_chunk, vec,
+                                    int_out, s)
+            : launch_acc<int>(pa, pb, out, ws, counters, M, N, KW, bm, splits, kw_chunk, vec, int_out,
+                              s);
   return int(err);
 }
 

@@ -182,13 +182,26 @@ __device__ __forceinline__ void product_sum(const uint32_t* __restrict__ a,
   }
 }
 
+// The output: float32, or (int_out) the exact sum as int32 (int64 if wide):
+// the integer epilogue of a tensor-parallel K shard, whose sums the shards
+// add as integers before the one conversion (engine/modes.py).
+__device__ __forceinline__ void store_out(float* out, size_t o, long long v, int int_out,
+                                          bool wide) {
+  if (!int_out)
+    out[o] = __ll2float_rn(v);
+  else if (wide)
+    reinterpret_cast<long long*>(out)[o] = v;
+  else
+    reinterpret_cast<int*>(out)[o] = int(v);
+}
+
 template <int NB, int T>
 __global__ void __launch_bounds__(kThreads, 2)
 seqmul_matmul_kernel(const int16_t* __restrict__ mag_a, const int8_t* __restrict__ sign_a,
                      const int16_t* __restrict__ mag_b, const int8_t* __restrict__ sign_b,
                      float* __restrict__ out, void* __restrict__ ws, int* __restrict__ counters,
                      int M, int N, int K, int bm, int bn, int k_chunk, int approx, int fix_to_1,
-                     int wide) {
+                     int wide, int int_out) {
   constexpr int NP = NB + 2, AS = a_stride(NB);
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* a_pl = smem;                           // [bm][kWords][AS]
@@ -277,7 +290,7 @@ seqmul_matmul_kernel(const int16_t* __restrict__ mag_a, const int8_t* __restrict
     if (i >= rows || m >= M || col >= N) continue;
     const size_t o = size_t(m) * N + col;
     if (!split)
-      out[o] = __ll2float_rn(part[i]);
+      store_out(out, o, part[i], int_out, wide);
     else if (wide)
       static_cast<long long*>(ws)[blockIdx.z * plane + o] = part[i];
     else
@@ -297,13 +310,13 @@ seqmul_matmul_kernel(const int16_t* __restrict__ mag_a, const int8_t* __restrict
     for (int s = 0; s < int(gridDim.z); ++s)
       sum += wide ? __ldcg(static_cast<const long long*>(ws) + s * plane + o)
                   : (long long)__ldcg(static_cast<const int*>(ws) + s * plane + o);
-    out[o] = __ll2float_rn(sum);
+    store_out(out, o, sum, int_out, wide);
   }
   split_k_release(counters, tile);
 }
 
 using Kernel = void (*)(const int16_t*, const int8_t*, const int16_t*, const int8_t*, float*,
-                        void*, int*, int, int, int, int, int, int, int, int, int);
+                        void*, int*, int, int, int, int, int, int, int, int, int, int);
 
 template <int NB, int T = 1>
 Kernel kernel_for_t(int t) {
@@ -351,12 +364,13 @@ bool make_plan(int M, int N, int K, int n, int t, int bm, int bn, int splits, in
 // bm, bn: the tile (kernels/seqmul_matmul.py TILES); splits * k_chunk
 // covers K in whole stages of 128, no slice empty; ws (splits * M * N
 // int32, or int64 if wide_acc) and counters (one per tile, zeroed) are
-// needed only when splits > 1.
+// needed only when splits > 1; int_out: out holds M * N int32 (int64 if
+// wide_acc) exact sums in place of float32.
 extern "C" int seqmul_matmul_launch(const void* mag_a, const void* sign_a, const void* mag_b,
                                     const void* sign_b, void* out, int M, int N, int K, int n,
                                     int t, int approx, int fix_to_1, int bm, int wide_acc, int bn,
                                     int splits, int k_chunk, void* ws, void* counters,
-                                    int device, void* stream) {
+                                    int int_out, int device, void* stream) {
   Plan p;
   if (!make_plan(M, N, K, n, t, bm, bn, splits, k_chunk, &p) ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
@@ -369,7 +383,7 @@ extern "C" int seqmul_matmul_launch(const void* mag_a, const void* sign_a, const
       static_cast<const int16_t*>(mag_a), static_cast<const int8_t*>(sign_a),
       static_cast<const int16_t*>(mag_b), static_cast<const int8_t*>(sign_b),
       static_cast<float*>(out), ws, static_cast<int*>(counters), M, N, K, bm, bn, k_chunk,
-      approx, fix_to_1, wide_acc);
+      approx, fix_to_1, wide_acc, int_out);
   return int(cudaGetLastError());
 }
 

@@ -45,7 +45,7 @@ from repro_torch.kernels.build import (
 __all__ = [
     "DECODE_KERNEL", "DKV_KERNEL", "DQ_KERNEL", "FORWARD_KERNEL", "BwdPlan", "FlashBackward",
     "FwdPlan", "NEG_INF", "allow_mask", "attend", "built_launch_plan", "bwd_probs",
-    "bwd_tile_plan", "decode_chunk_plan", "decode_split", "flash_attention",
+    "bwd_tile_plan", "combine_ranges", "decode_chunk_plan", "decode_split", "flash_attention",
     "flash_attention_bwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
     "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_plain", "flash_decode",
     "flash_decode_plain", "fwd_tile_plan", "launch_decode", "launch_forward", "launch_plan",
@@ -65,11 +65,11 @@ FORWARD_KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
     [_P] * 8 + [_I] * 9 + [_F, _F, _I, _I, _P],
 )
-# (q, k, v, q_pos, k_pos, out, workspace, its floats, counters, skipped, dtype, B, T, H, KV,
-#  hd, window, softcap, scale, sms, device, stream)
+# (q, k, v, q_pos, k_pos, out, lse, workspace, its floats, counters, skipped, dtype, B, T, H,
+#  KV, hd, window, softcap, scale, sms, device, stream)
 DECODE_KERNEL = CudaKernel(
     "flash_decode", "flash_decode_launch",
-    [_P] * 7 + [_LL, _P, _P] + [_I] * 7 + [_F, _F, _I, _I, _P],
+    [_P] * 8 + [_LL, _P, _P] + [_I] * 7 + [_F, _F, _I, _I, _P],
     source="flash_attention",
 )
 # (q, k, v, do, lse, dd, q_pos, k_pos, outputs..., dtype, B, S, T, H, KV, hd, causal,
@@ -571,10 +571,36 @@ def decode_chunk_plan(q_pos, k_pos, *, chunk: int, window: Optional[int]) -> tor
 
 
 def flash_decode_plain(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
-                       scale=1.0) -> torch.Tensor:
-    out = attend(q[:, None], k, v, q_pos[:, None], k_pos, causal=True, window=window,
-                 softcap=softcap, scale=scale, decode=True)
-    return out[:, 0]
+                       scale=1.0, with_lse=False):
+    """The plain decode: (B, H, hd), and with ``with_lse`` also lse (B, H)."""
+    got = attend(q[:, None], k, v, q_pos[:, None], k_pos, causal=True, window=window,
+                 softcap=softcap, scale=scale, decode=True, with_lse=with_lse)
+    if with_lse:
+        return got[0][:, 0], got[1][..., 0]
+    return got[:, 0]
+
+
+def combine_ranges(outs, lses):
+    """Attention over slot ranges combined into attention over their union:
+    ``outs`` (R, ..., H?, hd) and ``lses`` of the matching shape without hd,
+    one per range in range order; returns ``(o, lse)``.  The ranges are
+    added in order 0, 1, 2, ... with weights exp(lse_r - M), M the largest
+    lse, so every rank of a group that combines the same parts gets the
+    same bits.  A row with no allowed slot in any range has lse = NEG_INF
+    everywhere, weight 1 in each, and so the average of the ranges' uniform
+    averages: over ranges of equal length, the uniform average of every
+    slot, the whole decode's result there; a range with none while another
+    has one weighs exp(NEG_INF - lse) = 0."""
+    m = lses[0]
+    for r in range(1, lses.shape[0]):
+        m = torch.maximum(m, lses[r])
+    num = den = None
+    for r in range(lses.shape[0]):
+        w = torch.exp(lses[r] - m)
+        part = outs[r] * w[..., None]
+        num = part if num is None else num + part
+        den = w if den is None else den + w
+    return num / den[..., None], m + torch.log(den)
 
 
 # -------------------------------------------------------------- wrappers
@@ -758,9 +784,11 @@ def flash_attention(q, k, v, q_pos, k_pos, causal=True, window=None, softcap=Non
 
 
 def launch_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None, scale=1.0,
-                  skipped: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  skipped: Optional[torch.Tensor] = None, with_lse: bool = False):
     """One launch of ``_decode_kernel``'s port on CUDA tensors -> (B,H,hd)
-    f32.  ``skipped``, a one-element int32 tensor on the card or None: the
+    f32, and with ``with_lse`` also lse (B, H) f32 over the slots given
+    (the part a sequence shard of the cache adds, :func:`combine_ranges`).
+    ``skipped``, a one-element int32 tensor on the card or None: the
     kernel adds to it the (batch row, KV head, chunk) triples it skips,
     that is the chunks :func:`decode_chunk_plan` leaves out, once per KV
     head."""
@@ -778,19 +806,22 @@ def launch_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None, scale=1.0
     # kernel's split makes, so the split is decided in the kernel alone
     ws = float_scratch(dev, b * h * DEC_MAX_CHUNKS * (hd + 2))
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) if with_lse else None
     DECODE_KERNEL.launch(
         dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), ws.numel(), tile_counters(dev, b * kv).data_ptr(),
-        _skipped_ptr(skipped, dev), dtype, b, t, h, kv, hd, _window(window),
-        float(softcap or 0.0), float(scale), sm_count(dev),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), ws.data_ptr(), ws.numel(),
+        tile_counters(dev, b * kv).data_ptr(), _skipped_ptr(skipped, dev), dtype, b, t, h, kv,
+        hd, _window(window), float(softcap or 0.0), float(scale), sm_count(dev),
     )
-    return out
+    return (out, lse) if with_lse else out
 
 
 def flash_decode(q, k, v, q_pos, k_pos, *, window=None, softcap=None,
-                 scale=1.0) -> torch.Tensor:
-    """q (B,H,hd), k/v (B,T,KV,hd) cache, q_pos (B,), k_pos (B,T) -> (B,H,hd) f32."""
+                 scale=1.0, with_lse=False):
+    """q (B,H,hd), k/v (B,T,KV,hd) cache, q_pos (B,), k_pos (B,T) -> (B,H,hd) f32,
+    and with ``with_lse`` also lse (B, H) f32 over these slots."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, q_pos, k_pos, window=window, softcap=softcap,
-                                  scale=scale)
-    return launch_decode(q, k, v, q_pos, k_pos, window=window, softcap=softcap, scale=scale)
+                                  scale=scale, with_lse=with_lse)
+    return launch_decode(q, k, v, q_pos, k_pos, window=window, softcap=softcap, scale=scale,
+                         with_lse=with_lse)

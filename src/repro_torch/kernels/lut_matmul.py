@@ -5,7 +5,11 @@ the CUDA kernel ``csrc/lut_matmul.cu`` for CUDA tensors and the plain
 version :func:`lut_matmul_plain` for CPU tensors; there is no other
 fallback.  Both accumulate exact integers and convert to float32 once, so
 they are bit-equal at any K (see the kernel's source note for how this
-departs from the JAX reference's float32 sums past |sum| = 2^24).  The
+departs from the JAX reference's float32 sums past |sum| = 2^24).  With
+``integer=True`` both return those exact sums themselves, int32 (int64
+past :func:`int32_k_limit`), in place of the float32 conversion: the
+integer epilogue of a tensor-parallel K shard, whose sums the shards add
+as integers before converting once (``engine/modes.py``).  The
 kernel is a persistent grid of one block per SM that copies the table
 into shared memory once and walks (row tile, column tile, K slice) work
 items (:func:`launch_plan`).
@@ -26,12 +30,12 @@ from repro_torch.kernels.build import (
 
 __all__ = [
     "KERNEL", "TILES", "THREADS", "Plan", "audit_body", "audit_trace", "built_launch_plan",
-    "int32_k_limit", "launch_plan", "lut_matmul", "lut_matmul_plain", "smem_bytes", "tile",
+    "int32_k_limit", "int_dtype", "launch_plan", "lut_matmul", "lut_matmul_plain", "smem_bytes", "tile",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "lut_matmul", "lut_matmul_launch", [_P] * 6 + [_I] * 10 + [_P, _P, _I, _P]
+    "lut_matmul", "lut_matmul_launch", [_P] * 6 + [_I] * 10 + [_P, _P, _I, _I, _P]
 )
 
 # csrc/lut_matmul.cu: row tiles of 512 columns for a 512-thread block (4
@@ -128,8 +132,16 @@ def _table_i64(lut: torch.Tensor) -> torch.Tensor:
     return lut.view(torch.int16).to(torch.int64) & 0xFFFF
 
 
-def lut_matmul_plain(lut, mag_a, sign_a, mag_b, sign_b, *, n: int) -> torch.Tensor:
-    """Plain PyTorch version: the same clamped gather and integer sums."""
+def int_dtype(k: int, n: int) -> torch.dtype:
+    """The integer epilogue's dtype at K = ``k``: the accumulator's, int32
+    up to :func:`int32_k_limit`, else int64."""
+    return torch.int64 if wide_accumulator(k, (1 << (2 * n)) - 1) else torch.int32
+
+
+def lut_matmul_plain(lut, mag_a, sign_a, mag_b, sign_b, *, n: int,
+                     integer: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: the same clamped gather and integer sums;
+    ``integer`` returns the sums in :func:`int_dtype`."""
     qmax = (1 << n) - 1
     table = _table_i64(lut)
     ia = torch.clamp(mag_a.to(torch.int64), max=qmax) << n
@@ -143,11 +155,11 @@ def lut_matmul_plain(lut, mag_a, sign_a, mag_b, sign_b, *, n: int) -> torch.Tens
         k1 = min(k_dim, k0 + step)
         prod = table[ia[:, k0:k1, None] + mb[None, k0:k1, :]]
         acc += (prod * (sa[:, k0:k1, None] * sb[None, k0:k1, :])).sum(dim=1)
-    return acc.to(torch.float32)
+    return acc.to(int_dtype(k_dim, n) if integer else torch.float32)
 
 
 def audit_body(lut, mag_a, sign_a, mag_b, sign_b, *, n: int, wide: bool,
-               clamp: bool = True) -> torch.Tensor:
+               clamp: bool = True, integer: bool = False) -> torch.Tensor:
     """The kernel's arithmetic, carrier by carrier (``csrc/lut_matmul.cu``),
     for the certifier: int64 values, each marked with the word the kernel
     holds it in (``analysis.carrier``).  Bit-equal to
@@ -157,7 +169,8 @@ def audit_body(lut, mag_a, sign_a, mag_b, sign_b, *, n: int, wide: bool,
     Products sum per stage of :data:`STAGE_K` in int32, and over the K
     slice in int32 (``wide`` False) or into int64 (``wide``).
     ``clamp=False`` drops the magnitudes' clamp to 2^n - 1 (a mutation the
-    tests hold the certifier to)."""
+    tests hold the certifier to).  ``integer`` returns the accumulator
+    itself, the integer epilogue's output, in place of its float32 value."""
     from repro_torch.analysis.carrier import carrier
 
     cu = "csrc/lut_matmul.cu"
@@ -182,7 +195,7 @@ def audit_body(lut, mag_a, sign_a, mag_b, sign_b, *, n: int, wide: bool,
     acc = carrier(prod.sum(dim=1), 64 if wide else 32, True,
                   f"{cu}: acc[][] over the K slice ({'int64' if wide else 'int32'} by "
                   f"build.wide_accumulator)")
-    return acc.to(torch.float32)
+    return acc if integer else acc.to(torch.float32)
 
 
 def int32_k_limit(n: int) -> int:
@@ -192,7 +205,7 @@ def int32_k_limit(n: int) -> int:
 
 
 def audit_trace(*, n: int, t: int = 0, m: int = 4, k: int | None = None, n_cols: int = 32,
-                wide: bool | None = None, clamp: bool = True):
+                wide: bool | None = None, clamp: bool = True, integer: bool = False):
     """The certifier's contract of the kernel (nothing executes).
 
     The magnitudes range over their whole uint8 carrier, a miscalibrated
@@ -201,7 +214,8 @@ def audit_trace(*, n: int, t: int = 0, m: int = 4, k: int | None = None, n_cols:
     ``[0, 2^(2n) - 1]`` in uint16 (the bound ``wide_accumulator`` takes).
     K defaults to the largest whose sums stay int32 (:func:`int32_k_limit`):
     the trace is of shapes only, so the proof covers the int32 choice at
-    its edge.  ``t`` shapes only the table's contents."""
+    its edge.  ``t`` shapes only the table's contents; ``integer`` traces the
+    integer epilogue (the accumulator is the output)."""
     from repro_torch.analysis.spec import TraceSpec, ValueRange, sds
 
     del t
@@ -209,9 +223,9 @@ def audit_trace(*, n: int, t: int = 0, m: int = 4, k: int | None = None, n_cols:
     wide = wide_accumulator(k, (1 << (2 * n)) - 1) if wide is None else wide
     sgn = ValueRange.sign()
     return TraceSpec(
-        name=f"kernel:lut_matmul[n={n},K={k}{',wide' if wide else ''}]",
+        name=f"kernel:lut_matmul[n={n},K={k}{',wide' if wide else ''}{',int' if integer else ''}]",
         fn=lambda lut, ma, sa, mb, sb: audit_body(lut, ma, sa, mb, sb, n=n, wide=wide,
-                                                  clamp=clamp),
+                                                  clamp=clamp, integer=integer),
         args=[sds((1 << (2 * n),), torch.uint16), sds((m, k), torch.uint8),
               sds((m, k), torch.int8), sds((k, n_cols), torch.uint8),
               sds((k, n_cols), torch.int8)],
@@ -221,8 +235,10 @@ def audit_trace(*, n: int, t: int = 0, m: int = 4, k: int | None = None, n_cols:
     )
 
 
-def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor:
-    """(M, K) x (K, N) -> (M, N) float32 approximate GEMM.
+def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8,
+               integer: bool = False) -> torch.Tensor:
+    """(M, K) x (K, N) -> (M, N) float32 approximate GEMM, or with
+    ``integer`` its exact sums in :func:`int_dtype` (the integer epilogue).
 
     lut: (2^(2n),) uint16 product table (``engine.artifacts.product_lut_u16``);
     mag_*: uint8 magnitudes; sign_*: int8 in {-1, 0, 1}; n <= 8.
@@ -230,7 +246,7 @@ def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor
     if not 1 <= n <= 8:
         raise ValueError(f"lut_matmul supports 1 <= n <= 8, got n={n}")
     if mag_a.device.type == "cpu":
-        return lut_matmul_plain(lut, mag_a, sign_a, mag_b, sign_b, n=n)
+        return lut_matmul_plain(lut, mag_a, sign_a, mag_b, sign_b, n=n, integer=integer)
     dev = mag_a.device
     m_dim, k_dim = mag_a.shape
     n_dim = mag_b.shape[1]
@@ -241,10 +257,11 @@ def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor
     check_operand(sign_b, "sign_b", torch.int8, (k_dim, n_dim), dev)
     if lut.data_ptr() % 4:
         raise ValueError("lut must be 4-byte aligned (the kernel copies it as 32-bit words)")
-    audit_gate(KERNEL.name, "lut_gemm", n, max(1, n // 2))
+    audit_gate(KERNEL.name, "lut_gemm_int" if integer else "lut_gemm", n, max(1, n // 2))
     index = device_index(dev)
     plan, sms = _plan_on(index, m_dim, k_dim, n_dim, n)
-    out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
+    dtype = (torch.int64 if plan.wide else torch.int32) if integer else torch.float32
+    out = torch.empty((m_dim, n_dim), dtype=dtype, device=dev)
     ws_ptr = counters = None
     if plan.splits > 1:
         ws = torch.empty(plan.workspace, dtype=torch.uint8, device=dev)
@@ -255,6 +272,6 @@ def lut_matmul(lut, mag_a, sign_a, mag_b, sign_b, *, n: int = 8) -> torch.Tensor
     KERNEL.launch(
         dev, lut.data_ptr(), mag_a.data_ptr(), sign_a.data_ptr(), mag_b.data_ptr(),
         sign_b.data_ptr(), out.data_ptr(), m_dim, n_dim, k_dim, n, plan.bm, int(plan.wide),
-        plan.splits, plan.k_chunk, sms, int(vec), ws_ptr, counters,
+        plan.splits, plan.k_chunk, sms, int(vec), ws_ptr, counters, int(integer),
     )
     return out

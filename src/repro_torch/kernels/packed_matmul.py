@@ -8,7 +8,10 @@ arithmetic on the CPU).  :func:`packed_matmul` runs the CUDA kernel
 ``csrc/packed_matmul.cu`` for CUDA tensors and the plain version
 :func:`packed_matmul_plain` for CPU tensors.  The kernel splits each lane
 into int8 planes for the int8 tensor cores and splits K over blocks at
-small M (:func:`launch_plan`).
+small M (:func:`launch_plan`).  With ``integer=True`` the kernel and the
+plain version return the exact sums, int32 (int64 past
+:func:`int32_k_limit`), in place of their float32 conversion: the integer
+epilogue of a tensor-parallel K shard (``engine/modes.py``).
 """
 
 from __future__ import annotations
@@ -26,14 +29,14 @@ from repro_torch.kernels.build import (
 
 __all__ = [
     "KERNEL", "THREADS", "TILES", "Plan", "audit_body", "audit_pack", "audit_trace",
-    "built_launch_plan", "int32_k_limit", "launch_plan", "pack_i16_pairs", "packed_matmul",
+    "built_launch_plan", "int32_k_limit", "int_dtype", "launch_plan", "pack_i16_pairs", "packed_matmul",
     "packed_matmul_plain", "smem_bytes", "tile",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "packed_matmul", "packed_matmul_launch",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 
 # csrc/packed_matmul.cu: (tokens, weight columns) per block, four warps of
@@ -116,15 +119,23 @@ def _lanes(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return lo - ((lo & 0x8000) << 1), hi - ((hi & 0x8000) << 1)
 
 
-def packed_matmul_plain(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+def int_dtype(kw: int, n: int) -> torch.dtype:
+    """The integer epilogue's dtype for ``kw`` words (2 kw lanes) of n-bit
+    lanes: the accumulator's, int32 up to :func:`int32_k_limit`, else int64."""
+    return torch.int64 if wide_accumulator(2 * kw, ((1 << n) - 1) ** 2) else torch.int32
+
+
+def packed_matmul_plain(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15,
+                        integer: bool = False) -> torch.Tensor:
     """Plain PyTorch version.  The lane products and sums are integers
     below 2^53, so float64 products compute them exactly (CUDA has no
-    integer matmul); the exact sum is converted to float32 once."""
+    integer matmul); the exact sum is converted to float32 once, or with
+    ``integer`` to :func:`int_dtype`."""
     a_even, a_odd = _lanes(pa)
     b_even, b_odd = _lanes(pb)
     f64 = torch.float64
     acc = a_even.to(f64) @ b_even.to(f64) + a_odd.to(f64) @ b_odd.to(f64)
-    return acc.to(torch.float32)
+    return acc.to(int_dtype(pa.shape[1], n) if integer else torch.float32)
 
 
 def audit_pack(q: torch.Tensor, *, dim: int) -> torch.Tensor:
@@ -142,14 +153,15 @@ def audit_pack(q: torch.Tensor, *, dim: int) -> torch.Tensor:
 
 
 def audit_body(lanes_a: torch.Tensor, lanes_b: torch.Tensor, *, n: int,
-               wide: bool) -> torch.Tensor:
+               wide: bool, integer: bool = False) -> torch.Tensor:
     """The kernel's arithmetic on (M, K) x (K, N) lanes, carrier by carrier
     (``csrc/packed_matmul.cu``), for the certifier: each lane q = 256 h + l
     as a u8 low and an s8 high plane; per K step of 32 lanes the four
     plane products summed in int32 (the MMA accumulators), folded modulo
     the carrier into the block's sum, which must hold in int32 (``wide``
-    False) or int64.  Bit-equal to
-    :func:`packed_matmul_plain` on the packed lanes."""
+    False) or int64, which ``integer`` returns as the output in place of
+    its float32 value.  Bit-equal to :func:`packed_matmul_plain` on the
+    packed lanes."""
     from repro_torch.analysis.carrier import carrier
 
     cu = "csrc/packed_matmul.cu"
@@ -178,7 +190,7 @@ def audit_body(lanes_a: torch.Tensor, lanes_b: torch.Tensor, *, n: int,
     total = carrier(total, 64 if wide else 32, True,
                     f"{cu}: the block's sum ({'int64' if wide else 'int32'} by "
                     f"build.wide_accumulator)")
-    return total.to(torch.float32)
+    return total if integer else total.to(torch.float32)
 
 
 def int32_k_limit(n: int) -> int:
@@ -187,7 +199,7 @@ def int32_k_limit(n: int) -> int:
 
 
 def audit_trace(*, n: int, t: int = 0, m: int = 8, k: int | None = None, n_cols: int = 32,
-                wide: bool | None = None):
+                wide: bool | None = None, integer: bool = False):
     """The certifier's contract of the kernel (nothing executes), past the
     wrapper's ``n <= 15`` guard: signed lanes ``|q| <= 2^n - 1`` packed two
     to a word (:func:`audit_pack`), K the largest whose sums stay int32."""
@@ -198,17 +210,20 @@ def audit_trace(*, n: int, t: int = 0, m: int = 8, k: int | None = None, n_cols:
     wide = wide_accumulator(k, ((1 << n) - 1) ** 2) if wide is None else wide
     q = ValueRange(-float((1 << n) - 1), float((1 << n) - 1), int_valued=True)
     return TraceSpec(
-        name=f"kernel:packed_matmul[n={n},K={k}{',wide' if wide else ''}]",
+        name=f"kernel:packed_matmul[n={n},K={k}{',wide' if wide else ''}"
+             f"{',int' if integer else ''}]",
         fn=lambda qa, qb: audit_body(audit_pack(qa, dim=1), audit_pack(qb, dim=0), n=n,
-                                     wide=wide),
+                                     wide=wide, integer=integer),
         args=[sds((m, k), torch.int64), sds((k, n_cols), torch.int64)],
         ranges=[q, q],
         facts={"k": k, "wide": wide},
     )
 
 
-def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15) -> torch.Tensor:
-    """Packed (M, K/2) x (K/2, N) -> (M, N) float32 integer GEMM.
+def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15,
+                  integer: bool = False) -> torch.Tensor:
+    """Packed (M, K/2) x (K/2, N) -> (M, N) float32 integer GEMM, or with
+    ``integer`` its exact sums in :func:`int_dtype` (the integer epilogue).
 
     Operands come from :func:`pack_i16_pairs` (``dim=1`` for the left,
     ``dim=0`` for the right).  ``n`` bounds the lane magnitudes
@@ -217,16 +232,17 @@ def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15) -> torch.T
     if not 1 <= n <= 15:
         raise ValueError(f"packed_matmul lanes hold n <= 15 bit magnitudes, got n={n}")
     if pa.device.type == "cpu":
-        return packed_matmul_plain(pa, pb)
+        return packed_matmul_plain(pa, pb, n=n, integer=integer)
     dev = pa.device
     m_dim, kw = pa.shape
     n_dim = pb.shape[1]
     check_operand(pa, "pa", torch.int32, (m_dim, kw), dev)
     check_operand(pb, "pb", torch.int32, (kw, n_dim), dev)
-    audit_gate(KERNEL.name, "packed_gemm", n, max(1, n // 2))
+    audit_gate(KERNEL.name, "packed_gemm_int" if integer else "packed_gemm", n, max(1, n // 2))
     plan = launch_plan(m_dim, kw, n_dim, sm_count(dev))
-    out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
     wide = wide_accumulator(2 * kw, ((1 << n) - 1) ** 2)
+    dtype = (torch.int64 if wide else torch.int32) if integer else torch.float32
+    out = torch.empty((m_dim, n_dim), dtype=dtype, device=dev)
     ws = ws_ptr = counters = None
     if plan.splits > 1:
         dtype = torch.int64 if wide else torch.int32
@@ -237,6 +253,6 @@ def packed_matmul(pa: torch.Tensor, pb: torch.Tensor, *, n: int = 15) -> torch.T
     vec = kw % 4 == 0 and n_dim % 4 == 0 and pa.data_ptr() % 16 == 0 and pb.data_ptr() % 16 == 0
     KERNEL.launch(
         dev, pa.data_ptr(), pb.data_ptr(), out.data_ptr(), ws_ptr, counters, m_dim, n_dim, kw,
-        plan.bm, plan.splits, plan.kw_chunk, int(vec), int(wide),
+        plan.bm, plan.splits, plan.kw_chunk, int(vec), int(wide), int(integer),
     )
     return out

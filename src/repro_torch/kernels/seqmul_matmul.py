@@ -6,7 +6,11 @@ plain version :func:`seqmul_matmul_plain` for CPU tensors.  The plain
 version runs ``engine.recurrence.seqmul_recurrence`` on K-chunks of the
 (M, K, N) outer-product cube; the kernel runs the same recurrence
 bit-sliced, 32 values of k to a word, and splits K over blocks at small M
-(:func:`launch_plan`).  Both sum exact integers and convert once.
+(:func:`launch_plan`).  Both sum exact integers and convert once; with
+``integer=True`` both return the sums themselves, int32 (int64 past
+:func:`int32_k_limit`): the integer epilogue of a tensor-parallel K shard,
+whose sums the shards add as integers before converting once
+(``engine/modes.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from repro_torch.kernels.build import (
 
 __all__ = [
     "KERNEL", "MAX_N", "THREADS", "TILES", "Plan", "audit_body", "audit_trace",
-    "built_launch_plan", "int32_k_limit", "launch_plan", "seqmul_matmul", "seqmul_matmul_plain",
+    "built_launch_plan", "int32_k_limit", "int_dtype", "launch_plan", "seqmul_matmul",
+    "seqmul_matmul_plain",
     "smem_bytes", "tile",
 ]
 
@@ -33,7 +38,7 @@ MAX_N = 12
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "seqmul_matmul", "seqmul_matmul_launch",
-    [_P] * 5 + [_I] * 12 + [_P, _P, _I, _P],
+    [_P] * 5 + [_I] * 12 + [_P, _P, _I, _I, _P],
 )
 
 # csrc/seqmul_matmul.cu: (rows, columns) per block of eight warps, one
@@ -119,9 +124,17 @@ def _check_nt(n: int, t: int) -> None:
         raise ValueError(f"seqmul_matmul supports n <= {MAX_N}, got n={n}")
 
 
+def int_dtype(k: int, n: int) -> torch.dtype:
+    """The integer epilogue's dtype at K = ``k``: the cross-block partial's,
+    int32 up to :func:`int32_k_limit`, else int64."""
+    return torch.int64 if wide_accumulator(k, (1 << (2 * n)) - 1) else torch.int32
+
+
 def seqmul_matmul_plain(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
-                        approx: bool = True, fix_to_1: bool = True) -> torch.Tensor:
-    """Plain PyTorch version: the recurrence on the outer-product cube."""
+                        approx: bool = True, fix_to_1: bool = True,
+                        integer: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: the recurrence on the outer-product cube;
+    ``integer`` returns the sums in :func:`int_dtype`."""
     _check_nt(n, t)
     a = mag_a.to(torch.int64)
     b = mag_b.to(torch.int64)
@@ -139,7 +152,7 @@ def seqmul_matmul_plain(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
         )
         prod = pack_u32(lo, s_lsp, s_msp, n=n, t=t)
         acc += (prod * (sa[:, k0:k1, None] * sb[None, k0:k1, :])).sum(dim=1)
-    return acc.to(torch.float32)
+    return acc.to(int_dtype(k_dim, n) if integer else torch.float32)
 
 
 def _recurrence_carriers(a, b, *, n: int, t: int, approx: bool, fix_to_1: bool,
@@ -182,7 +195,8 @@ def _recurrence_carriers(a, b, *, n: int, t: int, approx: bool, fix_to_1: bool,
 
 
 def audit_body(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int, wide: bool,
-               approx: bool = True, fix_to_1: bool = True, carry_weight: int = 1):
+               approx: bool = True, fix_to_1: bool = True, carry_weight: int = 1,
+               integer: bool = False):
     """The kernel's arithmetic, carrier by carrier (``csrc/seqmul_matmul.cu``),
     for the certifier: int64 values, each marked with the word the kernel
     holds it in (``analysis.carrier``).  Bit-equal to
@@ -190,7 +204,8 @@ def audit_body(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int, wide: bool,
     words and its 2n product planes (:func:`_recurrence_carriers`); per
     plane p a signed popcount sum over the K slice in int32 (``count[p]``);
     the slice's ``sum_p count_p 2^p`` in int64 (``part``); the partial
-    that crosses blocks in int32 (``wide`` False) or int64."""
+    that crosses blocks in int32 (``wide`` False) or int64, which
+    ``integer`` returns as the output in place of its float32 value."""
     from repro_torch.analysis.carrier import carrier
 
     cu = "csrc/seqmul_matmul.cu"
@@ -211,7 +226,7 @@ def audit_body(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int, wide: bool,
     part = carrier(part, 64 if wide else 32, True,
                    f"{cu}: the split-K partial ({'int64' if wide else 'int32'} by "
                    f"build.wide_accumulator)")
-    return part.to(torch.float32)
+    return part if integer else part.to(torch.float32)
 
 
 def int32_k_limit(n: int) -> int:
@@ -220,7 +235,7 @@ def int32_k_limit(n: int) -> int:
 
 
 def audit_trace(*, n: int, t: int, m: int = 2, k: int | None = None, n_cols: int = 32,
-                wide: bool | None = None, carry_weight: int = 1):
+                wide: bool | None = None, carry_weight: int = 1, integer: bool = False):
     """The certifier's contract of the kernel (nothing executes), past the
     wrapper's ``n <= 12`` guard so the carriers' own frontier is derived:
     int16 magnitudes in ``[0, 2^n - 1]``, signs in {-1, 0, 1}; K the
@@ -231,9 +246,10 @@ def audit_trace(*, n: int, t: int, m: int = 2, k: int | None = None, n_cols: int
     wide = wide_accumulator(k, (1 << (2 * n)) - 1) if wide is None else wide
     q, sgn = ValueRange.quantized(n), ValueRange.sign()
     return TraceSpec(
-        name=f"kernel:seqmul_matmul[n={n},t={t},K={k}{',wide' if wide else ''}]",
+        name=f"kernel:seqmul_matmul[n={n},t={t},K={k}{',wide' if wide else ''}"
+             f"{',int' if integer else ''}]",
         fn=lambda ma, sa, mb, sb: audit_body(ma, sa, mb, sb, n=n, t=t, wide=wide,
-                                             carry_weight=carry_weight),
+                                             carry_weight=carry_weight, integer=integer),
         args=[sds((m, k), torch.int16), sds((m, k), torch.int8), sds((k, n_cols), torch.int16),
               sds((k, n_cols), torch.int8)],
         ranges=[q, sgn, q, sgn],
@@ -242,8 +258,10 @@ def audit_trace(*, n: int, t: int, m: int = 2, k: int | None = None, n_cols: int
 
 
 def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
-                  approx: bool = True, fix_to_1: bool = True) -> torch.Tensor:
-    """(M, K) x (K, N) -> (M, N) float32 GEMM, the recurrence per product.
+                  approx: bool = True, fix_to_1: bool = True,
+                  integer: bool = False) -> torch.Tensor:
+    """(M, K) x (K, N) -> (M, N) float32 GEMM, the recurrence per product, or
+    with ``integer`` its exact sums in :func:`int_dtype` (the integer epilogue).
 
     mag_*: int16 magnitudes in [0, 2^n); sign_*: int8 in {-1, 0, 1} (the
     kernel reads magnitude bits 0..n-1 and a sign's bits 0 and 7 only).
@@ -251,7 +269,7 @@ def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
     _check_nt(n, t)
     if mag_a.device.type == "cpu":
         return seqmul_matmul_plain(mag_a, sign_a, mag_b, sign_b, n=n, t=t,
-                                   approx=approx, fix_to_1=fix_to_1)
+                                   approx=approx, fix_to_1=fix_to_1, integer=integer)
     dev = mag_a.device
     m_dim, k_dim = mag_a.shape
     n_dim = mag_b.shape[1]
@@ -259,10 +277,11 @@ def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
     check_operand(sign_a, "sign_a", torch.int8, (m_dim, k_dim), dev)
     check_operand(mag_b, "mag_b", torch.int16, (k_dim, n_dim), dev)
     check_operand(sign_b, "sign_b", torch.int8, (k_dim, n_dim), dev)
-    audit_gate(KERNEL.name, "seqmul_gemm", n, t)
+    audit_gate(KERNEL.name, "seqmul_gemm_int" if integer else "seqmul_gemm", n, t)
     index = device_index(dev)
     plan = _plan_on(index, m_dim, k_dim, n_dim, n)
-    out = torch.empty((m_dim, n_dim), dtype=torch.float32, device=dev)
+    dtype = (torch.int64 if plan.wide else torch.int32) if integer else torch.float32
+    out = torch.empty((m_dim, n_dim), dtype=dtype, device=dev)
     ws_ptr = counters = None
     if plan.splits > 1:
         ws = torch.empty(plan.workspace, dtype=torch.uint8, device=dev)
@@ -271,6 +290,6 @@ def seqmul_matmul(mag_a, sign_a, mag_b, sign_b, *, n: int, t: int,
     KERNEL.launch(
         dev, mag_a.data_ptr(), sign_a.data_ptr(), mag_b.data_ptr(), sign_b.data_ptr(),
         out.data_ptr(), m_dim, n_dim, k_dim, n, t, int(approx), int(fix_to_1), plan.bm,
-        int(plan.wide), plan.bn, plan.splits, plan.k_chunk, ws_ptr, counters,
+        int(plan.wide), plan.bn, plan.splits, plan.k_chunk, ws_ptr, counters, int(integer),
     )
     return out

@@ -25,9 +25,25 @@ less the step at no layer, and multiplied by its count, at the
 per-device batch and the port's own placement of each leaf (dense layers
 replicated over the model axis; the MoE's expert GEMMs split over it).
 The bytes are the eager model's (every op moves its operands and its
-result), not the reference's fused-HLO model.  The port has no sharded
-step yet (ROADMAP.md item 11b), so ``collective_bytes_per_dev`` and the
-collective term print as null (absent), never as zero, with the reason.
+result), not the reference's fused-HLO model.
+
+``collective_bytes_per_dev`` is counted from the collectives the sharded
+step issues (:func:`collective_counts`): the step of an arch whose layers
+this port shards (the dense decoders; ``models.registry.unsharded_family``)
+runs once more per layer kind on ``meta`` tensors, its parameters placed
+by their specs on the production mesh (``sharding.place_params`` on the
+``AbstractMesh``, with or without FSDP as the cell), under
+``sharding.counting``, which sums the bytes of each collective by kind as
+``distributed.sharding`` issues it, the backward's too: ``all-reduce`` and
+``all-gather`` their result buffer's, and the FSDP gradients'
+reduce-scatters, which the port issues as all-reduces of the whole buffer
+(``sharding.RS_AS_ALL_REDUCE``), that buffer's, the data axis's size times
+what the reference's GSPMD reduce-scatter moves.  The collective term is
+their sum over ``HW.NVLINK_BW``.  For the
+other families (MoE, SSD, RG-LRU, encoder-decoder: ROADMAP.md item 11c)
+they print as null (absent), never as zero, with the reason.  The FLOPs
+and bytes stay those of the step with the dense layers whole on every
+device of the model axis.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --mesh single
@@ -38,12 +54,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
 import sys
 import time
 import traceback
+from typing import Optional
 
 import torch
 
@@ -52,12 +70,13 @@ from repro_torch.configs.registry import get_config, list_archs, shapes_for
 from repro_torch.distributed.sharding import mesh_axis_sizes
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import HW, make_production_mesh
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, unsharded_family
 from repro_torch.models.transformer import block_kinds
 
-__all__ = ["cell_bytes", "model_flops", "size_cell", "step_counts", "main"]
+__all__ = ["cell_bytes", "collective_counts", "model_flops", "size_cell", "step_counts", "main"]
 
-COLLECTIVES_NULL = "no sharded step yet (ROADMAP.md item 11b): dense layers are replicated"
+COLLECTIVES_NULL = ("no sharded step for this family yet (ROADMAP.md item 11c: MoE backward, "
+                    "SSD, RG-LRU and encoder-decoder leaves)")
 
 
 def model_flops(cfg, shape, kind: str) -> float:
@@ -164,14 +183,21 @@ def _depths(cfg) -> tuple:
         for k in dict.fromkeys(kinds)}
 
 
-def _step(cfg, shape, batch: int):
+def _step(cfg, shape, batch: int, mesh=None, fsdp: bool = True):
     """``(fn, args)`` of one device's step of ``shape.kind`` on meta tensors
     at ``batch`` rows: the loss and its gradients (train), the prefill, or
-    one decode step over a ``shape.seq_len`` cache."""
+    one decode step over a ``shape.seq_len`` cache; with ``mesh`` the
+    sharded step, its parameters this device's blocks (FSDP-split with
+    ``fsdp``) and its caches its sequence shard."""
+    from repro_torch.distributed import sharding
     from repro_torch.train import steps
 
     model = build_model(cfg)
     params = model.init_params(0, device="meta")
+    seq = shape.seq_len
+    if mesh is not None:
+        params = sharding.place_params(params, mesh, fsdp=fsdp)
+        seq //= mesh_axis_sizes(mesh).get("model", 1)
     small = dataclasses.replace(shape, global_batch=batch)
     if shape.kind == "train":
         data = {k: v.to(torch.int64) if not v.is_floating_point() else v
@@ -188,8 +214,7 @@ def _step(cfg, shape, batch: int):
         prefill = steps.make_prefill_step(model, shape.seq_len, mem_len=shape.seq_len)
         return (lambda params, data: prefill(params, data)), [params, data]
     mem_len = S.ENC_MEM_LEN_DECODE if cfg.is_encdec else 0
-    caches = model.init_caches(batch, shape.seq_len, getattr(torch, cfg.dtype), "meta",
-                               mem_len=mem_len)
+    caches = model.init_caches(batch, seq, getattr(torch, cfg.dtype), "meta", mem_len=mem_len)
     token = torch.zeros((batch, 1), dtype=torch.int64, device="meta")
     decode = steps.make_decode_step(model)
     return (lambda params, caches, token: decode(params, caches, token, shape.seq_len - 1)), \
@@ -209,6 +234,40 @@ def _count(cfg, shape, batch: int, model_shards: int) -> tuple[float, float]:
         f, b = a.by_module(r"models/moe\.py:\d+:expert_gemm")
         return (a.flops - f + f / model_shards, a.bytes - b + b / model_shards)
     return a.flops, a.bytes
+
+
+def _collectives(cfg, shape, batch: int, mesh, fsdp: bool) -> collections.Counter:
+    """Bytes by kind of the collectives one device's sharded step of ``cfg``
+    (at its depth) issues, counted as they are issued."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import hlo_analysis
+
+    fn, args = _step(cfg, shape, batch, mesh, fsdp)
+    with torch.set_grad_enabled(shape.kind == "train"), hlo_analysis.kernel_ops(), \
+            sharding.mesh_context(mesh), sharding.counting() as counts:
+        fn(*args)
+    return counts
+
+
+def collective_counts(cfg, shape, mesh, *, fsdp: bool = True) -> Optional[dict]:
+    """``{kind: bytes}`` of one device's sharded step at the per-device
+    batch, each distinct layer kind traced once at one layer and multiplied
+    by its count (as :func:`step_counts`); None for a family this port does
+    not shard yet."""
+    if unsharded_family(cfg) is not None:
+        return None
+    sizes = mesh_axis_sizes(mesh)
+    batch_spec = S.batch_specs({"x": torch.empty((shape.global_batch,), device="meta")},
+                               mesh)["x"]
+    batch = max(1, shape.global_batch // _shards(batch_spec, sizes))
+    base_cfg, kinds = _depths(cfg)
+    base = _collectives(base_cfg, shape, batch, mesh, fsdp)
+    out = collections.Counter(base)
+    for kind_cfg, count in kinds.values():
+        one = _collectives(kind_cfg, shape, batch, mesh, fsdp)
+        for k in set(one) | set(base):
+            out[k] += count * (one[k] - base[k])
+    return {k: float(v) for k, v in sorted(out.items())}
 
 
 def step_counts(cfg, shape, mesh) -> dict:
@@ -246,9 +305,11 @@ def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True,
     mf = model_flops(cfg, shape, kind)
     step = step_counts(cfg, shape, mesh) if steps else dict.fromkeys(
         ("flops", "bytes", "batch_per_dev", "layer_kinds"))
+    coll = collective_counts(cfg, shape, mesh, fsdp=fsdp) if steps else None
     t_compute = mf / chips / HW.PEAK_FLOPS
     t_memory = per_dev["total"] / HW.HBM_BW
-    terms = {"compute": t_compute, "memory": t_memory, "collective": None}
+    t_coll = None if coll is None else sum(coll.values()) / HW.NVLINK_BW
+    terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
     return {
         "arch": arch,
         "shape": shape_name,
@@ -267,11 +328,12 @@ def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True,
         "bytes_per_dev": step["bytes"],
         "batch_per_dev": step["batch_per_dev"],
         "layer_kinds": step["layer_kinds"],
-        "collective_bytes_per_dev": None,
-        "collective_bytes_null_because": COLLECTIVES_NULL,
+        "collective_bytes_per_dev": coll,
+        **({"collective_bytes_null_because": COLLECTIVES_NULL if steps else
+            "steps not counted (steps=False)"} if coll is None else {}),
         "terms_s": terms,
-        "dominant": max(("compute", "memory"), key=terms.get),
-        "step_time_bound_s": max(t_compute, t_memory),
+        "dominant": max((k for k, v in terms.items() if v is not None), key=terms.get),
+        "step_time_bound_s": max(v for v in terms.values() if v is not None),
         "host_s": time.perf_counter() - t0,
     }
 

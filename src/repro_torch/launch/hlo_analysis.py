@@ -22,8 +22,9 @@ run as they would, so every op is counted as often as it runs.
 - **Per-op records** carry the module path: the port's frames of the
   Python stack at the op, outermost first (``models/moe.py:141:expert_gemm``
   and the like).
-- **Collective bytes** are not counted: the port has no sharded step yet
-  (ROADMAP.md item 11b); callers report them as null with that reason.
+- **Collective bytes** are not counted here: the collectives of a sharded
+  step pass through ``distributed.sharding``, which counts them by kind
+  (``sharding.counting``); ``launch/dryrun.py`` reads them there.
 """
 
 from __future__ import annotations
@@ -174,7 +175,7 @@ def kernel_ops():
             return _kernel_op()(list(tensors), name, f, m, n_cols)
         return call
 
-    def packed(pa, pb, *, n=15):
+    def packed(pa, pb, *, n=15, integer=False):
         m, kw, n_cols = pa.shape[0], pa.shape[1], pb.shape[1]
         return _kernel_op()([pa, pb], "packed_matmul", 2.0 * m * 2 * kw * n_cols, m, n_cols)
 

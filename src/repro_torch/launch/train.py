@@ -23,6 +23,15 @@ reference's driver feeds it.  The frames are drawn on the host from a
 ``torch.Generator`` seeded by (``--seed`` + 1, step): another stream than
 the reference's ``jax.random`` one, as the weights and the noise of the
 stochastic modes already are.
+
+``--mesh DATA,MODEL`` runs the sharded FSDP+TP step (``train.steps``) on a
+(data, model) mesh over the ranks of a ``torchrun`` job (DATA x MODEL of
+them; ``env://`` rendezvous, NCCL on the card, gloo with ``--device
+cpu``); every rank draws the same global batch and keeps its rows, and
+rank 0 alone prints:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-0.6b --reduced --device cpu --mesh 2,2 --steps 8 --batch 4 --seq 16
 """
 
 from __future__ import annotations
@@ -30,11 +39,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, shard_train_state
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import apply_approx, apply_quality, get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -43,7 +53,7 @@ from repro_torch.engine import modes as engine_modes
 from repro_torch.models.layers import fold_seed
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.fault import FailureInjector, StragglerMonitor, run_loop
-from repro_torch.train.steps import init_train_state, make_train_step
+from repro_torch.train.steps import init_train_state, make_train_step, shard_batch
 
 __all__ = ["main"]
 
@@ -80,9 +90,44 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="write metrics history JSON here")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default cuda; cpu runs the plain PyTorch versions")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="the sharded FSDP+TP step on a (data, model) mesh over the ranks "
+                         "of a torchrun job")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    mesh = _join_mesh(ap, args.mesh, device) if args.mesh else None
+    try:
+        _train(ap, args, device, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _join_mesh(ap, spec: str, device):
+    """Join the ``torchrun`` job (``env://``) and make its (data, model) mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    try:
+        dims = tuple(int(x) for x in spec.split(","))
+    except ValueError:
+        dims = ()
+    if len(dims) != 2 or min(dims) < 1:
+        ap.error(f"--mesh takes DATA,MODEL, got {spec!r}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dims[0] * dims[1] != world:
+        ap.error(f"--mesh {spec} needs {dims[0] * dims[1]} ranks; the job has {world} "
+                 f"(torchrun --nproc-per-node)")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    if not torch.distributed.is_initialized():
+        torch.distributed.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return init_device_mesh(device.type, dims, mesh_dim_names=("data", "model"))
+
+
+def _train(ap, args, device, mesh) -> None:
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)  # only rank 0 prints
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -107,7 +152,10 @@ def main(argv=None) -> None:
     model = build_model(cfg)
     state = init_train_state(model, tcfg, args.seed, device=device)
     n_params = model.param_count(state.params)
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M devices=1")
+    say(f"arch={cfg.name} params={n_params/1e6:.1f}M devices="
+        f"{1 if mesh is None else mesh.size()}")
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
 
     data = SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,
@@ -120,9 +168,9 @@ def main(argv=None) -> None:
             gen = torch.Generator().manual_seed(fold_seed(args.seed + 1, step))
             src = torch.randn((args.batch, args.seq, cfg.d_model), generator=gen)
             batch["src_embeds"] = src.to(device)
-        return batch
+        return batch if mesh is None else shard_batch(batch, mesh, tcfg.grad_accum)
 
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, mesh=mesh)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     injector = None
     if args.inject_failures:
@@ -135,13 +183,13 @@ def main(argv=None) -> None:
         checkpoint_every=args.ckpt_every if ckpt else 0,
         injector=injector,
         monitor=StragglerMonitor(),
-        log_every=args.log_every,
+        log_every=args.log_every if rank0 else 0,
     )
     first = np.mean([h["loss"] for h in result.metrics_history[:10]])
     last = np.mean([h["loss"] for h in result.metrics_history[-10:]])
-    print(f"loss {first:.4f} -> {last:.4f}  failures={result.failures} "
-          f"restarts={result.restarts} stragglers={len(result.slow_steps)}")
-    if args.out:
+    say(f"loss {first:.4f} -> {last:.4f}  failures={result.failures} "
+        f"restarts={result.restarts} stragglers={len(result.slow_steps)}")
+    if args.out and rank0:
         with open(args.out, "w") as f:
             json.dump(result.metrics_history, f)
 

@@ -25,6 +25,42 @@ The cache is written in place (an indexed write into the row's slots)
 where the reference returns an updated copy: JAX arrays are immutable,
 torch tensors need not be, and the in-place write saves a full cache copy
 per layer and step.  Callers hold the same cache object before and after.
+
+**Tensor parallelism** (placed parameters, ``distributed.sharding``).  q,
+k and v come out of their column-parallel projections split by heads, as
+the reference's ``constrain(q, DP, None, TP, None)`` places them; the
+output is concatenated over this rank's heads and goes through the
+row-parallel ``wo``.  Where the model axis splits ``wk``/``wv`` inside a
+head (fewer KV heads than ranks: qwen3's 8 on 16) or not at all, k and v
+are made whole (an all-gather of the columns, or the whole product with
+its gradient added over the model group) and each rank keeps the KV heads
+its query heads read.  Without a cache (training) each rank attends over
+its heads alone; where ``wq`` too is split inside a head (qwen2-vl's 28
+heads on 16), q is made whole as well, every rank attends with every
+head, and keeps the columns of the output that its block of ``wo``
+multiplies (the gradient of the others is zero there, and the all-gathers'
+reduce-scatters add the ranks' parts).
+
+With a cache the KV cache is split over its **sequence** axis
+(``launch/specs.py``'s ``(DP, TP, None, None)``, the reference's
+"flash-decode: shard the cache sequence axis over TP"): each rank holds
+slots ``[r T/m, (r+1) T/m)`` of every KV head.  So the step is a
+hand-over from heads to slots and back, with three collectives:
+
+1. q, k and v are all-gathered over the model group along heads: every
+   rank now holds every head of the new tokens.  A new token's k and v
+   are written by the rank whose range holds its slot; rows written at
+   per-row positions may land on different ranks, and a prefill's S slots
+   spread over them.
+2. Each rank attends with every query head over its own slots and also
+   returns lse (``flash_decode(..., with_lse=True)``, the forward's lse,
+   or the plain attention's).
+3. The ranks' ``(o, lse)`` are all-gathered and combined in rank order
+   (``kernels.flash_attention.combine_ranges``, the reference's finite
+   ``NEG_INF`` kept), and each rank keeps its heads' o for ``wo``.
+
+The approximate attention over a sequence-split cache is item 11c of
+ROADMAP.md and raises.
 """
 
 from __future__ import annotations
@@ -34,10 +70,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels.approx_attention import (
     approx_flash_attention, attn_tiles, validate_attn_mode,
 )
-from repro_torch.kernels.flash_attention import attend, flash_attention, flash_decode
+from repro_torch.kernels.flash_attention import (
+    attend, combine_ranges, flash_attention, flash_attention_fwd, flash_decode,
+)
 from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
 
@@ -81,6 +120,30 @@ def _write_rows(cache: torch.Tensor, update: torch.Tensor, starts: torch.Tensor)
     cache[rows, idx] = update.to(cache.dtype)
 
 
+def _write_range(cache: torch.Tensor, update: torch.Tensor, starts: torch.Tensor, base: int,
+                 total: int) -> None:
+    """:func:`_write_rows` on a sequence shard holding slots ``[base, base +
+    cache.shape[1])`` of ``total``: only the (row, slot) pairs in this
+    range change here.  The write has the update's shape on every rank, so
+    the host never waits for the device to learn which pairs are its own: a
+    row's positions outside the range are clamped to its nearest position
+    inside (they write that slot's new value again), and a row with none
+    inside writes its slot 0 back with the value it holds."""
+    b, s = update.shape[:2]
+    t = cache.shape[1]
+    starts = torch.clamp(starts, 0, total - s)
+    lo = torch.clamp(base - starts, 0, s)[:, None]  # the row's first position in range
+    hi = torch.clamp(base + t - starts, 0, s)[:, None]  # one past its last
+    pos = torch.arange(s, device=cache.device)[None, :].expand(b, s)
+    pos = torch.clamp(torch.clamp(pos, lo, hi - 1), 0, s - 1)
+    inside = hi > lo
+    idx = torch.where(inside, starts[:, None] + pos - base, 0)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    vals = torch.where(inside[..., None, None], update.to(cache.dtype)[rows, pos],
+                       cache[:, :1])
+    cache[rows, idx] = vals
+
+
 def _block(dim: int) -> int:
     """The largest power-of-two divisor of ``dim`` up to 512: the
     reference's kernel tile (``repro/models/attention.py:272-276``)."""
@@ -95,9 +158,8 @@ def _pallas(q, k, v, q_pos, k_pos, *, decode, cfg, **kw):
     if decode:
         return flash_decode(q[:, 0], k, v, q_pos[:, -1], k_pos, window=kw["window"],
                             softcap=kw["softcap"], scale=kw["scale"])[:, None]
-    ap = cfg.approx.for_target("attn") if (
-        cfg.approx.enabled and "attn" in cfg.approx.targets) else None
-    if ap is not None and ap.mode in ("bitexact", "lowrank") and ap.backend != "reference":
+    ap = _approx_attn(cfg)
+    if ap is not None:
         # the QK and AV contractions themselves through the multiplier; the
         # projections went through the engine already
         validate_attn_mode(ap.mode, ap.n)
@@ -105,6 +167,56 @@ def _pallas(q, k, v, q_pos, k_pos, *, decode, cfg, **kw):
             q, k, v, q_pos, k_pos, ap.mode, ap.n, ap.t, ap.fix_to_1, ap.rank,
             bk=min(_block(k.shape[1]), attn_tiles(ap.mode)[1]), **kw)
     return flash_attention(q, k, v, q_pos, k_pos, **kw)
+
+
+def _kv_heads(r: int, hl: int, g: int) -> tuple[int, int]:
+    """The KV heads ``[lo, hi)`` that query heads ``[r hl, (r + 1) hl)`` read
+    (head j reads KV head j // g)."""
+    lo, hi = r * hl // g, ((r + 1) * hl - 1) // g + 1
+    if (hi - lo) * g != hl and hi - lo != 1:
+        raise ValueError(f"{hl} query heads a rank do not map onto whole groups of {g}")
+    return lo, hi
+
+
+def _tp_heads(t: torch.Tensor, ax, heads: int, hd: int) -> tuple[torch.Tensor, bool]:
+    """A column-parallel q, k or v product (B, S, cols) as (tensor, whole):
+    this rank's heads where the model axis splits the columns at whole
+    heads, else every head (gathered, or the whole product with its
+    gradient added over the model group)."""
+    cols = t.shape[-1]
+    if cols % hd == 0 and cols * ax.size == heads * hd:
+        return t, False
+    if cols == heads * hd:
+        return sharding.copy_to(t, ax), True
+    return sharding.all_gather(t, ax, -1), True
+
+
+def _approx_attn(cfg):
+    """The attention target's approximation where the kernel path takes it, or None."""
+    ap = cfg.approx.for_target("attn") if (
+        cfg.approx.enabled and "attn" in cfg.approx.targets) else None
+    if ap is not None and ap.mode in ("bitexact", "lowrank") and ap.backend != "reference":
+        return ap
+    return None
+
+
+def _ranges_attention(q, k, v, q_pos, k_pos, *, decode, cfg, ax, **kw):
+    """Every query head over this rank's cache slots, combined over the
+    model group with the other ranks' slots (the module's note, 2-3)."""
+    if cfg.attn_impl == "pallas" and not decode and _approx_attn(cfg) is not None:
+        raise ValueError("the approximate attention over a sequence-split cache is ROADMAP.md "
+                         "item 11c: serve this tier without a model axis, or attn_impl='xla'")
+    if cfg.attn_impl == "pallas" and decode:
+        o, lse = flash_decode(q[:, 0], k, v, q_pos[:, -1], k_pos, window=kw["window"],
+                              softcap=kw["softcap"], scale=kw["scale"], with_lse=True)
+        o, lse = o[:, None], lse[:, :, None]
+    elif cfg.attn_impl == "pallas":
+        o, lse = flash_attention_fwd(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+    else:
+        o, lse = attend(q, k, v, q_pos, k_pos, decode=decode, with_lse=True, **kw)
+    outs = sharding.all_gather(o[None], ax, 0)  # (m, B, S, H, hd)
+    lses = sharding.all_gather(lse.transpose(1, 2)[None], ax, 0)  # (m, B, S, H)
+    return combine_ranges(outs, lses)[0]
 
 
 def attention(
@@ -131,13 +243,28 @@ def attention(
     cfg = ctx.cfg
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ax = (sharding.model_axis()
+          if sharding.tp_role(getattr(params["wq"], "spec", None)) == "column" else None)
 
-    q = layers.dense(x, params["wq"], ctx, "attn").reshape(b, s, h, hd)
-    k = layers.dense(x, params["wk"], ctx, "attn").reshape(b, s, kvh, hd)
-    v = layers.dense(x, params["wv"], ctx, "attn").reshape(b, s, kvh, hd)
-    if cfg.use_qk_norm and "q_norm_scale" in params:
-        q = layers.rms_norm(q, params["q_norm_scale"], cfg.norm_eps)
-        k = layers.rms_norm(k, params["k_norm_scale"], cfg.norm_eps)
+    q = layers.dense(x, params["wq"], ctx, "attn")
+    k = layers.dense(x, params["wk"], ctx, "attn")
+    v = layers.dense(x, params["wv"], ctx, "attn")
+    q_norm, k_norm = params.get("q_norm_scale"), params.get("k_norm_scale")
+    if ax is not None:
+        q, q_whole = _tp_heads(q, ax, h, hd)
+        (k, whole), (v, _) = _tp_heads(k, ax, kvh, hd), _tp_heads(v, ax, kvh, hd)
+        if q_whole and not whole:
+            k, v = sharding.all_gather(k, ax, -1), sharding.all_gather(v, ax, -1)
+            whole = True
+        if cfg.use_qk_norm and q_norm is not None:  # this rank's heads add a part of the grad
+            q_norm = sharding.copy_to(sharding.use(q_norm), ax)
+            k_norm = sharding.copy_to(sharding.use(k_norm), ax)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    if cfg.use_qk_norm and q_norm is not None:
+        q = layers.rms_norm(q, q_norm, cfg.norm_eps)
+        k = layers.rms_norm(k, k_norm, cfg.norm_eps)
     if cfg.use_mrope:
         q = layers.mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = layers.mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -147,6 +274,21 @@ def attention(
         k = layers.rope(k, positions, cfg.rope_theta)
 
     decode = s == 1 and cache is not None
+    window = cfg.local_window if local else None
+    kw = dict(causal=causal, window=window, softcap=cfg.attn_logit_softcap, scale=hd**-0.5)
+    base, total = 0, None
+    if ax is not None and cache is not None:
+        # the hand-over to the sequence-split cache (the module's note, 1)
+        if not q_whole:
+            q = sharding.all_gather(q, ax, 2)
+        if not whole:
+            k, v = sharding.all_gather(k, ax, 2), sharding.all_gather(v, ax, 2)
+        q_whole = True
+        base, total = ax.index * cache.k.shape[1], cache.k.shape[1] * ax.size
+    elif ax is not None and whole and not q_whole:  # the KV heads its query heads read
+        lo, hi = _kv_heads(ax.index, q.shape[2], h // kvh)
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+
     if cache is not None:
         t = cache.k.shape[1]
         per_row = torch.is_tensor(cache_pos) and cache_pos.ndim >= 1
@@ -154,10 +296,14 @@ def attention(
             starts = cache_pos.to(torch.int64)
         else:
             starts = torch.full((b,), int(cache_pos), dtype=torch.int64, device=x.device)
-        _write_rows(cache.k, k, starts)
-        _write_rows(cache.v, v, starts)
+        if total is None:
+            _write_rows(cache.k, k, starts)
+            _write_rows(cache.v, v, starts)
+        else:
+            _write_range(cache.k, k, starts, base, total)
+            _write_range(cache.v, v, starts, base, total)
         k, v = cache.k, cache.v
-        jj = torch.arange(t, device=x.device)[None, :].expand(b, t)
+        jj = base + torch.arange(t, device=x.device)[None, :].expand(b, t)
         if per_row:
             last = starts + (s - 1)  # physical slot of the newest token
             offset = last - positions[:, -1].to(torch.int64)  # per-row left pad
@@ -170,11 +316,16 @@ def attention(
         k_pos = positions
     q_pos = positions
 
-    window = cfg.local_window if local else None
-    kw = dict(causal=causal, window=window, softcap=cfg.attn_logit_softcap, scale=hd**-0.5)
-    if cfg.attn_impl == "pallas":
-        out = _pallas(q, k, v, q_pos, k_pos, decode=decode, cfg=cfg, **kw)
+    if total is not None:
+        out = _ranges_attention(q, k, v, q_pos, k_pos, decode=decode, cfg=cfg, ax=ax, **kw)
+    elif cfg.attn_impl == "pallas":
+        with sharding.heads_split(None if ax is None or q_whole else ax):
+            out = _pallas(q, k, v, q_pos, k_pos, decode=decode, cfg=cfg, **kw)
     else:
         out = attend(q, k, v, q_pos, k_pos, decode=decode, **kw)
-    out = out.reshape(b, s, h * hd).to(x.dtype)
+    out = out.reshape(b, s, -1)
+    if ax is not None and q_whole:  # the columns this rank's block of wo multiplies
+        c = params["wo"].shape[0]
+        out = out[:, :, ax.index * c:(ax.index + 1) * c]
+    out = out.to(x.dtype)
     return layers.dense(out, params["wo"], ctx, "attn"), cache

@@ -3,6 +3,19 @@
 Counterpart of ``repro/models/layers.py``.  Layers are plain functions
 over parameter tensors; ``Ctx`` threads the config and the noise
 generator through the stack without global state.
+
+Tensor parallelism: a placed weight (``distributed.sharding.place_params``)
+carries its spec, and :func:`dense` reads its role from it
+(``sharding.tp_role``): a column-parallel weight (``wq``/``wk``/``wv``,
+``w1``/``w3``: the model axis on its output dimension) takes its input
+through ``sharding.copy_to`` and gives this rank's columns; a
+row-parallel one (``wo``, ``w2``) takes this rank's K slice and its
+partials are summed over the model group (the engine's integer sums for
+the integer modes, ``engine/modes.py``).  So :func:`mlp` is Megatron's
+pair: ``h`` stays split over d_ff between ``w1``/``w3`` and ``w2``, as the
+reference's ``constrain(h, DP, None, TP)`` places it.  Where a rule
+degrades (a dimension the model axis does not divide), the weight is
+whole and the layer replicated, as ``_resolve_entry`` degrades.
 """
 
 from __future__ import annotations
@@ -14,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ApproxConfig, ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.engine import dispatch as _engine, modes as _engine_modes
 
 __all__ = ["Ctx", "fold_seed", "rms_norm", "rope", "mrope", "dense", "mlp", "normal_init",
@@ -78,6 +92,7 @@ def init_mlp(cfg: ModelConfig, dtype, device, generator) -> dict:
 # ------------------------------------------------------------------- layers
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with the reference's ``(1 + scale)`` gain (zero-init scales)."""
+    scale = sharding.use(scale)
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
@@ -125,7 +140,8 @@ def mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections: tupl
 
 
 # -------------------------------------------------------- approximate dense
-def _approx_2d(x2: torch.Tensor, w: torch.Tensor, ap: ApproxConfig, generator) -> torch.Tensor:
+def _approx_2d(x2: torch.Tensor, w: torch.Tensor, ap: ApproxConfig, generator,
+               shard=None) -> torch.Tensor:
     """One engine call; the mode registry owns the mode's semantics."""
     return _engine.matmul(
         x2.to(torch.float32),
@@ -137,19 +153,28 @@ def _approx_2d(x2: torch.Tensor, w: torch.Tensor, ap: ApproxConfig, generator) -
         rank=ap.rank,
         generator=_engine_modes.default_generator(ap.mode, generator, x2.device),
         backend=ap.backend,
+        shard=shard,
     )
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, ctx: Ctx, kind: str = "mlp") -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out), through the approximate multiplier
     when ``kind`` is targeted.  The engine works in f32; the result is
-    cast back to the working dtype, as ``layers.dense`` does."""
+    cast back to the working dtype, as ``layers.dense`` does.  A placed
+    ``w`` runs as its tensor-parallel role (the module's note)."""
+    role = sharding.tp_role(getattr(w, "spec", None))
+    shard = sharding.Shard(role, sharding.model_axis()) if role else None
+    w = sharding.use(w)
+    if role == "column":
+        x = sharding.copy_to(x, shard.axis)
     ap = ctx.cfg.approx
     if not ap.enabled or kind not in ap.targets:
-        return x @ w.to(x.dtype)
+        out = x @ w.to(x.dtype)
+        return sharding.reduce_from(out, shard.axis) if role == "row" else out
     ap = ap.for_target(kind)
     lead = x.shape[:-1]
-    out = _approx_2d(x.reshape(-1, x.shape[-1]), w, ap, ctx.generator)
+    args = (x.reshape(-1, x.shape[-1]), w, ap, ctx.generator) + ((shard,) if shard else ())
+    out = _approx_2d(*args)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 

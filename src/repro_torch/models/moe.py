@@ -47,7 +47,7 @@ Under a live mesh (``distributed.sharding``) the path is the reference's:
   SUM).  Rows that arrive replicated (the single-row admission prefill)
   are cut to each data rank's share and gathered again after, as the
   reference's ``shard_map`` splits them.  Forward only: the sharded train
-  step is ROADMAP.md item 11b.
+  step refuses the MoE family (ROADMAP.md item 11c).
 - **otherwise, rows split over data ranks**: the tokens are gathered and
   routed globally, capacity counted over every token of the batch, and
   each rank keeps its own rows of the output, so the result does not

@@ -23,6 +23,11 @@ per layer for a stacked leaf).  The optimizer keys its state and its
 weight-decay rule on it, and :func:`to_jax_layout` (the loader's inverse,
 for parameters and gradients) stacks the port's tensors back into the
 reference's tree.
+
+Given a live ``mesh``, ``init_params`` and :func:`from_jax_params` place
+each leaf's local block (``distributed.sharding.place_params``): the
+weights are then this rank's blocks by their specs, and the layers run
+tensor-parallel under ``sharding.mesh_context(mesh)``.
 """
 
 from __future__ import annotations
@@ -37,21 +42,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.encdec import EncoderDecoder, init_dec_caches
 from repro_torch.models.layers import Ctx
-from repro_torch.models.transformer import Transformer, block_kinds, init_cache
+from repro_torch.models.transformer import (
+    Transformer, block_kinds, has_recurrent_state, init_cache,
+)
 
-__all__ = ["Leaf", "Model", "STACKS", "build_model", "from_jax_params", "reference_leaves",
-           "to_jax_layout"]
+__all__ = ["Leaf", "Model", "STACKS", "build_model", "check_tensor_parallel", "from_jax_params",
+           "reference_leaves", "to_jax_layout", "unsharded_family"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
-    def init_params(self, seed: int = 0, *, device=None):
+    def init_params(self, seed: int = 0, *, device=None, mesh=None):
         """Seeded random weights on ``device`` (default ``cuda``): a
-        ``Transformer``, or an ``EncoderDecoder`` when ``cfg.is_encdec``."""
+        ``Transformer``, or an ``EncoderDecoder`` when ``cfg.is_encdec``;
+        with ``mesh``, this rank's blocks of them (the module's note)."""
         stack = EncoderDecoder if self.cfg.is_encdec else Transformer
-        return stack.init(self.cfg, seed=seed, device=resolve_device(device))
+        params = stack.init(self.cfg, seed=seed, device=resolve_device(device))
+        return params if mesh is None else _place(params, mesh)
 
     def ctx(self, generator: Optional[torch.Generator] = None, *,
             seed: Optional[int] = None) -> Ctx:
@@ -132,8 +141,39 @@ def _tensor_tree(tree, dtype, device, key=None):
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
-def from_jax_params(tree: dict, cfg: ModelConfig, *, device=None):
-    """Load the reference's parameter tree (numpy leaves) into the port."""
+def unsharded_family(cfg: ModelConfig) -> Optional[str]:
+    """The family of ``cfg`` whose layers the port does not split over a
+    mesh yet (ROADMAP.md item 11c), or None for the dense decoders."""
+    if cfg.num_experts:
+        return "MoE"
+    if cfg.is_encdec:
+        return "encoder-decoder"
+    return "recurrent (SSD / RG-LRU)" if has_recurrent_state(cfg) else None
+
+
+def check_tensor_parallel(cfg: ModelConfig) -> None:
+    """Raise for a family whose sharded step is not built yet
+    (:func:`unsharded_family`), so that it never runs another function
+    under a mesh."""
+    kind = unsharded_family(cfg)
+    if kind is not None:
+        raise ValueError(f"{cfg.name}: the sharded step of the {kind} family is ROADMAP.md "
+                         f"item 11c (MoE backward under a mesh, TP of the SSD, RG-LRU and "
+                         f"encoder-decoder leaves); train it with mesh=None")
+
+
+def _place(params, mesh):
+    from repro_torch.distributed import sharding
+
+    check_tensor_parallel(params.cfg)
+    return sharding.place_params(params, mesh)
+
+
+def from_jax_params(tree: dict, cfg: ModelConfig, *, device=None, mesh=None):
+    """Load the reference's parameter tree (numpy leaves) into the port;
+    with ``mesh``, this rank's blocks of it (the module's note)."""
+    if mesh is not None:
+        return _place(from_jax_params(tree, cfg, device=device), mesh)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     if cfg.is_encdec:

@@ -19,6 +19,15 @@ stubbed vision frontend's patch embeddings) in their place, and returns
 the final hidden states, the caches and the blocks' aux loss summed in
 layer order; ``lm_head`` turns the hidden states into logits.
 
+Tensor parallelism (placed parameters, ``distributed.sharding``): the
+embedding is vocab-parallel (its rows split over the model axis, as the
+reference's ``(TP, FSDP)`` rule places it): each rank looks up the tokens
+its rows hold, zeros elsewhere, and an all-reduce adds the ranks' rows,
+which is exact (every element is one rank's value plus zeros).  The head,
+tied or not, is column-parallel over the vocabulary; ``lm_head`` gathers
+the logits over the model group for the serving steps, and the train loss
+streams this rank's vocabulary slice (``train/losses.py``).
+
 The parameters are trainable ``nn.Parameter`` s; serving runs under
 ``torch.inference_mode()`` so that no step records a graph.  ``cfg.remat``
 maps the reference's remat policies (applied there to the scanned group
@@ -42,10 +51,12 @@ from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, layers, moe, rglru, ssd
 from repro_torch.models.layers import Ctx
 
-__all__ = ["Block", "Transformer", "block_kinds", "has_recurrent_state", "init_cache"]
+__all__ = ["Block", "Transformer", "block_kinds", "embed_lookup", "has_recurrent_state",
+           "head_matrix", "init_cache"]
 
 _ATTN_KINDS = ("attn_global", "attn_local")
 _RECURRENT_KINDS = ("rglru", "ssd")  # block kinds with a recurrent state, which takes in pads
@@ -75,6 +86,36 @@ def init_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, dev
     if kind == "ssd":
         return ssd.init_ssd_cache(cfg, batch, dtype, device)
     raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _vocab_axis(table: torch.Tensor, vocab_dim: int):
+    """The model axis a placed table's vocabulary dimension is split over, or None."""
+    spec = getattr(table, "spec", None)
+    if spec and sharding.TP in sharding.spec_axes(spec[vocab_dim]):
+        return sharding.model_axis()
+    return None
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; vocab-parallel where ``embed`` is placed so (the
+    module's note)."""
+    ax = _vocab_axis(embed, 0)
+    w = sharding.use(embed)
+    if ax is None:
+        return w[tokens]
+    lo = ax.index * w.shape[0]
+    loc = tokens - lo
+    mine = (loc >= 0) & (loc < w.shape[0])
+    rows = w[torch.where(mine, loc, 0)]
+    return sharding.reduce_from(torch.where(mine[..., None], rows, 0.0).to(w.dtype), ax)
+
+
+def head_matrix(params, cfg: ModelConfig):
+    """``(w (D, V_local), axis)``: the head matrix as the loss and the logits
+    use it, and the model axis its vocabulary is split over (None: whole)."""
+    if cfg.tie_embeddings:
+        return sharding.use(params.embed).T, _vocab_axis(params.embed, 0)
+    return sharding.use(params.lm_head_w), _vocab_axis(params.lm_head_w, 1)
 
 
 # the reference's checkpoint_dots_with_no_batch_dims: 2-D products, not batched ones
@@ -217,7 +258,7 @@ class Transformer(nn.Module):
         given, take the place of the token lookup; aux is the blocks' MoE
         load-balance losses summed in layer order (float32 0-d)."""
         cfg = self.cfg
-        x = self.embed[tokens] if embeds is None else embeds.to(self.embed.dtype)
+        x = embed_lookup(self.embed, tokens) if embeds is None else embeds.to(self.embed.dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
         remat = cfg.remat if caches is None and torch.is_grad_enabled() else "none"
@@ -235,10 +276,11 @@ class Transformer(nn.Module):
         return x, caches, aux
 
     def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Full logits (B, S, V) in f32."""
+        """Full logits (B, S, V) in f32 (gathered over the model group where
+        the vocabulary is split; no gradient through the gather)."""
         cfg = self.cfg
-        w = self.embed.T if cfg.tie_embeddings else self.lm_head_w
+        w, ax = head_matrix(self, cfg)
         logits = hidden.to(torch.float32) @ w.to(torch.float32)
         if cfg.final_logit_softcap:
             logits = torch.tanh(logits / cfg.final_logit_softcap) * cfg.final_logit_softcap
-        return logits
+        return sharding.gather(logits, ax, -1)

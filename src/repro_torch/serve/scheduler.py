@@ -35,6 +35,12 @@ admission prefill ``(1, P)`` runs replicated on every rank, and only the
 row's owner writes its cache.  Where n does not divide the batch, every
 rank computes every row, as the reference's ``resolve_spec`` drops the
 axis.  A mesh without a process group raises.
+
+**A (data, model) mesh** with placed parameters
+(``Model.init_params(..., mesh=)``): the rows split over ``data`` as
+above, and the layers run tensor-parallel over ``model``; each rank's pool
+caches are then its sequence shard of the capacity
+(``models/attention.py``), which the model axis must divide.
 """
 
 from __future__ import annotations
@@ -276,7 +282,14 @@ class ContinuousScheduler:
     def init_pool_caches(self) -> list:
         """Zero caches of this rank's pool rows (all of them without a mesh)."""
         rows = self.batch_size if self._split is None else self._split.rows
-        return self.model.init_caches(rows, self.capacity, self._cache_dtype, self.device)
+        seq = self.capacity
+        if sharding.is_placed(self.params):  # this rank's sequence shard (the note)
+            ax = sharding.model_axis(self.mesh)
+            if self.mesh is None or ax is None or self.capacity % ax.size:
+                raise ValueError(f"placed parameters serve on their (data, model) mesh, whose "
+                                 f"model axis divides the capacity {self.capacity}")
+            seq //= ax.size
+        return self.model.init_caches(rows, seq, self._cache_dtype, self.device)
 
     # ------------------------------------------------------------- helpers
     def _pad(self, req: Request) -> tuple:

@@ -24,6 +24,24 @@ encoder-decoder's prefill also runs the encoder over ``batch["src_embeds"]``
 and puts each decoder layer's cross K/V, in the cache dtype, in its cache.
 Under M-RoPE every step broadcasts its (B, S) positions to the (3, B, S)
 t/h/w streams of a text-only sequence (t = h = w), as the reference does.
+
+**The sharded step** (``make_train_step(..., mesh=)``) runs the same step
+on a live (data, model) mesh, every rank on its own blocks: the state is
+the ``Placed`` layout of ``checkpoint.manager.shard_train_state`` (so it
+saves and restores elastically), the parameters are FSDP-split over
+``data`` and TP-split over ``model`` by their specs, and each leaf is
+gathered over ``data`` where a layer uses it, its gradient reduce-scattered
+back (``distributed.sharding.use``).  The batch is this rank's rows of the
+global batch as :func:`shard_batch` cuts them: with ``grad_accum > 1``
+microbatch i holds rows ``[i B / accum, (i + 1) B / accum)`` of the
+*global* batch, split over the data ranks, as the reference's scan over
+``reshape(accum, B / accum)`` places them; the absmax and the ``inject``
+draws are per microbatch, so membership is part of the function.  The
+loss of each rank's rows is their sum over the global token count, so the
+data ranks' losses and gradients add up to the global mean.  The MoE, SSD,
+RG-LRU and encoder-decoder families raise here (ROADMAP.md item 11c).  The
+serving pair takes placed parameters under a mesh too: the caches are then
+each rank's sequence shard (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -33,14 +51,17 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import fold_seed
-from repro_torch.models.registry import Model, reference_leaves
+from repro_torch.models.registry import Model, check_tensor_parallel, reference_leaves
+from repro_torch.models.transformer import head_matrix
 from repro_torch.optim import adamw, compress
 from repro_torch.train.losses import chunked_cross_entropy
 
 __all__ = [
     "AUX_COEF", "TrainState", "init_train_state", "loss_fn",
     "make_decode_step", "make_prefill_step", "make_train_step", "mrope_positions",
+    "shard_batch",
 ]
 
 AUX_COEF = 0.01
@@ -54,9 +75,16 @@ class TrainState(NamedTuple):
     step: torch.Tensor  # int64 0-d, on the host
 
 
-def init_train_state(model: Model, tcfg: TrainConfig, seed: int, *, device=None) -> TrainState:
+def init_train_state(model: Model, tcfg: TrainConfig, seed: int, *, device=None,
+                     mesh=None) -> TrainState:
     """Seeded parameters on ``device`` (default ``cuda``), zero moments and
-    residuals, step 0."""
+    residuals, step 0; with ``mesh``, this rank's blocks of that state
+    (``shard_train_state``) for the sharded step."""
+    if mesh is not None:
+        from repro_torch.checkpoint.manager import shard_train_state
+
+        check_tensor_parallel(model.cfg)
+        return shard_train_state(init_train_state(model, tcfg, seed, device=device), mesh)
     params = model.init_params(seed, device=device)
     leaves = reference_leaves(params)
     named = dict(params.named_parameters())
@@ -80,8 +108,20 @@ def _positions(cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return mrope_positions(cfg, torch.arange(s, device=tokens.device)[None, :].expand(b, s))
 
 
-def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
-    return params.embed.T if cfg.tie_embeddings else params.lm_head_w
+def shard_batch(batch: dict, mesh, accum: int = 1) -> dict:
+    """This rank's rows of a global ``batch`` for the sharded step, in
+    microbatch order: of each of the ``accum`` microbatches (rows ``[i B /
+    accum, (i + 1) B / accum)``) the data rank's contiguous share."""
+    ax = sharding.mesh_axis(mesh, sharding.FSDP)
+    size, index = (1, 0) if ax is None else (ax.size, ax.index)
+    b = next(iter(batch.values())).shape[0]
+    if b % (accum * size):
+        raise ValueError(f"batch {b} does not split into {accum} microbatches over {size} "
+                         f"data ranks")
+    mb, per = b // accum, b // (accum * size)
+    rows = torch.cat([torch.arange(i * mb + index * per, i * mb + (index + 1) * per)
+                      for i in range(accum)])
+    return {k: v[rows.to(v.device)] for k, v in batch.items()}
 
 
 def loss_fn(params, batch: dict, seed: Optional[int], model: Model):
@@ -104,8 +144,12 @@ def loss_fn(params, batch: dict, seed: Optional[int], model: Model):
         kwargs = dict(embeds=batch.get("embeds"))
     hidden, _, aux = model.forward(params, batch["tokens"], _positions(cfg, batch), ctx,
                                    **kwargs)
-    ce = chunked_cross_entropy(hidden, _head_matrix(params, cfg), batch["labels"],
-                               softcap=cfg.final_logit_softcap)
+    w, vocab_axis = head_matrix(params, cfg)
+    count = None
+    if sharding.is_placed(params):  # this rank's rows over the global count (the note)
+        count = batch["labels"].numel() * sharding.row_shard()[2]
+    ce = chunked_cross_entropy(hidden, w, batch["labels"], softcap=cfg.final_logit_softcap,
+                               vocab_axis=vocab_axis, count=count)
     loss = ce + AUX_COEF * aux
     return loss, {"loss": ce, "aux": aux}
 
@@ -125,14 +169,42 @@ def _grads(params, leaves, batch: dict) -> list:
     return adamw.flatten_leaves(leaves, grads)
 
 
-def make_train_step(model: Model, tcfg: TrainConfig):
+def _local_module(model: Model, placed: list, mesh):
+    """The model's module holding the ``Placed`` parameter blocks of a
+    sharded state (sharing their storage, under their own specs), which
+    must lie on ``mesh``."""
+    params = model.init_params(0, device="meta")
+    names = [n for n, _ in params.named_parameters()]
+    return sharding.place_params(params, mesh, blocks=dict(zip(names, placed)))
+
+
+def make_train_step(model: Model, tcfg: TrainConfig, *, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` (B, S) on the parameters' device, and
-    ``src_embeds`` (B, S_src, D) for an encoder-decoder."""
+    ``src_embeds`` (B, S_src, D) for an encoder-decoder.  With ``mesh`` it
+    is the sharded step (the module's note): ``state`` from
+    ``init_train_state(..., mesh=)`` or ``shard_train_state``, ``batch``
+    this rank's rows from :func:`shard_batch`."""
     accum = max(1, tcfg.grad_accum)
+    if mesh is not None:
+        sharding.require_live(mesh, "the sharded train step")
+        check_tensor_parallel(model.cfg)
+    held: dict = {}
 
     def step_fn(state: TrainState, batch: dict):
-        params = state.params
+        if mesh is None:
+            params = state.params
+        else:  # the module over the state's blocks, made once per list of blocks
+            if held.get("placed") is not state.params:
+                held.update(placed=state.params,
+                            module=_local_module(model, state.params, mesh))
+            params = held["module"]
+        if mesh is None:
+            return _step(params, state, batch)
+        with sharding.mesh_context(mesh):
+            return _step(params, state, batch)
+
+    def _step(params, state: TrainState, batch: dict):
         leaves = reference_leaves(params)
         seed = fold_seed(state.seed, int(state.step))
         if accum == 1:
@@ -163,12 +235,28 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         params.zero_grad(set_to_none=True)
 
         comp, cmetrics = state.comp, {}
-        if comp is not None:
-            grads, comp, cmetrics = compress.compress_grads(grads, comp)
         named = dict(params.named_parameters())
-        opt, ometrics = adamw.update(leaves, named, grads, state.opt, tcfg)
+        if mesh is not None:
+            leaves = params.placed_specs  # each leaf with the spec of its blocks
+            # the data ranks' losses add up to the global mean (the note)
+            data = sharding.mesh_axis(mesh, sharding.FSDP)
+            loss = sharding.all_reduce(loss, data)
+            parts = {k: sharding.all_reduce(v, data) for k, v in parts.items()}
+        if comp is not None and mesh is None:
+            grads, comp, cmetrics = compress.compress_grads(grads, comp)
+        elif comp is not None:  # the per-tensor scale over the whole leaf
+            local = [((len(ls.names),) if ls.stacked else ()) + tuple(named[ls.names[0]].shape)
+                     for ls in leaves]
+            whole = [sharding.gather_block(g.reshape(shape), ls.spec, mesh).reshape(-1)
+                     for ls, g, shape in zip(leaves, grads, local)]
+            whole, comp, cmetrics = compress.compress_grads(whole, comp)
+            grads = [sharding.local_block(g.reshape(ls.shape), ls.spec, mesh).reshape(-1)
+                     for ls, g in zip(leaves, whole)]
+        opt, ometrics = adamw.update(leaves, named, grads, state.opt, tcfg,
+                                     **({} if mesh is None else {"mesh": mesh}))
+        new_params = params if mesh is None else state.params
         metrics = {"loss": loss, **parts, **ometrics, **cmetrics}
-        return TrainState(params, opt, comp, state.seed, state.step + 1), metrics
+        return TrainState(new_params, opt, comp, state.seed, state.step + 1), metrics
 
     return step_fn
 
@@ -189,7 +277,13 @@ def make_prefill_step(model: Model, max_seq: int, *, mem_len: int = 0):
         tokens = batch["tokens"]
         b, s = tokens.shape
         ctx = model.ctx()
-        caches = model.init_caches(b, max_seq, cache_dtype, tokens.device, mem_len=mem_len)
+        seq = max_seq
+        ax = sharding.model_axis() if sharding.is_placed(params) else None
+        if ax is not None:  # each rank's sequence shard of the caches
+            if max_seq % ax.size:
+                raise ValueError(f"max_seq {max_seq} does not split over {ax.size} model ranks")
+            seq = max_seq // ax.size
+        caches = model.init_caches(b, seq, cache_dtype, tokens.device, mem_len=mem_len)
         if cfg.is_encdec:
             memory = model.encode(params, batch["src_embeds"], batch["src_pos"], ctx)
             cross = model.precompute_cross(params, memory, ctx)

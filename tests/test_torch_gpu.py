@@ -39,7 +39,13 @@ Tolerances (kernel against plain version, both on the card):
 - distribution under a one-rank NCCL group (a ``FileStore``, no network):
   the scheduler's streams under a ``("data",)`` mesh equal ``mesh=None``'s
   at exact, balanced and draft; a train state sharded over a (1, 1) mesh
-  restores onto the card and onto the CPU bit for bit.
+  restores onto the card and onto the CPU bit for bit;
+- tensor parallelism: the integer epilogue of lut, packed and seqmul
+  (each K shard equal to its plain version, the shards' int64 sums to the
+  whole K's); the decode's lse and its (o, lse) over 2 and 4 slot ranges
+  combined within 2e-5 of the whole decode; on a one-rank (1, 1) NCCL mesh
+  the sharded train step's losses within rtol 1e-5 of ``mesh=None``'s and
+  the balanced streams equal.
 """
 
 from __future__ import annotations
@@ -1100,3 +1106,123 @@ def test_armed_gate_refuses_an_uncertified_launch(card, monkeypatch):
     engine.matmul(x, w, mode="seqmul", n=12, t=6)
     assert kernels.launch_counts()["seqmul_matmul"] == 1
     assert audit.GATE_CHECKS["seqmul_matmul"] == 1 and audit.GATE_CHECKS["engine.matmul"] == 1
+
+
+@pytest.mark.parametrize("kernel,n", [("lut_matmul", 8), ("packed_matmul", 8),
+                                      ("seqmul_matmul", 12), ("seqmul_matmul", 8)])
+@pytest.mark.parametrize("m,k", [(4, 3072), (128, 2048), (33, 40000)])
+def test_integer_epilogue_shards_sum_to_the_whole_k(kernel, n, m, k, card):
+    """Each K shard's integer epilogue equals its plain version; the shards'
+    int64 sums equal the whole K's integer output, whose conversion is the
+    float32 output (int64 past ``int32_k_limit`` at K = 40,000)."""
+    from repro_torch.engine import artifacts
+    from repro_torch.engine.modes import quantize_operands
+    from repro_torch.kernels import lut_matmul as lm, packed_matmul as pm, seqmul_matmul as sm
+
+    if kernel == "seqmul_matmul" and k > 4096:
+        k = 4096  # int64 at n = 12 already
+    x, w = (torch.from_numpy(a).to(card) for a in _operands(m, k, 96, seed=k))
+    (mx, sx), (mw, sw), _ = quantize_operands(x, w, n)
+
+    def call(ks, integer, plain=False):
+        a, sa, b, sb = (t.contiguous() for t in (mx[:, ks], sx[:, ks], mw[ks], sw[ks]))
+        if kernel == "lut_matmul":
+            lut = artifacts.product_lut_u16(n, n // 2, True, card)
+            fn = lm.lut_matmul_plain if plain else lm.lut_matmul
+            return fn(lut, a.to(torch.uint8), sa, b.to(torch.uint8), sb, n=n, integer=integer)
+        if kernel == "packed_matmul":
+            pa = pm.pack_i16_pairs(a * sa.to(torch.int32), dim=1)
+            pb = pm.pack_i16_pairs(b * sb.to(torch.int32), dim=0)
+            fn = pm.packed_matmul_plain if plain else pm.packed_matmul
+            return fn(pa, pb, n=n, integer=integer)
+        fn = sm.seqmul_matmul_plain if plain else sm.seqmul_matmul
+        return fn(a.to(torch.int16), sa, b.to(torch.int16), sb, n=n, t=n // 2, integer=integer)
+
+    whole = call(slice(0, k), True)
+    assert torch.equal(whole.to(torch.float32), call(slice(0, k), False))
+    for shards in (2, 4):
+        kl = k // shards
+        parts = [call(slice(r * kl, (r + 1) * kl), True) for r in range(shards)]
+        for r, part in enumerate(parts):
+            want = call(slice(r * kl, (r + 1) * kl), True, plain=True)
+            assert part.dtype == want.dtype and torch.equal(part, want)
+        assert torch.equal(sum(p.to(torch.int64) for p in parts), whole.to(torch.int64))
+
+
+@pytest.mark.parametrize("h,kv,hd,t,window", [(16, 8, 128, 48, None), (16, 8, 128, 4096, None),
+                                             (10, 1, 256, 4096, 2048), (4, 4, 64, 200, 24)])
+def test_flash_decode_lse_ranges_combine_to_the_whole(h, kv, hd, t, window, card):
+    """The decode's lse against the plain version's, and (o, lse) over 2 and
+    4 slot ranges combined within rtol = atol = 2e-5 of the whole decode;
+    a row with no allowed slot included."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(t)
+    b = 4
+    q = torch.randn((b, h, hd), generator=g, device=card).to(torch.bfloat16)
+    k, v = (torch.randn((b, t, kv, hd), generator=g, device=card).to(torch.bfloat16)
+            for _ in range(2))
+    q_pos = torch.tensor([t - 1, t // 3, 5, 0], device=card, dtype=torch.int32)
+    k_pos = torch.arange(t, device=card, dtype=torch.int32)[None].expand(b, t).clone()
+    k_pos[3] = -1
+    kw = dict(window=window, softcap=None, scale=hd**-0.5)
+    o, lse = fa.launch_decode(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+    want_o, want_lse = fa.flash_decode_plain(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+    torch.testing.assert_close(o, want_o, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+    for shards in (2, 4):
+        step = t // shards
+        parts = [fa.launch_decode(q, k[:, r * step:(r + 1) * step].contiguous(),
+                                  v[:, r * step:(r + 1) * step].contiguous(), q_pos,
+                                  k_pos[:, r * step:(r + 1) * step].contiguous(), with_lse=True,
+                                  **kw) for r in range(shards)]
+        got, _ = fa.combine_ranges(torch.stack([p[0] for p in parts]),
+                                   torch.stack([p[1] for p in parts]))
+        torch.testing.assert_close(got, o, rtol=2e-5, atol=2e-5)
+
+
+def test_one_rank_nccl_model_mesh_trains_and_serves_as_unsharded(card, tmp_path):
+    """Reduced qwen3-0.6b on the card through the tensor-parallel code on a
+    one-rank (1, 1) NCCL mesh: two sharded train steps (bitexact mlp, the
+    row-parallel GEMMs on the integer epilogue) give mesh=None's losses,
+    and the balanced streams are mesh=None's."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import apply_approx, get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ContinuousScheduler, synth_requests
+    from repro_torch.train.steps import init_train_state, make_train_step, shard_batch
+
+    store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+    torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = apply_approx(get_config("qwen3-0.6b").reduced(), mode="bitexact", n=8, t=4)
+        model, tcfg = build_model(cfg), TrainConfig(total_steps=4, grad_accum=2)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = {k: torch.randint(0, cfg.vocab_size, (8, 16), generator=gen, device=card)
+                 for k in ("tokens", "labels")}
+        losses = []
+        for m in (None, mesh):
+            state = init_train_state(model, tcfg, 0, device="cuda", mesh=m)
+            step = make_train_step(model, tcfg, mesh=m)
+            kernels.reset_launch_counts()
+            got = []
+            for _ in range(2):
+                state, metrics = step(state, batch if m is None else shard_batch(batch, m, 2))
+                got.append(float(metrics["loss"]))
+            assert kernels.launch_counts()["lut_matmul"] > 0
+            losses.append(got)
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+        base = get_config("qwen3-0.6b").reduced()
+        model = build_model(base)
+        queue = synth_requests(6, prompt_len=8, gen=4, vocab_size=base.vocab_size, seed=0)
+        runs = [ContinuousScheduler(model, model.init_params(0, device="cuda", mesh=m),
+                                    batch_size=4, prompt_len=8, max_new=4, quality="balanced",
+                                    mesh=m).run(queue) for m in (None, mesh)]
+        for r in queue:
+            np.testing.assert_array_equal(runs[0].outputs[r.id], runs[1].outputs[r.id])
+    finally:
+        torch.distributed.destroy_process_group()

@@ -104,7 +104,8 @@ def test_records_carry_the_module_path():
 
 def test_dryrun_prints_flops_and_bytes_for_every_cell(capsys):
     """Every cell of qwen3-0.6b on both production meshes: FLOPs and bytes
-    per device, non-null; the collective bytes null with their reason."""
+    per device, non-null; the collective bytes of its sharded step by kind
+    (its layers are tensor-parallel), and their term."""
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "qwen3-0.6b", "--mesh", "both"])
     assert e.value.code == 0
@@ -113,8 +114,9 @@ def test_dryrun_prints_flops_and_bytes_for_every_cell(capsys):
     assert [r["shape"] for r in recs] == [s for s in cells for _ in (0, 1)]
     for r in recs:
         assert r["ok"] and r["flops_per_dev"] > 0 and r["bytes_per_dev"] > 0
-        assert r["collective_bytes_per_dev"] is None
-        assert "11b" in r["collective_bytes_null_because"]
+        coll = r["collective_bytes_per_dev"]
+        assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+        assert r["terms_s"]["collective"] == pytest.approx(sum(coll.values()) / dryrun.HW.NVLINK_BW)
         assert r["layer_kinds"] == {"attn_global": 28}
     single = {r["shape"]: r for r in recs if r["mesh"] == "single"}
     multi = {r["shape"]: r for r in recs if r["mesh"] == "multi"}
