@@ -197,7 +197,12 @@ Phases, one line each (or a few):
    set to 0 just before each run and read just after.
    After each run, one pool prefill and one decode step give the
    launches and host time per step, and a profiler pass over one
-   decode step the device's busy share.  Then the rest of serving:
+   decode step the device's busy share (every profile traces the device
+   and the CUDA runtime's calls; the host's PyTorch ops only where the
+   host split of the tensor-parallel serves is printed: the balanced,
+   pallas exact and pallas lowrank runs and their (1, 1)-mesh twins, so
+   the other profiles stop and read in a fraction of the time).  Then
+   the rest of serving:
    ``SelfSpeculative(k=4, draft_tier="draft")`` on the exact pool over 1
    of the exact run's 4 requests (packed_matmul) and on the pallas exact
    pool over 1 of its own (flash_decode, flash_attention, packed_matmul),
@@ -290,18 +295,32 @@ Phases, one line each (or a few):
    with ``mesh=None`` (losses within rtol 1e-5, both under PyTorch's
    deterministic algorithms; step ms, launches a step, busy share), and a
    balanced serve (lut_matmul) and a pallas exact one (flash_attention and
-   flash_decode with their lse, the ranges combined) with placed
-   parameters, of the serve phase's requests, streams bit-equal to its
-   ``mesh=None`` runs', the profiled decode step's host time in
-   collectives and in device syncs and copies beside theirs;
+   flash_decode with their lse, the ranges combined) and a pallas lowrank
+   mlp+attn one (the approximate attention at prefill under a model axis:
+   the cache's slots gathered, lowrank_matmul, approx_attention_lowrank)
+   with placed parameters, of the serve phase's requests, streams
+   bit-equal to its ``mesh=None`` runs', the profiled decode step's host
+   time in collectives and in device syncs and copies beside theirs; and
+   two steps of each of train runs (d) granite-moe-1b-a400m,
+   (e) mamba2-130m, (f) recurrentgemma-2b at 6 layers and (g)
+   seamless-m4t-large-v2 on the mesh (the MoE, SSD, RG-LRU and
+   encoder-decoder layers tensor-parallel; on one rank ``_moe_sharded``
+   is not taken: its condition needs a model axis above 1), held after
+   phase 6 against each run's first two steps there (losses within rtol
+   1e-5, both under deterministic algorithms; losses' and grad norms'
+   equality printed), and full-width mamba2-130m and recurrentgemma-2b
+   at exact (full-length prompts) and seamless-m4t-large-v2 at pallas
+   exact (the static loop, the cross K/V cache split over its memory
+   slots) served on the mesh, their streams held bit-equal to the wide
+   serve phase's ``mesh=None`` runs after it;
 6. train: ``make_train_step`` through ``run_loop`` at full width (seed-0
    weights, ``SyntheticLM`` data, batch 8 x seq 128, 16 steps, the
    reference driver's schedule) for ``paper-multiplier`` with
    ``attn_impl="pallas"`` (lut_matmul on the MLPs, flash_attention with
    lse, the dq and dk/dv kernels) and qwen3-0.6b bitexact on mlp and attn
    with ``attn_impl="pallas"`` (adds approx_attention_bitexact; train (b),
-   under PyTorch's deterministic algorithms, so that 5c's sharded steps
-   are held against its first two), and (c)
+   under PyTorch's deterministic algorithms, as (d)-(g) are, so that 5c's
+   sharded steps are held against their first two), and (c)
    gemma2-9b at its published widths (d_model 3584, 16 / 8 heads of 256,
    vocab 256,000, both softcaps, window 4,096, tied embeddings), its depth
    cut to 4 layers (local, global, local, global), bf16, remat "full",
@@ -2519,8 +2538,8 @@ def moe_counters():
             layers=0, assignments=0, launches=0,
             dropped=torch.zeros((), dtype=torch.int64, device="cuda")))
 
-    def route_hook(router, x2, cfg):
-        r = route(router, x2, cfg)
+    def route_hook(router, x2, cfg, **kw):
+        r = route(router, x2, cfg, **kw)
         tokens_now[0] = x2.shape[0]
         e = entry(x2.shape[0])
         e["layers"] += 1
@@ -2528,9 +2547,9 @@ def moe_counters():
         e["dropped"] += (~r.keep).sum()
         return r
 
-    def experts_hook(x, w, ctx):
+    def experts_hook(x, w, ctx, **kw):
         before = sum(kernels.launch_counts().values())
-        out = experts(x, w, ctx)
+        out = experts(x, w, ctx, **kw)
         entry(tokens_now[0])["launches"] += sum(kernels.launch_counts().values()) - before
         return out
 
@@ -2544,12 +2563,13 @@ def moe_counters():
 # ---------------------------------------------------------------- serve
 def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=("mlp",),
                 expect=(), forbid=(), requests: int, profile_reps: int = 1,
-                gen: int = SERVE["gen"], full_length: bool = False, mesh=None):
+                gen: int = SERVE["gen"], full_length: bool = False, mesh=None,
+                host_profile: bool = False):
     """One closed-loop run of the scheduler, ``gen`` tokens a request (prompts
     of 4 to 32 tokens, or all of 32 with ``full_length``, as the recurrent
     families take them); every kernel in ``expect`` must launch and none in
-    ``forbid``; ``profile_reps`` decode steps profiled; the run's peak device
-    memory."""
+    ``forbid``; ``profile_reps`` decode steps profiled (``host_profile``:
+    the host's ops traced too); the run's peak device memory."""
     import torch
 
     from repro_torch import kernels
@@ -2603,7 +2623,7 @@ def phase_serve(label: str, params, model, *, quality=None, mode=None, targets=(
     print(f"serve {label}: {st.summary()}; prefill {st.prefill_s:.3f}s decode "
           f"{st.decode_s:.3f}s over {st.decode_steps} steps; run incl. warmup {wall:.2f}s; "
           f"peak device memory {peak_gb:.2f} GB; launches {counts}", flush=True)
-    steps = step_breakdown(label, sched, params, profile_reps)
+    steps = step_breakdown(label, sched, params, profile_reps, host_profile)
     return dict(counts=counts, tok_s=st.tokens_per_s, wall_s=st.wall_s, queue=queue,
                 outputs=result.outputs, model=sched.model, modeled_cost=st.modeled_cost,
                 peak_gb=peak_gb, **steps)
@@ -2723,7 +2743,8 @@ def phase_serve_wide(arch: str, runs: list) -> dict:
               f" (per decode step { {k: c for k, c in run['per_decode'].items() if c} }); "
               f"{time.perf_counter() - t0:.1f}s wall with its step breakdown", flush=True)
         out[label] = {k: run[k] for k in ("counts", "per_prefill", "per_decode", "decode_ms",
-                                          "prefill_ms", "busy_share", "tok_s", "peak_gb")}
+                                          "prefill_ms", "busy_share", "tok_s", "peak_gb",
+                                          "queue", "outputs")}
         if experts is not None:
             out[label]["experts"] = report_experts(f"{arch} {label}", cfg, experts)
     if has_recurrent_state(cfg):
@@ -2831,14 +2852,15 @@ def phase_serve_encdec(arch: str, runs: list) -> dict:
 
 
 def phase_serve_static_encdec(label: str, params, model, *, quality, requests: int,
-                              expect=(), forbid=(), calls=()) -> dict:
+                              expect=(), forbid=(), calls=(), mesh=None) -> dict:
     """One static-loop run, every kernel in ``expect`` launched, none in
     ``forbid``, each ``(wrapper, causal)`` of ``calls`` called on the card,
     every request given its budget of in-vocabulary tokens and no NaN
     logits; then outside the count window one prefill (B = batch, the
     prompt and the memory of ``SERVE["prompt"]``) and one decode step of
     the tier's model on the host clock with their launches, and a profiled
-    decode step for the busy share."""
+    decode step for the busy share.  With ``mesh`` (placed parameters) the
+    loop runs on it, and the step breakdown is left out."""
     import numpy as np
     import torch
 
@@ -2866,7 +2888,7 @@ def phase_serve_static_encdec(label: str, params, model, *, quality, requests: i
         kernels.reset_launch_counts()
         with attention_calls() as seen:
             result = static_serve_loop(model, params, queue, batch_size=b, prompt_len=p,
-                                       gen=gen, quality=quality)
+                                       gen=gen, quality=quality, mesh=mesh)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2888,6 +2910,9 @@ def phase_serve_static_encdec(label: str, params, model, *, quality, requests: i
     print(f"serve {label}: {st.summary()}; prefill {st.prefill_s:.3f}s decode "
           f"{st.decode_s:.3f}s over {st.decode_steps} steps; peak device memory {peak_gb:.2f} "
           f"GB; attention calls on the card {dict(seen)}", flush=True)
+    if mesh is not None:
+        return dict(counts=counts, tok_s=st.tokens_per_s, peak_gb=peak_gb, queue=queue,
+                    outputs=result.outputs, decode_s=st.decode_s, decode_steps=st.decode_steps)
 
     tier_model, _ = _apply_pool_quality(model, quality)
     prefill = make_prefill_step(tier_model, p + gen, mem_len=p)
@@ -2915,7 +2940,9 @@ def phase_serve_static_encdec(label: str, params, model, *, quality, requests: i
     kernels.reset_launch_counts()
     return dict(counts=counts, per_prefill=per_prefill, per_decode=per_decode,
                 prefill_ms=prefill_ms, decode_ms=decode_ms, tok_s=st.tokens_per_s,
-                peak_gb=peak_gb, busy_share=busy_ms / wall_ms if busy_ms else None)
+                peak_gb=peak_gb, busy_share=busy_ms / wall_ms if busy_ms else None,
+                queue=queue, outputs=result.outputs, decode_s=st.decode_s,
+                decode_steps=st.decode_steps)
 
 
 def phase_long_prompt(label: str, params, model) -> dict:
@@ -3215,12 +3242,13 @@ def phase_soak(params, model) -> dict:
     return row
 
 
-def step_breakdown(label: str, sched, params, profile_reps: int) -> dict:
+def step_breakdown(label: str, sched, params, profile_reps: int, host: bool = False) -> dict:
     """One pool prefill and one decode step of the pool's engine, outside
     the main path's count window: launches of each kernel per step, the
     host-clock time of each step, and a profiler pass over
     ``profile_reps`` decode steps (none at 0) for the device's busy share
-    and the kernels' share of it."""
+    and the kernels' share of it (with ``host``, the host's ops too: the
+    host split of the tensor-parallel serves)."""
     import torch
 
     from repro_torch import kernels
@@ -3245,7 +3273,7 @@ def step_breakdown(label: str, sched, params, profile_reps: int) -> dict:
         decode_ms = (time.perf_counter() - t0) * 1e3
         per_decode = kernels.launch_counts()
         busy_ms, kernel_ms, wall_ms, reps = (
-            profile_decode(eng, params, caches, tok1, at, profile_reps) if profile_reps
+            profile_decode(eng, params, caches, tok1, at, profile_reps, host) if profile_reps
             else (0.0, 0.0, 0.0, 0))
     kernels.reset_launch_counts()
     share = (f"device busy {busy_ms / wall_ms:.3f} of {wall_ms / reps:.2f} ms/step, own "
@@ -3257,12 +3285,12 @@ def step_breakdown(label: str, sched, params, profile_reps: int) -> dict:
           f"{share}", flush=True)
     return dict(per_prefill=per_prefill, per_decode=per_decode, prefill_ms=prefill_ms,
                 decode_ms=decode_ms, busy_share=busy_ms / wall_ms if busy_ms else None,
-                host_split=dict(HOST_SPLIT) if reps else None)
+                host_split=dict(HOST_SPLIT) if reps and host else None)
 
 
-def profile_decode(eng, params, caches, tok, at, reps: int = 3):
+def profile_decode(eng, params, caches, tok, at, reps: int = 3, host: bool = False):
     return profile_fn(lambda: eng.decode(params, caches, tok, at, at)[0].cpu(), reps,
-                      "decode step")
+                      "decode step", host_ops=host)
 
 
 # host ops of a profile: the collectives (c10d's record and ops), and the
@@ -3340,19 +3368,22 @@ def profile_totals(prof) -> tuple:
             [(us, c, _rewrite_name(k, with_wildcard=True)) for k, (us, c) in device.items()])
 
 
-def profile_fn(fn, reps: int, what: str):
+def profile_fn(fn, reps: int, what: str, *, host_ops: bool = False):
     """Device time over ``reps`` calls of ``fn``, which ends in a sync: (busy
     ms, ms in the port's kernels, host-clock ms, reps).  Busy is the sum of
-    kernel times on the one stream the calls use.  ``HOST_SPLIT`` then holds
-    a call's host self time (ms) and count of the collectives and of the
-    syncs and copies, and its wall ms (under the profiler).  The totals
-    are read by ``profile_totals``."""
+    kernel times on the one stream the calls use.  ``host_ops``: the host's
+    PyTorch ops are traced too (the CUDA runtime's calls and the device's
+    work always are), and ``HOST_SPLIT`` then holds a call's host self
+    time (ms) and count of the collectives and of the syncs and copies,
+    and its wall ms (under the profiler).  Without them the trace holds a
+    fraction of the events, which the profiler's stop and the read
+    (``profile_totals``) go through one by one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -3373,12 +3404,14 @@ def profile_fn(fn, reps: int, what: str):
     HOST_SPLIT["wall_ms"] = wall_ms / reps
     top = ", ".join(f"{k} {us / 1e3 / reps:.2f} ms x{c // reps}"
                     for us, c, k in sorted(host, reverse=True)[:6])
+    traced = "host self time by op" if host_ops else (
+        "host self time by CUDA runtime call (host ops not traced)")
     top_device = ", ".join(f"{k[:60]} {us / 1e3 / reps:.2f} ms x{c // reps}"
                            for us, c, k in sorted(device, reverse=True)[:5])
     own_device = ", ".join(f"{k[:70]} {us / 1e3 / reps:.4f} ms x{c // reps}"
                            for us, c, k in sorted(own, reverse=True)) or "none"
     print(f"profile: per {what} {launches / reps:.0f} launches through the CUDA runtime "
-          f"seen; host self time by op: {top}; in collectives {HOST_SPLIT['collective_ms']:.2f} "
+          f"seen; {traced}: {top}; in collectives {HOST_SPLIT['collective_ms']:.2f} "
           f"ms x{HOST_SPLIT['collective_calls']}, in syncs and copies "
           f"{HOST_SPLIT['sync_ms']:.2f} ms x{HOST_SPLIT['sync_calls']}, of "
           f"{HOST_SPLIT['wall_ms']:.2f} ms; device time by kernel: {top_device}; the "
@@ -3534,7 +3567,10 @@ TP_EPILOGUES = (("lut_matmul", 8), ("packed_matmul", 8), ("seqmul_matmul", 12))
 TP_DECODES = (("qwen3 g=2", dict(h=16, kv=8, hd=128), None),
               ("recurrentgemma g=10", RECURRENTGEMMA_HEADS, RECURRENTGEMMA_WINDOW))
 TP_SERVE_KERNELS = {"balanced": ("lut_matmul",),
-                    "pallas exact": ("flash_attention", "flash_decode")}
+                    "pallas exact": ("flash_attention", "flash_decode"),
+                    # the approximate attention at prefill under a model axis
+                    "pallas lowrank mlp+attn": ("lowrank_matmul", "approx_attention_lowrank",
+                                                "flash_decode")}
 TP_TRAIN_STEPS = 2
 
 
@@ -3667,35 +3703,72 @@ def tp_decodes(card_line: str) -> dict:
     return out
 
 
-def tp_train(host) -> dict:
-    """``TP_TRAIN_STEPS`` train steps of full-width qwen3-0.6b (bitexact
-    mlp+attn, pallas: train (b)'s configuration, data and seed) through the
-    sharded step on the one-rank (1, 1) mesh, from its seed-0 state, with
-    PyTorch's deterministic algorithms on, as train (b) runs them (the
-    embedding's backward accumulates with atomics otherwise, which can move
-    the second loss by 0.3% between two runs of one path): its losses and
-    grad norms, the second step's ms and launches, and the busy share of
-    one more, profiled.  :func:`tp_train_check` holds them against train
-    (b)'s first steps."""
+# train runs (d)-(g), also run on the (1, 1) mesh (phase 5c) and held there
+TP_FAMILY_TRAINS = ("granite-moe-1b-a400m", "mamba2-130m", "recurrentgemma-2b",
+                    "seamless-m4t-large-v2")
+# full-width serves also run on the (1, 1) mesh: (arch, the run's label in
+# the wide serve phase, attn_impl="pallas"?)
+TP_WIDE_SERVES = (("mamba2-130m", "exact", False), ("recurrentgemma-2b", "exact", False),
+                  ("seamless-m4t-large-v2", "pallas exact", True))
+
+
+def family_train(arch: str) -> tuple:
+    """(label, config, the kernels each step must launch, the (wrapper,
+    causal) attention calls the run must make) of train runs (d)-(g), as
+    phase 6 runs them and phase 5c runs them again on the (1, 1) mesh."""
+    from repro_torch.configs.registry import get_config
+
+    bwd = ("flash_attention", *BWD_KERNELS)
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    if arch == "recurrentgemma-2b":
+        cfg = dataclasses.replace(cfg, num_layers=RECURRENTGEMMA_TRAIN_LAYERS)
+    return {
+        "granite-moe-1b-a400m": ("(d) granite-moe-1b-a400m pallas", cfg, bwd, ()),
+        "mamba2-130m": ("(e) mamba2-130m pallas", cfg, (), ()),
+        "recurrentgemma-2b": (f"(f) recurrentgemma-2b pallas, {RECURRENTGEMMA_TRAIN_LAYERS} of "
+                              f"26 layers", cfg, bwd, ()),
+        "seamless-m4t-large-v2": ("(g) seamless-m4t-large-v2 pallas", cfg, bwd,
+                                  (("flash_attention", False), ("flash_attention", True))),
+    }[arch]
+
+
+def tp_train(host, cfg, what: str, expect: tuple, *, profile: bool = False) -> dict:
+    """``TP_TRAIN_STEPS`` full-width train steps of ``cfg`` through the
+    sharded step on the one-rank (1, 1) mesh, from its seed-0 state on
+    phase 6's data (an encoder-decoder's frames seeded as phase 6 seeds
+    them), with PyTorch's deterministic algorithms on, as phase 6 runs the
+    same config (the embedding's backward accumulates with atomics
+    otherwise, which can move the second loss by 0.3% between two runs of
+    one path): its losses and grad norms, the second step's ms and
+    launches (each kernel of ``expect`` launched in every step), peak
+    memory, and with ``profile`` the busy share of one more step.
+    :func:`tp_train_check` holds them against phase 6's first steps."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
-    from repro_torch.configs.registry import apply_approx, get_config
+    from repro_torch.models.layers import fold_seed
     from repro_torch.models.registry import build_model
     from repro_torch.train.steps import init_train_state, make_train_step, shard_batch
 
-    cfg = apply_approx(dataclasses.replace(get_config("qwen3-0.6b"), attn_impl="pallas"),
-                       mode="bitexact", n=8, t=4, targets=("mlp", "attn"))
     model = build_model(cfg)
     tcfg, data = train_setup(cfg, 0)
-    losses, norms, times, counts = [], [], [], []
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+
+    def batch_fn(i: int) -> dict:
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.batch(i).items()}
+        if cfg.is_encdec:
+            g = torch.Generator(device="cuda").manual_seed(fold_seed(1, i))
+            batch["src_embeds"] = torch.randn((b, seq, cfg.d_model), generator=g, device="cuda")
+        return shard_batch(batch, host)
+
+    losses, norms, times, counts, busy, wall = [], [], [], [], None, None
+    torch.cuda.reset_peak_memory_stats()
     with deterministic_algorithms():
         state = init_train_state(model, tcfg, 0, device="cuda", mesh=host)
         step = make_train_step(model, tcfg, mesh=host)
-        for i in range(TP_TRAIN_STEPS + 1):
-            batch = shard_batch({k: torch.as_tensor(v, device="cuda")
-                                 for k, v in data.batch(i).items()}, host)
+        for i in range(TP_TRAIN_STEPS + int(profile)):
+            batch = batch_fn(i)
             kernels.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3705,45 +3778,71 @@ def tp_train(host) -> dict:
                 norms.append(float(metrics["grad_norm"]))
             else:  # one more, profiled
                 busy, _, wall, _ = profile_fn(lambda: step(state, batch)[1]["loss"].item(), 1,
-                                              "train step, mesh (1, 1)")
+                                              f"train step {what}, mesh (1, 1)")
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             counts.append({k: v for k, v in kernels.launch_counts().items() if v})
-    check(np.all(np.isfinite(losses)), f"tensor parallel: train: losses {losses}")
-    for name in ("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS):
-        check(counts[1].get(name), f"tensor parallel: train: {name} not launched ({counts[1]})")
+    check(np.all(np.isfinite(losses)), f"tensor parallel: train {what}: losses {losses}")
+    for name in expect:
+        missed = [i + 1 for i, c in enumerate(counts[:TP_TRAIN_STEPS]) if not c.get(name)]
+        check(not missed, f"tensor parallel: train {what}: {name} not launched in steps "
+                          f"{missed} ({counts})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del state, step
     torch.cuda.empty_cache()
     return dict(losses=losses, norms=norms, step_ms=times[1] * 1e3, per_step=counts[1],
-                busy=busy / wall if busy else None)
+                busy=busy / wall if busy else None, peak_gb=peak_gb)
 
 
-def tp_train_check(tp: dict, base: dict, card_line: str) -> None:
-    """The (1, 1) mesh's train steps (:func:`tp_train`) against train (b),
-    the same steps with ``mesh=None`` in this call: the losses within rtol
-    1e-5; step ms, launches a step and busy share beside each other."""
+def tp_train_check(tp: dict, base: dict, card_line: str, what: str) -> None:
+    """The (1, 1) mesh's train steps (:func:`tp_train`) against phase 6's
+    run of the same config, the same steps with ``mesh=None`` in this call
+    and under the same deterministic setting: the losses within rtol 1e-5;
+    the equality of losses and grad norms, step ms, launches a step and
+    busy share beside each other."""
     import numpy as np
 
     want, norms = base["losses"][:TP_TRAIN_STEPS], base["norms"][:TP_TRAIN_STEPS]
     check(np.allclose(tp["losses"], want, rtol=1e-5, atol=0),
-          f"tensor parallel: train losses {tp['losses']} against mesh=None's {want}")
+          f"tensor parallel: train {what}: losses {tp['losses']} against mesh=None's {want}")
     per_step = {k: v for k, v in base["per_step"].items() if v}
-    print(f"tensor parallel: train qwen3-0.6b bitexact mlp+attn pallas, batch {TRAIN['batch']} "
-          f"x {TRAIN['seq']}: losses {tp['losses']} (grad norms {tp['norms']}) on the (1, 1) "
-          f"mesh, {want} ({norms}) with mesh=None, train (b) (equal: "
-          f"{tp['losses'] == want and tp['norms'] == norms}); step {tp['step_ms']:.1f} ms "
-          f"(mesh=None {base['step_ms']:.1f}, train (b)'s median), launches a step "
-          f"{tp['per_step']} (mesh=None {per_step}), busy {tp['busy']} (mesh=None "
-          f"{base['busy_share']}); {card_line}", flush=True)
+    print(f"tensor parallel: train {what}, batch {TRAIN['batch']} x {TRAIN['seq']}: losses "
+          f"{tp['losses']} (grad norms {tp['norms']}) on the (1, 1) mesh, {want} ({norms}) "
+          f"with mesh=None (equal: losses {tp['losses'] == want}, grad norms "
+          f"{tp['norms'] == norms}); step {tp['step_ms']:.1f} ms (mesh=None "
+          f"{base['step_ms']:.1f}, the run's median), launches a step {tp['per_step']} "
+          f"(mesh=None {per_step}), busy {tp['busy']} (mesh=None {base['busy_share']}), peak "
+          f"device memory {tp['peak_gb']:.2f} GB; {card_line}", flush=True)
+
+
+def tp_wide_check(tp: dict, base: dict, arch: str, label: str, card_line: str) -> None:
+    """A full-width serve on the (1, 1) mesh (phase 5c) against the serve
+    phase's ``mesh=None`` run of the same requests: streams bit-equal."""
+    import numpy as np
+
+    check([r.id for r in tp["queue"]] == [r.id for r in base["queue"]],
+          f"tensor parallel: serve {arch} {label}: another queue than mesh=None's")
+    for r in tp["queue"]:
+        check(np.array_equal(tp["outputs"][r.id], base["outputs"][r.id]),
+              f"tensor parallel: serve {arch} {label}: request {r.id} streams differ from "
+              f"mesh=None's")
+    print(f"tensor parallel: serve {arch} {label} on the (1, 1) mesh: streams bit-equal to "
+          f"mesh=None's run in the serve phase over {len(tp['queue'])} requests of "
+          f"{SERVE['gen']} tokens; {tp['tok_s']:.2f} tok/s (mesh=None {base['tok_s']:.2f}), "
+          f"launches {tp['launched']} (mesh=None "
+          f"{ {k: c for k, c in base['counts'].items() if c} }); {card_line}", flush=True)
 
 
 def phase_tensor_parallel(card_line: str, base_runs: dict) -> dict:
     """Tensor parallelism on one card (see the module's note, 5c): the
     integer epilogues at the row-parallel shard shapes, the decode's
     per-range (o, lse), and the TP code on a one-rank NCCL (1, 1) mesh:
-    two train steps (held against train (b) by :func:`tp_train_check`),
-    and a balanced and a pallas exact serve against ``base_runs`` (label
-    -> the serve phase's ``mesh=None`` run of the same requests)."""
+    two train steps of qwen3-0.6b and of train runs (d)-(g) (held against
+    phase 6 by :func:`tp_train_check`), qwen3-0.6b's serves of
+    ``base_runs`` (label -> (the serve phase's ``mesh=None`` run of the
+    same requests, the run's tier or mode)) held here, and the full-width
+    serves of ``TP_WIDE_SERVES`` (held after the wide serve phase by
+    :func:`tp_wide_check`)."""
     import tempfile
 
     import numpy as np
@@ -3752,7 +3851,7 @@ def phase_tensor_parallel(card_line: str, base_runs: dict) -> dict:
 
     from repro_torch import kernels
     from repro_torch.analysis import audit
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import apply_approx, get_config
     from repro_torch.kernels.build import audit_gate
     from repro_torch.models.registry import build_model
 
@@ -3784,17 +3883,36 @@ def phase_tensor_parallel(card_line: str, base_runs: dict) -> dict:
         try:
             host = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
             t0 = time.perf_counter()
-            out["train"] = tp_train(host)
-            print(f"tensor parallel: train {time.perf_counter() - t0:.1f}s", flush=True)
-            out["serve"] = {}
             qwen3 = get_config("qwen3-0.6b")
-            for label, base in base_runs.items():
+            bitexact = apply_approx(dataclasses.replace(qwen3, attn_impl="pallas"),
+                                    mode="bitexact", n=8, t=4, targets=("mlp", "attn"))
+            out["train"] = tp_train(host, bitexact, "qwen3-0.6b bitexact mlp+attn pallas",
+                                    ("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS),
+                                    profile=True)
+            print(f"tensor parallel: train qwen3-0.6b {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+            out["trains"] = {}
+            for arch in TP_FAMILY_TRAINS:
+                t0 = time.perf_counter()
+                label, cfg, expect, _ = family_train(arch)
+                out["trains"][arch] = tp_train(host, cfg, label, expect)
+                print(f"tensor parallel: train {label} {time.perf_counter() - t0:.1f}s",
+                      flush=True)
+            out["serve"] = {}
+
+            def count(run):
+                for name, c in run["counts"].items():
+                    if c:
+                        out["serve"][name] = out["serve"].get(name, 0) + c
+
+            for label, (base, tier) in base_runs.items():
+                t0 = time.perf_counter()
                 attn = "pallas" if label.startswith("pallas") else "xla"
                 model = build_model(dataclasses.replace(qwen3, attn_impl=attn))
                 params = model.init_params(0, device="cuda", mesh=host)
                 tp = phase_serve(f"tensor parallel {label}, mesh (1, 1)", params, model,
-                                 quality=label.split()[-1], expect=TP_SERVE_KERNELS[label],
-                                 requests=QWEN3_REQUESTS, mesh=host)
+                                 expect=TP_SERVE_KERNELS[label], requests=QWEN3_REQUESTS,
+                                 mesh=host, host_profile=True, **tier)
                 del params
                 torch.cuda.empty_cache()
                 for r in tp["queue"]:
@@ -3809,10 +3927,34 @@ def phase_tensor_parallel(card_line: str, base_runs: dict) -> dict:
                       f"{base['prefill_ms']:.2f}), launches a step {tp['per_decode']} (mesh=None "
                       f"{base['per_decode']}), busy {tp['busy_share']} (mesh=None "
                       f"{base['busy_share']}); the profiled decode step's host self time "
-                      f"{split(tp)} (mesh=None {split(base)}); {card_line}", flush=True)
-                for name, count in tp["counts"].items():
-                    if count:
-                        out["serve"][name] = out["serve"].get(name, 0) + count
+                      f"{split(tp)} (mesh=None {split(base)}); {time.perf_counter() - t0:.1f}s "
+                      f"wall; {card_line}", flush=True)
+                count(tp)
+            # full-width families on the mesh: streams held after the wide serves
+            out["wide"] = {}
+            for arch, label, use_pallas in TP_WIDE_SERVES:
+                t0 = time.perf_counter()
+                cfg = get_config(arch)
+                model = build_model(dataclasses.replace(cfg, attn_impl="pallas") if use_pallas
+                                    else cfg)
+                params = model.init_params(0, device="cuda", mesh=host)
+                what = f"tensor parallel {arch} {label}, mesh (1, 1)"
+                if cfg.is_encdec:
+                    run = phase_serve_static_encdec(
+                        what, params, model, quality="exact", requests=WIDE_REQUESTS,
+                        expect=("flash_attention", "flash_decode"), forbid=GEMM_KERNELS,
+                        mesh=host)
+                else:
+                    run = phase_serve(what, params, model, quality="exact",
+                                      forbid=tuple(kernels.ALL), requests=WIDE_REQUESTS,
+                                      full_length=True, profile_reps=0, mesh=host)
+                del params
+                torch.cuda.empty_cache()
+                run["launched"] = {k: c for k, c in run["counts"].items() if c}
+                out["wide"][arch] = run
+                count(run)
+                print(f"tensor parallel: serve {arch} {label} {time.perf_counter() - t0:.1f}s",
+                      flush=True)
         finally:
             torch.distributed.destroy_process_group()
     return out
@@ -4208,7 +4350,7 @@ def main() -> int:
         runs = {
             "lut_matmul": phase_serve("balanced", params, model, quality="balanced",
                                       expect=("lut_matmul",), forbid=ATTN_KERNELS,
-                                      requests=n_req),
+                                      requests=n_req, host_profile=True),
             "packed_matmul": phase_serve("draft", params, model, quality="draft",
                                          expect=("packed_matmul",), requests=n_req),
             "seqmul_matmul": phase_serve("seqmul", params, model, mode="seqmul",
@@ -4218,14 +4360,15 @@ def main() -> int:
         pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"))
         runs["flash_attention"] = runs["flash_decode"] = phase_serve(
             "pallas exact", params, pallas, quality="exact",
-            expect=("flash_attention", "flash_decode"), forbid=GEMM_KERNELS, requests=n_req)
+            expect=("flash_attention", "flash_decode"), forbid=GEMM_KERNELS, requests=n_req,
+            host_profile=True)
         runs["approx_attention_bitexact"] = phase_serve(
             "pallas balanced", params, pallas, quality="balanced",
             expect=("approx_attention_bitexact", "flash_decode", "lut_matmul"), requests=n_req)
         runs["lowrank_matmul"] = runs["approx_attention_lowrank"] = phase_serve(
             "pallas lowrank mlp+attn", params, pallas, mode="lowrank", targets=("mlp", "attn"),
             expect=("lowrank_matmul", "approx_attention_lowrank", "flash_decode"),
-            requests=n_req)
+            requests=n_req, host_profile=True)
         # the rest of serving: speculative rounds (draft proposals, one verify
         # forward), the open loop with its policy, the static loop, the soak
         spec_exact = {**exact_run, "queue": exact_run["queue"][:n_req // 4]}
@@ -4255,7 +4398,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("tensor parallel"):
         tp_runs = phase_tensor_parallel(card_line, {
-            "balanced": runs["lut_matmul"], "pallas exact": runs["flash_attention"]})
+            "balanced": (runs["lut_matmul"], dict(quality="balanced")),
+            "pallas exact": (runs["flash_attention"], dict(quality="exact")),
+            "pallas lowrank mlp+attn": (runs["lowrank_matmul"],
+                                        dict(mode="lowrank", targets=("mlp", "attn")))})
         torch.cuda.empty_cache()
     # gemma2-9b, gemma-7b, yi-9b, qwen2-vl-7b, granite-moe-1b-a400m,
     # recurrentgemma-2b and mamba2-130m at full width, one at a time
@@ -4267,6 +4413,8 @@ def main() -> int:
     with phase("serve: seamless-m4t-large-v2"):
         wide_runs["seamless-m4t-large-v2"] = phase_serve_encdec("seamless-m4t-large-v2",
                                                                 encdec_serve_runs())
+    for arch, label, _ in TP_WIDE_SERVES:  # phase 5c's serves on the (1, 1) mesh
+        tp_wide_check(tp_runs["wide"][arch], wide_runs[arch][label], arch, label, card_line)
 
     # 6. train, full width, attn_impl="pallas" (set on the config; the CLI has no flag)
     with phase("train"):
@@ -4280,7 +4428,8 @@ def main() -> int:
             "qwen3-0.6b bitexact mlp+attn pallas", bitexact,
             expect=("lut_matmul", "approx_attention_bitexact", *BWD_KERNELS),
             deterministic=True)
-        tp_train_check(tp_runs["train"], train_runs["bitexact"], card_line)
+        tp_train_check(tp_runs["train"], train_runs["bitexact"], card_line,
+                       "qwen3-0.6b bitexact mlp+attn pallas")
         for name in BWD_KERNELS:
             runs[name] = dict(counts=train_runs["paper-multiplier"]["counts"],
                               per_step=train_runs["paper-multiplier"]["per_step"])
@@ -4294,37 +4443,30 @@ def main() -> int:
             expect=("flash_attention", *BWD_KERNELS))
         torch.cuda.empty_cache()
         # (d) granite-moe-1b-a400m at full width and depth: the routed experts
-        # and their aux loss, the forward and the pair at head width 64
-        granite = dataclasses.replace(get_config("granite-moe-1b-a400m"), attn_impl="pallas")
-        train_runs["granite-moe"] = phase_train(
-            "(d) granite-moe-1b-a400m pallas", build_model(granite),
-            expect=("flash_attention", *BWD_KERNELS))
-        check(all(a > 0 for a in train_runs["granite-moe"]["aux"]),
-              f"train (d): aux {train_runs['granite-moe']['aux']}")
+        # and their aux loss, the forward and the pair at head width 64;
+        # (d)-(g) under PyTorch's deterministic algorithms, as phase 5c runs
+        # their first two steps on the (1, 1) mesh
+        label, cfg_d, expect, calls = family_train("granite-moe-1b-a400m")
+        train_runs["granite-moe-1b-a400m"] = phase_train(label, build_model(cfg_d),
+                                                         expect=expect, deterministic=True)
+        check(all(a > 0 for a in train_runs["granite-moe-1b-a400m"]["aux"]),
+              f"train (d): aux {train_runs['granite-moe-1b-a400m']['aux']}")
     torch.cuda.empty_cache()
     with phase("train: mamba2-130m, recurrentgemma-2b, seamless-m4t-large-v2"):
         # (e) mamba2-130m at full width and depth: the SSD's scans under
-        # autograd, no attention (no kernel at exact)
-        mamba2 = dataclasses.replace(get_config("mamba2-130m"), attn_impl="pallas")
-        train_runs["mamba2-130m"] = phase_train("(e) mamba2-130m pallas", build_model(mamba2),
-                                                expect=())
-        torch.cuda.empty_cache()
-        # (f) recurrentgemma-2b at full width, two (rglru, rglru, attn_local)
-        # periods: the forward and the pair at g = 10, head width 256, window 2,048
-        rg = dataclasses.replace(get_config("recurrentgemma-2b"),
-                                 num_layers=RECURRENTGEMMA_TRAIN_LAYERS, attn_impl="pallas")
-        train_runs["recurrentgemma-2b"] = phase_train(
-            f"(f) recurrentgemma-2b pallas, {RECURRENTGEMMA_TRAIN_LAYERS} of 26 layers",
-            build_model(rg), expect=("flash_attention", *BWD_KERNELS))
-        torch.cuda.empty_cache()
-        # (g) seamless-m4t-large-v2 at full width and depth: the forward
+        # autograd, no attention (no kernel at exact); (f) recurrentgemma-2b
+        # at full width, two (rglru, rglru, attn_local) periods: the forward
+        # and the pair at g = 10, head width 256, window 2,048; (g)
+        # seamless-m4t-large-v2 at full width and depth: the forward
         # non-causal (encoder) and causal (decoder), the pair after each
-        seamless = dataclasses.replace(get_config("seamless-m4t-large-v2"), attn_impl="pallas")
-        train_runs["seamless-m4t-large-v2"] = phase_train(
-            "(g) seamless-m4t-large-v2 pallas", build_model(seamless),
-            expect=("flash_attention", *BWD_KERNELS),
-            calls=(("flash_attention", False), ("flash_attention", True)))
-        del seamless
+        for arch in TP_FAMILY_TRAINS[1:]:
+            label, cfg_f, expect, calls = family_train(arch)
+            train_runs[arch] = phase_train(label, build_model(cfg_f), expect=expect,
+                                           calls=calls, deterministic=True)
+            torch.cuda.empty_cache()
+    for arch in TP_FAMILY_TRAINS:  # phase 5c's two steps of each on the (1, 1) mesh
+        tp_train_check(tp_runs["trains"][arch], train_runs[arch], card_line,
+                       family_train(arch)[0])
     torch.cuda.empty_cache()
 
     # 7. the train CLI in a process of its own, beside the paper's simulated
@@ -4385,6 +4527,11 @@ def main() -> int:
             per_step["no_lse_ms"] = {k: v["no_lse_ms"] for k, v in tp_runs["decodes"].items()}
         if tp_runs["train"]["per_step"].get(name):
             per_step["tp_train_launches_per_step"] = tp_runs["train"]["per_step"][name]
+        family = {arch.replace("-", "_"): run["per_step"][name]
+                  for arch, run in tp_runs["trains"].items() if run["per_step"].get(name)}
+        if family:
+            # a step of train runs (d)-(g) on the (1, 1) mesh
+            per_step["tp_family_train_launches_per_step"] = family
         if tp_runs["serve"].get(name):
             per_step["tp_serve_launches"] = tp_runs["serve"][name]
         for arch in ("gemma2-9b", "qwen2-vl-7b", "granite-moe-1b-a400m", "recurrentgemma-2b",

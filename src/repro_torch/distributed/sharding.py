@@ -76,8 +76,16 @@ row-parallel one; :func:`all_gather` (reduce-scatter backward) and
 :func:`reduce_scatter` (all-gather backward) along a dimension.  Gloo has
 no reduce-scatter, so :func:`reduce_scatter` is an all-reduce after which
 each rank keeps its slice, under gloo and NCCL alike, so both give the
-same bits; it moves the whole buffer, and is counted so.  Every
-collective goes through :func:`_collective`, which counts the bytes it
+same bits; it moves the whole buffer, and is counted so.  Two more
+pairs serve a computation every rank carries whole: :func:`all_gather_keep`
+(all-gather, the backward keeping this rank's slice of a gradient every
+rank holds whole) and :func:`split` (this rank's slice, all-gather
+backward), which the sequence-sharded residual stream uses
+(:func:`seq_parallel`: row-parallel outputs reduce-scattered over the
+sequence, :func:`row_output`); :func:`data_mean` is an all-reduced mean
+whose gradient is its adjoint (the MoE's aux statistics).  Every
+collective, the row couplings (a)-(c) above included, goes through
+:func:`_collective`, which counts the bytes it
 issues by kind (:func:`counting`), calls the
 collective on a one-rank group too (the card runs them there), and on an
 :class:`AbstractMesh` runs nothing and returns the result's shape, so the
@@ -101,12 +109,13 @@ FSDP = "data"
 
 __all__ = [
     "DP", "TP", "FSDP", "RS_AS_ALL_REDUCE", "AbstractMesh", "Axis", "LeafSpec", "Shard",
-    "all_gather", "all_reduce", "all_reduce_max", "ambient_mesh", "copy_to", "counting",
-    "data_group", "data_parallel_mesh", "gather", "gather_block", "gather_rows", "global_max",
-    "global_rows", "heads_split", "is_placed", "leaf_specs", "local_block", "mesh_axis",
-    "mesh_axis_sizes", "mesh_context", "model_axis", "model_group", "param_spec", "param_specs",
-    "place_params", "reduce_from", "reduce_scatter", "require_live", "resolve_spec", "row_shard",
-    "rows_replicated", "spec_axes", "tp_role", "use",
+    "all_gather", "all_gather_keep", "all_reduce", "all_reduce_max", "ambient_mesh", "copy_to",
+    "counting", "data_group", "data_mean", "data_parallel_mesh", "gather", "gather_block",
+    "gather_rows", "global_max", "global_rows", "heads_split", "is_placed", "leaf_specs",
+    "local_block", "local_size", "mesh_axis", "mesh_axis_sizes", "mesh_context", "model_axis",
+    "param_spec", "param_specs", "place_params", "reduce_from", "reduce_scatter",
+    "require_live", "resolve_spec", "row_axis", "row_output", "row_shard", "rows_replicated",
+    "seq_parallel", "spec_axes", "split", "splits", "tp_role", "use",
 ]
 
 
@@ -161,6 +170,7 @@ class _State:
         self.mesh = None
         self.rows = False  # the activations' leading dimension is sharded over DP
         self.heads = None  # the Axis an attention's heads are split over, or None
+        self.seq = None  # the Axis a block's residual sequence is split over, or None
 
 
 _STATE = _State()
@@ -217,24 +227,30 @@ def data_group(mesh):
     return mesh.get_group(dim), mesh.get_local_rank(dim), mesh.size(idx)
 
 
-def model_group(mesh):
-    """(process group, this rank's index, size) of the model axis; as
-    :func:`data_group`."""
-    if mesh is None or isinstance(mesh, AbstractMesh) or TP not in mesh.mesh_dim_names:
-        return None, 0, 1
-    idx = mesh.mesh_dim_names.index(TP)
-    if mesh.size(idx) == 1:
-        return None, 0, 1
-    return mesh.get_group(TP), mesh.get_local_rank(TP), mesh.size(idx)
+def row_axis() -> Optional["Axis"]:
+    """The axis the rows of the current computation are split over: the
+    ambient mesh's data axis with more than one rank while its rows are
+    sharded, else None.  On an :class:`AbstractMesh` it stands for every
+    data axis at once (``pod`` x ``data``), at index 0."""
+    mesh = _STATE.mesh
+    if not _STATE.rows or mesh is None:
+        return None
+    if isinstance(mesh, AbstractMesh):
+        sizes = mesh_axis_sizes(mesh)
+        names = [a for a in DP if sizes.get(a, 1) > 1]
+        size = 1
+        for a in names:
+            size *= sizes[a]
+        return Axis("+".join(names), None, 0, size) if size > 1 else None
+    dim = _dp_dim(mesh)
+    return None if dim is None else mesh_axis(mesh, dim)
 
 
 def row_shard():
-    """(group, index, size) of the rows of the current computation: the
-    ambient live mesh's data group while its rows are sharded, else
-    ``(None, 0, 1)``."""
-    if not _STATE.rows:
-        return None, 0, 1
-    return data_group(_STATE.mesh)
+    """(group, index, size) of the rows of the current computation
+    (:func:`row_axis`), else ``(None, 0, 1)``."""
+    ax = row_axis()
+    return (None, 0, 1) if ax is None else (ax.group, ax.index, ax.size)
 
 
 @contextlib.contextmanager
@@ -254,10 +270,7 @@ def heads_split(ax):
 def global_max(t: torch.Tensor) -> torch.Tensor:
     """(a): ``t`` (an absmax) as the max over every rank's rows (and, within
     :func:`heads_split`, over the ranks the heads are split over)."""
-    group, _, size = row_shard()
-    if size > 1:
-        t = t.clone()
-        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=group)
+    t = all_reduce_max(t, row_axis())
     if _STATE.heads is not None:
         t = all_reduce_max(t, _STATE.heads)
     return t
@@ -271,16 +284,17 @@ def global_rows(m: int) -> tuple:
 
 
 def gather_rows(x: torch.Tensor, group=None, size: Optional[int] = None) -> torch.Tensor:
-    """Every rank's rows of ``x``, in rank order (an all-gather over the
-    data group of the current rows, or over ``group`` of ``size`` ranks)."""
-    if group is None and size is None:
-        group, _, size = row_shard()
-    if size == 1:
+    """Every rank's rows of ``x``, in rank order: an all-gather along the
+    first dimension over ``group`` (an :class:`Axis`, or a process group of
+    ``size`` ranks; default: :func:`row_axis`), whose gradient is
+    reduce-scattered back (:func:`all_gather`)."""
+    if isinstance(group, Axis) or (group is None and size is None):
+        ax = group if group is not None else row_axis()
+    elif size is None or size == 1:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(size)]
-    torch.distributed.all_gather(parts, x, group=group)
-    return torch.cat(parts)
+    else:
+        ax = Axis(FSDP, group, torch.distributed.get_rank(group), size)
+    return x if ax is None or ax.size == 1 else all_gather(x, ax, 0)
 
 
 def data_parallel_mesh(batch_size: Optional[int] = None, *, device=None):
@@ -689,6 +703,115 @@ def reduce_scatter(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tenso
     if not torch.is_grad_enabled():
         return _collective("reduce-scatter", x, ax, dim=dim)
     return _ReduceScatter.apply(x, ax, dim)
+
+
+class _AllGatherKeep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _collective("all-gather", x, ax, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        step = g.shape[ctx.dim] // ctx.ax.size
+        return g.narrow(ctx.dim, ctx.ax.index * step, step), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        step = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.index * step, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all-gather", g.contiguous(), ctx.ax, dim=ctx.dim), None, None
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _collective("all-reduce", x, ax) / torch.full((), float(ax.size), device=x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = torch.full((), float(ctx.ax.size), device=g.device)
+        return _collective("all-reduce", g, ctx.ax) / n, None
+
+
+def all_gather_keep(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over ``ax``, for a result whose every rank
+    then carries the whole gradient (the computation after it replicated,
+    or summed over ``ax`` by its own collectives): the backward keeps this
+    rank's slice of it, with no collective."""
+    if ax is None:
+        return x
+    if not torch.is_grad_enabled():
+        return _collective("all-gather", x, ax, dim=dim)
+    return _AllGatherKeep.apply(x, ax, dim)
+
+
+def split(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a tensor every rank holds whole
+    (no collective); the backward all-gathers the slices' gradients, so
+    every rank carries the whole gradient again."""
+    if ax is None:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        step = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.index * step, step)
+    return _Split.apply(x, ax, dim)
+
+
+def data_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``t`` over the data ranks of ``mesh`` (every ``DP`` axis
+    it has), the gradient its adjoint (the all-reduced mean): each data
+    rank's loss holds its share of a statistic the ranks compute together
+    (the MoE's load-balance loss: ``train/steps.loss_fn``)."""
+    for name in DP:
+        ax = mesh_axis(mesh, name)
+        if ax is not None:
+            t = _DataMean.apply(t, ax) if torch.is_grad_enabled() else (
+                _collective("all-reduce", t, ax) / torch.full((), float(ax.size),
+                                                             device=t.device))
+    return t
+
+
+def local_size(dim: int, ax: Optional[Axis]) -> int:
+    """A dimension's extent on one rank where ``ax`` splits it (it divides
+    by the axis's size), else the whole extent, as :func:`resolve_spec`
+    degrades."""
+    return dim // ax.size if ax is not None and dim % ax.size == 0 else dim
+
+
+def splits(dim: int, ax: Optional[Axis]) -> bool:
+    """Whether ``ax`` splits a dimension of extent ``dim`` (:func:`local_size`)."""
+    return ax is not None and dim % ax.size == 0
+
+
+@contextlib.contextmanager
+def seq_parallel(ax: Optional[Axis]):
+    """Within, a decoder block's residual stream is split over its
+    sequence on ``ax`` (``cfg.seq_shard_residuals``): the block gathers its
+    input's sequence, and the sum of each row-parallel output is a
+    reduce-scatter over the sequence (:func:`row_output`)."""
+    saved = _STATE.seq
+    _STATE.seq = ax
+    try:
+        yield
+    finally:
+        _STATE.seq = saved
+
+
+def row_output(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The sum over ``ax`` of a row-parallel output ``x`` (B, S, N): an
+    all-reduce (:func:`reduce_from`), or within :func:`seq_parallel` a
+    reduce-scatter over the sequence (dimension 1)."""
+    if ax is not None and _STATE.seq is not None and x.ndim == 3:
+        return reduce_scatter(x, ax, 1)
+    return reduce_from(x, ax)
 
 
 def tp_role(spec: Optional[tuple]) -> Optional[str]:

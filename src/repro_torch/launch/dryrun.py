@@ -17,33 +17,31 @@ or 2 x 16 x 16 across two pods, as axis sizes) and the specs of
   ``HW.HBM_BW``), at the H100 constants of ``launch/mesh.py``.
 
 The reference also reads FLOPs, HBM bytes and collective bytes off the
-compiled HLO (``launch/hlo_analysis.py``).  The port counts FLOPs and
-bytes of one device's step on its aten graph instead (:func:`step_counts`,
-``launch/hlo_analysis.py``): each distinct layer kind is traced once on
-the ``meta`` device (nothing executes), a step at one layer of that kind
-less the step at no layer, and multiplied by its count, at the
-per-device batch and the port's own placement of each leaf (dense layers
-replicated over the model axis; the MoE's expert GEMMs split over it).
-The bytes are the eager model's (every op moves its operands and its
-result), not the reference's fused-HLO model.
+compiled HLO (``launch/hlo_analysis.py``).  The port counts them on one
+device's sharded step instead (:func:`step_counts`): the step runs on
+``meta`` tensors (nothing executes), its parameters placed by their specs
+on the production mesh (``sharding.place_params`` on the
+``AbstractMesh``, with or without FSDP as the cell), so every layer runs
+on this device's blocks as it would on the mesh, tensor-parallel by its
+module's rules (the dense and MoE decoders, the SSD, the RG-LRU and the
+encoder-decoder alike; kimi-k2 with sequence-sharded residuals, as the
+reference's ``PERF_SETTINGS`` size it: :data:`PERF_SETTINGS`).  Each
+distinct layer kind is traced once: a step at one layer of that kind less
+the step at no layer, multiplied by its count, at the per-device batch.
 
-``collective_bytes_per_dev`` is counted from the collectives the sharded
-step issues (:func:`collective_counts`): the step of an arch whose layers
-this port shards (the dense decoders; ``models.registry.unsharded_family``)
-runs once more per layer kind on ``meta`` tensors, its parameters placed
-by their specs on the production mesh (``sharding.place_params`` on the
-``AbstractMesh``, with or without FSDP as the cell), under
-``sharding.counting``, which sums the bytes of each collective by kind as
-``distributed.sharding`` issues it, the backward's too: ``all-reduce`` and
-``all-gather`` their result buffer's, and the FSDP gradients'
-reduce-scatters, which the port issues as all-reduces of the whole buffer
-(``sharding.RS_AS_ALL_REDUCE``), that buffer's, the data axis's size times
-what the reference's GSPMD reduce-scatter moves.  The collective term is
-their sum over ``HW.NVLINK_BW``.  For the
-other families (MoE, SSD, RG-LRU, encoder-decoder: ROADMAP.md item 11c)
-they print as null (absent), never as zero, with the reason.  The FLOPs
-and bytes stay those of the step with the dense layers whole on every
-device of the model axis.
+- ``flops_per_dev`` and ``bytes_per_dev``: the aten ops the step
+  dispatches, the backward's too (``hlo_analysis.analyze``).  The bytes
+  are the eager model's (every op moves its operands and its result), not
+  the reference's fused-HLO model; the collectives' own buffers are among
+  them.
+- ``collective_bytes_per_dev``: the collectives the step issues, counted
+  by kind as ``distributed.sharding`` issues them (``sharding.counting``),
+  the backward's too: ``all-reduce`` and ``all-gather`` their result
+  buffer's, and the FSDP gradients' reduce-scatters, which the port
+  issues as all-reduces of the whole buffer (``sharding.RS_AS_ALL_REDUCE``),
+  that buffer's, the data axis's size times what the reference's GSPMD
+  reduce-scatter moves.  The collective term is their sum over
+  ``HW.NVLINK_BW``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --mesh single
@@ -70,13 +68,14 @@ from repro_torch.configs.registry import get_config, list_archs, shapes_for
 from repro_torch.distributed.sharding import mesh_axis_sizes
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import HW, make_production_mesh
-from repro_torch.models.registry import build_model, unsharded_family
+from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import block_kinds
 
-__all__ = ["cell_bytes", "collective_counts", "model_flops", "size_cell", "step_counts", "main"]
+__all__ = ["PERF_SETTINGS", "cell_bytes", "model_flops", "size_cell", "step_counts", "main"]
 
-COLLECTIVES_NULL = ("no sharded step for this family yet (ROADMAP.md item 11c: MoE backward, "
-                    "SSD, RG-LRU and encoder-decoder leaves)")
+# the config settings a cell is sized with, by arch: the reference's
+# ``PERF_SETTINGS`` extras (its train accumulation is not a config field)
+PERF_SETTINGS = {"kimi-k2-1t-a32b": {"seq_shard_residuals": True}}
 
 
 def model_flops(cfg, shape, kind: str) -> float:
@@ -188,16 +187,16 @@ def _step(cfg, shape, batch: int, mesh=None, fsdp: bool = True):
     at ``batch`` rows: the loss and its gradients (train), the prefill, or
     one decode step over a ``shape.seq_len`` cache; with ``mesh`` the
     sharded step, its parameters this device's blocks (FSDP-split with
-    ``fsdp``) and its caches its sequence shard."""
+    ``fsdp``) and its caches its shard."""
     from repro_torch.distributed import sharding
     from repro_torch.train import steps
 
     model = build_model(cfg)
     params = model.init_params(0, device="meta")
-    seq = shape.seq_len
+    ax = None
     if mesh is not None:
         params = sharding.place_params(params, mesh, fsdp=fsdp)
-        seq //= mesh_axis_sizes(mesh).get("model", 1)
+        ax = sharding.model_axis(mesh)
     small = dataclasses.replace(shape, global_batch=batch)
     if shape.kind == "train":
         data = {k: v.to(torch.int64) if not v.is_floating_point() else v
@@ -214,81 +213,50 @@ def _step(cfg, shape, batch: int, mesh=None, fsdp: bool = True):
         prefill = steps.make_prefill_step(model, shape.seq_len, mem_len=shape.seq_len)
         return (lambda params, data: prefill(params, data)), [params, data]
     mem_len = S.ENC_MEM_LEN_DECODE if cfg.is_encdec else 0
-    caches = model.init_caches(batch, seq, getattr(torch, cfg.dtype), "meta", mem_len=mem_len)
+    caches = model.init_caches(batch, shape.seq_len, getattr(torch, cfg.dtype), "meta",
+                               mem_len=mem_len, ax=ax)
     token = torch.zeros((batch, 1), dtype=torch.int64, device="meta")
     decode = steps.make_decode_step(model)
     return (lambda params, caches, token: decode(params, caches, token, shape.seq_len - 1)), \
         [params, caches, token]
 
 
-def _count(cfg, shape, batch: int, model_shards: int) -> tuple[float, float]:
-    """FLOPs and bytes of one device's step of ``cfg`` (at its depth)."""
-    from repro_torch.launch import hlo_analysis
-
-    fn, args = _step(cfg, shape, batch)
-    split = bool(cfg.num_experts) and model_shards > 1 and cfg.num_experts % model_shards == 0
-    with torch.set_grad_enabled(shape.kind == "train"):
-        a = hlo_analysis.analyze(fn, args, where=split)
-    if split:
-        # expert parallel: each model rank runs its E / model experts
-        f, b = a.by_module(r"models/moe\.py:\d+:expert_gemm")
-        return (a.flops - f + f / model_shards, a.bytes - b + b / model_shards)
-    return a.flops, a.bytes
-
-
-def _collectives(cfg, shape, batch: int, mesh, fsdp: bool) -> collections.Counter:
-    """Bytes by kind of the collectives one device's sharded step of ``cfg``
-    (at its depth) issues, counted as they are issued."""
+def _count(cfg, shape, batch: int, mesh=None, fsdp: bool = True) -> tuple:
+    """``(FLOPs, bytes, {collective kind: bytes})`` of one device's step of
+    ``cfg`` (at its depth): the sharded step on ``mesh``, or the step whole
+    on one device without it."""
     from repro_torch.distributed import sharding
     from repro_torch.launch import hlo_analysis
 
     fn, args = _step(cfg, shape, batch, mesh, fsdp)
-    with torch.set_grad_enabled(shape.kind == "train"), hlo_analysis.kernel_ops(), \
-            sharding.mesh_context(mesh), sharding.counting() as counts:
-        fn(*args)
-    return counts
+    with torch.set_grad_enabled(shape.kind == "train"), sharding.mesh_context(mesh), \
+            sharding.counting() as counts:
+        a = hlo_analysis.analyze(fn, args, where=False)
+    return a.flops, a.bytes, counts
 
 
-def collective_counts(cfg, shape, mesh, *, fsdp: bool = True) -> Optional[dict]:
-    """``{kind: bytes}`` of one device's sharded step at the per-device
-    batch, each distinct layer kind traced once at one layer and multiplied
-    by its count (as :func:`step_counts`); None for a family this port does
-    not shard yet."""
-    if unsharded_family(cfg) is not None:
-        return None
+def step_counts(cfg, shape, mesh, *, fsdp: bool = True) -> dict:
+    """One device's sharded step: FLOPs, bytes (``launch/hlo_analysis.py``)
+    and collective bytes by kind, each distinct layer kind traced once at
+    one layer and multiplied by its count, at the per-device batch (the
+    batch over the data axes)."""
     sizes = mesh_axis_sizes(mesh)
     batch_spec = S.batch_specs({"x": torch.empty((shape.global_batch,), device="meta")},
                                mesh)["x"]
     batch = max(1, shape.global_batch // _shards(batch_spec, sizes))
     base_cfg, kinds = _depths(cfg)
-    base = _collectives(base_cfg, shape, batch, mesh, fsdp)
-    out = collections.Counter(base)
+    f0, b0, c0 = _count(base_cfg, shape, batch, mesh, fsdp)
+    flops, nbytes, coll = f0, b0, collections.Counter(c0)
     for kind_cfg, count in kinds.values():
-        one = _collectives(kind_cfg, shape, batch, mesh, fsdp)
-        for k in set(one) | set(base):
-            out[k] += count * (one[k] - base[k])
-    return {k: float(v) for k, v in sorted(out.items())}
-
-
-def step_counts(cfg, shape, mesh) -> dict:
-    """One device's step: FLOPs and bytes (``launch/hlo_analysis.py``), each
-    distinct layer kind traced once at one layer and multiplied by its
-    count, at the per-device batch (the batch over the data axes)."""
-    sizes = mesh_axis_sizes(mesh)
-    batch_spec = S.batch_specs({"x": torch.empty((shape.global_batch,), device="meta")},
-                               mesh)["x"]
-    batch = max(1, shape.global_batch // _shards(batch_spec, sizes))
-    model_shards = sizes.get("model", 1)
-    base_cfg, kinds = _depths(cfg)
-    base = _count(base_cfg, shape, batch, model_shards)
-    flops, nbytes = base
-    for kind_cfg, count in kinds.values():
-        f, b = _count(kind_cfg, shape, batch, model_shards)
-        flops += count * (f - base[0])
-        nbytes += count * (b - base[1])
+        f, b, c = _count(kind_cfg, shape, batch, mesh, fsdp)
+        flops += count * (f - f0)
+        nbytes += count * (b - b0)
+        for k in set(c) | set(c0):
+            coll[k] += count * (c[k] - c0[k])
     layers = ({"enc": cfg.encoder_layers, "dec": cfg.num_layers} if cfg.is_encdec
               else {k: count for k, (_, count) in kinds.items()})
-    return {"flops": flops, "bytes": nbytes, "batch_per_dev": batch, "layer_kinds": layers}
+    return {"flops": flops, "bytes": nbytes, "batch_per_dev": batch, "layer_kinds": layers,
+            "collectives": {k: float(v) for k, v in sorted(coll.items())}}
 
 
 def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True,
@@ -296,16 +264,16 @@ def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True,
     """One cell's record (see the module's note); ``steps=False`` leaves the
     step's FLOPs and bytes out (null), for callers that size memory only."""
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **PERF_SETTINGS.get(arch, {}))
     shape = SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
     chips = mesh.size
     kind = shape.kind
     per_dev = cell_bytes(cfg, shape, mesh, fsdp=fsdp)
     mf = model_flops(cfg, shape, kind)
-    step = step_counts(cfg, shape, mesh) if steps else dict.fromkeys(
-        ("flops", "bytes", "batch_per_dev", "layer_kinds"))
-    coll = collective_counts(cfg, shape, mesh, fsdp=fsdp) if steps else None
+    step = step_counts(cfg, shape, mesh, fsdp=fsdp) if steps else dict.fromkeys(
+        ("flops", "bytes", "batch_per_dev", "layer_kinds", "collectives"))
+    coll = step["collectives"]
     t_compute = mf / chips / HW.PEAK_FLOPS
     t_memory = per_dev["total"] / HW.HBM_BW
     t_coll = None if coll is None else sum(coll.values()) / HW.NVLINK_BW
@@ -323,14 +291,14 @@ def size_cell(arch: str, shape_name: str, multi_pod: bool, *, fsdp: bool = True,
         "per_device_gb": per_dev["total"] / 1e9,
         "fits": per_dev["total"] <= HW.HBM_BYTES,
         "model_flops_total": mf,
-        # counted on the aten graph of one device's step (launch/hlo_analysis.py)
+        # counted on the aten graph of one device's sharded step (launch/hlo_analysis.py)
         "flops_per_dev": step["flops"],
         "bytes_per_dev": step["bytes"],
         "batch_per_dev": step["batch_per_dev"],
         "layer_kinds": step["layer_kinds"],
         "collective_bytes_per_dev": coll,
-        **({"collective_bytes_null_because": COLLECTIVES_NULL if steps else
-            "steps not counted (steps=False)"} if coll is None else {}),
+        **({"collective_bytes_null_because": "steps not counted (steps=False)"}
+           if coll is None else {}),
         "terms_s": terms,
         "dominant": max((k for k, v in terms.items() if v is not None), key=terms.get),
         "step_time_bound_s": max(v for v in terms.values() if v is not None),

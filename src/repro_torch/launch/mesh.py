@@ -9,17 +9,21 @@ constants, so importing this module touches no process group.
   process group (the dry-run sizes them; nothing runs on them).
 - :func:`make_host_mesh`: a live ``DeviceMesh`` over every rank of the
   default process group, shaped (data = world size, model = 1).
+- :func:`join_mesh`: join a ``torchrun`` job and make its (data, model)
+  mesh, as the train and serve CLIs' ``--mesh DATA,MODEL`` do.
 - :class:`HW`: the roofline constants of one NVIDIA H100 80GB HBM3 (SXM5),
   in place of the reference's TPU v5e numbers.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from repro_torch.distributed.sharding import AbstractMesh
 
-__all__ = ["make_production_mesh", "make_host_mesh", "HW"]
+__all__ = ["make_production_mesh", "make_host_mesh", "join_mesh", "HW"]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
@@ -27,6 +31,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     if multi_pod:
         return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
     return AbstractMesh((16, 16), ("data", "model"))
+
+
+def join_mesh(spec: str, device: torch.device):
+    """Join the ``torchrun`` job (``env://``; NCCL on the card, gloo on the
+    CPU) and make its (data, model) mesh from ``spec`` ``"DATA,MODEL"``,
+    whose product must be the job's world size; ValueError otherwise."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    try:
+        dims = tuple(int(x) for x in spec.split(","))
+    except ValueError:
+        dims = ()
+    if len(dims) != 2 or min(dims) < 1:
+        raise ValueError(f"--mesh takes DATA,MODEL, got {spec!r}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dims[0] * dims[1] != world:
+        raise ValueError(f"--mesh {spec} needs {dims[0] * dims[1]} ranks; the job has "
+                         f"{world} (torchrun --nproc-per-node)")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    if not torch.distributed.is_initialized():
+        torch.distributed.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return init_device_mesh(device.type, dims, mesh_dim_names=("data", "model"))
 
 
 def make_host_mesh(device=None):

@@ -41,6 +41,15 @@ reference:
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen3-0.6b \
       --data-parallel --requests 8 --batch 4 --gen 16
+
+``--mesh DATA,MODEL`` serves on a (data, model) mesh of the job's DATA x
+MODEL ranks, for every ``--arch``: the parameters placed by their specs,
+the pool's (or the static loop's) rows over ``data`` and the layers
+tensor-parallel over ``model``; the streams are the unsharded ones:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --reduced --device cpu --mesh 2,2 --requests 4 \
+      --batch 2 --gen 4
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import torch
 from repro_torch.configs.registry import apply_approx, get_config
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import data_parallel_mesh
+from repro_torch.launch.mesh import join_mesh
 from repro_torch.engine import config as engine_config
 from repro_torch.engine import modes as engine_modes
 from repro_torch.models.registry import build_model
@@ -97,6 +107,9 @@ def main(argv=None) -> None:
     ap.add_argument("--data-parallel", action="store_true",
                     help="shard the decode batch over a ('data',) mesh of the torchrun "
                          "job's ranks (one process: unsharded)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve on a (data, model) mesh over the torchrun job's ranks: "
+                         "rows over data, the layers tensor-parallel over model")
     ap.add_argument("--loop", default="closed", choices=("closed", "open"),
                     help="closed: drain a pre-filled queue; open: arrival-clocked "
                          "admission (continuous scheduler only)")
@@ -125,10 +138,19 @@ def main(argv=None) -> None:
     if args.approx_mode and args.quality_tier:
         ap.error("--approx-mode and --quality-tier are mutually exclusive "
                  "(the tier owns the mode)")
+    if args.mesh and args.data_parallel:
+        ap.error("--mesh and --data-parallel are mutually exclusive (--mesh N,1 is the "
+                 "data-parallel mesh with placed parameters)")
     device = resolve_device(args.device)
-    joined = args.data_parallel and _join_job(device)
+    mesh = None
+    if args.mesh:
+        try:
+            mesh = join_mesh(args.mesh, device)
+        except ValueError as e:
+            ap.error(str(e))
+    joined = mesh is not None or (args.data_parallel and _join_job(device))
     try:
-        _serve(ap, args, device)
+        _serve(ap, args, device, mesh)
     finally:
         if joined:
             torch.distributed.destroy_process_group()
@@ -145,8 +167,8 @@ def _join_job(device) -> bool:
     return True
 
 
-def _serve(ap, args, device) -> None:
-    mesh = None
+def _serve(ap, args, device, mesh) -> None:
+    placed = mesh is not None
     if args.data_parallel:
         mesh = data_parallel_mesh(args.batch, device=device)
         if mesh is not None and mesh.get_coordinate() is None:
@@ -186,7 +208,7 @@ def _serve(ap, args, device) -> None:
               f"(engine_config.accept_rate_estimate)")
 
     model = build_model(cfg)
-    params = model.init_params(args.seed, device=device)
+    params = model.init_params(args.seed, device=device, mesh=mesh if placed else None)
 
     run_kwargs = {}
     if args.loop == "open":
@@ -221,7 +243,7 @@ def _serve(ap, args, device) -> None:
         else:
             result = static_serve_loop(
                 model, params, queue, batch_size=args.batch, prompt_len=args.prompt_len,
-                gen=args.gen, seed=args.seed, quality=args.quality_tier,
+                gen=args.gen, seed=args.seed, quality=args.quality_tier, mesh=mesh,
             )
     say(result.stats.summary())
     ar = result.stats.accept_rate

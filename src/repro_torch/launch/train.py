@@ -27,11 +27,12 @@ stochastic modes already are.
 ``--mesh DATA,MODEL`` runs the sharded FSDP+TP step (``train.steps``) on a
 (data, model) mesh over the ranks of a ``torchrun`` job (DATA x MODEL of
 them; ``env://`` rendezvous, NCCL on the card, gloo with ``--device
-cpu``); every rank draws the same global batch and keeps its rows, and
-rank 0 alone prints:
+cpu``), for every ``--arch``; every rank draws the same global batch and
+keeps its rows, and rank 0 alone prints:
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-      --arch qwen3-0.6b --reduced --device cpu --mesh 2,2 --steps 8 --batch 4 --seq 16
+      --arch granite-moe-1b-a400m --reduced --device cpu --mesh 2,2 --steps 8 --batch 4 \
+      --seq 16
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from repro_torch.configs.registry import apply_approx, apply_quality, get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.engine import modes as engine_modes
+from repro_torch.launch.mesh import join_mesh
 from repro_torch.models.layers import fold_seed
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.fault import FailureInjector, StragglerMonitor, run_loop
@@ -106,23 +107,10 @@ def main(argv=None) -> None:
 
 def _join_mesh(ap, spec: str, device):
     """Join the ``torchrun`` job (``env://``) and make its (data, model) mesh."""
-    from torch.distributed.device_mesh import init_device_mesh
-
     try:
-        dims = tuple(int(x) for x in spec.split(","))
-    except ValueError:
-        dims = ()
-    if len(dims) != 2 or min(dims) < 1:
-        ap.error(f"--mesh takes DATA,MODEL, got {spec!r}")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if dims[0] * dims[1] != world:
-        ap.error(f"--mesh {spec} needs {dims[0] * dims[1]} ranks; the job has {world} "
-                 f"(torchrun --nproc-per-node)")
-    if device.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    if not torch.distributed.is_initialized():
-        torch.distributed.init_process_group("nccl" if device.type == "cuda" else "gloo")
-    return init_device_mesh(device.type, dims, mesh_dim_names=("data", "model"))
+        return join_mesh(spec, device)
+    except ValueError as e:
+        ap.error(str(e))
 
 
 def _train(ap, args, device, mesh) -> None:

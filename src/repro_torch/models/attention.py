@@ -59,8 +59,16 @@ hand-over from heads to slots and back, with three collectives:
    (``kernels.flash_attention.combine_ranges``, the reference's finite
    ``NEG_INF`` kept), and each rank keeps its heads' o for ``wo``.
 
-The approximate attention over a sequence-split cache is item 11c of
-ROADMAP.md and raises.
+The approximate attention (``bitexact``/``lowrank`` on the ``attn``
+target, ``attn_impl="pallas"``) at a prefill over a sequence-split cache:
+its key block is part of the function (``attn_tiles``), so the ranks'
+ranges are not combined.  Each rank all-gathers the cache's slots over
+the model group and runs the kernel on its query heads over the whole K
+and V (every head where the model axis does not split the output at
+whole heads), as the reference replicates K and V over ``model`` and
+runs the kernel on the heads-split q; the per-tensor scales of q, k and
+v are the whole tensors' (``sharding.heads_split``).  The decode steps
+run ``flash_decode`` over the ranges, as at every tier.
 """
 
 from __future__ import annotations
@@ -191,6 +199,18 @@ def _tp_heads(t: torch.Tensor, ax, heads: int, hd: int) -> tuple[torch.Tensor, b
     return sharding.all_gather(t, ax, -1), True
 
 
+def _split_heads(q, k, v, ax, heads: int, kv_heads: int, hd: int) -> tuple:
+    """Column-parallel q, k and v products (B, S, cols) as (q, k, v, q
+    whole?, k/v whole?): this rank's heads where the model axis splits at
+    whole heads (:func:`_tp_heads`), k and v made whole where q is."""
+    q, q_whole = _tp_heads(q, ax, heads, hd)
+    (k, whole), (v, _) = _tp_heads(k, ax, kv_heads, hd), _tp_heads(v, ax, kv_heads, hd)
+    if q_whole and not whole:
+        k, v = sharding.all_gather(k, ax, -1), sharding.all_gather(v, ax, -1)
+        whole = True
+    return q, k, v, q_whole, whole
+
+
 def _approx_attn(cfg):
     """The attention target's approximation where the kernel path takes it, or None."""
     ap = cfg.approx.for_target("attn") if (
@@ -200,23 +220,45 @@ def _approx_attn(cfg):
     return None
 
 
-def _ranges_attention(q, k, v, q_pos, k_pos, *, decode, cfg, ax, **kw):
-    """Every query head over this rank's cache slots, combined over the
-    model group with the other ranks' slots (the module's note, 2-3)."""
-    if cfg.attn_impl == "pallas" and not decode and _approx_attn(cfg) is not None:
-        raise ValueError("the approximate attention over a sequence-split cache is ROADMAP.md "
-                         "item 11c: serve this tier without a model axis, or attn_impl='xla'")
-    if cfg.attn_impl == "pallas" and decode:
-        o, lse = flash_decode(q[:, 0], k, v, q_pos[:, -1], k_pos, window=kw["window"],
-                              softcap=kw["softcap"], scale=kw["scale"], with_lse=True)
-        o, lse = o[:, None], lse[:, :, None]
-    elif cfg.attn_impl == "pallas":
-        o, lse = flash_attention_fwd(q, k, v, q_pos, k_pos, with_lse=True, **kw)
-    else:
-        o, lse = attend(q, k, v, q_pos, k_pos, decode=decode, with_lse=True, **kw)
+def combine_over(o: torch.Tensor, lse: torch.Tensor, ax) -> torch.Tensor:
+    """Every rank's ``(o, lse)`` over its own slots, (B, S, H, hd) and (B,
+    H, S), combined in rank order into the attention over all of them
+    (``combine_ranges``; the module's note, 3)."""
     outs = sharding.all_gather(o[None], ax, 0)  # (m, B, S, H, hd)
     lses = sharding.all_gather(lse.transpose(1, 2)[None], ax, 0)  # (m, B, S, H)
     return combine_ranges(outs, lses)[0]
+
+
+def _ranges_attention(q, k, v, q_pos, k_pos, *, decode, cfg, ax, cols, **kw):
+    """Every query head over this rank's cache slots, combined over the
+    model group with the other ranks' slots (the module's note, 2-3); the
+    approximate attention at prefill over every rank's slots, gathered
+    (the module's note).  Returns this rank's ``cols`` columns of the
+    output (B, S, cols), the ones its block of ``wo`` multiplies."""
+    b, s, h, hd = q.shape
+    lo = ax.index * cols
+    if cfg.attn_impl == "pallas" and not decode and _approx_attn(cfg) is not None:
+        # the key block is part of the function: attend over the whole cache
+        k, v, k_pos = (sharding.all_gather(t, ax, 1) for t in (k, v, k_pos))
+        if cols % hd == 0 and (h * hd) % cols == 0:  # this rank's heads alone
+            hl = cols // hd
+            kv_lo, kv_hi = _kv_heads(ax.index, hl, h // k.shape[2])
+            with sharding.heads_split(ax):
+                out = _pallas(q[:, :, lo // hd:lo // hd + hl], k[:, :, kv_lo:kv_hi],
+                              v[:, :, kv_lo:kv_hi], q_pos, k_pos, decode=False, cfg=cfg, **kw)
+            return out.reshape(b, s, cols)
+        out = _pallas(q, k, v, q_pos, k_pos, decode=False, cfg=cfg, **kw)
+    else:
+        if cfg.attn_impl == "pallas" and decode:
+            o, lse = flash_decode(q[:, 0], k, v, q_pos[:, -1], k_pos, window=kw["window"],
+                                  softcap=kw["softcap"], scale=kw["scale"], with_lse=True)
+            o, lse = o[:, None], lse[:, :, None]
+        elif cfg.attn_impl == "pallas":
+            o, lse = flash_attention_fwd(q, k, v, q_pos, k_pos, with_lse=True, **kw)
+        else:
+            o, lse = attend(q, k, v, q_pos, k_pos, decode=decode, with_lse=True, **kw)
+        out = combine_over(o, lse, ax)
+    return out.reshape(b, s, h * hd)[:, :, lo:lo + cols]
 
 
 def attention(
@@ -251,11 +293,7 @@ def attention(
     v = layers.dense(x, params["wv"], ctx, "attn")
     q_norm, k_norm = params.get("q_norm_scale"), params.get("k_norm_scale")
     if ax is not None:
-        q, q_whole = _tp_heads(q, ax, h, hd)
-        (k, whole), (v, _) = _tp_heads(k, ax, kvh, hd), _tp_heads(v, ax, kvh, hd)
-        if q_whole and not whole:
-            k, v = sharding.all_gather(k, ax, -1), sharding.all_gather(v, ax, -1)
-            whole = True
+        q, k, v, q_whole, whole = _split_heads(q, k, v, ax, h, kvh, hd)
         if cfg.use_qk_norm and q_norm is not None:  # this rank's heads add a part of the grad
             q_norm = sharding.copy_to(sharding.use(q_norm), ax)
             k_norm = sharding.copy_to(sharding.use(k_norm), ax)
@@ -317,7 +355,9 @@ def attention(
     q_pos = positions
 
     if total is not None:
-        out = _ranges_attention(q, k, v, q_pos, k_pos, decode=decode, cfg=cfg, ax=ax, **kw)
+        out = _ranges_attention(q, k, v, q_pos, k_pos, decode=decode, cfg=cfg, ax=ax,
+                                cols=params["wo"].shape[0], **kw)
+        q_whole = False  # this rank's columns already
     elif cfg.attn_impl == "pallas":
         with sharding.heads_split(None if ax is None or q_whole else ax):
             out = _pallas(q, k, v, q_pos, k_pos, decode=decode, cfg=cfg, **kw)

@@ -19,6 +19,23 @@ with ``causal=False``, so under ``attn_impl="pallas"`` it reaches
 projection, the cross ones included, goes through the engine under the
 ``"attn"`` and ``"mlp"`` targets.
 
+**Tensor parallelism** (placed parameters, ``distributed.sharding``).  The
+encoder's and the decoder's self-attention and MLPs are column- and
+row-parallel as the decoder-only stack's (``models/attention.py``,
+``models/layers.py``), the token table vocab-parallel.  ``cross_wq``,
+``cross_wk`` and ``cross_wv`` are column-parallel and ``cross_wo``
+row-parallel (the reference constrains q to ``(DP, None, TP, None)`` and
+the output to ``(DP, None, TP)``).  Without a cache (training) each rank
+attends with its query heads over the KV heads they read, as the
+self-attention does.  The cross K/V cache (B, S_mem, KV, hd) is placed by
+the reference's 4-d cache rule ``(DP, TP, None, None)``: each rank holds
+memory slots ``[r S_mem / m, (r + 1) S_mem / m)`` of every KV head.  So a
+step with a cache gathers q over heads, attends with every head over its
+own slots (plain torch, with lse), and the ranks' (o, lse) are combined in
+rank order (``kernels.flash_attention.combine_ranges``, as the
+self-attention's decode over a sequence-split cache); each rank keeps its
+heads' columns for ``cross_wo``.
+
 The reference scans stacked layers; here each stack is an
 ``nn.ModuleList`` run in a loop, and the decoder caches are a list of
 :class:`DecCache`, one per layer, whose self KV cache is written in place.
@@ -35,11 +52,12 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels.flash_attention import _attend_direct
 from repro_torch.models import attention, layers
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import Ctx
-from repro_torch.models.transformer import Transformer, _remat
+from repro_torch.models.transformer import Transformer, _remat, embed_lookup
 
 __all__ = ["DecBlock", "DecCache", "EncBlock", "EncoderDecoder", "init_dec_caches"]
 
@@ -95,27 +113,70 @@ class EncBlock(nn.Module):
         return x + layers.mlp(self.ffn, h2, ctx)
 
 
-def _memory_kv(cross, memory, ctx: Ctx):
-    """A layer's cross K/V (B, S_mem, KV, hd) from the memory (B, S_mem, D)."""
+def _cross_axis(cross):
+    """The model axis ``cross_wq``'s columns are split over, or None."""
+    if sharding.tp_role(getattr(cross["cross_wq"], "spec", None)) == "column":
+        return sharding.model_axis()
+    return None
+
+
+def _memory_kv(cross, memory, ctx: Ctx, *, cached: bool = False):
+    """A layer's cross K/V (B, S_mem, KV, hd) from the memory (B, S_mem, D).
+    Under a model axis they come out of the column-parallel products (this
+    rank's KV heads, or whole: the module's note); ``cached``, as a cache
+    holds them, every KV head over this rank's memory slots."""
     cfg = ctx.cfg
     b, sm, _ = memory.shape
-    shape = (b, sm, cfg.num_kv_heads, cfg.head_dim)
-    return (layers.dense(memory, cross["cross_wk"], ctx, "attn").reshape(shape),
-            layers.dense(memory, cross["cross_wv"], ctx, "attn").reshape(shape))
+    k = layers.dense(memory, cross["cross_wk"], ctx, "attn")
+    v = layers.dense(memory, cross["cross_wv"], ctx, "attn")
+    ax = _cross_axis(cross)
+    if ax is not None and not cached:  # this rank's columns, as _cross_attend reads them
+        return k, v
+    if ax is not None:
+        kv = cfg.num_kv_heads * cfg.head_dim
+        k, v = ((t if t.shape[-1] == kv else sharding.gather(t, ax, -1)) for t in (k, v))
+        k, v = (sharding.split(t, ax, 1) for t in (k, v))
+    return k.reshape(b, k.shape[1], -1, cfg.head_dim), v.reshape(b, v.shape[1], -1,
+                                                                  cfg.head_dim)
 
 
-def _cross_attend(cross, x, mem_pos, ck, cv, ctx: Ctx) -> torch.Tensor:
+def _cross_attend(cross, x, mem_pos, ck, cv, ctx: Ctx, *, cached: bool = False) -> torch.Tensor:
     """Cross-attention of ``x`` (B, S, D) over the cross K/V: plain attention,
-    query positions zero, only ``mem_pos`` masking (``-1`` slots)."""
+    query positions zero, only ``mem_pos`` masking (``-1`` slots).  Under a
+    model axis, ``cached`` K/V are this rank's memory slots (the module's
+    note); else this rank's KV heads as :func:`_memory_kv` gives them."""
     cfg = ctx.cfg
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
-    q = layers.dense(x, cross["cross_wq"], ctx, "attn").reshape(b, s, h, hd)
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = layers.dense(x, cross["cross_wq"], ctx, "attn")
     q_pos = torch.zeros((b, s), dtype=torch.int64, device=x.device)
-    out = _attend_direct(q, ck, cv, q_pos, mem_pos, causal=False, window=None, softcap=None,
-                         scale=hd**-0.5)
-    out = out.reshape(b, s, h * hd).to(x.dtype)
-    return layers.dense(out, cross["cross_wo"], ctx, "attn")
+    kw = dict(causal=False, window=None, softcap=None, scale=hd**-0.5)
+    ax = _cross_axis(cross)
+    q_whole = False
+    if ax is None:
+        out = _attend_direct(q.reshape(b, s, h, hd), ck, cv, q_pos, mem_pos, **kw)
+    elif cached:  # every head over this rank's slots, combined over the ranks
+        if q.shape[-1] != h * hd:
+            q = sharding.all_gather(q, ax, -1)
+        q_whole = True
+        t = ck.shape[1]
+        k_pos = mem_pos[:, ax.index * t:(ax.index + 1) * t]
+        o, lse = _attend_direct(q.reshape(b, s, h, hd), ck, cv, q_pos, k_pos, with_lse=True,
+                                **kw)
+        out = attention.combine_over(o, lse, ax)
+    else:  # this rank's query heads over the KV heads they read
+        q, k, v, q_whole, whole = attention._split_heads(q, ck, cv, ax, h, kvh, hd)
+        k, v = k.reshape(b, k.shape[1], -1, hd), v.reshape(b, v.shape[1], -1, hd)
+        q = q.reshape(b, s, -1, hd)
+        if whole and not q_whole:
+            lo, hi = attention._kv_heads(ax.index, q.shape[2], h // kvh)
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        out = _attend_direct(q, k, v, q_pos, mem_pos, **kw)
+    out = out.reshape(b, s, -1)
+    if q_whole:  # the columns this rank's block of cross_wo multiplies
+        c = cross["cross_wo"].shape[0]
+        out = out[:, :, ax.index * c:(ax.index + 1) * c]
+    return layers.dense(out.to(x.dtype), cross["cross_wo"], ctx, "attn")
 
 
 class DecBlock(nn.Module):
@@ -144,17 +205,19 @@ class DecBlock(nn.Module):
         hc = layers.rms_norm(x, self.ln_cross, cfg.norm_eps)
         ck, cv = (cache.cross_k, cache.cross_v) if cache is not None else _memory_kv(
             self.cross, memory, ctx)
-        x = x + _cross_attend(self.cross, hc, mem_pos, ck, cv, ctx)
+        x = x + _cross_attend(self.cross, hc, mem_pos, ck, cv, ctx, cached=cache is not None)
         h2 = layers.rms_norm(x, self.ln2, cfg.norm_eps)
         return x + layers.mlp(self.ffn, h2, ctx), cache
 
 
 def init_dec_caches(cfg: ModelConfig, batch: int, max_seq: int, mem_len: int, dtype,
-                    device) -> list:
+                    device, ax=None) -> list:
     """One zero :class:`DecCache` per decoder layer: the self KV cache and
-    the cross K/V slots."""
-    xkv = (batch, mem_len, cfg.num_kv_heads, cfg.head_dim)
-    return [DecCache(attention.init_kv_cache(cfg, batch, max_seq, dtype, device),
+    the cross K/V slots; with a model axis ``ax``, this rank's sequence
+    shard of both (the module's note)."""
+    m = 1 if ax is None else ax.size
+    xkv = (batch, mem_len // m, cfg.num_kv_heads, cfg.head_dim)
+    return [DecCache(attention.init_kv_cache(cfg, batch, max_seq // m, dtype, device),
                      torch.zeros(xkv, dtype=dtype, device=device),
                      torch.zeros(xkv, dtype=dtype, device=device))
             for _ in range(cfg.num_layers)]
@@ -209,7 +272,7 @@ class EncoderDecoder(nn.Module):
 
     def precompute_cross(self, memory: torch.Tensor, ctx: Ctx) -> list:
         """Each decoder layer's cross K/V (B, S_mem, KV, hd) from the memory."""
-        return [_memory_kv(block.cross, memory, ctx) for block in self.dec_layers]
+        return [_memory_kv(block.cross, memory, ctx, cached=True) for block in self.dec_layers]
 
     def decode_forward(self, tokens, positions, mem_pos, ctx: Ctx, *, memory=None,
                        caches: Optional[list] = None, cache_pos=None):
@@ -217,7 +280,7 @@ class EncoderDecoder(nn.Module):
         (training: the cross K/V computed in each block) or ``caches`` with
         precomputed cross K/V.  Returns (hidden, caches)."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        x = embed_lookup(self.embed, tokens)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
         remat = self._remat(caches)

@@ -170,7 +170,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, ctx: Ctx, kind: str = "mlp") -> torc
     ap = ctx.cfg.approx
     if not ap.enabled or kind not in ap.targets:
         out = x @ w.to(x.dtype)
-        return sharding.reduce_from(out, shard.axis) if role == "row" else out
+        return sharding.row_output(out, shard.axis) if role == "row" else out
     ap = ap.for_target(kind)
     lead = x.shape[:-1]
     args = (x.reshape(-1, x.shape[-1]), w, ap, ctx.generator) + ((shard,) if shard else ())

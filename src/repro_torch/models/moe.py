@@ -41,21 +41,32 @@ Under a live mesh (``distributed.sharding``) the path is the reference's:
   runs one engine ``matmul`` per local expert on its (cap_loc, d) slot
   block, with the absmax and the ``inject`` draws global over the data
   ranks (the reference's expert GEMM sees the (E, data x cap_loc, d)
-  buffer); the aux loss averages ``me`` and ``ce`` over the data ranks;
-  the combine adds each token's rows in the fixed slot order on every
-  rank and then sums the model ranks' partial outputs (an all-reduce
-  SUM).  Rows that arrive replicated (the single-row admission prefill)
-  are cut to each data rank's share and gathered again after, as the
-  reference's ``shard_map`` splits them.  Forward only: the sharded train
-  step refuses the MoE family (ROADMAP.md item 11c).
+  buffer); the aux loss averages ``me`` and ``ce`` over the data ranks
+  (``sharding.data_mean``); the combine adds each token's rows in the
+  fixed slot order on every rank and then sums the model ranks' partial
+  outputs (``sharding.reduce_from``, or within ``sharding.seq_parallel``
+  a reduce-scatter over the sequence).  Placed expert weights are this
+  rank's blocks (``we1``/``we3`` ``(TP, FSDP, None)``, ``we2`` ``(TP,
+  None, FSDP)``), gathered over ``data`` by ``sharding.use``; whole ones
+  are sliced to the rank's experts.  The path is differentiable: the
+  dispatch ``index_put`` and the gather by ``r.token`` carry gradients
+  to the tokens (through ``sharding.copy_to``: each model rank adds its
+  experts' part), and the gates carry them to the router (the gate
+  probabilities through ``copy_to``, the aux loss's from every rank
+  whole).  Rows that arrive replicated (the single-row admission
+  prefill) are cut to each data rank's share and gathered again after,
+  as the reference's ``shard_map`` splits them.
 - **otherwise, rows split over data ranks**: the tokens are gathered and
   routed globally, capacity counted over every token of the batch, and
   each rank keeps its own rows of the output, so the result does not
   depend on the rank count.
+
+Every collective is one of ``distributed.sharding``'s, counted by kind.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -103,17 +114,20 @@ class Routing(NamedTuple):
 
 
 def route(router: torch.Tensor, x2: torch.Tensor, cfg: ModelConfig, *,
-          mean_over=None) -> Routing:
+          mean_over=None, gates_over=None) -> Routing:
     """Router logits in float32, softmax, top-k, the aux loss and the
     sort-based dispatch with capacity (``moe_ffn``'s first half).
     ``mean_over`` averages the aux loss's two statistics over the ranks
-    that route their own tokens (``_moe_sharded``)."""
+    that route their own tokens, and ``gates_over`` is the model axis
+    whose ranks each combine a part of the gated rows (``_moe_sharded``:
+    the gates' gradient is added over it, the aux loss's is every rank's
+    whole)."""
     tokens = x2.shape[0]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = x2.to(torch.float32) @ router.to(torch.float32)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     expert = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[:, :k]
-    gate = torch.gather(probs, -1, expert)
+    gate = torch.gather(sharding.copy_to(probs, gates_over), -1, expert)
     gate = gate / torch.clamp_min(gate.sum(dim=-1, keepdim=True), 1e-9)
 
     flat_e = expert.reshape(-1)
@@ -194,52 +208,66 @@ def _act(cfg: ModelConfig):
     return F.silu if cfg.ffn_activation == "silu" else layers._gelu_tanh
 
 
-def _moe_sharded(params, x_loc: torch.Tensor, ctx: Ctx, mesh):
-    """Expert parallelism on a (data, model) mesh (see the module's note):
-    this rank's tokens ``x_loc`` (T_loc, d) -> (its output (T_loc, d)
-    float32, the aux loss)."""
-    cfg = ctx.cfg
-    t_loc, d = x_loc.shape
-    e = cfg.num_experts
-    dgroup, _, dsize = sharding.data_group(mesh)
-    mgroup, midx, msize = sharding.model_group(mesh)
-    e_loc = e // msize
-    e0 = midx * e_loc
+def _split_experts(w: torch.Tensor) -> bool:
+    """Whether ``w`` is a placed block of experts split over the model axis."""
+    spec = getattr(w, "spec", None)
+    return bool(spec) and sharding.TP in sharding.spec_axes(spec[0])
 
-    def mean_over_data(t):
-        if dsize == 1:
-            return t
-        t = t.clone()
-        torch.distributed.all_reduce(t, group=dgroup)
-        return t / torch.full((), float(dsize), device=t.device)
 
-    # the local capacity: route counts it over this data rank's tokens
-    r = route(params["router"], x_loc, cfg, mean_over=mean_over_data)
+def _expert_weight(w: torch.Tensor, e0: int, e_loc: int) -> torch.Tensor:
+    """This rank's experts of ``w``: its placed block, gathered over
+    ``data``; or whole weights sliced."""
+    return sharding.use(w) if _split_experts(w) else sharding.use(w)[e0:e0 + e_loc]
+
+
+def _local_experts(params, x2: torch.Tensor, r: Routing, ctx: Ctx, model, mesh=None):
+    """The experts ``model`` gives this rank (every expert without it) over
+    the tokens ``x2`` (T, d) routed by ``r``: this rank's part of the
+    combine (T, d) float32, to be summed over ``model``.  With ``mesh``,
+    the slot blocks are this data rank's, and the GEMMs see every data
+    rank's (the module's note)."""
+    t, d = x2.shape
+    e = ctx.cfg.num_experts
+    e_loc = e if model is None else e // model.size
+    e0 = 0 if model is None else model.index * e_loc
     sorted_e = r.expert.reshape(-1)[r.order]
     mine = r.keep & (sorted_e >= e0) & (sorted_e < e0 + e_loc)
     r = r._replace(keep=mine, dest=torch.where(mine, r.dest - e0 * r.cap, e_loc * r.cap))
-    xs = torch.where(mine[:, None], x_loc[r.token], x_loc.new_zeros(()))
-    buf = x_loc.new_zeros((e_loc * r.cap + 1, d)).index_put((r.dest,), xs)
+    xd = sharding.copy_to(x2, model)  # each model rank dispatches to its experts
+    xs = torch.where(mine[:, None], xd[r.token], xd.new_zeros(()))
+    buf = xd.new_zeros((e_loc * r.cap + 1, d)).index_put((r.dest,), xs)
     buf = buf[: e_loc * r.cap].reshape(e_loc, r.cap, d)
 
-    # the expert GEMMs see every data rank's slots of their experts
-    local = {n: params[n][e0:e0 + e_loc] for n in ("we1", "we3", "we2")}
-    with sharding.mesh_context(mesh, rows=True):
+    local = {n: _expert_weight(params[n], e0, e_loc) for n in ("we1", "we3", "we2")}
+    kw = {} if model is None else {"experts": (e0, e)}
+    with contextlib.nullcontext() if mesh is None else sharding.mesh_context(mesh, rows=True):
         def gemm(v, w):
-            return expert_gemm(v, w, ctx, experts=(e0, e))
+            return expert_gemm(v, w, ctx, **kw)
 
-        h = _act(cfg)(gemm(buf, local["we1"])) * gemm(buf, local["we3"])
-        y = gemm(h, local["we2"])
-    out = _combine(y, r, t_loc)
-    if msize > 1:
-        torch.distributed.all_reduce(out, group=mgroup)
-    return out, r.aux
+        h = _act(ctx.cfg)(gemm(buf, local["we1"])) * gemm(buf, local["we3"])
+        y = gemm(h, local["we2"])  # (E_loc, C, d)
+    return _combine(y, r, t)
+
+
+def _moe_sharded(params, x_loc: torch.Tensor, ctx: Ctx, mesh):
+    """Expert parallelism on a (data, model) mesh (see the module's note):
+    this rank's tokens ``x_loc`` (T_loc, d) -> (this model rank's partial
+    output (T_loc, d) float32, to be summed over the model axis, and the
+    aux loss)."""
+    model = sharding.model_axis(mesh)
+    # the local capacity: route counts it over this data rank's tokens
+    r = route(sharding.use(params["router"]), x_loc, ctx.cfg,
+              mean_over=lambda t: sharding.data_mean(t, mesh), gates_over=model)
+    return _local_experts(params, x_loc, r, ctx, model, mesh), r.aux
 
 
 def _sharded_applies(cfg: ModelConfig, mesh, tokens: int) -> bool:
     """The reference's condition for ``_moe_sharded`` (``tokens`` global)."""
-    _, _, msize = sharding.model_group(mesh)
-    _, _, dsize = sharding.data_group(mesh)
+    sizes = sharding.mesh_axis_sizes(mesh)
+    msize = sizes.get(sharding.TP, 1)
+    dsize = 1
+    for a in sharding.DP:
+        dsize *= sizes.get(a, 1)
     return (msize > 1 and cfg.num_experts % msize == 0 and tokens % dsize == 0
             and tokens // dsize >= cfg.num_experts_per_tok)
 
@@ -251,37 +279,35 @@ def moe_ffn(params, x: torch.Tensor, ctx: Ctx) -> tuple[torch.Tensor, torch.Tens
     tokens = b * s
     x2 = x.reshape(tokens, d)
     mesh = sharding.ambient_mesh()
-    _, ridx, rsize = sharding.row_shard()
-    dgroup, didx, dsize = sharding.data_group(mesh)
+    rows = sharding.row_axis()
+    rsize = 1 if rows is None else rows.size
     if _sharded_applies(cfg, mesh, tokens * rsize):
-        if rsize == 1 and dsize > 1:  # replicated rows: each data rank takes its share
-            share = tokens // dsize
-            out, aux = _moe_sharded(params, x2[didx * share:(didx + 1) * share], ctx, mesh)
-            out = sharding.gather_rows(out, dgroup, dsize)
+        model = sharding.model_axis(mesh)
+        data = sharding.mesh_axis(mesh, sharding.FSDP)
+        if rows is None and data is not None and data.size > 1:
+            # replicated rows (serving's admission prefill): each data rank
+            # takes its share, and the shares are gathered again
+            share = tokens // data.size
+            out, aux = _moe_sharded(params, x2[data.index * share:(data.index + 1) * share],
+                                    ctx, mesh)
+            out = sharding.gather_rows(sharding.reduce_from(out, model), data)
         else:
             out, aux = _moe_sharded(params, x2, ctx, mesh)
-    elif rsize > 1:  # (c) on a data mesh: route every rank's tokens together
-        xg = sharding.gather_rows(x2)
+            return sharding.row_output(out.reshape(b, s, d), model).to(x.dtype), aux
+    elif rows is not None:  # (c) on a data mesh: route every rank's tokens together
+        xg = sharding.gather_rows(x2, rows)
         with sharding.rows_replicated():
             out, aux = _moe_global(params, xg, ctx)
-        out = out[ridx * tokens:(ridx + 1) * tokens]
+        out = out[rows.index * tokens:(rows.index + 1) * tokens]
     else:
         out, aux = _moe_global(params, x2, ctx)
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
 def _moe_global(params, x2: torch.Tensor, ctx: Ctx) -> tuple[torch.Tensor, torch.Tensor]:
-    """The global path over the tokens x2 (T, d): (out (T, d) float32, aux)."""
-    cfg = ctx.cfg
-    tokens, d = x2.shape
-    e = cfg.num_experts
-    r = route(params["router"], x2, cfg)
-
-    xs = torch.where(r.keep[:, None], x2[r.token], x2.new_zeros(()))
-    buf = x2.new_zeros((e * r.cap + 1, d)).index_put((r.dest,), xs)
-    buf = buf[: e * r.cap].reshape(e, r.cap, d)
-
-    act = _act(cfg)
-    h = act(expert_gemm(buf, params["we1"], ctx)) * expert_gemm(buf, params["we3"], ctx)
-    y = expert_gemm(h, params["we2"], ctx)  # (E, C, d)
-    return _combine(y, r, tokens), r.aux
+    """The global path over the tokens x2 (T, d): (out (T, d) float32, aux).
+    Placed experts split over the model axis (a batch too small for
+    ``_moe_sharded``) each run on their rank, and the parts are summed."""
+    model = sharding.model_axis() if _split_experts(params["we1"]) else None
+    r = route(sharding.use(params["router"]), x2, ctx.cfg, gates_over=model)
+    return sharding.reduce_from(_local_experts(params, x2, r, ctx, model), model), r.aux

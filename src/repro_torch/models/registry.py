@@ -40,14 +40,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models.encdec import EncoderDecoder, init_dec_caches
 from repro_torch.models.layers import Ctx
-from repro_torch.models.transformer import (
-    Transformer, block_kinds, has_recurrent_state, init_cache,
-)
+from repro_torch.models.transformer import Transformer, block_kinds, init_cache
 
-__all__ = ["Leaf", "Model", "STACKS", "build_model", "check_tensor_parallel", "from_jax_params",
-           "reference_leaves", "to_jax_layout", "unsharded_family"]
+__all__ = ["Leaf", "Model", "STACKS", "build_model", "from_jax_params", "reference_leaves",
+           "to_jax_layout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +81,8 @@ class Model:
             hidden, _ = params.decode_forward(tokens, positions, src_pos, ctx, memory=memory)
             return hidden, None, aux
         b, mem_len = tokens.shape[0], caches[0].cross_k.shape[1]
+        ax = sharding.model_axis() if sharding.is_placed(params) else None
+        mem_len *= 1 if ax is None else ax.size  # each rank holds its slots (models/encdec.py)
         mem_pos = torch.arange(mem_len, device=tokens.device)[None, :].expand(b, mem_len)
         hidden, caches = params.decode_forward(tokens, positions, mem_pos, ctx, caches=caches,
                                                cache_pos=cache_pos)
@@ -90,14 +91,23 @@ class Model:
     def lm_head(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return params.lm_head(hidden)
 
-    def init_caches(self, batch: int, max_seq: int, dtype, device, *, mem_len: int = 0) -> list:
+    def init_caches(self, batch: int, max_seq: int, dtype, device, *, mem_len: int = 0,
+                    ax=None) -> list:
         """One zero cache per layer, by its kind: KV (B, max_seq, KV, hd) for
         attention, conv inputs and a float32 state for RG-LRU and SSD; for
         an encoder-decoder a :class:`~repro_torch.models.encdec.DecCache`
-        per decoder layer, with ``mem_len`` cross K/V slots."""
+        per decoder layer, with ``mem_len`` cross K/V slots.  With a model
+        axis ``ax`` (placed parameters), this rank's shard of each: the KV
+        and cross caches' sequence split over it (it must divide
+        ``max_seq`` and ``mem_len``), the recurrent caches as
+        ``models.transformer.init_cache`` places them."""
+        if ax is not None:
+            for what, n in (("max_seq", max_seq), ("mem_len", mem_len)):
+                if n % ax.size:
+                    raise ValueError(f"{what} {n} does not split over {ax.size} model ranks")
         if self.cfg.is_encdec:
-            return init_dec_caches(self.cfg, batch, max_seq, mem_len, dtype, device)
-        return [init_cache(self.cfg, kind, batch, max_seq, dtype, device)
+            return init_dec_caches(self.cfg, batch, max_seq, mem_len, dtype, device, ax)
+        return [init_cache(self.cfg, kind, batch, max_seq, dtype, device, ax)
                 for kind in block_kinds(self.cfg)]
 
     def _encdec(self, what: str) -> None:
@@ -141,31 +151,7 @@ def _tensor_tree(tree, dtype, device, key=None):
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
-def unsharded_family(cfg: ModelConfig) -> Optional[str]:
-    """The family of ``cfg`` whose layers the port does not split over a
-    mesh yet (ROADMAP.md item 11c), or None for the dense decoders."""
-    if cfg.num_experts:
-        return "MoE"
-    if cfg.is_encdec:
-        return "encoder-decoder"
-    return "recurrent (SSD / RG-LRU)" if has_recurrent_state(cfg) else None
-
-
-def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """Raise for a family whose sharded step is not built yet
-    (:func:`unsharded_family`), so that it never runs another function
-    under a mesh."""
-    kind = unsharded_family(cfg)
-    if kind is not None:
-        raise ValueError(f"{cfg.name}: the sharded step of the {kind} family is ROADMAP.md "
-                         f"item 11c (MoE backward under a mesh, TP of the SSD, RG-LRU and "
-                         f"encoder-decoder leaves); train it with mesh=None")
-
-
 def _place(params, mesh):
-    from repro_torch.distributed import sharding
-
-    check_tensor_parallel(params.cfg)
     return sharding.place_params(params, mesh)
 
 

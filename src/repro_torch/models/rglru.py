@@ -21,6 +21,21 @@ update on the carried state.
 
 A given cache is updated in place (its tensors keep their storage), as the
 KV cache is, and returned.
+
+**Tensor parallelism** (placed parameters, ``distributed.sharding``).  The
+reference constrains ``xb`` to ``(DP, None, TP)``: the recurrence is
+split over W.  ``in_x`` and ``in_gate`` match no tensor-parallel rule and
+take the default FSDP placement, as does ``lru_in_w``; ``lru_in_b``,
+``lru_gate_w`` and ``lru_gate_b`` are replicated; ``conv_w`` is ``(None,
+TP)`` and ``out_proj`` ``(TP, FSDP)``.  So each rank computes the two
+input products whole, gathers ``conv_w`` and runs the conv over every
+channel (the gate products need the whole ``xb``), takes its W columns of
+the gate products, runs the scan on them (elementwise in W) and feeds
+its rows of ``out_proj``, whose partials are summed.  The gradients of
+what every rank computes whole are added over the model group.  The
+carried state ``h`` (B, W) is split over W and the conv tail (B, K-1, W)
+over channels, as ``launch/specs.py`` places them.  Where the model axis
+does not divide W, every rank computes the block whole.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
 
@@ -65,10 +81,13 @@ def init_rglru(cfg: ModelConfig, dtype, device, generator) -> dict:
     }
 
 
-def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device) -> RGLRUCache:
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device, ax=None) -> RGLRUCache:
+    """A zero cache; with a model axis ``ax``, this rank's shard of it (the
+    module's note)."""
+    w = sharding.local_size(cfg.lru_width, ax)
     return RGLRUCache(
-        conv=torch.zeros((batch, cfg.conv_width - 1, cfg.lru_width), dtype=dtype, device=device),
-        h=torch.zeros((batch, cfg.lru_width), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype, device=device),
+        h=torch.zeros((batch, w), dtype=torch.float32, device=device),
     )
 
 
@@ -127,16 +146,31 @@ def rglru_block(params, x: torch.Tensor, ctx: Ctx,
     """x: (B, S, d_model) -> (out, cache): the cache updated in place, or None."""
     xb = layers.dense(x, params["in_x"], ctx, "mlp")  # (B, S, W)
     gb = layers.dense(x, params["in_gate"], ctx, "mlp")
-
+    width = xb.shape[-1]
+    ax = (sharding.model_axis()
+          if sharding.tp_role(getattr(params["out_proj"], "spec", None)) == "row" else None)
+    p = {k: sharding.use(params[k]) for k in ("conv_w", "conv_b", "lru_a", "lru_gate_w",
+                                              "lru_gate_b", "lru_in_w", "lru_in_b")}
     conv_cache = cache.conv if cache is not None else None
-    xb, new_conv = _causal_conv(xb, params["conv_w"], params["conv_b"], conv_cache)
+    lo, hi = 0, width
+    if ax is not None:  # this rank's W columns (the module's note)
+        lo, hi = ax.index * width // ax.size, (ax.index + 1) * width // ax.size
+        xb, gb = sharding.copy_to(xb, ax), sharding.copy_to(gb, ax)
+        p = {k: sharding.all_gather(v, ax, 1) if k == "conv_w" else sharding.copy_to(v, ax)
+             for k, v in p.items()}
+        if conv_cache is not None:
+            conv_cache = sharding.gather(conv_cache, ax, 2)
+
+    xb, new_conv = _causal_conv(xb, p["conv_w"], p["conv_b"], conv_cache)
 
     f32 = torch.float32
     xb32 = xb.to(f32)
-    r = torch.sigmoid(xb32 @ params["lru_gate_w"].to(f32) + params["lru_gate_b"].to(f32))
-    i = torch.sigmoid(xb32 @ params["lru_in_w"].to(f32) + params["lru_in_b"].to(f32))
-    log_a = -_C * softplus(params["lru_a"]) * r  # (B, S, W)
+    r = torch.sigmoid(xb32 @ p["lru_gate_w"][:, lo:hi].to(f32)
+                      + p["lru_gate_b"][lo:hi].to(f32))
+    i = torch.sigmoid(xb32 @ p["lru_in_w"][:, lo:hi].to(f32) + p["lru_in_b"][lo:hi].to(f32))
+    log_a = -_C * softplus(p["lru_a"][lo:hi]) * r  # (B, S, W)
     a_t = torch.exp(log_a)
+    xb32 = xb32[..., lo:hi]
 
     if cache is not None and x.shape[1] == 1:
         # the single-step update
@@ -145,12 +179,12 @@ def rglru_block(params, x: torch.Tensor, ctx: Ctx,
         h_seq = h[:, None, :]
     else:
         h0 = cache.h if cache is not None else torch.zeros(
-            (x.shape[0], ctx.cfg.lru_width), dtype=f32, device=x.device)
+            (x.shape[0], hi - lo), dtype=f32, device=x.device)
         h_seq, h = _rglru_scan(xb32, a_t, i, h0)
 
-    out = h_seq.to(x.dtype) * F.gelu(gb, approximate="tanh")
+    out = h_seq.to(x.dtype) * F.gelu(gb[..., lo:hi], approximate="tanh")
     out = layers.dense(out, params["out_proj"], ctx, "mlp")
     if cache is not None:
-        cache.conv.copy_(new_conv)
+        cache.conv.copy_(sharding.split(new_conv, ax, 2))
         cache.h.copy_(h)
     return out, cache

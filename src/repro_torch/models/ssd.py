@@ -17,6 +17,27 @@ the state update stays exact.
 As in the reference, a prefill given a cache treats it as fresh: the
 chunked scan starts from a zero SSM state (the conv reads the cache's
 inputs).  A given cache is updated in place and returned.
+
+**Tensor parallelism** (placed parameters, ``distributed.sharding``).  The
+reference's column rule splits ``in_proj``'s output contiguously, and that
+output concatenates z | x | B | C | dt, so its blocks do not line up with
+heads (at ``.reduced()`` a rank of two holds z and 20 channels of x);
+``conv_w`` is split the same way over x | B | C.  So the block makes both
+whole: the projection's output and ``conv_w`` are all-gathered over the
+model axis (their gradients reduce-scattered back), or, where the rule
+leaves ``in_proj`` replicated (3,352 columns on 16 ranks), the whole
+product is kept with its gradient added over the model group.  The
+chunked scan then runs on this rank's heads, as the reference constrains
+``xh`` to ``(DP, None, TP, None)``, where the model axis divides the
+heads; else on every head.  ``out_proj`` is row-parallel: this rank's
+columns of y go through its rows and the partials are summed
+(``y``'s ``(DP, None, TP)``).  Where ``out_proj`` too is replicated, every
+rank computes the block whole.  The small float32 leaves and ``conv_b``
+are replicated; a rank reads its heads' entries, and their gradients are
+added over the model group.  Caches follow ``launch/specs.py``: the state
+(B, H, P, N) split over heads, the conv tail (B, K-1, C) over channels,
+each where the axis divides; the conv reads the whole tail (gathered) and
+each rank keeps its channels of the new one.
 """
 
 from __future__ import annotations
@@ -27,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
 from repro_torch.models.rglru import _causal_conv, linear_scan, softplus
@@ -64,13 +86,51 @@ def init_ssd(cfg: ModelConfig, dtype, device, generator) -> dict:
     }
 
 
-def init_ssd_cache(cfg: ModelConfig, batch: int, dtype, device) -> SSDCache:
+def init_ssd_cache(cfg: ModelConfig, batch: int, dtype, device, ax=None) -> SSDCache:
+    """A zero cache; with a model axis ``ax``, this rank's shard of it (the
+    module's note)."""
     d_inner, h, p, n = _dims(cfg)
     return SSDCache(
-        conv=torch.zeros((batch, cfg.conv_width - 1, d_inner + 2 * n), dtype=dtype,
-                         device=device),
-        state=torch.zeros((batch, h, p, n), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.conv_width - 1, sharding.local_size(d_inner + 2 * n, ax)),
+                         dtype=dtype, device=device),
+        state=torch.zeros((batch, sharding.local_size(h, ax), p, n), dtype=torch.float32,
+                          device=device),
     )
+
+
+class _Plan(NamedTuple):
+    """How one rank runs a block under a model axis (the module's note)."""
+
+    ax: Optional[sharding.Axis]  # the model axis where out_proj's rows split over it
+    heads: tuple  # the heads this rank computes, [lo, hi)
+    cols: tuple  # its columns of y (of the computed heads') that out_proj's rows take
+
+
+def _plan(params, cfg: ModelConfig) -> Optional[_Plan]:
+    """None without a placed model axis."""
+    ax = sharding.model_axis() if hasattr(params["out_proj"], "spec") else None
+    if ax is None:
+        return None
+    d_inner, h, p, _ = _dims(cfg)
+    if sharding.tp_role(params["out_proj"].spec) != "row":
+        return _Plan(None, (0, h), (0, d_inner))
+    c = d_inner // ax.size
+    if sharding.splits(h, ax):  # the state's heads: this rank's, aligned with its rows
+        lo = ax.index * h // ax.size
+        return _Plan(ax, (lo, lo + h // ax.size), (0, c))
+    return _Plan(ax, (0, h), (ax.index * c, (ax.index + 1) * c))
+
+
+def _whole(t: torch.Tensor, w: torch.Tensor, plan: _Plan, dim: int) -> torch.Tensor:
+    """``t`` (a product of ``w``, or ``w`` itself) whole on every rank:
+    all-gathered along ``dim`` where ``w``'s spec splits it over the model
+    axis, and with its gradient added over the model group where the rank
+    uses a part of it (``plan.ax``)."""
+    ax = sharding.model_axis()
+    if sharding.TP in sharding.spec_axes(w.spec[dim]):
+        return sharding.all_gather(t, ax, dim) if plan.ax else sharding.all_gather_keep(
+            t, ax, dim)
+    return sharding.copy_to(t, plan.ax)
 
 
 def _segsum(z: torch.Tensor) -> torch.Tensor:
@@ -139,19 +199,31 @@ def ssd_block(params, x: torch.Tensor, ctx: Ctx, cache: Optional[SSDCache] = Non
     d_inner, h, p, n = _dims(cfg)
     bsz, s, _ = x.shape
     f32 = torch.float32
+    plan = _plan(params, cfg)
 
     zxbcdt = layers.dense(x, params["in_proj"], ctx, "mlp")
+    conv_w, conv_b, dt_bias, ssm_a, ssm_d = (
+        sharding.use(params[k]) for k in ("conv_w", "conv_b", "dt_bias", "ssm_a", "ssm_d"))
+    conv_cache = cache.conv if cache is not None else None
+    if plan is not None:
+        zxbcdt = _whole(zxbcdt, params["in_proj"], plan, -1)
+        split_conv = sharding.TP in sharding.spec_axes(params["conv_w"].spec[1])
+        conv_w = _whole(conv_w, params["conv_w"], plan, 1)
+        conv_b, dt_bias, ssm_a, ssm_d = (sharding.copy_to(v, plan.ax)
+                                         for v in (conv_b, dt_bias, ssm_a, ssm_d))
+        if conv_cache is not None and split_conv:
+            conv_cache = sharding.gather(conv_cache, sharding.model_axis(), 2)
     z, xr, b_in, c_in, dt = torch.split(zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
     conv_in = torch.cat([xr, b_in, c_in], dim=-1)
 
-    conv_cache = cache.conv if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], params["conv_b"], conv_cache)
+    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_b, conv_cache)
     conv_out = F.silu(conv_out)
     xr, b_in, c_in = torch.split(conv_out, [d_inner, n, n], dim=-1)
 
-    dt = softplus(dt.to(f32) + params["dt_bias"])  # (B, S, H)
-    a = -torch.exp(params["ssm_a"])  # (H,)
-    xh = xr.to(f32).reshape(bsz, s, h, p)
+    lo, hi = (0, h) if plan is None else plan.heads
+    dt = softplus(dt[..., lo:hi].to(f32) + dt_bias[lo:hi])  # (B, S, H)
+    a = -torch.exp(ssm_a[lo:hi])  # (H,)
+    xh = xr[..., lo * p:hi * p].to(f32).reshape(bsz, s, hi - lo, p)
 
     if cache is not None and s == 1:
         # O(1) decode: S = exp(dt a) S + dt B x^T ; y = C.S
@@ -163,11 +235,15 @@ def ssd_block(params, x: torch.Tensor, ctx: Ctx, cache: Optional[SSDCache] = Non
         # prefill: a given cache is taken as fresh (zero state), as the reference does
         y, state = _ssd_chunked(xh, dt, a, b_in.to(f32), c_in.to(f32), cfg.ssm_chunk)
 
-    y = y + params["ssm_d"][None, None, :, None] * xh
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
-    y = y * F.silu(z)
+    y = y + ssm_d[lo:hi][None, None, :, None] * xh
+    y = y.reshape(bsz, s, (hi - lo) * p).to(x.dtype)
+    y = y * F.silu(z[..., lo * p:hi * p])
+    if plan is not None and plan.ax is not None:
+        y = y[..., plan.cols[0]:plan.cols[1]]
     out = layers.dense(y, params["out_proj"], ctx, "mlp")
     if cache is not None:
+        if plan is not None and split_conv:
+            new_conv = sharding.split(new_conv, sharding.model_axis(), 2)
         cache.conv.copy_(new_conv)
         cache.state.copy_(state)
     return out, cache

@@ -28,6 +28,21 @@ tied or not, is column-parallel over the vocabulary; ``lm_head`` gathers
 the logits over the model group for the serving steps, and the train loss
 streams this rank's vocabulary slice (``train/losses.py``).
 
+**Sequence-sharded residuals** (``cfg.seq_shard_residuals``, placed
+parameters, a model axis that divides the sequence): the residual stream
+between blocks is this rank's (B, S / m, d) slice, as the reference
+constrains it to ``(DP, TP, None)``, so remat saves a slice.  Each block
+gathers its normed input's sequence before the mixer and the
+feed-forward (``sharding.all_gather_keep``: every rank then carries the
+whole gradient, and keeps its slice of it; the norms' scales, applied to
+this rank's tokens, have their gradients added over the model group),
+and each row-parallel output
+is summed by a reduce-scatter over the sequence in place of the model
+all-reduce (``sharding.seq_parallel``, ``sharding.row_output``); an output
+that arrives whole (a replicated layer, an engine's row sums) is split.
+The embedding's output is split after the lookup, and the last block's
+output gathered before the final norm.
+
 The parameters are trainable ``nn.Parameter`` s; serving runs under
 ``torch.inference_mode()`` so that no step records a graph.  ``cfg.remat``
 maps the reference's remat policies (applied there to the scanned group
@@ -77,14 +92,18 @@ def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
     return cfg.d_ff > 0 or cfg.num_experts > 0
 
 
-def init_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device):
-    """A zero cache for one layer of ``kind``."""
+def init_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device, ax=None):
+    """A zero cache for one layer of ``kind``; with a model axis ``ax``,
+    this rank's shard of it (``launch/specs.py``'s rule: the KV cache's
+    sequence, the SSD state's heads, the channels of a conv tail and of the
+    RG-LRU state)."""
     if kind in _ATTN_KINDS:
-        return attention.init_kv_cache(cfg, batch, max_seq, dtype, device)
+        seq = max_seq if ax is None else max_seq // ax.size
+        return attention.init_kv_cache(cfg, batch, seq, dtype, device)
     if kind == "rglru":
-        return rglru.init_rglru_cache(cfg, batch, dtype, device)
+        return rglru.init_rglru_cache(cfg, batch, dtype, device, ax)
     if kind == "ssd":
-        return ssd.init_ssd_cache(cfg, batch, dtype, device)
+        return ssd.init_ssd_cache(cfg, batch, dtype, device, ax)
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -161,35 +180,48 @@ class Block(nn.Module):
                 {k: nn.Parameter(v) for k, v in tensors[name].items()})
                 if name in tensors else None)
 
-    def forward(self, x, positions, ctx: Ctx, cache, cache_pos):
+    def forward(self, x, positions, ctx: Ctx, cache, cache_pos, sp=None):
         """Returns (x, cache, aux): aux is the MoE load-balance loss, float32
-        0-d, or None without experts."""
+        0-d, or None without experts.  ``sp`` is the model axis the
+        residual's sequence is split over (the module's note), or None."""
         ctx = ctx.for_block(self.index, x.device)
         cfg = ctx.cfg
-        h = layers.rms_norm(x, self.ln1, cfg.norm_eps)
-        if self.kind == "rglru":
-            out, new_cache = rglru.rglru_block(self.rglru, h, ctx, cache=cache)
-        elif self.kind == "ssd":
-            out, new_cache = ssd.ssd_block(self.ssd, h, ctx, cache=cache)
-        else:
-            out, new_cache = attention.attention(
-                self.attn, h, positions, ctx,
-                local=(self.kind == "attn_local"), cache=cache, cache_pos=cache_pos,
-            )
-        if cfg.use_post_norm:
-            out = layers.rms_norm(out, self.post_ln1, cfg.norm_eps)
-        x = x + out
-        aux = None
-        if self.ffn is not None or self.ffn_moe is not None:
-            h2 = layers.rms_norm(x, self.ln2, cfg.norm_eps)
-            if self.ffn_moe is not None:
-                out2, aux = moe.moe_ffn(self.ffn_moe, h2, ctx)
+        def norm(v, scale):  # over this rank's tokens: its part of the scale's gradient
+            return layers.rms_norm(v, sharding.copy_to(sharding.use(scale), sp), cfg.norm_eps)
+
+        with sharding.seq_parallel(sp):
+            h = sharding.all_gather_keep(norm(x, self.ln1), sp, 1)
+            if self.kind == "rglru":
+                out, new_cache = rglru.rglru_block(self.rglru, h, ctx, cache=cache)
+            elif self.kind == "ssd":
+                out, new_cache = ssd.ssd_block(self.ssd, h, ctx, cache=cache)
             else:
-                out2 = layers.mlp(self.ffn, h2, ctx)
+                out, new_cache = attention.attention(
+                    self.attn, h, positions, ctx,
+                    local=(self.kind == "attn_local"), cache=cache, cache_pos=cache_pos,
+                )
+            out = _seq_slice(out, x, sp)
             if cfg.use_post_norm:
-                out2 = layers.rms_norm(out2, self.post_ln2, cfg.norm_eps)
-            x = x + out2
+                out = norm(out, self.post_ln1)
+            x = x + out
+            aux = None
+            if self.ffn is not None or self.ffn_moe is not None:
+                h2 = sharding.all_gather_keep(norm(x, self.ln2), sp, 1)
+                if self.ffn_moe is not None:
+                    out2, aux = moe.moe_ffn(self.ffn_moe, h2, ctx)
+                else:
+                    out2 = layers.mlp(self.ffn, h2, ctx)
+                out2 = _seq_slice(out2, x, sp)
+                if cfg.use_post_norm:
+                    out2 = norm(out2, self.post_ln2)
+                x = x + out2
         return x, new_cache, aux
+
+
+def _seq_slice(out: torch.Tensor, x: torch.Tensor, sp) -> torch.Tensor:
+    """A block part's output as the residual ``x`` holds it: already this
+    rank's sequence slice (reduce-scattered), or split from the whole."""
+    return out if sp is None or out.shape[1] == x.shape[1] else sharding.split(out, sp, 1)
 
 
 def init_block_tensors(cfg: ModelConfig, kind: str, dtype, device, generator) -> dict:
@@ -262,18 +294,30 @@ class Transformer(nn.Module):
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
         remat = cfg.remat if caches is None and torch.is_grad_enabled() else "none"
+        sp = self._seq_axis(x.shape[1])
+        x = sharding.split(x, sp, 1)
         aux = None
         for i, block in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
-            x, nc, a = _remat(block, remat)(x, positions, ctx, cache, cache_pos)
+            x, nc, a = _remat(block, remat)(x, positions, ctx, cache, cache_pos, sp)
             if a is not None:
                 aux = a if aux is None else aux + a
             if caches is not None:
                 caches[i] = nc
+        x = sharding.all_gather_keep(x, sp, 1)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, caches, aux
+
+    def _seq_axis(self, seq: int):
+        """The model axis the residual stream's sequence is split over
+        (``cfg.seq_shard_residuals``, placed parameters, an axis that
+        divides ``seq``), or None."""
+        if not (self.cfg.seq_shard_residuals and sharding.is_placed(self)):
+            return None
+        ax = sharding.model_axis()
+        return ax if ax is not None and seq % ax.size == 0 else None
 
     def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
         """Full logits (B, S, V) in f32 (gathered over the model group where

@@ -46,6 +46,7 @@ caches are then its sequence shard of the capacity
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Optional, Sequence
@@ -126,11 +127,13 @@ class _RowSplit:
     def __init__(self, mesh, batch: int):
         sharding.require_live(mesh, "data-parallel serving (mesh=...)")
         self.mesh = mesh
-        self.group, index, self.n = sharding.data_group(mesh)
-        if batch % self.n:  # the axis does not divide: every rank serves every row
-            self.group, index, self.n = None, 0, 1
+        with sharding.mesh_context(mesh):
+            self.axis = sharding.row_axis()  # the data axis, where it has more than one rank
+        if self.axis is not None and batch % self.axis.size:  # every rank serves every row
+            self.axis = None
+        self.n = 1 if self.axis is None else self.axis.size
         self.rows = batch // self.n
-        self.start = index * self.rows
+        self.start = 0 if self.axis is None else self.axis.index * self.rows
 
     def local(self):
         """Context for steps on this rank's rows."""
@@ -144,7 +147,7 @@ class _RowSplit:
         return t[self.start:self.start + self.rows] if self.n > 1 else t
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        return sharding.gather_rows(t, self.group, self.n)
+        return sharding.gather_rows(t, self.axis) if self.axis is not None else t
 
     def scatter_row(self, big: list, small: list, row: int) -> list:
         """The admitted row's caches, written by its owner only."""
@@ -282,14 +285,13 @@ class ContinuousScheduler:
     def init_pool_caches(self) -> list:
         """Zero caches of this rank's pool rows (all of them without a mesh)."""
         rows = self.batch_size if self._split is None else self._split.rows
-        seq = self.capacity
-        if sharding.is_placed(self.params):  # this rank's sequence shard (the note)
+        ax = None
+        if sharding.is_placed(self.params):  # this rank's shard of each cache (the note)
             ax = sharding.model_axis(self.mesh)
             if self.mesh is None or ax is None or self.capacity % ax.size:
                 raise ValueError(f"placed parameters serve on their (data, model) mesh, whose "
                                  f"model axis divides the capacity {self.capacity}")
-            seq //= ax.size
-        return self.model.init_caches(rows, seq, self._cache_dtype, self.device)
+        return self.model.init_caches(rows, self.capacity, self._cache_dtype, self.device, ax=ax)
 
     # ------------------------------------------------------------- helpers
     def _pad(self, req: Request) -> tuple:
@@ -687,7 +689,7 @@ def continuous_serve_loop(model, params, requests: Sequence[Request], *, batch_s
 # -------------------------------------------------------------------- static
 def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size: int,
                       prompt_len: int, gen: int, seed: int = 0, warmup: bool = True,
-                      quality=None) -> ServeResult:
+                      quality=None, mesh=None) -> ServeResult:
     """The static-batch loop, kept as baseline and oracle.
 
     Pops ``batch_size`` requests at a time, left-pads prompts into the
@@ -701,6 +703,12 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
     frames (B, prompt_len, d_model) from ``np.random.default_rng(seed)``,
     one draw per batch in the reference's order (the warmup batches
     first), at ``src_pos = arange(prompt_len)``.
+
+    ``mesh``: a live ``DeviceMesh``, as :class:`ContinuousScheduler` takes
+    it: each batch's rows split over its data axis where that divides
+    them (the encoder memory drawn whole and cut the same way), the layers
+    tensor-parallel over its model axis with placed parameters, the next
+    tokens all-gathered after every step.
     """
     model, pool_tier = _apply_pool_quality(model, quality)
     cfg = model.cfg
@@ -730,6 +738,27 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
                 b, prompt_len)
         return batch
 
+    def batch_steps(b: int):
+        """The prefill and the decode step of a batch of ``b`` rows, each
+        giving the next tokens (on a mesh, each runs on this rank's rows and
+        takes and gives the whole batch's)."""
+        split = None if mesh is None else _RowSplit(mesh, b)
+        local = contextlib.nullcontext if split is None else split.local
+        mine = (lambda t: t) if split is None else split.mine
+        gather = (lambda t: t) if split is None else split.gather
+
+        def first(batch: dict):
+            with local():
+                caches, logits = prefill(params, {k: mine(v) for k, v in batch.items()})
+            return caches, gather(torch.argmax(logits[:, -1], -1)[:, None])
+
+        def next_tok(caches, tok, pos):
+            with local():
+                logits, caches = decode(params, caches, mine(tok), pos)
+            return gather(torch.argmax(logits[:, -1], -1)[:, None]), caches
+
+        return first, next_tok
+
     with torch.inference_mode():
         if warmup and requests:
             # every batch shape the loop will see: the full batch and the remainder
@@ -738,9 +767,9 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
                 shapes.add(len(requests) % batch_size)
             for b0 in sorted(shapes):
                 dummy = [Request(id=-1, tokens=np.zeros(1, np.int32), max_new=1)] * b0
-                caches, logits = prefill(params, make_batch(dummy))
-                tok = torch.argmax(logits[:, -1], -1)[:, None]
-                decode(params, caches, tok, prompt_len)[0].cpu()
+                first, next_tok = batch_steps(b0)
+                caches, tok = first(make_batch(dummy))
+                next_tok(caches, tok, prompt_len)[0].cpu()
 
         queue = collections.deque(requests)
         retired: list[RequestStats] = []
@@ -754,8 +783,8 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
             t_batch = time.perf_counter()
             batch_reqs = [queue.popleft() for _ in range(min(batch_size, len(queue)))]
             max_live = max(max_live, len(batch_reqs))
-            caches, logits = prefill(params, make_batch(batch_reqs))
-            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            first, next_tok = batch_steps(len(batch_reqs))
+            caches, tok = first(make_batch(batch_reqs))
             tok.cpu()
             t_first = time.perf_counter()
             prefill_s += t_first - t_batch
@@ -763,8 +792,7 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
             step_toks = [tok]
             steps = min(gen, max(r.max_new for r in batch_reqs))
             for g in range(steps - 1):
-                logits, caches = decode(params, caches, tok, prompt_len + g)
-                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                tok, caches = next_tok(caches, tok, prompt_len + g)
                 step_toks.append(tok)
             host_toks = torch.cat(step_toks, 1).cpu().numpy()
             decode_s += time.perf_counter() - t_first
@@ -796,7 +824,8 @@ def static_serve_loop(model, params, requests: Sequence[Request], *, batch_size:
         prefill_s=prefill_s,
         decode_s=decode_s,
         batch_latencies_s=tuple(batch_latencies),
-        devices=torch.cuda.device_count() if device.type == "cuda" else 1,
+        devices=mesh.size() if mesh is not None else (
+            torch.cuda.device_count() if device.type == "cuda" else 1),
         scheduler="static",
         decode_steps=total_steps,
         slot_utilization=busy_row_steps / total_row_steps if total_row_steps else 1.0,

@@ -37,11 +37,17 @@ microbatch i holds rows ``[i B / accum, (i + 1) B / accum)`` of the
 *global* batch, split over the data ranks, as the reference's scan over
 ``reshape(accum, B / accum)`` places them; the absmax and the ``inject``
 draws are per microbatch, so membership is part of the function.  The
-loss of each rank's rows is their sum over the global token count, so the
-data ranks' losses and gradients add up to the global mean.  The MoE, SSD,
-RG-LRU and encoder-decoder families raise here (ROADMAP.md item 11c).  The
-serving pair takes placed parameters under a mesh too: the caches are then
-each rank's sequence shard (``models/attention.py``).
+loss of each rank's rows is their sum over the global token count, and
+the MoE's load-balance loss (every data rank's the same: its statistics
+are averaged over the data ranks) enters each rank's loss as its share,
+over the data rank count, so the data ranks' losses and gradients add up
+to the global loss.  Every family trains so: the dense and MoE decoders,
+mamba2's SSD, recurrentgemma's RG-LRU and the encoder-decoder (its batch
+holds ``src_embeds``, cut by :func:`shard_batch` as the tokens are), each
+layer tensor-parallel as its module's note says.  The serving pair takes
+placed parameters under a mesh too: the caches are then each rank's shard
+(``Model.init_caches(..., ax=)``: the KV and cross caches' sequence, the
+recurrent caches' heads or channels).
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.distributed import sharding
 from repro_torch.models.layers import fold_seed
-from repro_torch.models.registry import Model, check_tensor_parallel, reference_leaves
+from repro_torch.models.registry import Model, reference_leaves
 from repro_torch.models.transformer import head_matrix
 from repro_torch.optim import adamw, compress
 from repro_torch.train.losses import chunked_cross_entropy
@@ -83,7 +89,6 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int, *, device=None,
     if mesh is not None:
         from repro_torch.checkpoint.manager import shard_train_state
 
-        check_tensor_parallel(model.cfg)
         return shard_train_state(init_train_state(model, tcfg, seed, device=device), mesh)
     params = model.init_params(seed, device=device)
     leaves = reference_leaves(params)
@@ -147,7 +152,9 @@ def loss_fn(params, batch: dict, seed: Optional[int], model: Model):
     w, vocab_axis = head_matrix(params, cfg)
     count = None
     if sharding.is_placed(params):  # this rank's rows over the global count (the note)
-        count = batch["labels"].numel() * sharding.row_shard()[2]
+        rows = sharding.row_shard()[2]
+        count = batch["labels"].numel() * rows
+        aux = aux / torch.full((), float(rows), device=aux.device)  # this rank's share
     ce = chunked_cross_entropy(hidden, w, batch["labels"], softcap=cfg.final_logit_softcap,
                                vocab_axis=vocab_axis, count=count)
     loss = ce + AUX_COEF * aux
@@ -188,7 +195,6 @@ def make_train_step(model: Model, tcfg: TrainConfig, *, mesh=None):
     accum = max(1, tcfg.grad_accum)
     if mesh is not None:
         sharding.require_live(mesh, "the sharded train step")
-        check_tensor_parallel(model.cfg)
     held: dict = {}
 
     def step_fn(state: TrainState, batch: dict):
@@ -277,13 +283,9 @@ def make_prefill_step(model: Model, max_seq: int, *, mem_len: int = 0):
         tokens = batch["tokens"]
         b, s = tokens.shape
         ctx = model.ctx()
-        seq = max_seq
         ax = sharding.model_axis() if sharding.is_placed(params) else None
-        if ax is not None:  # each rank's sequence shard of the caches
-            if max_seq % ax.size:
-                raise ValueError(f"max_seq {max_seq} does not split over {ax.size} model ranks")
-            seq = max_seq // ax.size
-        caches = model.init_caches(b, seq, cache_dtype, tokens.device, mem_len=mem_len)
+        caches = model.init_caches(b, max_seq, cache_dtype, tokens.device, mem_len=mem_len,
+                                   ax=ax)  # with ax, this rank's shard of each
         if cfg.is_encdec:
             memory = model.encode(params, batch["src_embeds"], batch["src_pos"], ctx)
             cross = model.precompute_cross(params, memory, ctx)

@@ -126,22 +126,24 @@ def test_dryrun_prints_flops_and_bytes_for_every_cell(capsys):
             single[shape]["flops_per_dev"], rel=1e-9)
     # a decode step: 2 N FLOPs a row (N the parameters that multiply, the
     # head included, as model_flops counts them) and the attention's q k and
-    # p v over every slot of the 32k cache (the port's dense layers are
-    # whole on every device of the model axis: no division by 256)
+    # p v over every slot of the 32k cache, all of it split over the 16
+    # model ranks (the layers are tensor-parallel: each rank runs its
+    # blocks, and attends with every head over its sixteenth of the slots)
     cfg, shape = get_config("qwen3-0.6b"), dryrun.SHAPES["decode_32k"]
     b = single["decode_32k"]["batch_per_dev"]
     params = dryrun.model_flops(cfg, shape, "decode") / (2 * shape.global_batch)
     attention = 4 * b * cfg.num_heads * shape.seq_len * cfg.head_dim * cfg.num_layers
-    want = 2 * params * b + attention
+    want = (2 * params * b + attention) / 16
     assert single["decode_32k"]["flops_per_dev"] == pytest.approx(want, rel=0.02)
 
 
 def test_moe_expert_gemms_split_over_the_model_axis():
-    """granite-moe's expert GEMMs are the only leaves split over the model
-    axis: its per-device FLOPs lie below the replicated count."""
+    """granite-moe's expert GEMMs (and its attention) split over the model
+    axis: its per-device FLOPs lie below the count of the same rows' step
+    whole on one device."""
     cfg = get_config("granite-moe-1b-a400m")
     shape = dryrun.SHAPES["decode_32k"]
     mesh = dryrun.make_production_mesh(multi_pod=False)
     got = dryrun.step_counts(cfg, shape, mesh)
-    alone = dryrun._count(cfg, shape, got["batch_per_dev"], 1)
+    alone = dryrun._count(cfg, shape, got["batch_per_dev"])
     assert 0 < got["flops"] < alone[0]

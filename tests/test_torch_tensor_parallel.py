@@ -388,7 +388,8 @@ def test_combine_ranges_equals_attention_over_the_union():
 def test_dryrun_counts_the_sharded_step_collectives():
     """The counterpart of the reference's analyzer test: a sharded matmul
     chain's gradient issues collectives; qwen3-0.6b train_4k on the 16 x 16
-    pod has its bytes by kind, and an unsharded family keeps null."""
+    pod has its bytes by kind, and so do the other families' (mamba2's
+    SSD, kimi-k2's MoE over sequence-sharded residuals)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed import sharding
     from repro_torch.distributed.sharding import AbstractMesh
@@ -410,8 +411,37 @@ def test_dryrun_counts_the_sharded_step_collectives():
     coll = rec["collective_bytes_per_dev"]
     assert coll is not None and sum(coll.values()) > 0, rec
     assert rec["terms_s"]["collective"] > 0
-    rec = dryrun.size_cell("mamba2-130m", "train_4k", False, steps=False)
-    assert rec["collective_bytes_per_dev"] is None and rec["collective_bytes_null_because"]
+    for arch in ("mamba2-130m", "kimi-k2-1t-a32b"):
+        rec = dryrun.size_cell(arch, "train_4k", False)
+        coll = rec["collective_bytes_per_dev"]
+        assert coll is not None, rec
+        for kind in ("all-gather", "all-reduce", sharding.RS_AS_ALL_REDUCE):
+            assert coll[kind] > 0, (arch, kind, coll)
+        assert rec["terms_s"]["collective"] > 0
+
+
+def test_dryrun_flops_per_dev_are_one_rank_blocks():
+    """A reduced qwen3-0.6b decode step on a (2, 2) mesh, counted by hand:
+    every projection and the head split over the model axis, the attention
+    with every head over this rank's half of the cache slots, the batch
+    over the data axis."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import dryrun
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    shape = ShapeConfig("decode_small", 64, 8, "decode")
+    got = dryrun.step_counts(cfg, shape, AbstractMesh((2, 2), ("data", "model")))
+    b, m, t = 4, 2, 64  # the rows a data rank holds, the model ranks, the cache slots
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layer = (2 * b * d * (hq + 2 * hkv) / m  # q, k and v, column-parallel
+             + 2 * b * hq / m * d  # wo, row-parallel
+             + 3 * 2 * b * d * ff / m  # w1, w3 and w2
+             + 4 * b * cfg.num_heads * (t / m) * cfg.head_dim)  # q.k and p.v
+    assert got["batch_per_dev"] == b
+    assert got["flops"] == cfg.num_layers * layer + 2 * b * d * v / m  # and the head
 
 
 # --------------------------------------------------------------- the ranks
